@@ -1,0 +1,94 @@
+"""Uniform quantization and signed-digit / PAM plane decomposition.
+
+PyTorch port of `repro.core.quant`.  An 8-bit symmetric quantizer maps x
+to integers q in [-qmax, qmax]; q splits into B-1 signed magnitude planes
+(sign(q) * bit_t(|q|)), or into radix-2^k PAM digits, which are the time
+slots the EO modulators stream (paper Sec. 3.1, Eq. 1-2).
+
+Rounding is half-to-even on both sides (`torch.round` and `jnp.round`), so
+codes agree bit for bit with the reference.  Integer codes are kept in the
+floating dtype of their input.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    bits: int = 8          # total bits incl. sign
+
+    @property
+    def qmax(self) -> int:
+        return 2 ** (self.bits - 1) - 1   # 127 for 8-bit
+
+    @property
+    def n_planes(self) -> int:
+        return self.bits - 1              # magnitude digits (sign rides on each)
+
+
+Q8 = QuantConfig(bits=8)
+
+
+def absmax_scale(x: torch.Tensor, per_vector: bool = False) -> torch.Tensor:
+    """Quantization full-scale: per-tensor absmax, or one per trailing-axis
+    vector with `per_vector`.  The single source of the 1e-8 floor."""
+    if per_vector and x.ndim >= 2:
+        return torch.clamp_min(x.abs().amax(dim=-1, keepdim=True), 1e-8)
+    return torch.clamp_min(x.abs().amax(), 1e-8)
+
+
+def quantize(x: torch.Tensor, cfg: QuantConfig = Q8,
+             scale: torch.Tensor | None = None, per_vector: bool = False):
+    """Symmetric uniform quantization -> (integer-valued floats, scale)."""
+    if scale is None:
+        scale = absmax_scale(x, per_vector)
+    q = torch.clamp(torch.round(x / scale * cfg.qmax), -cfg.qmax, cfg.qmax)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, cfg: QuantConfig = Q8):
+    return q * (scale / cfg.qmax)
+
+
+def fake_quant(x: torch.Tensor, cfg: QuantConfig = Q8,
+               per_vector: bool = False) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient.  The value is
+    `x + (xq - x)`, evaluated as written, as the reference evaluates it."""
+    q, scale = quantize(x, cfg, per_vector=per_vector)
+    xq = dequantize(q, scale, cfg)
+    return x + (xq - x).detach()
+
+
+def decompose_planes(q: torch.Tensor, cfg: QuantConfig = Q8) -> torch.Tensor:
+    """Integer-valued tensor -> (n_planes, *q.shape) signed bit-planes;
+    plane t carries significance 2^t."""
+    return decompose_pam(q, 1, cfg)
+
+
+def plane_weights(cfg: QuantConfig = Q8, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """Significance 2^t of each plane, t = 0..n_planes-1."""
+    return pam_plane_weights(1, cfg, dtype, device)
+
+
+def decompose_pam(q: torch.Tensor, pam_bits: int,
+                  cfg: QuantConfig = Q8) -> torch.Tensor:
+    """Signed radix-2^pam_bits digits; slot count ceil(n_planes/pam_bits);
+    slot t has significance 2^(pam_bits*t)."""
+    n_slots = -(-cfg.n_planes // pam_bits)
+    sign = torch.sign(q)
+    mag = q.abs().to(torch.int32)
+    mask = (1 << pam_bits) - 1
+    return torch.stack([sign * ((mag >> (pam_bits * t)) & mask).to(q.dtype)
+                        for t in range(n_slots)])
+
+
+def pam_plane_weights(pam_bits: int, cfg: QuantConfig = Q8,
+                      dtype=torch.float32, device=None) -> torch.Tensor:
+    n_slots = -(-cfg.n_planes // pam_bits)
+    return torch.tensor([2.0 ** (pam_bits * t) for t in range(n_slots)],
+                        dtype=dtype, device=device)

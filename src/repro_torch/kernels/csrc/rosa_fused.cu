@@ -1,0 +1,282 @@
+// Fused ROSA analog matmul for Hopper (sm_90a).
+//
+// Replaces the TPU megakernel src/repro/kernels/rosa_fused/rosa_fused.py
+// (rosa_fused_pallas; body _kernel, realization chain _realize).  Per output
+// tile it does what the composed pipeline does in four passes over device
+// memory:
+//
+//   weight codes wn = clip(rint(w / sw * qmax)) / qmax
+//     -> optional MRR realization of wn (inverse chain to a programming
+//        voltage, then the forward chain with three additive offsets:
+//        v_off = DAC noise + dv, t_off = thermal noise + ddt, l_off = dlam)
+//     -> gate / mgate blends
+//   activations: digital x_dig at the digital full-scale sxd, optional
+//     realization at the per-row analog full-scale sxa, blends
+//     -> MIXED: requantize by s2, radix-2^pam digits recombined with the
+//        slot gains; ANALOG: x_eff / s2
+//   -> f32 accumulation -> flush scale s2 * sw (/ qmax in MIXED)
+//
+// gg = [gate, mgate, sw] and the (M, 3) scale columns sx = [sxd, sxa, s2]
+// are device tensors read here, so a gate sweep neither re-specializes nor
+// syncs the host.  Each side's three offset streams come as pointer plus
+// (row, column) strides: a per-lane StaticVariation is a stride-0 view and
+// is never materialized.
+//
+// What bounds it on the H100: at the serving shapes (M = 4..8 rows against
+// a 5120 x 51200 or 25600 x 5120 weight) the kernel must read K*N*4 bytes
+// of weights once, so it is bound by memory bandwidth; realizing the
+// weight side adds ~30 flops and two divisions and a square root per
+// weight element, which stays below that bound only if the chain is
+// computed once per element.  Design: a block owns a BM x BN output tile
+// and loops over K in BK steps.  Each step loads the x and w tiles
+// coalesced, conditions every element once into shared memory (the chain
+// runs once per element per block), and each thread accumulates a 4 x 1
+// column strip in registers with explicit fmaf.  When the (M, N) grid has
+// too few blocks to fill the 132 SMs, K is split across blocks; partial
+// tiles go to a workspace that a second kernel sums in a fixed order and
+// scales, so results are deterministic.
+//
+// Numerics: the file is built with --fmad=false, so the chain runs op by
+// op with IEEE division and sqrt, in the order of the plain version
+// (repro_torch.core.mrr's folded chain, fed fake_quant's straight-through
+// residue t + (t_q - t)): a noise-free realization equals the plain
+// version's bit for bit.  rintf rounds half to even like jnp.round and
+// torch.round.  Ragged edges are masked here: lanes k >= K contribute 0 on
+// both sides (the chain maps a zero target to a nonzero weight, so they
+// must not be realized and summed).  wgmma, TMA and a deeper pipeline are
+// later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BM = 8;
+constexpr int BN = 128;
+constexpr int BK = 32;
+constexpr int THREADS = 256;
+constexpr int MAX_PLANES = 8;
+
+enum Flags {
+  ANALOG = 1, REALIZE_X = 2, REALIZE_W = 4, USE_GATE = 8, USE_MGATE = 16
+};
+
+// Float32 constants of the realization chain in its folded form, in the
+// field order of repro_torch.core.mrr.Chain (see there for what each is).
+struct Chain {
+  float q_min, q_max, a_td, b_td, gamma, c_dl, d_u, d_neff, beta, e_v2, v_min,
+      v_max, f_dt, g_lam, n_eff, h_det, g2, i_td, j_w;
+};
+
+struct Offsets {           // three streams of one side, element (i, j)
+  const float* p[3];
+  long long s0[3], s1[3];
+  __device__ __forceinline__ float at(int s, long long i, long long j) const {
+    return p[s][i * s0[s] + j * s1[s]];
+  }
+};
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// normalized target -> programming voltage -> forward chain with the three
+// offsets, op for op as repro_torch.core.mrr.realize_offsets
+__device__ float realize(float wn, float v_off, float t_off, float l_off,
+                         const Chain& c) {
+  float wq = clampf(wn, c.q_min, c.q_max);
+  float tdrop = ((wq - c.q_min) * c.a_td + c.b_td) * 0.5f;
+  float det = sqrtf(fmaxf(1.0f / tdrop - 1.0f, 0.0f)) * c.gamma;
+  float dl = det + c.c_dl;
+  float dt = (dl * c.d_neff) / ((1.0f - dl * c.d_u) * c.beta);
+  float v2 = fmaxf(dt, 0.0f) * c.e_v2;
+  float v = clampf(sqrtf(fmaxf(v2, 0.0f)), c.v_min, c.v_max) + v_off;
+  float dtn = (v * v) * c.f_dt + t_off;
+  float shift = (dtn * c.g_lam) / (dtn * c.beta + c.n_eff) + l_off;
+  float d2 = shift + c.h_det;          // detuning from the probe wavelength
+  float t = c.g2 / (d2 * d2 + c.g2);
+  return (2.0f * t + c.i_td) * c.j_w + c.q_min;
+}
+
+__global__ void __launch_bounds__(THREADS)
+fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ gains, const float* __restrict__ sx,
+             const float* __restrict__ gg, Offsets xo, Offsets wo,
+             float* __restrict__ out, int m, int k, int n, int ldx, int ldw,
+             int ldo, int ld_sx, int n_planes, int radix_bits, float qf,
+             int flags, Chain chain, int k_per_split, int direct) {
+  __shared__ float xs[BM][BK];
+  __shared__ float ws[BK][BN];
+  __shared__ float g[MAX_PLANES];
+
+  const bool analog = flags & ANALOG, realize_x = flags & REALIZE_X,
+             realize_w = flags & REALIZE_W, use_gate = flags & USE_GATE,
+             use_mgate = flags & USE_MGATE;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(k, k_begin + k_per_split);
+  const int col = tid % BN;
+  const int rg = tid / BN;
+  if (tid < n_planes) g[tid] = gains[tid];
+  const float gate = gg[0], mgate = gg[1], sw = gg[2];
+  const float inv_q = 1.0f / qf;
+  const int dmask = (1 << radix_bits) - 1;
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int kt = k_begin; kt < k_end; kt += BK) {
+    __syncthreads();
+    // ---- activation tile: conditioned once per element
+    for (int i = tid; i < BM * BK; i += THREADS) {
+      int r = i / BK, cc = i % BK;
+      int gm = m0 + r, gk = kt + cc;
+      float v = 0.f;
+      if (gm < m && gk < k_end) {
+        const float xv = x[(long long)gm * ldx + gk];
+        const float sxd = sx[(long long)gm * ld_sx + 0];
+        const float sxa = sx[(long long)gm * ld_sx + 1];
+        const float s2 = sx[(long long)gm * ld_sx + 2];
+        // straight-through residue t + (t_q - t), as fake_quant leaves it
+        float xd = clampf(rintf(xv / sxd * qf), -qf, qf) * (sxd / qf);
+        float x_dig = xv + (xd - xv);
+        float x_is = x_dig;
+        if (realize_x) {
+          float xa = xv / sxa;
+          float xq = clampf(rintf(xa * qf), -qf, qf) * inv_q;
+          float x_an = realize(xa + (xq - xa), xo.at(0, gm, gk),
+                               xo.at(1, gm, gk), xo.at(2, gm, gk), chain) * sxa;
+          x_is = use_gate ? x_dig + gate * (x_an - x_dig) : x_an;
+        }
+        float x_eff = use_mgate ? (1.0f - mgate) * x_dig + mgate * x_is : x_is;
+        if (analog) {
+          v = x_eff * (1.0f / s2);
+        } else {
+          float q2 = clampf(rintf(x_eff / s2 * qf), -qf, qf);
+          float sgn = (q2 > 0.f) ? 1.f : ((q2 < 0.f) ? -1.f : 0.f);
+          int mag = (int)fabsf(q2);
+          float rec = 0.f;
+          for (int t = 0; t < n_planes; ++t)
+            rec = rec + g[t] * (sgn * (float)((mag >> (radix_bits * t)) & dmask));
+          v = rec;
+        }
+      }
+      xs[r][cc] = v;
+    }
+    // ---- weight tile: codes, optional realization, blends
+    for (int i = tid; i < BK * BN; i += THREADS) {
+      int r = i / BN, cc = i % BN;
+      int gk = kt + r, gn = n0 + cc;
+      float v = 0.f;
+      if (gk < k_end && gn < n) {
+        float wa = w[(long long)gk * ldw + gn] / sw;
+        float wn = clampf(rintf(wa * qf), -qf, qf) * inv_q;
+        float w_ws = wn;
+        if (realize_w) {
+          float w_an = realize(wa + (wn - wa), wo.at(0, gk, gn),
+                               wo.at(1, gk, gn), wo.at(2, gk, gn), chain);
+          w_ws = use_gate ? wn + gate * (w_an - wn) : w_an;
+        }
+        v = use_mgate ? (1.0f - mgate) * w_ws + mgate * wn : w_ws;
+      }
+      ws[r][cc] = v;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float wv = ws[kk][col];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[r] = fmaf(xs[rg * 4 + r][kk], wv, acc[r]);
+    }
+  }
+
+  const int gn = n0 + col;
+  if (gn >= n) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    int gm = m0 + rg * 4 + r;
+    if (gm >= m) continue;
+    if (direct) {
+      float s2 = sx[(long long)gm * ld_sx + 2];
+      float scale = analog ? s2 * sw : s2 * (sw / qf);
+      out[(long long)gm * ldo + gn] = acc[r] * scale;
+    } else {
+      out[((long long)blockIdx.z * m + gm) * n + gn] = acc[r];
+    }
+  }
+}
+
+__global__ void flush_splits(const float* __restrict__ part,
+                             const float* __restrict__ sx,
+                             const float* __restrict__ gg,
+                             float* __restrict__ out, int m, int n, int ldo,
+                             int ld_sx, int splits, float qf, int analog) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)m * n) return;
+  int r = (int)(i / n), c = (int)(i % n);
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s = s + part[((long long)z * m + r) * n + c];
+  float s2 = sx[(long long)r * ld_sx + 2], sw = gg[2];
+  out[(long long)r * ldo + c] = s * (analog ? s2 * sw : s2 * (sw / qf));
+}
+
+Offsets make_offsets(const float* const* p, const long long* strides) {
+  Offsets o;
+  for (int s = 0; s < 3; ++s) {
+    o.p[s] = p ? p[s] : nullptr;
+    o.s0[s] = p ? strides[2 * s] : 0;
+    o.s1[s] = p ? strides[2 * s + 1] : 0;
+  }
+  return o;
+}
+
+}  // namespace
+
+extern "C" {
+
+int rosa_fused_splits(int m, int k, int n, int n_sm) {
+  long long tiles = (long long)((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  long long want = (2LL * n_sm + tiles - 1) / tiles;
+  long long max_split = (k + BK - 1) / BK;
+  long long s = want < max_split ? want : max_split;
+  return s < 1 ? 1 : (int)s;
+}
+
+// x_off / w_off: three device pointers each (or null when that side does
+// not realize); *_strides: (row, column) element strides per stream.
+// chain: the 19 float32 constants of struct Chain, in order (host memory).
+int rosa_fused_launch(const float* x, const float* w, const float* gains,
+                      const float* sx, const float* gg,
+                      const float* const* x_off, const long long* x_strides,
+                      const float* const* w_off, const long long* w_strides,
+                      float* out, float* workspace, int m, int k, int n,
+                      int ldx, int ldw, int ldo, int ld_sx, int n_planes,
+                      int radix_bits, float qmax, int flags,
+                      const float* chain, int splits, void* stream) {
+  if (n_planes < 1 || n_planes > MAX_PLANES) return (int)cudaErrorInvalidValue;
+  if (((flags & REALIZE_X) != 0) != (x_off != nullptr) ||
+      ((flags & REALIZE_W) != 0) != (w_off != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Chain c;
+  float* dst = reinterpret_cast<float*>(&c);
+  for (int i = 0; i < (int)(sizeof(Chain) / sizeof(float)); ++i) dst[i] = chain[i];
+  Offsets xo = make_offsets(x_off, x_strides);
+  Offsets wo = make_offsets(w_off, w_strides);
+  cudaStream_t st = (cudaStream_t)stream;
+  int k_per_split = ((k + splits - 1) / splits + BK - 1) / BK * BK;
+  splits = (k + k_per_split - 1) / k_per_split;
+  int direct = splits == 1;
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
+  fused_kernel<<<grid, THREADS, 0, st>>>(
+      x, w, gains, sx, gg, xo, wo, direct ? out : workspace, m, k, n, ldx, ldw,
+      ldo, ld_sx, n_planes, radix_bits, qmax, flags, c, k_per_split, direct);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || direct) return (int)err;
+  long long total = (long long)m * n;
+  flush_splits<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      workspace, sx, gg, out, m, n, ldo, ld_sx, splits, qmax,
+      (flags & ANALOG) != 0);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,247 @@
+"""Shared transformer building blocks (PyTorch port of the parts of
+`repro.models.layers` that dense serving uses).
+
+Every block is a pair: `<block>_def(cfg)` gives the ParamDef skeleton,
+`<block>_apply(params, ...)` the activations.  Layouts are the reference's:
+activations (B, S, D), heads (B, S, H, D), KV caches (B, S, KV, D), MLP
+weights wi (D, 2, F) and wo (F, D).
+
+Caches are updated in place (the reference donates them to its jitted
+steps); writes past the cache's end are dropped, as the reference's
+scatter drops them.  `flash_decode` (the sequence-sharded decode) waits
+for a later slice: decode attention here is the plain single-device path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import rosa
+from repro_torch.models.module import ParamDef
+
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_def(dim: int, axis: str = "embed") -> ParamDef:
+    return ParamDef((dim,), (axis,), "ones")
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (forward) with float32 statistics."""
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps).to(x.dtype)
+    return x * r * scale
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.exp(
+        -torch.log(torch.as_tensor(theta, dtype=torch.float32,
+                                   device=x.device))
+        * (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    ang = positions[..., None].float() * freq
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    causal: bool = True
+    uniform_decode: bool = True  # serving decodes at ragged positions
+
+
+def attn_def(cfg: AttnConfig) -> dict:
+    d = cfg.d_model
+    p = {
+        "wq": ParamDef((d, cfg.n_heads, cfg.head_dim),
+                       ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, cfg.n_kv_heads, cfg.head_dim),
+                       ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, cfg.n_kv_heads, cfg.head_dim),
+                       ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((cfg.n_heads, cfg.head_dim, d),
+                       ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_def(cfg.head_dim, "head_dim")
+        p["k_norm"] = rmsnorm_def(cfg.head_dim, "head_dim")
+    return p
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                uniform: bool = False) -> torch.Tensor:
+    """Write `new` (B, C, ...) into `cache` (B, S, ...) at pos[b] + [0, C),
+    in place; tokens at positions >= S are dropped.  Returns `cache`.
+
+    One token column at a time: each step writes one position per row,
+    clamped into range and re-writing the old value where the position is
+    out of range, so no step has duplicate indices and nothing syncs with
+    the host.  (`uniform`, the reference's all-rows-equal fast path for a
+    sequence-sharded cache, needs no path of its own here.)"""
+    b, c = new.shape[:2]
+    s = cache.shape[1]
+    new = new.to(cache.dtype)
+    rows = torch.arange(b, device=cache.device)
+    for j in range(c):
+        col = pos + j
+        ok = (col < s).reshape(b, *([1] * (cache.ndim - 2)))
+        colc = torch.clamp(col, max=s - 1)
+        cache[rows, colc] = torch.where(ok, new[:, j], cache[rows, colc])
+    return cache
+
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, H, D) by repeating each kv head."""
+    n_kv = k.shape[-2]
+    if n_kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // n_kv, dim=-2)
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window, k_len_valid=None) -> torch.Tensor:
+    """Additive mask (..., Sq, Sk); window <= 0 means unlimited."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        ok = ok & (diff >= 0)
+    window = torch.as_tensor(window, device=diff.device)
+    ok = ok & ((window <= 0) | (diff < window))
+    if k_len_valid is not None:
+        ok = ok & (k_pos[..., None, :] < k_len_valid[..., None])
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, H, D); bias: (B or 1, Sq, Sk).
+    A bfloat16 cache promotes to the query dtype, as in the reference."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k.to(q.dtype))
+    scores = scores.float() * scale + bias[:, None, :, :]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+
+
+def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
+                 positions: torch.Tensor, *, window=0, theta=None):
+    """Full-prompt attention; also returns the (k, v) cache."""
+    theta = cfg.rope_theta if theta is None else theta
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    q = rope(q, positions, theta)
+    k = rope(k, positions, theta)
+    bias = _mask_bias(positions, positions, cfg.causal, window)
+    o = attention_core(q, _repeat_kv(k, cfg.n_heads),
+                       _repeat_kv(v, cfg.n_heads), bias)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+
+
+def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,
+                pos: torch.Tensor, *, window=0, theta=None):
+    """Cached decode. x: (B, C, D); cache: (k, v) each (B, S, KV, D);
+    pos: (B,) first position of the chunk (C == 1: one token; C > 1: a
+    prefill chunk).  Returns (out, cache), the cache written in place."""
+    theta = cfg.rope_theta if theta is None else theta
+    b, c = x.shape[:2]
+    q_pos = pos[:, None] + torch.arange(c, device=x.device)[None, :]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+    q = rope(q, q_pos, theta)
+    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        k_new = rmsnorm(p["k_norm"], k_new)
+    k_new = rope(k_new, q_pos, theta)
+    kc, vc = cache
+    kc = cache_write(kc, k_new, pos, cfg.uniform_decode)
+    vc = cache_write(vc, v_new, pos, cfg.uniform_decode)
+    s = kc.shape[1]
+    k_pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    bias = _mask_bias(q_pos, k_pos, True, window,
+                      k_len_valid=(pos + c)[:, None])
+    o = attention_core(q, _repeat_kv(kc, cfg.n_heads),
+                       _repeat_kv(vc, cfg.n_heads), bias)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (kc, vc)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def mlp_def(d_model: int, d_ff: int) -> dict:
+    return {
+        "wi": ParamDef((d_model, 2, d_ff), ("embed", None, "mlp")),  # gate|up
+        "wo": ParamDef((d_ff, d_model), ("mlp", "embed")),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor,
+              engine: "rosa.Engine | None" = None,
+              key: torch.Generator | None = None, *, name: str = "mlp",
+              step: int = 0) -> torch.Tensor:
+    """SwiGLU MLP; with an optical `rosa.Engine` both projections run
+    through the paper's optical MAC under the layer names `{name}/wi` and
+    `{name}/wo`.  A layer stack passes its layer index as `step`, so layers
+    draw independent noise while sharing the name's plan, chip variation
+    and ledger entry (the reference's scanned stack traces its body once)."""
+    if engine is not None and not engine.is_dense:
+        if key is not None:
+            engine = engine.with_key(key)
+        b, s, d = x.shape
+        f = p["wi"].shape[-1]
+        gu = engine.matmul(x.reshape(-1, d), p["wi"].reshape(d, 2 * f),
+                           name=f"{name}/wi", step=step).reshape(b, s, 2, f)
+        h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
+        y = engine.matmul(h.reshape(-1, f), p["wo"], name=f"{name}/wo",
+                          step=step)
+        return y.reshape(b, s, d).to(x.dtype)
+    gu = torch.einsum("bsd,dcf->bscf", x, p["wi"])
+    h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def embed_def(vocab: int, d_model: int) -> ParamDef:
+    return ParamDef((vocab, d_model), ("vocab", "embed"), "normal", 0.02)
+
+
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed_def(d_model: int, vocab: int) -> ParamDef:
+    return ParamDef((d_model, vocab), ("embed", "vocab"))
+
+
+def unembed_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsd,dv->bsv", x, w)

@@ -1,0 +1,217 @@
+"""Decoder-only transformer stack, dense family (PyTorch port of the dense
+path of `repro.models.transformer`).
+
+Parameters keep the reference's stacked layout (a leading `layers` axis on
+every block leaf); the reference's `scan` over layers becomes a Python loop
+that passes the layer index as `step`.  Step functions take and return
+plain dicts of tensors:
+
+    prefill(params, cfg, batch)      -> (last-token logits (B, V), cache)
+    decode_step(params, cfg, batch)  -> (logits (B, V), cache)
+    chunk_step(params, cfg, batch)   -> (logits at the last real token, cache)
+
+Caches are written in place and returned.  Every family other than
+"dense" raises NotImplementedError naming the family.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import rosa
+from repro_torch.models import layers as L
+from repro_torch.models.module import ParamDef, map_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense (ported) | moe | mla_moe | ssm | ...
+    n_layers: int
+    d_model: int
+    vocab: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    # sliding-window pattern: layers with (i % pattern != pattern-1) are
+    # local with `window`; pattern == 0 -> all layers full attention
+    window: int = 0
+    window_pattern: int = 0
+    rope_theta_local: float = 1e4
+    tie_embeddings: bool = False
+    rosa_mlp: bool = False       # route MLP projections through the ROSA MAC
+    cache_dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    uniform_decode: bool = True  # False -> ragged per-slot positions
+
+    @property
+    def attn(self) -> L.AttnConfig:
+        return L.AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
+                            self.head_dim, self.qk_norm, self.rope_theta,
+                            uniform_decode=self.uniform_decode)
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            "repro_torch yet (only 'dense' is)")
+
+
+def stack_defs(skel, n: int):
+    """Prepend a layer dimension of size n to every ParamDef."""
+    return map_tree(lambda d: ParamDef((n,) + d.shape, ("layers",) + d.axes,
+                                       d.init, d.scale), skel)
+
+
+def layer_at(tree, i: int):
+    """One layer's params (views) out of a stacked tree."""
+    return map_tree(lambda a: a[i], tree)
+
+
+def layer_meta(cfg: ModelConfig, i: int) -> dict:
+    """Attention window and rope theta of layer i."""
+    if cfg.window_pattern > 0 and \
+            i % cfg.window_pattern != cfg.window_pattern - 1:
+        return {"window": cfg.window, "theta": cfg.rope_theta_local}
+    return {"window": 0, "theta": cfg.rope_theta}
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               step: int = 0) -> torch.Tensor:
+    if cfg.rosa_mlp:
+        # the installed engine (a compiled rosa.Program installs its own)
+        # carries the serving plan, the pinned chip and the ledger
+        engine = rosa.ambient_engine()
+        if engine is None:
+            engine = rosa.Engine.from_config()
+        return L.mlp_apply(p, x, engine=engine, step=step)
+    return L.mlp_apply(p, x)
+
+
+def _block_def(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {"ln1": L.rmsnorm_def(d), "ln2": L.rmsnorm_def(d),
+            "attn": L.attn_def(cfg.attn),
+            "ffn": L.mlp_def(cfg.d_model, cfg.d_ff)}
+
+
+def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, cache = L.attn_prefill(p["attn"], cfg.attn, h, positions,
+                              window=meta["window"], theta=meta["theta"])
+    cache = tuple(c.to(cfg.cache_dtype) for c in cache)
+    x = x + a
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + _ffn_apply(p["ffn"], cfg, h, step), cache
+
+
+def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step):
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, cache = L.attn_decode(p["attn"], cfg.attn, h, cache, pos,
+                             window=meta["window"], theta=meta["theta"])
+    x = x + a
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + _ffn_apply(p["ffn"], cfg, h, step), cache
+
+
+# ---------------------------------------------------------------------------
+# Whole model
+# ---------------------------------------------------------------------------
+def model_def(cfg: ModelConfig) -> dict:
+    check_family(cfg)
+    d = cfg.d_model
+    skel: dict = {"embed": L.embed_def(cfg.vocab, d),
+                  "final_norm": L.rmsnorm_def(d),
+                  "layers": stack_defs(_block_def(cfg), cfg.n_layers)}
+    if not cfg.tie_embeddings:
+        skel["unembed"] = L.unembed_def(d, cfg.vocab)
+    return skel
+
+
+def logits_of(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return L.unembed_apply(params["unembed"], x)
+
+
+def prefill(params, cfg: ModelConfig, batch: dict):
+    """Run the prompt, return (last-token logits (B, V), cache)."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    x = L.embed_apply(params["embed"], tokens)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = _block_prefill(layer_at(params["layers"], i), cfg, x,
+                                   positions, layer_meta(cfg, i), i)
+        ks.append(k)
+        vs.append(v)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_of(params, cfg, x[:, -1:])[:, 0]
+    cache = {"layers": (torch.stack(ks), torch.stack(vs)),
+             "pos": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+    return logits, cache
+
+
+def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
+    kc, vc = cache["layers"]
+    for i in range(cfg.n_layers):
+        x, _ = _block_decode(layer_at(params["layers"], i), cfg, x, pos,
+                             layer_meta(cfg, i), (kc[i], vc[i]), i)
+    return x
+
+
+def decode_step(params, cfg: ModelConfig, batch: dict):
+    """One token per row: batch = {token (B,), pos (B,), cache}.
+    Returns (logits (B, V), cache) with the cache advanced in place."""
+    check_family(cfg)
+    token, pos, cache = batch["token"], batch["pos"], batch["cache"]
+    x = L.embed_apply(params["embed"], token[:, None])
+    x = _decode_layers(params, cfg, x, pos, cache)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_of(params, cfg, x)[:, 0]
+    return logits, {"layers": cache["layers"], "pos": pos + 1}
+
+
+def chunk_step(params, cfg: ModelConfig, batch: dict):
+    """Prefill one chunk of C tokens against a running per-sequence cache.
+
+    batch = {tokens (B, C), n_valid (B,), cache[, pos]}: positions
+    pos..pos+C-1 are written, `pos` advances by `n_valid` (the chunk tail
+    may be padding), and the logits (B, V) are read at the last real token.
+    """
+    check_family(cfg)
+    tokens, n_valid = batch["tokens"], batch["n_valid"]
+    cache = batch["cache"]
+    pos = batch.get("pos", cache["pos"])
+    x = L.embed_apply(params["embed"], tokens)
+    x = _decode_layers(params, cfg, x, pos, cache)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    idx = torch.clamp(n_valid - 1, min=0).long()
+    x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    logits = logits_of(params, cfg, x_last)[:, 0]
+    return logits, {"layers": cache["layers"], "pos": pos + n_valid}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Zero decode cache: {"layers": (k, v) each (L, B, S, KV, D) in
+    cfg.cache_dtype, "pos": (B,) int32}."""
+    check_family(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"layers": (torch.zeros(shape, dtype=cfg.cache_dtype,
+                                   device=device),
+                       torch.zeros(shape, dtype=cfg.cache_dtype,
+                                   device=device)),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}

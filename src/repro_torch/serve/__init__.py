@@ -1,0 +1,24 @@
+"""repro_torch.serve — continuous-batching serving over the optical Engine
+(PyTorch port of `repro.serve`).
+
+  `ServeConfig`      slots / cache capacity / prefill chunking / sampling /
+                     optical-engine knobs
+  `Scheduler`        slot-based continuous batching (and the static
+                     "oneshot" baseline) with per-tick prefill chunks and
+                     in-step slot refill
+  `run_sequential`   the per-request oracle the scheduler is held against
+  `poisson_requests` reproducible synthetic load (Poisson arrivals)
+"""
+
+from repro_torch.serve.config import ServeConfig, serving_model_config
+from repro_torch.serve.loadgen import poisson_requests
+from repro_torch.serve.metrics import (build_serving_program, report_metrics,
+                                       trace_serving_shapes)
+from repro_torch.serve.scheduler import (Completion, Request, Scheduler,
+                                         ServeReport, run_sequential)
+
+__all__ = [
+    "Completion", "Request", "Scheduler", "ServeConfig", "ServeReport",
+    "build_serving_program", "poisson_requests", "report_metrics",
+    "run_sequential", "serving_model_config", "trace_serving_shapes",
+]
