@@ -23,7 +23,21 @@ Phases (any failure raises, so the exit code is non-zero):
   4. a 2-request stream through the `osa_matmul` kernel ("pallas" backend);
   5. end-to-end cross-check: one prompt's prefill logits through the fused
      kernel and through the plain composed ("ref") pipeline, held within
-     4x the float-order floor the script measures (see serve_phase).
+     4x the float-order floor the script measures (see serve_phase);
+  6. ssd_scan parity and times: the kernel against its plain version at
+     mamba2-1.3b's served shape (B 1, H 64, P 64, G 1, S 128, chunk 128)
+     for L in {128, 512, 1000} (1000: a ragged tail) and one case with
+     G 2 and B 2, held to 1e-4 of max|y| on y and of max|state| on the
+     final state; median times from CUDA events and the bound;
+  7. serve: mamba2-1.3b at full width and depth (48 layers, 1.34e9 params,
+     random weights from seed 0) with the optical engine on (the block
+     routes nothing), 8 seeded Poisson requests (prompts 200-700 tokens,
+     generations 8-32), 4 slots, max_len 768, greedy; every prompt
+     prefills whole through the `ssd_scan` kernel, 48 launches each.  The
+     continuous stream's tokens must equal the sequential oracle's, and
+     one prefill's logits on the kernel path must agree with the same
+     prefill through the plain scan within 4x a measured float-order
+     floor, with the same greedy token.
 
 It prints one JSON line summarizing the kernels, then the card's name and
 power limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -48,6 +62,11 @@ F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 M_ROWS = (4, 8)               # decode batch (4 slots) and a prefill chunk
 PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
 RAGGED = (13, 1000, 300)
+# ssd_scan cases (B, L, H, P, G, S, chunk): mamba2-1.3b's served shape
+SSD_CASES = [(1, 128, 64, 64, 1, 128, 128), (1, 512, 64, 64, 1, 128, 128),
+             (1, 1000, 64, 64, 1, 128, 128), (2, 700, 64, 64, 2, 128, 128)]
+SSD_SERVED_L = 512
+MAMBA_PARAMS = 1_343_532_032  # mamba2-1.3b at full width and depth
 
 
 def card_line() -> str:
@@ -98,6 +117,24 @@ def quantized_parity(y, y_ref, what: str, qmax: int = 127,
         raise AssertionError(f"{what}: {bad} of {y.shape[0]} rows beyond "
                              "the tight tolerance")
     return float((y - r).abs().max())
+
+
+def _launch_counters():
+    from repro_torch.kernels.osa_matmul import ops as osa_ops
+    from repro_torch.kernels.rosa_fused import ops as fused_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"rosa_fused": fused_ops.LAUNCHES, "osa_matmul": osa_ops.LAUNCHES,
+            "ssd_scan": ssd_ops.LAUNCHES}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0 (just before a main path runs)."""
+    for c in _launch_counters().values():
+        c.reset()
+
+
+def launch_counts() -> dict:
+    return {name: c.count for name, c in _launch_counters().items()}
 
 
 def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -260,25 +297,24 @@ def prefill_logits(sched, prompt):
     from repro_torch.serve.decode import PrefillTask
     with torch.inference_mode():
         task = PrefillTask(sched.bundle, sched.scfg, prompt, sched.chunk_fn,
-                           sched.device)
+                           sched.device, sched.whole_fn)
         while not task.advance(sched.params):
             pass
     torch.cuda.synchronize()
     return task.logits.float()
 
 
-def permuted(sched, seed: int):
-    """The scheduler's params and pinned chip with the hidden ("embed") and
-    MLP ("mlp") dimensions permuted: the same function, every reduction
-    over them summed in another order."""
+def permuted_params(sched, sizes: dict, seed: int):
+    """The scheduler's params with the named logical axes permuted (one
+    random permutation per axis, `sizes` {axis: length}): the same
+    function, every reduction over those axes summed in another order.
+    Returns (params, {axis: permutation})."""
     import torch
-    from repro_torch.core import mrr
     from repro_torch.models.module import leaves
 
     g = torch.Generator().manual_seed(seed)
-    cfg = sched.cfg
-    perm = {"embed": torch.randperm(cfg.d_model, generator=g).to(DEVICE),
-            "mlp": torch.randperm(cfg.d_ff, generator=g).to(DEVICE)}
+    perm = {name: torch.randperm(n, generator=g).to(DEVICE)
+            for name, n in sizes.items()}
     params: dict = {}
     for path, d in leaves(sched.bundle.skeleton):
         t = sched.params
@@ -291,6 +327,16 @@ def permuted(sched, seed: int):
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
+    return params, perm
+
+
+def permuted(sched, seed: int):
+    """The scheduler's params and pinned chip with the hidden ("embed") and
+    MLP ("mlp") dimensions permuted."""
+    from repro_torch.core import mrr
+
+    params, perm = permuted_params(
+        sched, {"embed": sched.cfg.d_model, "mlp": sched.cfg.d_ff}, seed)
     lanes = {"mlp/wi": perm["embed"], "mlp/wo": perm["mlp"]}
     chip = {name: mrr.StaticVariation(v.dv[lanes[name]], v.ddt[lanes[name]],
                                       v.dlam[lanes[name]])
@@ -302,8 +348,6 @@ def serve_phase(report: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.constants import ROSA_OPTIMAL
-    from repro_torch.kernels.osa_matmul import ops as osa_ops
-    from repro_torch.kernels.rosa_fused import ops as fused_ops
     from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
                                    report_metrics)
 
@@ -324,11 +368,11 @@ def serve_phase(report: dict) -> dict:
                             gen_len=(2, 40), seed=0)
 
     # ---- the main path: counts from 0, read right after ------------------
-    fused_ops.LAUNCHES.reset()
-    osa_ops.LAUNCHES.reset()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     rep = sched.run(reqs)
-    n_fused, n_osa = fused_ops.LAUNCHES.count, osa_ops.LAUNCHES.count
+    n = launch_counts()
+    n_fused, n_osa = n["rosa_fused"], n["osa_matmul"]
     check_run(rep, reqs, cfg.vocab, "fused serve")
     routed = 2 * cfg.n_layers * (rep.decode_steps + rep.prefill_chunks)
     energy = sched.engine.ledger.per_token(ROSA_OPTIMAL, batch=scfg.n_slots)
@@ -340,7 +384,7 @@ def serve_phase(report: dict) -> dict:
     print(f"  energy_per_token {energy!r} J (ledger)")
     print(f"  rosa_fused launches {n_fused} (routed projections {routed}), "
           f"osa_matmul launches {n_osa}")
-    if n_fused == 0 or n_fused != routed or n_osa != 0:
+    if n_fused == 0 or n_fused != routed or n_osa != 0 or n["ssd_scan"]:
         raise AssertionError("the served path did not run every routed "
                              "projection through rosa_fused")
 
@@ -349,10 +393,10 @@ def serve_phase(report: dict) -> dict:
                        params=sched.params, device=DEVICE)
     reqs2 = poisson_requests(2, 1.0, vocab=cfg.vocab, prompt_len=(4, 8),
                              gen_len=(2, 40), seed=1)
-    fused_ops.LAUNCHES.reset()
-    osa_ops.LAUNCHES.reset()
+    reset_launches()
     rep2 = pallas.run(reqs2)
-    n_osa2, n_fused2 = osa_ops.LAUNCHES.count, fused_ops.LAUNCHES.count
+    n = launch_counts()
+    n_osa2, n_fused2 = n["osa_matmul"], n["rosa_fused"]
     check_run(rep2, reqs2, cfg.vocab, "pallas serve")
     routed2 = 2 * cfg.n_layers * (rep2.decode_steps + rep2.prefill_chunks)
     print(f"  pallas stream: {rep2.total_tokens} tokens, osa_matmul launches "
@@ -408,6 +452,185 @@ def serve_phase(report: dict) -> dict:
     return {"rosa_fused": n_fused, "osa_matmul": n_osa2}
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-7: the SSD scan and mamba2-1.3b serving
+# ---------------------------------------------------------------------------
+def ssd_bound(bsz, l, h, p, g, s, q) -> tuple[float, str]:
+    """Least time of one scan: the bytes of x, loga, b, c in and y, state
+    out, against the float32 operations the chunked form needs on these
+    inputs: per chunk of n valid steps, C B^T on the causal triangle once
+    per group; per head the decay mask, att X on the triangle, C S_in (from
+    the second chunk on: the first state is zero), the carry (B w)^T X and
+    the state decay."""
+    nbytes = 4 * (2 * bsz * l * h * p + bsz * l * h + 2 * bsz * l * g * s
+                  + bsz * h * s * p)
+    flops = 0
+    for lo in range(0, l, q):
+        n = min(q, l - lo)
+        tri = n * (n + 1) // 2
+        flops += bsz * g * 2 * tri * s
+        per_head = (2 * tri + 2 * tri * p + 2 * n * s * p + n * s
+                    + s * p + (2 * n * s * p + n * p if lo else 0))
+        flops += bsz * h * per_head
+    return bound_ms(nbytes, flops)
+
+
+def ssd_inputs(bsz, l, h, p, g, s, gen):
+    """Scan operands as the served model makes them: log a = -dt with dt
+    a softplus (mean ~0.8, so l reaches about -100 within a 128-step chunk
+    and exp(l) leaves float32's normal range)."""
+    import torch
+    x = torch.randn(bsz, l, h, p, device=DEVICE, generator=gen)
+    loga = -torch.nn.functional.softplus(
+        torch.randn(bsz, l, h, device=DEVICE, generator=gen))
+    b = torch.randn(bsz, l, g, s, device=DEVICE, generator=gen)
+    c = torch.randn(bsz, l, g, s, device=DEVICE, generator=gen)
+    return x, loga, b, c
+
+
+def ssd_phase(report: dict) -> dict:
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+
+    gen = torch.Generator(DEVICE).manual_seed(4)
+    rows, served, err = [], None, 0.0
+    for bsz, l, h, p, g, s, q in SSD_CASES:
+        args = ssd_inputs(bsz, l, h, p, g, s, gen)
+        y, st = ops.launch(*args, q)
+        y_plain, st_plain = ops.plain(*args, q)
+        torch.cuda.synchronize()
+        what = f"ssd_scan B{bsz} L{l} H{h} P{p} G{g} S{s} Q{q}"
+        rel = {}
+        for name, a, r in (("y", y, y_plain), ("state", st, st_plain)):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{what}: non-finite {name}")
+            rel[name] = float((a - r).abs().max() / r.abs().max())
+            if rel[name] > 1e-4:
+                raise AssertionError(f"{what}: {name} deviates by "
+                                     f"{rel[name]:.3e} of its max > 1e-4")
+        e = max(float((y - y_plain).abs().max()),
+                float((st - st_plain).abs().max()))
+        err = max(err, e)
+        row = {"case": what, "B": bsz, "L": l, "H": h, "P": p, "G": g,
+               "S": s, "Q": q, "rel_err_y": rel["y"],
+               "rel_err_state": rel["state"], "max_abs_err": e,
+               "ms": median_ms(lambda: ops.launch(*args, q)),
+               "plain_ms": median_ms(lambda: ops.plain(*args, q), reps=5)}
+        row["bound_ms"], row["bound_by"] = ssd_bound(bsz, l, h, p, g, s, q)
+        rows.append(row)
+        if (bsz, l, g) == (1, SSD_SERVED_L, 1):
+            served = row
+        print(f"  {what}: rel err y {rel['y']:.3e} state "
+              f"{rel['state']:.3e}  kernel {row['ms']:.3f} ms  plain "
+              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        del args, y, st, y_plain, st_plain
+    report["ssd_scan_cases"] = rows
+    return dict(served, max_abs_err=err)
+
+
+def mamba_phase(report: dict) -> int:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
+                                   report_metrics, run_sequential)
+
+    cfg = get_config("mamba2-1.3b")
+    scfg = ServeConfig(n_slots=4, max_len=768, rosa=True,
+                       rosa_backend="fused", variation_seed=7)
+    t0 = time.perf_counter()
+    sched = Scheduler(cfg, scfg, init_seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sched.bundle.n_params
+    print(f"  mamba2-1.3b full width and depth, {cfg.n_layers} layers, "
+          f"{n_params:,} params (f32), set-up {setup_s:.1f} s; routed "
+          f"projections {len(sched.program.trace)}")
+    if n_params != MAMBA_PARAMS:
+        raise AssertionError("not mamba2-1.3b at full width and depth")
+    reqs = poisson_requests(8, 1.0, vocab=cfg.vocab, prompt_len=(200, 700),
+                            gen_len=(8, 32), seed=0)
+
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rep = sched.run(reqs)
+    n = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check_run(rep, reqs, cfg.vocab, "mamba2 serve")
+    metrics = {m.name: m.value for m in report_metrics(rep)}
+    want = cfg.n_layers * rep.prefill_chunks
+    print(f"  served {rep.total_tokens} tokens in {rep.wall_s:.2f} s: "
+          f"{rep.tokens_per_s:.2f} tok/s, {rep.ticks} ticks, "
+          f"{rep.decode_steps} decode steps, {rep.prefill_chunks} whole "
+          f"prefills (prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens), peak "
+          f"{peak_gib:.1f} GiB")
+    print(f"  ssd_scan launches {n['ssd_scan']} ({cfg.n_layers} x "
+          f"{rep.prefill_chunks} "
+          f"prefills = {want}), rosa_fused {n['rosa_fused']}, osa_matmul "
+          f"{n['osa_matmul']}")
+    if rep.prefill_chunks != len(reqs) or n["ssd_scan"] != want \
+            or n["rosa_fused"] or n["osa_matmul"]:
+        raise AssertionError("the mamba2 prefills did not each run the "
+                             "ssd_scan kernel once per layer")
+
+    # ---- continuous batching against the per-request oracle ---------------
+    seq = run_sequential(cfg, scfg, sched.params, reqs, device=DEVICE)
+    same = sum(rep.completions[r].tokens == v["tokens"]
+               for r, v in seq.items())
+    print(f"  continuous vs sequential oracle: {same} of {len(reqs)} "
+          "requests give identical tokens")
+    if same != len(reqs):
+        raise AssertionError("continuous tokens differ from the sequential "
+                             "oracle's")
+
+    # ---- the kernel against the plain scan, end to end --------------------
+    # Bound: the same prefill with the model's hidden, head and state
+    # dimensions permuted (a function-preserving reordering of every
+    # reduction, the scan's included) through the plain scan measures the
+    # float-order floor; the kernel path must stay within 4x its largest
+    # deviation over two permutations (plus 1e-5 of full scale).
+    prompt = reqs[0].prompt
+    lk = prefill_logits(sched, prompt)
+    if not bool(torch.isfinite(lk).all()) or lk.shape != (cfg.vocab,):
+        raise AssertionError("mamba2 prefill logits not finite / bad shape")
+    SSM.ssd_scan = ssd_ops.plain       # the plain scan, on the card
+    try:
+        lp = prefill_logits(sched, prompt)
+        scale = float(lp.abs().max())
+        floor = 0.0
+        for seed in (1, 2):
+            params_p, _ = permuted_params(
+                sched, {"embed": cfg.d_model, "heads": cfg.ssm.n_heads,
+                        "state": cfg.ssm.d_state}, seed)
+            perm = Scheduler(cfg, scfg, params=params_p, device=DEVICE)
+            dev = float((prefill_logits(perm, prompt) - lp).abs().max())
+            floor = max(floor, dev / scale)
+            print(f"  plain vs plain with permuted reductions (seed {seed}):"
+                  f" max rel dev {dev / scale:.3e}")
+            del params_p, perm
+            torch.cuda.empty_cache()
+    finally:
+        SSM.ssd_scan = ssd_ops.ssd_scan
+    rel = float((lk - lp).abs().max()) / scale
+    bound = 4 * floor + 1e-5
+    print(f"  ssd_scan kernel vs plain scan, prefill of {len(prompt)} "
+          f"tokens: logits max rel dev {rel:.3e} (bound {bound:.3e}), "
+          f"argmax {int(lk.argmax())} vs {int(lp.argmax())}")
+    if rel > bound or int(lk.argmax()) != int(lp.argmax()):
+        raise AssertionError("kernel and plain-scan logits disagree")
+
+    report["mamba2_serve"] = dict(
+        metrics, n_params=n_params, setup_s=setup_s,
+        prompt_lens=[len(r.prompt) for r in reqs],
+        ssd_scan_launches=n["ssd_scan"], peak_gib=peak_gib,
+        kernel_vs_plain_logits_rel=rel, plain_float_order_floor_rel=floor)
+    return n["ssd_scan"]
+
+
 def main() -> int:
     try:
         import torch
@@ -447,6 +670,10 @@ def main() -> int:
     osa = osa_phase(report)
     print("phases 3-5: serving")
     launches = serve_phase(report)
+    print("phase 6: ssd_scan parity against the plain version")
+    ssd = ssd_phase(report)
+    print("phase 7: serving mamba2-1.3b")
+    launches["ssd_scan"] = mamba_phase(report)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",
@@ -463,6 +690,13 @@ def main() -> int:
          "max_abs_err": osa["max_abs_err"], "ms": osa["ms"],
          "plain_ms": osa["plain_ms"], "bound_ms": osa["bound_ms"],
          "bound_by": osa["bound_by"], "library_ms": osa["library_ms"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:73",
+         "launches": launches["ssd_scan"],
+         "max_abs_err": ssd["max_abs_err"], "ms": ssd["ms"],
+         "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
+         "bound_by": ssd["bound_by"], "library_ms": None},
     ]}
     report["summary"] = summary
     report["wall_s"] = time.perf_counter() - t_start

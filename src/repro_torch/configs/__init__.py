@@ -1,7 +1,8 @@
 """Architecture registry of the port: one module per ported architecture.
 
 Each module defines CONFIG (the published dims) and SMOKE (a reduced
-same-family config for CPU tests).  Only qwen3-32b is ported so far.
+same-family config for CPU tests).  Ported so far: qwen3-32b (dense)
+and mamba2-1.3b (ssm).
 
     from repro_torch.configs import get_config, get_smoke
 """
@@ -10,10 +11,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["qwen3_32b"]
+ARCHS = ["qwen3_32b", "mamba2_1p3b"]
 
 # assignment ids -> module names
-ARCH_IDS = {"qwen3-32b": "qwen3_32b"}
+ARCH_IDS = {"qwen3-32b": "qwen3_32b", "mamba2-1.3b": "mamba2_1p3b"}
 
 
 def _module(name: str):

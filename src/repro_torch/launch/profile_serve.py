@@ -1,22 +1,40 @@
-"""Where a served decode stream spends its device time, on one CUDA card.
+"""Where a served stream spends its device time, on one CUDA card.
 
-    python -m repro_torch.launch.profile_serve
+    python -m repro_torch.launch.profile_serve [--arch mamba2-1.3b]
 
-Serves the same stream as `chip_smoke.py`'s serve phase (qwen3-32b at full
-width, 4 of 64 layers, fused backend, chip 7, 4 slots, 6 requests) once to
-warm up, then again under `torch.profiler` with CUDA activity.  Prints the
-wall time,
-the device time by kernel family (the `rosa_fused` kernel, cuBLAS GEMMs,
-everything else) and the device's busy share (summed kernel time over
-wall time: kernels on one stream do not overlap), then the top kernels.
-Writes the table to `chiprun_out/profile_serve.txt`.
+Serves the same stream as one of `chip_smoke.py`'s serve phases once to
+warm up, once timed without the profiler, then again under
+`torch.profiler` with CUDA activity:
+
+  qwen3-32b    full width, 4 of 64 layers, fused backend, chip 7, 4 slots,
+               6 requests (prompts 4-8, generations 2-40);
+  mamba2-1.3b  full width and depth (48 layers), optical engine on (it
+               routes nothing), 4 slots, 8 requests (prompts 200-700,
+               generations 8-32), whole-prompt prefill through `ssd_scan`.
+
+Prints the wall time with and without the profiler, the device time by
+kernel family (the port's kernels, cuBLAS GEMMs, everything else) and the
+device's busy share (summed kernel time over wall time: kernels on one
+stream do not overlap), then the top kernels.  Writes the table to
+`chiprun_out/profile_serve_<arch>.txt`.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import pathlib
 import time
+
+# arch -> (depth, ServeConfig keywords, poisson_requests keywords)
+STREAMS = {
+    "qwen3-32b": (4, dict(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
+                          rosa_backend="fused", variation_seed=7),
+                  dict(n=6, prompt_len=(4, 8), gen_len=(2, 40))),
+    "mamba2-1.3b": (48, dict(n_slots=4, max_len=768, rosa=True,
+                             rosa_backend="fused", variation_seed=7),
+                    dict(n=8, prompt_len=(200, 700), gen_len=(8, 32))),
+}
 
 
 def family(name: str) -> str:
@@ -26,6 +44,8 @@ def family(name: str) -> str:
         return "rosa_fused kernel"
     if "osa_kernel" in n or "sum_splits" in n:
         return "osa_matmul kernel"
+    if "ssd_scan" in n:
+        return "ssd_scan kernel"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "matmul" in n:
         return "cuBLAS GEMM/GEMV"
     if "reduce" in n:
@@ -33,10 +53,14 @@ def family(name: str) -> str:
     return "elementwise and other"
 
 
-OUT = pathlib.Path("chiprun_out/profile_serve.txt")
+OUT = pathlib.Path("chiprun_out")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3-32b", choices=sorted(STREAMS))
+    arch = ap.parse_args(argv).arch
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -47,14 +71,15 @@ def main() -> None:
         raise SystemExit("profile_serve needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=4)
-    scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
-                       rosa_backend="fused", variation_seed=7)
+    depth, serve_kw, req_kw = STREAMS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    scfg = ServeConfig(**serve_kw)
     sched = Scheduler(cfg, scfg, init_seed=0, device="cuda")
-    reqs = poisson_requests(6, 1.0, vocab=cfg.vocab,
-                            prompt_len=(4, 8), gen_len=(2, 40), seed=0)
+    reqs = poisson_requests(req_kw["n"], 1.0, vocab=cfg.vocab,
+                            prompt_len=req_kw["prompt_len"],
+                            gen_len=req_kw["gen_len"], seed=0)
     sched.run(reqs)                                        # warm-up
-    torch.cuda.synchronize()
+    plain_wall_ms = sched.run(reqs).wall_s * 1e3           # no profiler
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -73,14 +98,17 @@ def main() -> None:
         by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, evt.count, evt.key))
     busy_ms = sum(by_family.values())
-    lines = [f"card {torch.cuda.get_device_name(0)}; qwen3-32b, "
+    lines = [f"card {torch.cuda.get_device_name(0)}; {arch}, "
              f"{cfg.n_layers} layers, fused backend, {len(reqs)} requests: "
              f"{rep.total_tokens} tokens, "
              f"{rep.ticks} ticks, {rep.decode_steps} decode steps, "
              f"{rep.prefill_chunks} prefill chunks",
              f"wall {wall_ms:.1f} ms under the profiler; device busy "
              f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
-             f"{100 * (1 - busy_ms / wall_ms):.1f} %"]
+             f"{100 * (1 - busy_ms / wall_ms):.1f} %",
+             f"wall {plain_wall_ms:.1f} ms without the profiler (the run "
+             f"before); against it the same device time is "
+             f"{100 * busy_ms / plain_wall_ms:.1f} % busy"]
     if busy_ms == 0:
         lines.append("the profiler recorded no device time: not measured")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
@@ -91,8 +119,8 @@ def main() -> None:
         lines.append(f"  {ms:9.2f} {count:6d}  {key[:100]}")
     text = "\n".join(lines)
     print(text)
-    OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text(text + "\n")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / f"profile_serve_{arch}.txt").write_text(text + "\n")
 
 
 if __name__ == "__main__":

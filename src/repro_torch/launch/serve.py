@@ -3,6 +3,8 @@ a synthetic Poisson request stream).
 
   python -m repro_torch.launch.serve --arch qwen3-32b --n-layers 4 \\
       --rosa --rosa-backend fused --variation-seed 7 --requests 6
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --requests 8 \\
+      --max-len 768 --prompt-range 200 700 --gen-range 8 32
 
 `--smoke` takes the reduced CPU-sized config; `--n-layers` cuts the depth
 of the full-width config.  Runs on CUDA unless `--device cpu`.
@@ -13,12 +15,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="qwen3-32b")
+    ap.add_argument("--arch", default="qwen3-32b", choices=sorted(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the model to this many layers")

@@ -1,5 +1,5 @@
-"""build_model(cfg) — the model API of the port (PyTorch port of the dense
-serving part of `repro.models.model`).
+"""build_model(cfg) — the model API of the port (PyTorch port of the
+serving part of `repro.models.model`, dense and ssm families).
 
 A `ModelBundle` exposes functions over plain dicts of tensors:
 
@@ -8,9 +8,10 @@ A `ModelBundle` exposes functions over plain dicts of tensors:
     bundle.prefill / decode_step / chunk_step
 
 plus the slot API of continuous-batching serving (`write_slot`,
-`evict_slot`, `read_slot`), and the bridges that carry the reference's
-numbers across (`params_from_reference`, `chip_from_reference`), so the two
-packages can compute on identical weights and an identical chip.
+`evict_slot`, `read_slot`, `pad_cache`), and the bridges that carry the
+reference's numbers across (`params_from_reference`,
+`chip_from_reference`), so the two packages can compute on identical
+weights and an identical chip.
 """
 
 from __future__ import annotations
@@ -63,10 +64,27 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
 # come and go by writing or zeroing ONE row of every leaf, in place.
 # ---------------------------------------------------------------------------
 def _leaves(cache) -> list[tuple[torch.Tensor, int]]:
-    """(leaf, batch axis) of a dense cache: KV leaves (L, B, S, KV, D)
-    carry the batch at axis 1, `pos` (B,) at axis 0."""
-    k, v = cache["layers"]
-    return [(k, 1), (v, 1), (cache["pos"], 0)]
+    """(leaf, batch axis) of a cache, in a fixed order.  Dense KV leaves
+    (L, B, S, KV, D) and ssm leaves (L, B, ...: conv_x, conv_b, conv_c,
+    state; no sequence axis) carry the batch at axis 1, `pos` (B,) at
+    axis 0."""
+    layers = cache["layers"]
+    if isinstance(layers, dict):
+        out = [(layers[k], 1) for k in sorted(layers)]
+    else:
+        out = [(t, 1) for t in layers]
+    return out + [(cache["pos"], 0)]
+
+
+def _rebuild(cache, leaves: list[torch.Tensor]) -> dict:
+    """A cache of `cache`'s structure holding `leaves` (in `_leaves`
+    order)."""
+    layers = cache["layers"]
+    if isinstance(layers, dict):
+        new = dict(zip(sorted(layers), leaves[:-1]))
+    else:
+        new = tuple(leaves[:-1])
+    return {"layers": new, "pos": leaves[-1]}
 
 
 def write_slot(cfg: ModelConfig, cache, req_cache, slot: int,
@@ -92,10 +110,20 @@ def evict_slot(cfg: ModelConfig, cache, slot: int, valid: bool = True):
 def read_slot(cfg: ModelConfig, cache, slot: int) -> dict:
     """Slot `slot` as a new batch-1 cache."""
     T.check_family(cfg)
-    k, v = cache["layers"]
-    return {"layers": (k[:, slot:slot + 1].clone(),
-                       v[:, slot:slot + 1].clone()),
-            "pos": cache["pos"][slot:slot + 1].clone()}
+    return _rebuild(cache, [c.narrow(ax, slot, 1).clone()
+                            for c, ax in _leaves(cache)])
+
+
+def pad_cache(cfg: ModelConfig, cache, extra: int) -> dict:
+    """Grow every sequence axis by `extra` zero slots (decode room).  Dense
+    KV leaves have theirs at axis 2; ssm leaves have none and stay as they
+    are."""
+    T.check_family(cfg)
+    if cfg.family == "ssm":
+        return cache
+    grown = [torch.nn.functional.pad(c, (0, 0, 0, 0, 0, extra))
+             if ax == 1 else c for c, ax in _leaves(cache)]
+    return _rebuild(cache, grown)
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +132,9 @@ def read_slot(cfg: ModelConfig, cache, slot: int) -> dict:
 def params_from_reference(tree, device=None) -> dict:
     """The reference bundle's params, converted leaf by leaf
     (`np.asarray` of each array), in the reference layout: stacked
-    `layers` axis, wi as (d, 2, f), wo as (f, d)."""
+    `layers` axis, wi as (d, 2, f), wo as (f, d); the ssm tree (w_x, w_z,
+    w_b, w_c, w_dt, dt_bias, a_log, d_skip, conv_*, gate_norm, w_out) as
+    it is."""
     return map_tree(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 

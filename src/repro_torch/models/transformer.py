@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack, dense family (PyTorch port of the dense
-path of `repro.models.transformer`).
+"""Decoder-only stacks of the dense and ssm families (PyTorch port of those
+paths of `repro.models.transformer`).
 
 Parameters keep the reference's stacked layout (a leading `layers` axis on
 every block leaf); the reference's `scan` over layers becomes a Python loop
@@ -10,8 +10,10 @@ plain dicts of tensors:
     decode_step(params, cfg, batch)  -> (logits (B, V), cache)
     chunk_step(params, cfg, batch)   -> (logits at the last real token, cache)
 
-Caches are written in place and returned.  Every family other than
-"dense" raises NotImplementedError naming the family.
+Caches are written in place and returned.  The ssm family (Mamba-2
+blocks, no FFN) prefills whole prompts only: its `chunk_step` raises, as
+the reference's does.  Every family other than "dense" and "ssm" raises
+NotImplementedError naming the family.
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ import torch
 
 from repro_torch import rosa
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.module import ParamDef, map_tree
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense (ported) | moe | mla_moe | ssm | ...
+    family: str                  # dense | ssm (ported) | moe | mla_moe | ...
     n_layers: int
     d_model: int
     vocab: int
@@ -44,6 +47,7 @@ class ModelConfig:
     window: int = 0
     window_pattern: int = 0
     rope_theta_local: float = 1e4
+    ssm: SSM.SSMConfig | None = None
     tie_embeddings: bool = False
     rosa_mlp: bool = False       # route MLP projections through the ROSA MAC
     cache_dtype: Any = torch.bfloat16
@@ -57,11 +61,14 @@ class ModelConfig:
                             uniform_decode=self.uniform_decode)
 
 
+PORTED_FAMILIES = ("dense", "ssm")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "repro_torch yet (only 'dense' is)")
+            f"repro_torch yet (ported: {', '.join(PORTED_FAMILIES)})")
 
 
 def stack_defs(skel, n: int):
@@ -100,6 +107,8 @@ def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _block_def(cfg: ModelConfig) -> dict:
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln1": L.rmsnorm_def(d), "ssm": SSM.ssm_def(cfg.ssm)}
     return {"ln1": L.rmsnorm_def(d), "ln2": L.rmsnorm_def(d),
             "attn": L.attn_def(cfg.attn),
             "ffn": L.mlp_def(cfg.d_model, cfg.d_ff)}
@@ -107,6 +116,10 @@ def _block_def(cfg: ModelConfig) -> dict:
 
 def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if "ssm" in p:
+        # full-sequence ssm + final state capture for the decode cache
+        y, cache = _ssm_prefill(p["ssm"], cfg.ssm, h)
+        return x + y, cache
     a, cache = L.attn_prefill(p["attn"], cfg.attn, h, positions,
                               window=meta["window"], theta=meta["theta"])
     cache = tuple(c.to(cfg.cache_dtype) for c in cache)
@@ -117,11 +130,32 @@ def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
 
 def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step):
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if "ssm" in p:
+        y, cache = SSM.ssm_decode(p["ssm"], cfg.ssm, h, cache)
+        return x + y, cache
     a, cache = L.attn_decode(p["attn"], cfg.attn, h, cache, pos,
                              window=meta["window"], theta=meta["theta"])
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + _ffn_apply(p["ffn"], cfg, h, step), cache
+
+
+def _ssm_prefill(p: dict, scfg: SSM.SSMConfig, u: torch.Tensor):
+    """Like ssm_apply, but also returns the decode cache: the last d_conv-1
+    pre-conv inputs and the final scan state.
+
+    A prompt shorter than d_conv-1 tokens leaves fewer rows; they are
+    left-padded with zeros, the history `_causal_conv`'s own zero padding
+    assumes, so the cache always has the shape of `ssm_cache_def`.  (The
+    reference keeps the short rows, which no slot cache can take.)"""
+    out, state, pre = SSM.ssm_forward(p, scfg, u)
+    k = scfg.d_conv - 1
+    conv = [torch.nn.functional.pad(
+        t[:, -k:], (0, 0) * (t.ndim - 2) + (max(k - t.shape[1], 0), 0))
+        for t in pre]
+    cache = {"conv_x": conv[0], "conv_b": conv[1], "conv_c": conv[2],
+             "state": state}
+    return out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -151,20 +185,31 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     x = L.embed_apply(params["embed"], tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    ks, vs = [], []
+    caches = []
     for i in range(cfg.n_layers):
-        x, (k, v) = _block_prefill(layer_at(params["layers"], i), cfg, x,
-                                   positions, layer_meta(cfg, i), i)
-        ks.append(k)
-        vs.append(v)
+        x, c = _block_prefill(layer_at(params["layers"], i), cfg, x,
+                              positions, layer_meta(cfg, i), i)
+        caches.append(c)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_of(params, cfg, x[:, -1:])[:, 0]
-    cache = {"layers": (torch.stack(ks), torch.stack(vs)),
+    if cfg.family == "ssm":
+        layers = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+    else:
+        layers = tuple(torch.stack(t) for t in zip(*caches))
+    cache = {"layers": layers,
              "pos": torch.full((b,), s, dtype=torch.int32, device=x.device)}
     return logits, cache
 
 
 def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
+    if cfg.family == "ssm":
+        sc = cache["layers"]
+        for i in range(cfg.n_layers):
+            x, new = _block_decode(layer_at(params["layers"], i), cfg, x,
+                                   pos, None, layer_at(sc, i), i)
+            for k, t in new.items():
+                sc[k][i].copy_(t)
+        return x
     kc, vc = cache["layers"]
     for i in range(cfg.n_layers):
         x, _ = _block_decode(layer_at(params["layers"], i), cfg, x, pos,
@@ -192,6 +237,9 @@ def chunk_step(params, cfg: ModelConfig, batch: dict):
     may be padding), and the logits (B, V) are read at the last real token.
     """
     check_family(cfg)
+    if cfg.family == "ssm":
+        raise ValueError(f"chunked prefill unsupported for {cfg.family}: "
+                         "state-space caches admit no positional chunking")
     tokens, n_valid = batch["tokens"], batch["n_valid"]
     cache = batch["cache"]
     pos = batch.get("pos", cache["pos"])
@@ -206,12 +254,21 @@ def chunk_step(params, cfg: ModelConfig, batch: dict):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Zero decode cache: {"layers": (k, v) each (L, B, S, KV, D) in
-    cfg.cache_dtype, "pos": (B,) int32}."""
+    """Zero decode cache.  dense: {"layers": (k, v) each (L, B, S, KV, D)
+    in cfg.cache_dtype}; ssm: {"layers": {conv_x, conv_b, conv_c, state}},
+    each leaf `ssm_cache_def`'s float32 one with a leading layer axis (no
+    sequence axis: max_len does not enter).  Both with "pos": (B,) int32."""
     check_family(cfg)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        one = SSM.ssm_cache_def(cfg.ssm, batch, device="meta")
+        return {"layers": {k: torch.zeros((cfg.n_layers, *t.shape),
+                                          dtype=t.dtype, device=device)
+                           for k, t in one.items()},
+                "pos": pos}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"layers": (torch.zeros(shape, dtype=cfg.cache_dtype,
                                    device=device),
                        torch.zeros(shape, dtype=cfg.cache_dtype,
                                    device=device)),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+            "pos": pos}

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as T
-from repro_torch.models.model import ModelBundle, evict_slot, write_slot
+from repro_torch.models.model import (ModelBundle, evict_slot, pad_cache,
+                                      write_slot)
 from repro_torch.serve.config import ServeConfig
 
 
@@ -171,14 +172,26 @@ def make_chunk_fn(bundle: ModelBundle, program=None):
                                             "cache": cache}))
 
 
+def make_whole_fn(bundle: ModelBundle, program=None):
+    """The whole-prompt prefill (params, {"tokens": (1, L)}) of the
+    families that cannot prefill in chunks."""
+    return _bind(program, bundle.prefill)
+
+
 class PrefillTask:
-    """One request's prefill, advanced one `prefill_chunk`-token chunk per
-    scheduler tick against a request-private max_len cache.  After
-    `advance()` returns True, `.cache` is the admit-ready batch-1 cache and
-    `.logits` the last-token logits (V,)."""
+    """One request's prefill, advanced one chunk per scheduler tick.
+
+    Attention-cache families stream `prefill_chunk`-token chunks through
+    `chunk_step` against a request-private max_len cache, so a long prompt
+    never blocks the decode batch for more than one chunk.  The ssm family
+    prefills whole, in one tick: one `prefill` of exactly the prompt, then
+    `pad_cache` to the slot cache's shape.
+
+    After `advance()` returns True, `.cache` is the admit-ready batch-1
+    cache and `.logits` the last-token logits (V,)."""
 
     def __init__(self, bundle: ModelBundle, scfg: ServeConfig, prompt,
-                 chunk_fn=None, device=None):
+                 chunk_fn=None, device=None, whole_fn=None):
         self.bundle, self.scfg = bundle, scfg
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(self.prompt) == 0:
@@ -187,16 +200,30 @@ class PrefillTask:
             raise ValueError(f"prompt length {len(self.prompt)} >= "
                              f"max_len {scfg.max_len}: no decode room")
         self.device = device
+        self.chunked = bundle.cfg.family != "ssm"
         self._chunk_fn = chunk_fn if chunk_fn is not None \
             else make_chunk_fn(bundle)
+        self._whole_fn = whole_fn if whole_fn is not None \
+            else make_whole_fn(bundle)
         self._off = 0
-        self.cache = T.init_cache(bundle.cfg, 1, scfg.max_len, device)
+        self.cache = (T.init_cache(bundle.cfg, 1, scfg.max_len, device)
+                      if self.chunked else None)
         self.logits = None
         self.done = False
 
     def advance(self, params) -> bool:
-        """Run one chunk; True when the prefill is complete."""
+        """Run one chunk (the whole prompt for ssm); True when the prefill
+        is complete."""
         if self.done:
+            return True
+        if not self.chunked:
+            logits, cache = self._whole_fn(
+                params, {"tokens": torch.from_numpy(self.prompt)[None]
+                         .to(self.device)})
+            self.cache = pad_cache(self.bundle.cfg, cache,
+                                   self.scfg.max_len - len(self.prompt))
+            self.logits = logits[0]
+            self.done = True
             return True
         c = self.scfg.prefill_chunk
         lo = self._off

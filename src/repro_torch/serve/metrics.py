@@ -50,8 +50,9 @@ def abstract_chunk_batch(cfg, scfg: ServeConfig) -> dict:
 
 
 def trace_serving_shapes(bundle, scfg: ServeConfig, engine):
-    """Trace the decode step and one prefill chunk on `meta` tensors under
-    `engine`'s ledger with "decode"/"prefill" attribution scopes."""
+    """Trace the decode step and one prefill chunk (for the families that
+    prefill in chunks) on `meta` tensors under `engine`'s ledger with
+    "decode"/"prefill" attribution scopes."""
     from repro_torch import rosa
     ledger = engine.ledger
     params = bundle.abstract(torch.float32)
@@ -59,8 +60,10 @@ def trace_serving_shapes(bundle, scfg: ServeConfig, engine):
         with ledger.scope("decode"):
             bundle.decode_step(params, abstract_decode_batch(bundle.cfg,
                                                              scfg))
-        with ledger.scope("prefill"):
-            bundle.chunk_step(params, abstract_chunk_batch(bundle.cfg, scfg))
+        if bundle.cfg.family != "ssm":
+            with ledger.scope("prefill"):
+                bundle.chunk_step(params,
+                                  abstract_chunk_batch(bundle.cfg, scfg))
     return ledger
 
 

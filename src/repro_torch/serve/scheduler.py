@@ -31,7 +31,8 @@ from repro_torch.serve.config import ServeConfig, serving_model_config
 from repro_torch.serve.decode import (PrefillTask, init_state, make_admit,
                                       make_admit_step, make_chunk_fn,
                                       make_evict, make_serve_step,
-                                      null_admit, sample_token)
+                                      make_whole_fn, null_admit,
+                                      sample_token)
 
 
 @dataclasses.dataclass
@@ -185,6 +186,7 @@ class Scheduler:
         self.admit_step = make_admit_step(self.bundle, scfg,
                                           program=self.program)
         self.chunk_fn = make_chunk_fn(self.bundle, program=self.program)
+        self.whole_fn = make_whole_fn(self.bundle, program=self.program)
         self.evict = make_evict(self.bundle, scfg, program=self.program) \
             if scfg.evict_on_done else None
 
@@ -253,7 +255,8 @@ class Scheduler:
             if inflight is None and prefill_q:
                 req = prefill_q.popleft()
                 inflight = (req, PrefillTask(self.bundle, scfg, req.prompt,
-                                             self.chunk_fn, self.device))
+                                             self.chunk_fn, self.device,
+                                             self.whole_fn))
             if inflight is not None:
                 req, task = inflight
                 with self._scope("prefill"):
@@ -377,6 +380,7 @@ def run_sequential(model_cfg, scfg: ServeConfig, params,
     engine = program.engine if program is not None else None
     params = _to_device(params, device)
     chunk_fn = make_chunk_fn(bundle, program=program)
+    whole_fn = make_whole_fn(bundle, program=program)
     decode1_fn = lambda p, t, c: bundle.decode_step(
         p, {"token": t, "pos": c["pos"], "cache": c})
     decode1 = program.bind(decode1_fn) if program is not None else decode1_fn
@@ -384,7 +388,8 @@ def run_sequential(model_cfg, scfg: ServeConfig, params,
 
     out = {}
     for req in requests:
-        task = PrefillTask(bundle, scfg, req.prompt, chunk_fn, device)
+        task = PrefillTask(bundle, scfg, req.prompt, chunk_fn, device,
+                           whole_fn)
         with _ledger_scope(engine, "prefill"):
             while not task.advance(params):
                 pass

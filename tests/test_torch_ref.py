@@ -35,6 +35,8 @@ _REF_MODULES = {
     "fused_ref": "repro.kernels.rosa_fused.ref",
     "osa_ops": "repro.kernels.osa_matmul.ops",
     "osa_ref": "repro.kernels.osa_matmul.ref",
+    "ssd_ops": "repro.kernels.ssd_scan.ops",
+    "ssd_ref": "repro.kernels.ssd_scan.ref", "ssm": "repro.models.ssm",
     "variation": "repro.robust.variation", "configs": "repro.configs",
     "model": "repro.models.model", "transformer": "repro.models.transformer",
     "serve": "repro.serve", "metrics": "repro.serve.metrics",
