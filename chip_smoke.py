@@ -37,7 +37,28 @@ Phases (any failure raises, so the exit code is non-zero):
      continuous stream's tokens must equal the sequential oracle's, and
      one prefill's logits on the kernel path must agree with the same
      prefill through the plain scan within 4x a measured float-order
-     floor, with the same greedy token.
+     floor, with the same greedy token;
+  8. mrr_transfer parity and times: the kernel against its plain version
+     on the same CUDA tensors, bit for bit, at the mobilenet_v3 depthwise
+     weight (60, 25) with noise and a chip, the conv_stem IS activation
+     sheet at eval batch 512 (524288, 27), qwen3-32b's mlp/wi (5120,
+     51200) with noise and with a chip only, and a ragged 1-D n =
+     1,000,003; median times from CUDA events and the bound;
+  9. the paper's Table 4 pipeline for mobilenet_v3 at the reference's
+     widths through `launch.table4.run_model`: 400 QAT steps at batch 64
+     on 4096 synth-CIFAR images, the per-layer noise profile (n_mc 3), the
+     hybrid plan, the five accuracies on the 512-image test split, and
+     the EDP of WS, hybrid and DEAP-CNNs.  The launch counts are reset
+     just before and read just after: rosa_fused must have run every noisy
+     conv/fc evaluation and mrr_transfer every noisy depthwise
+     conditioning, counted from the specs and the plan; the WS and DEAP
+     EDPs must equal the values the CPU tests pin from the reference;
+ 10. card vs the reference: the golden file of tests/test_torch_cnn.py
+     (JAX-trained mobilenet_v3, a JAX chip, JAX's logits).  Clean accuracy
+     within 2 images and chip-pinned WS / IS (per-shot noise ideal)
+     within 5 images of 512 of the reference's; the kernel path's logits
+     within 4x the float-order floor of the plain path on the card (the
+     plain path with permuted channels, as in phase 5).
 
 It prints one JSON line summarizing the kernels, then the card's name and
 power limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -120,11 +141,12 @@ def quantized_parity(y, y_ref, what: str, qmax: int = 127,
 
 
 def _launch_counters():
+    from repro_torch.kernels.mrr_transfer import ops as mrr_ops
     from repro_torch.kernels.osa_matmul import ops as osa_ops
     from repro_torch.kernels.rosa_fused import ops as fused_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"rosa_fused": fused_ops.LAUNCHES, "osa_matmul": osa_ops.LAUNCHES,
-            "ssd_scan": ssd_ops.LAUNCHES}
+            "ssd_scan": ssd_ops.LAUNCHES, "mrr_transfer": mrr_ops.LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -383,8 +405,10 @@ def serve_phase(report: dict) -> dict:
           f"chunks, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     print(f"  energy_per_token {energy!r} J (ledger)")
     print(f"  rosa_fused launches {n_fused} (routed projections {routed}), "
-          f"osa_matmul launches {n_osa}")
-    if n_fused == 0 or n_fused != routed or n_osa != 0 or n["ssd_scan"]:
+          f"osa_matmul launches {n_osa}, mrr_transfer launches "
+          f"{n['mrr_transfer']} (the fused kernel realizes inside)")
+    if n_fused == 0 or n_fused != routed or n_osa != 0 or n["ssd_scan"] \
+            or n["mrr_transfer"]:
         raise AssertionError("the served path did not run every routed "
                              "projection through rosa_fused")
 
@@ -400,9 +424,13 @@ def serve_phase(report: dict) -> dict:
     check_run(rep2, reqs2, cfg.vocab, "pallas serve")
     routed2 = 2 * cfg.n_layers * (rep2.decode_steps + rep2.prefill_chunks)
     print(f"  pallas stream: {rep2.total_tokens} tokens, osa_matmul launches "
-          f"{n_osa2} (routed {routed2}), rosa_fused launches {n_fused2}")
-    if n_osa2 == 0 or n_osa2 != routed2 or n_fused2 != 0:
-        raise AssertionError("the pallas path did not run osa_matmul")
+          f"{n_osa2} (routed {routed2}), rosa_fused launches {n_fused2}, "
+          f"mrr_transfer launches {n['mrr_transfer']} (one per routed "
+          "projection: the IS activation under chip 7)")
+    if n_osa2 == 0 or n_osa2 != routed2 or n_fused2 != 0 \
+            or n["mrr_transfer"] != routed2:
+        raise AssertionError("the pallas path did not run osa_matmul and "
+                             "mrr_transfer on every routed projection")
 
     # ---- phase 5: fused vs the plain composed pipeline, end to end --------
     # Bound.  Both backends realize and requantize the activations bit for
@@ -573,7 +601,7 @@ def mamba_phase(report: dict) -> int:
           f"prefills = {want}), rosa_fused {n['rosa_fused']}, osa_matmul "
           f"{n['osa_matmul']}")
     if rep.prefill_chunks != len(reqs) or n["ssd_scan"] != want \
-            or n["rosa_fused"] or n["osa_matmul"]:
+            or n["rosa_fused"] or n["osa_matmul"] or n["mrr_transfer"]:
         raise AssertionError("the mamba2 prefills did not each run the "
                              "ssd_scan kernel once per layer")
 
@@ -631,6 +659,323 @@ def mamba_phase(report: dict) -> int:
     return n["ssd_scan"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: mrr_transfer
+# ---------------------------------------------------------------------------
+# (what, shape, per-shot noise, chip variation per lane of axis 0)
+MRR_CASES = [("mobilenet_v3 mb6_dw weight", (60, 25), True, True),
+             ("conv_stem IS sheet, batch 512", (524288, 27), True, False),
+             ("qwen3-32b mlp/wi", (5120, 51200), True, False),
+             ("qwen3-32b mlp/wi, chip only", (5120, 51200), False, True),
+             ("ragged 1-D", (1_000_003,), True, False)]
+MRR_SERVED = "mobilenet_v3 mb6_dw weight"     # the main path's largest
+# float operations per element of the chain (a division or square root
+# counted as one): 38, plus 4 for the draws and 3 for a chip's fields
+MRR_OPS = (38, 4, 3)
+
+
+def mrr_bound(n: int, noisy: bool, lanes: int) -> tuple[float, str]:
+    """Least time of one realization: w in and the result out (and the two
+    draws in when noisy), the chip's three per-lane fields once, against
+    the chain's float operations."""
+    nbytes = 4 * n * (4 if noisy else 2) + (12 * lanes)
+    ops = n * (MRR_OPS[0] + MRR_OPS[1] * noisy + MRR_OPS[2] * bool(lanes))
+    return bound_ms(nbytes, ops)
+
+
+def mrr_phase(report: dict) -> dict:
+    import torch
+    from repro_torch.core import mrr
+    from repro_torch.kernels.mrr_transfer import ops
+
+    g = torch.Generator(DEVICE).manual_seed(5)
+    rows, served = [], None
+    for what, shape, noisy, with_var in MRR_CASES:
+        w = 2 * torch.rand(shape, device=DEVICE, generator=g) - 1
+        var, lanes = None, 0
+        if with_var:
+            lanes = shape[0]
+            var = mrr.expand_lanes(mrr.StaticVariation(
+                *(s * torch.randn(lanes, device=DEVICE, generator=g)
+                  for s in (0.01, 0.04, 0.01))), w)
+        sig = (mrr.PAPER_NOISE.sigma_dac, mrr.PAPER_NOISE.sigma_th) \
+            if noisy else (0.0, 0.0)
+        eps = mrr.draw_eps(torch.Generator(DEVICE).manual_seed(6), shape,
+                           DEVICE) if noisy else (None, None)
+        y = ops.launch(w, *eps, *sig, var=var)
+        y_plain = ops.plain(w, *eps, *sig, var=var)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"mrr_transfer {what}: non-finite output")
+        e = float((y - y_plain).abs().max())
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"mrr_transfer {what}: kernel differs from "
+                                 f"the plain version by {e:.3e}")
+        row = {"case": what, "shape": list(shape), "noise": noisy,
+               "chip": with_var, "max_abs_err": e,
+               "ms": median_ms(lambda: ops.launch(w, *eps, *sig, var=var)),
+               "plain_ms": median_ms(
+                   lambda: ops.plain(w, *eps, *sig, var=var))}
+        row["bound_ms"], row["bound_by"] = mrr_bound(w.numel(), noisy, lanes)
+        rows.append(row)
+        if what == MRR_SERVED:
+            served = row
+        print(f"  mrr_transfer {what:30s} {tuple(shape)}: bitwise equal  "
+              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del w, var, eps, y, y_plain
+        torch.cuda.empty_cache()
+    report["mrr_transfer_cases"] = rows
+    return dict(served, max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-10: the Table 4 pipeline for mobilenet_v3, and the golden file
+# ---------------------------------------------------------------------------
+CNN = "mobilenet_v3"
+TABLE4 = dict(steps=400, n_mc=3)       # QAT at batch 64 on 4096 images
+# EDP [J*s] of WS and of DEAP-CNNs on mobilenet_v3's full-size rows at
+# batch 128: the reference's values, pinned by tests/test_torch_cnn.py
+EDP_WS = 1.794560881706427e-05
+EDP_DEAP = 52.23022904750444
+GOLDEN = ROOT / "tests" / "data" / "torch_cnn_mobilenet_v3.npz"
+
+
+def noisy_launches(specs, noisy: set[str], evals: int) -> dict:
+    """Launches of `evals` evaluations with the layers `noisy` noisy on the
+    card: one rosa_fused per noisy conv/fc matmul, one mrr_transfer per
+    noisy depthwise weight (its conditioning ignores the mapping)."""
+    dw = sum(1 for s in specs if s.name in noisy and s.kind == "dwconv")
+    routed = sum(1 for s in specs if s.name in noisy and s.kind != "dwconv")
+    return {"rosa_fused": evals * routed, "mrr_transfer": evals * dw}
+
+
+def table4_launches(specs, plan: dict, n_mc: int) -> dict:
+    """What the pipeline must launch: the profile makes each layer alone
+    noisy under IS and under WS (n_mc evaluations each); WS, IS, the
+    hybrid plan and ANALOG make every layer noisy (n_mc each); training
+    and the clean evaluations take the ideal fake-quant path."""
+    total = {"rosa_fused": 0, "mrr_transfer": 0}
+
+    def add(c):
+        for k in total:
+            total[k] += c[k]
+
+    for s in specs:
+        add(noisy_launches(specs, {s.name}, 2 * n_mc))
+    every = {s.name for s in specs}
+    for _ in ("ws", "is", "analog"):
+        add(noisy_launches(specs, every, n_mc))
+    add(noisy_launches(specs, set(plan), n_mc))       # hybrid
+    return total
+
+
+def table4_phase(report: dict) -> dict:
+    import torch
+    from repro_torch.launch import table4
+    from repro_torch.models.cnn import LITE_MODELS
+
+    specs = LITE_MODELS[CNN]
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = table4.run_model(CNN, TABLE4["steps"], TABLE4["n_mc"],
+                           device=DEVICE, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launch_counts()
+    want = table4_launches(specs, res["plan"], TABLE4["n_mc"])
+    accs, edp = res["accs"], res["edp"]
+    print(f"  {CNN}: {len(specs)} layers, {TABLE4['steps']} QAT steps at "
+          f"batch 64, n_mc {TABLE4['n_mc']}, eval batch 512")
+    print(f"  plan: {res['plan_is_layers']}/{len(res['plan'])} layers IS "
+          f"{sorted(k for k, v in res['plan'].items() if v == 'input_stationary')}")
+    print("  acc[%]: " + "  ".join(f"{k}={v:.2f}" for k, v in accs.items())
+          + f"  hybrid - WS {accs['hybrid'] - accs['ws']:+.2f} pp")
+    print(f"  EDP[J*s]: WS={edp['ws']!r} hybrid={edp['hybrid']!r} "
+          f"DEAP={edp['deap']!r}; hybrid below WS by "
+          f"{(1 - edp['hybrid'] / edp['ws']) * 100:.1f}%, below DEAP by "
+          f"{(1 - edp['hybrid'] / edp['deap']) * 100:.4f}%")
+    print("  wall s: " + "  ".join(f"{k}={v:.2f}"
+                                   for k, v in res["wall_s"].items())
+          + f"  (total {wall:.2f}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    print(f"  launches {n} (want rosa_fused {want['rosa_fused']}, "
+          f"mrr_transfer {want['mrr_transfer']})")
+    if n["rosa_fused"] != want["rosa_fused"] or n["mrr_transfer"] \
+            != want["mrr_transfer"] or n["osa_matmul"] or n["ssd_scan"]:
+        # every noisy evaluation must launch these kernels, so equal counts
+        # also show that the QAT training launched neither
+        raise AssertionError("the Table 4 pipeline did not run its noisy "
+                             "evaluations through rosa_fused/mrr_transfer")
+    if not all(math.isfinite(a) and 0.0 <= a <= 100.0
+               for a in accs.values()):
+        raise AssertionError(f"accuracies out of range: {accs}")
+    if edp["ws"] != EDP_WS or edp["deap"] != EDP_DEAP:
+        raise AssertionError(f"EDP differs from the reference's: WS "
+                             f"{edp['ws']!r} vs {EDP_WS!r}, DEAP "
+                             f"{edp['deap']!r} vs {EDP_DEAP!r}")
+    report["table4"] = dict(res, launches=n, want_launches=want,
+                            total_wall_s=wall)
+    return n
+
+
+def load_golden(device):
+    """(params, chip, labels, {name: logits}) of the golden file."""
+    import numpy as np
+    import torch
+    from repro_torch.core import mrr
+
+    params: dict = {}
+    fields: dict = {}
+    logits: dict = {}
+    with np.load(GOLDEN) as z:
+        labels = torch.from_numpy(z["labels"]).to(device)
+        for k in z.files:
+            kind, *rest = k.split(".")
+            t = torch.from_numpy(z[k]).to(device)
+            if kind == "params":
+                params.setdefault(rest[0], {})[rest[1]] = t
+            elif kind == "chip":
+                fields.setdefault(rest[0], {})[rest[1]] = t
+            elif kind == "logits":
+                logits[rest[0]] = t
+    chip = {k: mrr.StaticVariation(v["dv"], v["ddt"], v["dlam"])
+            for k, v in fields.items()}
+    return params, chip, labels, logits
+
+
+def permuted_cnn(params, chip, specs, seed: int):
+    """The CNN's parameters and chip with every channel axis permuted (one
+    random permutation per layer output, the input's RGB included): the
+    same function, every reduction summed in another order.  Returns
+    (params, chip, input channel permutation)."""
+    import torch
+    from repro_torch.core import mrr
+
+    g = torch.Generator().manual_seed(seed)
+    perm = lambda n: torch.randperm(n, generator=g).to(DEVICE)
+    p_in = p0 = perm(3)
+    out_p, out_c = {}, {}
+    for i, s in enumerate(specs):
+        w, b = params[s.name]["w"], params[s.name]["b"]
+        if s.kind == "dwconv":
+            p_out = lanes = p_in
+            w2 = w[p_in]
+        else:
+            p_out = (torch.arange(s.c_out, device=DEVICE)
+                     if i == len(specs) - 1 else perm(s.c_out))
+            kk = s.k * s.k if s.kind == "conv" else 1
+            lanes = (p_in[:, None] * kk
+                     + torch.arange(kk, device=DEVICE)).reshape(-1)
+            w2 = w[lanes][:, p_out]
+        out_p[s.name] = {"w": w2, "b": b[p_out]}
+        v = chip[s.name]
+        out_c[s.name] = mrr.StaticVariation(v.dv[lanes], v.ddt[lanes],
+                                            v.dlam[lanes])
+        p_in = p_out
+    return out_p, out_c, p0
+
+
+def plain_kernels():
+    """Context: route the rosa_fused and mrr_transfer wrappers to their
+    plain versions on the card (the plain path)."""
+    import contextlib
+
+    from repro_torch.kernels.mrr_transfer import ops as mrr_ops
+    from repro_torch.kernels.rosa_fused import ops as fused_ops
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = fused_ops.launch, mrr_ops.launch
+        fused_ops.launch, mrr_ops.launch = fused_ops.plain, mrr_ops.plain
+        try:
+            yield
+        finally:
+            fused_ops.launch, mrr_ops.launch = saved
+
+    return ctx()
+
+
+def golden_phase(report: dict) -> dict:
+    import dataclasses as dc
+
+    import torch
+    from repro_torch import rosa
+    from repro_torch.core.constants import Mapping
+    from repro_torch.data.synth_cifar import synth_cifar
+    from repro_torch.models.cnn import LITE_MODELS
+    from repro_torch.training.cnn_train import QAT_CFG, cnn_program
+
+    specs = LITE_MODELS[CNN]
+    names = [s.name for s in specs]
+    params, chip, labels, gold = load_golden(DEVICE)
+    xte, yte = synth_cifar(512, seed=1, noise=0.35)    # the test split
+    x = torch.from_numpy(xte).to(DEVICE)
+    if not torch.equal(torch.from_numpy(yte).to(DEVICE), labels):
+        raise AssertionError("the golden labels are not the test split's")
+    progs = {"clean": cnn_program(CNN, rosa.Engine.from_config(
+                 QAT_CFG, layers=names)),
+             "ws": cnn_program(CNN, rosa.Engine.from_config(
+                 dc.replace(QAT_CFG, mapping=Mapping.WS), layers=names)),
+             "is": cnn_program(CNN, rosa.Engine.from_config(
+                 dc.replace(QAT_CFG, mapping=Mapping.IS), layers=names))}
+    out: dict = {}
+    for name, prog in progs.items():
+        var = None if name == "clean" else chip
+        reset_launches()
+        with torch.no_grad():
+            lk = prog(params, x, variation=var)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        want = noisy_launches(specs, set() if var is None else set(names), 1)
+        if not bool(torch.isfinite(lk).all()) or lk.shape != (512, 10):
+            raise AssertionError(f"{name}: logits not finite / bad shape")
+        if n["rosa_fused"] != want["rosa_fused"] \
+                or n["mrr_transfer"] != want["mrr_transfer"]:
+            raise AssertionError(f"{name}: launches {n}, want {want}")
+        right = int((lk.argmax(-1) == labels).sum())
+        right_ref = int((gold[name].argmax(-1) == labels).sum())
+        scale = float(gold[name].abs().max())
+        vs_ref = float((lk - gold[name]).abs().max()) / scale
+        row = {"correct": right, "correct_reference": right_ref,
+               "acc": 100.0 * right / 512, "launches": n,
+               "logits_vs_reference_rel": vs_ref}
+        tol = 2 if name == "clean" else 5
+        print(f"  {name:5s}: {right}/512 right (reference {right_ref}), "
+              f"logits vs reference max rel dev {vs_ref:.3e}, launches "
+              f"rosa_fused {n['rosa_fused']} mrr_transfer "
+              f"{n['mrr_transfer']}")
+        if abs(right - right_ref) > tol:
+            raise AssertionError(f"{name}: {right} right vs the reference's "
+                                 f"{right_ref} (more than {tol} apart)")
+        if var is not None:
+            # kernel path vs the plain path on the card, within 4x the
+            # float-order floor of the plain path under permuted channels
+            with plain_kernels(), torch.no_grad():
+                lp = prog(params, x, variation=var)
+                sc = float(lp.abs().max())
+                floor = 0.0
+                for seed in (1, 2):
+                    pp, cp, p0 = permuted_cnn(params, chip, specs, seed)
+                    dev = float((prog(pp, x[..., p0], variation=cp)
+                                 - lp).abs().max()) / sc
+                    floor = max(floor, dev)
+            rel = float((lk - lp).abs().max()) / sc
+            bound = 4 * floor + 1e-5
+            row.update(kernel_vs_plain_rel=rel, plain_floor_rel=floor)
+            print(f"         kernel vs plain path logits max rel dev "
+                  f"{rel:.3e} (bound {bound:.3e}, float-order floor "
+                  f"{floor:.3e})")
+            if rel > bound:
+                raise AssertionError(f"{name}: kernel and plain logits "
+                                     "disagree beyond the bound")
+        out[name] = row
+    report["golden"] = out
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -674,6 +1019,12 @@ def main() -> int:
     ssd = ssd_phase(report)
     print("phase 7: serving mamba2-1.3b")
     launches["ssd_scan"] = mamba_phase(report)
+    print("phase 8: mrr_transfer parity against the plain version")
+    mrr_row = mrr_phase(report)
+    print(f"phase 9: the Table 4 pipeline, {CNN}")
+    launches["mrr_transfer"] = table4_phase(report)["mrr_transfer"]
+    print(f"phase 10: {CNN} on the card against the reference's golden file")
+    golden_phase(report)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",
@@ -697,6 +1048,13 @@ def main() -> int:
          "max_abs_err": ssd["max_abs_err"], "ms": ssd["ms"],
          "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
          "bound_by": ssd["bound_by"], "library_ms": None},
+        {"name": "mrr_transfer", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mrr_transfer.cu",
+         "replaces": "src/repro/kernels/mrr_transfer/mrr_transfer.py:69",
+         "launches": launches["mrr_transfer"],
+         "max_abs_err": mrr_row["max_abs_err"], "ms": mrr_row["ms"],
+         "plain_ms": mrr_row["plain_ms"], "bound_ms": mrr_row["bound_ms"],
+         "bound_by": mrr_row["bound_by"], "library_ms": None},
     ]}
     report["summary"] = summary
     report["wall_s"] = time.perf_counter() - t_start

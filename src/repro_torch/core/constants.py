@@ -172,4 +172,5 @@ class OPEConfig:
 
 
 # Reference configurations used throughout the paper's experiments.
+DEAP_HIGH_CHANNEL = OPEConfig(rows=113, cols=9, tiles=1)    # DEAP-CNNs [9]
 ROSA_OPTIMAL = OPEConfig(rows=8, cols=8)                    # paper's winner

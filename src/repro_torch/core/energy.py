@@ -86,6 +86,7 @@ class OSAEnergyConfig:
         return min(ode, n_slots) - 1
 
 
+NO_OSA = OSAEnergyConfig(enabled=False)
 OSA_OPTIMAL = OSAEnergyConfig(enabled=True, ode_len=0)   # sized to n_slots
 
 

@@ -28,8 +28,9 @@
 // weight side adds ~30 flops and two divisions and a square root per
 // weight element, which stays below that bound only if the chain is
 // computed once per element.  Design: a block owns a BM x BN output tile
-// and loops over K in BK steps.  Each step loads the x and w tiles
-// coalesced, conditions every element once into shared memory (the chain
+// (M tiles beyond the 65535 the grid's y axis holds are taken in turn by
+// the same blocks) and loops over K in BK steps.  Each step loads the x and
+// w tiles coalesced, conditions every element once into shared memory (the chain
 // runs once per element per block), and each thread accumulates a 4 x 1
 // column strip in registers with explicit fmaf.  When the (M, N) grid has
 // too few blocks to fill the 132 SMs, K is split across blocks; partial
@@ -55,6 +56,7 @@ constexpr int BN = 128;
 constexpr int BK = 32;
 constexpr int THREADS = 256;
 constexpr int MAX_PLANES = 8;
+constexpr int MAX_GRID_Y = 65535;   // CUDA's limit on gridDim.y
 
 enum Flags {
   ANALOG = 1, REALIZE_X = 2, REALIZE_W = 4, USE_GATE = 8, USE_MGATE = 16
@@ -112,7 +114,6 @@ fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
              realize_w = flags & REALIZE_W, use_gate = flags & USE_GATE,
              use_mgate = flags & USE_MGATE;
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int k_begin = blockIdx.z * k_per_split;
   const int k_end = min(k, k_begin + k_per_split);
@@ -122,86 +123,91 @@ fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const float gate = gg[0], mgate = gg[1], sw = gg[2];
   const float inv_q = 1.0f / qf;
   const int dmask = (1 << radix_bits) - 1;
+  const int m_tiles = (m + BM - 1) / BM;
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int kt = k_begin; kt < k_end; kt += BK) {
-    __syncthreads();
-    // ---- activation tile: conditioned once per element
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      int r = i / BK, cc = i % BK;
-      int gm = m0 + r, gk = kt + cc;
-      float v = 0.f;
-      if (gm < m && gk < k_end) {
-        const float xv = x[(long long)gm * ldx + gk];
-        const float sxd = sx[(long long)gm * ld_sx + 0];
-        const float sxa = sx[(long long)gm * ld_sx + 1];
-        const float s2 = sx[(long long)gm * ld_sx + 2];
-        // straight-through residue t + (t_q - t), as fake_quant leaves it
-        float xd = clampf(rintf(xv / sxd * qf), -qf, qf) * (sxd / qf);
-        float x_dig = xv + (xd - xv);
-        float x_is = x_dig;
-        if (realize_x) {
-          float xa = xv / sxa;
-          float xq = clampf(rintf(xa * qf), -qf, qf) * inv_q;
-          float x_an = realize(xa + (xq - xa), xo.at(0, gm, gk),
-                               xo.at(1, gm, gk), xo.at(2, gm, gk), chain) * sxa;
-          x_is = use_gate ? x_dig + gate * (x_an - x_dig) : x_an;
+  // M tiles beyond the grid's y limit (65535) are taken in turn
+  for (int mt = blockIdx.y; mt < m_tiles; mt += gridDim.y) {
+    const int m0 = mt * BM;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kt = k_begin; kt < k_end; kt += BK) {
+      __syncthreads();
+      // ---- activation tile: conditioned once per element
+      for (int i = tid; i < BM * BK; i += THREADS) {
+        int r = i / BK, cc = i % BK;
+        int gm = m0 + r, gk = kt + cc;
+        float v = 0.f;
+        if (gm < m && gk < k_end) {
+          const float xv = x[(long long)gm * ldx + gk];
+          const float sxd = sx[(long long)gm * ld_sx + 0];
+          const float sxa = sx[(long long)gm * ld_sx + 1];
+          const float s2 = sx[(long long)gm * ld_sx + 2];
+          // straight-through residue t + (t_q - t), as fake_quant leaves it
+          float xd = clampf(rintf(xv / sxd * qf), -qf, qf) * (sxd / qf);
+          float x_dig = xv + (xd - xv);
+          float x_is = x_dig;
+          if (realize_x) {
+            float xa = xv / sxa;
+            float xq = clampf(rintf(xa * qf), -qf, qf) * inv_q;
+            float x_an = realize(xa + (xq - xa), xo.at(0, gm, gk),
+                                 xo.at(1, gm, gk), xo.at(2, gm, gk), chain) * sxa;
+            x_is = use_gate ? x_dig + gate * (x_an - x_dig) : x_an;
+          }
+          float x_eff = use_mgate ? (1.0f - mgate) * x_dig + mgate * x_is : x_is;
+          if (analog) {
+            v = x_eff * (1.0f / s2);
+          } else {
+            float q2 = clampf(rintf(x_eff / s2 * qf), -qf, qf);
+            float sgn = (q2 > 0.f) ? 1.f : ((q2 < 0.f) ? -1.f : 0.f);
+            int mag = (int)fabsf(q2);
+            float rec = 0.f;
+            for (int t = 0; t < n_planes; ++t)
+              rec = rec + g[t] * (sgn * (float)((mag >> (radix_bits * t)) & dmask));
+            v = rec;
+          }
         }
-        float x_eff = use_mgate ? (1.0f - mgate) * x_dig + mgate * x_is : x_is;
-        if (analog) {
-          v = x_eff * (1.0f / s2);
-        } else {
-          float q2 = clampf(rintf(x_eff / s2 * qf), -qf, qf);
-          float sgn = (q2 > 0.f) ? 1.f : ((q2 < 0.f) ? -1.f : 0.f);
-          int mag = (int)fabsf(q2);
-          float rec = 0.f;
-          for (int t = 0; t < n_planes; ++t)
-            rec = rec + g[t] * (sgn * (float)((mag >> (radix_bits * t)) & dmask));
-          v = rec;
-        }
+        xs[r][cc] = v;
       }
-      xs[r][cc] = v;
-    }
-    // ---- weight tile: codes, optional realization, blends
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      int r = i / BN, cc = i % BN;
-      int gk = kt + r, gn = n0 + cc;
-      float v = 0.f;
-      if (gk < k_end && gn < n) {
-        float wa = w[(long long)gk * ldw + gn] / sw;
-        float wn = clampf(rintf(wa * qf), -qf, qf) * inv_q;
-        float w_ws = wn;
-        if (realize_w) {
-          float w_an = realize(wa + (wn - wa), wo.at(0, gk, gn),
-                               wo.at(1, gk, gn), wo.at(2, gk, gn), chain);
-          w_ws = use_gate ? wn + gate * (w_an - wn) : w_an;
+      // ---- weight tile: codes, optional realization, blends
+      for (int i = tid; i < BK * BN; i += THREADS) {
+        int r = i / BN, cc = i % BN;
+        int gk = kt + r, gn = n0 + cc;
+        float v = 0.f;
+        if (gk < k_end && gn < n) {
+          float wa = w[(long long)gk * ldw + gn] / sw;
+          float wn = clampf(rintf(wa * qf), -qf, qf) * inv_q;
+          float w_ws = wn;
+          if (realize_w) {
+            float w_an = realize(wa + (wn - wa), wo.at(0, gk, gn),
+                                 wo.at(1, gk, gn), wo.at(2, gk, gn), chain);
+            w_ws = use_gate ? wn + gate * (w_an - wn) : w_an;
+          }
+          v = use_mgate ? (1.0f - mgate) * w_ws + mgate * wn : w_ws;
         }
-        v = use_mgate ? (1.0f - mgate) * w_ws + mgate * wn : w_ws;
+        ws[r][cc] = v;
       }
-      ws[r][cc] = v;
-    }
-    __syncthreads();
+      __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float wv = ws[kk][col];
+      for (int kk = 0; kk < BK; ++kk) {
+        float wv = ws[kk][col];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r] = fmaf(xs[rg * 4 + r][kk], wv, acc[r]);
+        for (int r = 0; r < 4; ++r) acc[r] = fmaf(xs[rg * 4 + r][kk], wv, acc[r]);
+      }
     }
-  }
 
-  const int gn = n0 + col;
-  if (gn >= n) return;
+    const int gn = n0 + col;
+    if (gn < n) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int gm = m0 + rg * 4 + r;
-    if (gm >= m) continue;
-    if (direct) {
-      float s2 = sx[(long long)gm * ld_sx + 2];
-      float scale = analog ? s2 * sw : s2 * (sw / qf);
-      out[(long long)gm * ldo + gn] = acc[r] * scale;
-    } else {
-      out[((long long)blockIdx.z * m + gm) * n + gn] = acc[r];
+      for (int r = 0; r < 4; ++r) {
+        int gm = m0 + rg * 4 + r;
+        if (gm >= m) continue;
+        if (direct) {
+          float s2 = sx[(long long)gm * ld_sx + 2];
+          float scale = analog ? s2 * sw : s2 * (sw / qf);
+          out[(long long)gm * ldo + gn] = acc[r] * scale;
+        } else {
+          out[((long long)blockIdx.z * m + gm) * n + gn] = acc[r];
+        }
+      }
     }
   }
 }
@@ -266,7 +272,9 @@ int rosa_fused_launch(const float* x, const float* w, const float* gains,
   int k_per_split = ((k + splits - 1) / splits + BK - 1) / BK * BK;
   splits = (k + k_per_split - 1) / k_per_split;
   int direct = splits == 1;
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
+  int m_tiles = (m + BM - 1) / BM;
+  dim3 grid((n + BN - 1) / BN, m_tiles < MAX_GRID_Y ? m_tiles : MAX_GRID_Y,
+            splits);
   fused_kernel<<<grid, THREADS, 0, st>>>(
       x, w, gains, sx, gg, xo, wo, direct ? out : workspace, m, k, n, ldx, ldw,
       ldo, ld_sx, n_planes, radix_bits, qmax, flags, c, k_per_split, direct);

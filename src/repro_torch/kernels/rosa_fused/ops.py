@@ -331,5 +331,6 @@ def preflight(m: int, k: int, n: int, *, n_sm: int = 132,
     if smem > 232448:
         issues.append(f"{smem} bytes of shared memory exceed 227 KB")
     pad_waste = (-(-m // BM) * BM * -(-n // BN) * BN) / (m * n) - 1.0
-    return {"kernel": "rosa_fused", "grid": (-(-n // BN), -(-m // BM), splits),
+    grid_y = min(-(-m // BM), 65535)      # further M tiles taken in turn
+    return {"kernel": "rosa_fused", "grid": (-(-n // BN), grid_y, splits),
             "smem_bytes": smem, "pad_waste": pad_waste, "issues": issues}

@@ -46,6 +46,8 @@ def family(name: str) -> str:
         return "osa_matmul kernel"
     if "ssd_scan" in n:
         return "ssd_scan kernel"
+    if "transfer_kernel" in n:
+        return "mrr_transfer kernel"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "matmul" in n:
         return "cuBLAS GEMM/GEMV"
     if "reduce" in n:

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import mrr
 from repro_torch.core.constants import SIGMA_DAC_DEFAULT, SIGMA_TH_DEFAULT
+from repro_torch.models.cnn import LITE_MODELS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,3 +69,10 @@ def sample_chip(key: torch.Generator, dims: TMapping[str, int | Sequence[int]],
     `dims` maps layer name -> lane count K (or a full field shape)."""
     return {name: sample_layer(_layer_fold(key, name), model, lanes, device)
             for name, lanes in dims.items()}
+
+
+def cnn_lane_dims(model: str) -> dict[str, int]:
+    """Reduction-lane count per layer of a lite CNN (weight K dimension;
+    a depthwise conv has one ring per channel)."""
+    return {s.name: s.c_in if s.kind in ("fc", "dwconv")
+            else s.c_in * s.k * s.k for s in LITE_MODELS[model]}

@@ -18,6 +18,10 @@ Forward semantics (mixed digital-analog mode, Sec. 2-3.1): WS realizes
 weights on the noisy analog rings and streams activations digitally; IS
 swaps the roles; ANALOG realizes both.  Backward: straight-through, two
 plain matmuls (`torch.autograd.Function`).
+
+A realized operand of the composed backends, and a depthwise weight
+conditioned by `condition_weight`, goes through the `mrr_transfer` kernel
+when it lies on a CUDA device (its plain chain on the CPU).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.core import mrr, osa, quant
 from repro_torch.core.constants import ComputeMode, Mapping
+from repro_torch.kernels.mrr_transfer import ops as mrr_transfer_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,11 +139,13 @@ def _fused_backend(x, w, cfg: RosaConfig, *, key=None, var=None, gate=None,
 def _noisy_realize(t, cfg: RosaConfig, key, var=None,
                    per_vector: bool = False):
     """Quantize `t` and realize it on the analog MRRs (per-tensor full-scale
-    for weights, per-row with `per_vector` for activations)."""
+    for weights, per-row with `per_vector` for activations), through the
+    `mrr_transfer` kernel on CUDA and its plain chain on the CPU."""
     scale = quant.absmax_scale(t, per_vector)
     q = quant.fake_quant(t / scale, cfg.qcfg)
-    return mrr.realize_weights(q, key, cfg.mrr_params, cfg.noise, var) \
-        * scale
+    return mrr_transfer_ops.mrr_transfer(
+        q, key, cfg.noise.sigma_dac, cfg.noise.sigma_th, cfg.mrr_params,
+        var) * scale
 
 
 def _digital_path(t, cfg: RosaConfig, per_vector: bool = False):
@@ -157,6 +164,17 @@ def _analog_operand(t, cfg: RosaConfig, key, var, gate,
     if gate is None:
         return noisy
     return clean + gate * (noisy - clean)
+
+
+def condition_weight(w, cfg: RosaConfig | None, key,
+                     var: mrr.StaticVariation | None = None):
+    """Weight conditioning outside the matmul path (per-channel contractions
+    such as the depthwise conv): the analog realization of `w` under the
+    layer's noise and pinned chip, whatever its mapping and mode.  Identity
+    when the layer is dense or fully ideal (no fake-quant on that path)."""
+    if cfg is None or (cfg.noise.is_ideal and var is None):
+        return w
+    return _noisy_realize(w, cfg, key, mrr.expand_lanes(var, w))
 
 
 def _forward(x, w, cfg: RosaConfig, key, var=None, gate=None, mgate=None):

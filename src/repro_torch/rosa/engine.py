@@ -8,8 +8,8 @@ GEMM shape.  Model code that takes no engine argument resolves the ambient
 engine installed by `engine_context` (a ContextVar, so threads and tasks
 each see their own).
 
-A call on `meta` tensors records the matmul and returns an empty result of
-the right shape without running a backend: that is how `rosa.program`
+A call on `meta` tensors records the matmul (or, for `effective_weight`,
+returns the weight) without running a backend: that is how `rosa.program`
 traces a model at full width without computing anything.
 """
 
@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.core import mrr
 from repro_torch.core.constants import Mapping
-from repro_torch.rosa.backends import DEFAULT, RosaConfig, rosa_matmul
+from repro_torch.rosa.backends import (DEFAULT, RosaConfig, condition_weight,
+                                       rosa_matmul)
 from repro_torch.rosa.ledger import EnergyLedger
 from repro_torch.rosa.plan import ExecutionPlan
 
@@ -73,6 +74,11 @@ class Engine:
     variation: TMapping[str, mrr.StaticVariation] | None = None
 
     # -- constructors -------------------------------------------------------
+    @classmethod
+    def dense(cls) -> "Engine":
+        """All layers exact dense contraction (no optical path)."""
+        return cls(ExecutionPlan())
+
     @classmethod
     def from_config(cls, cfg: RosaConfig = DEFAULT,
                     layers: Iterable[str] | None = None,
@@ -143,3 +149,17 @@ class Engine:
             key = self.key_for(name, step)
         return rosa_matmul(x.float(), w.float(), cfg, key,
                            self.variation_for(name))
+
+    def effective_weight(self, w: torch.Tensor, *, name: str = "",
+                         step: int = 0, key: torch.Generator | None = None
+                         ) -> torch.Tensor:
+        """Noise-place a weight for a contraction the engine does not route
+        itself (the per-channel depthwise conv): the analog realization,
+        with the layer's key and pinned chip, that `matmul` gives its WS
+        side; identity for dense or fully ideal layers."""
+        if w.device.type == "meta":
+            return w
+        if key is None:
+            key = self.key_for(name, step)
+        return condition_weight(w, self.plan.resolve(name), key,
+                                self.variation_for(name))

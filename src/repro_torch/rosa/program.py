@@ -105,8 +105,12 @@ class AutotuneConfig:
 
 class Program:
     """A compiled optical program: the frozen engine (tuned plan, pinned
-    chip, ledger) its step functions run under; `bind(fn)` installs it
-    around `fn`."""
+    chip, ledger) its step functions run under.
+
+    Call it like the traced function minus the engine argument,
+    ``program(*args, key=..., variation=...)``, with an optional base key
+    (per-layer keys fold inside the engine) and an optional pinned chip;
+    `bind(fn)` installs the engine around any other function."""
 
     def __init__(self, apply_fn: ApplyFn, engine: Engine,
                  trace: ProgramTrace):
@@ -114,9 +118,24 @@ class Program:
         self.engine = engine
         self.trace = trace
 
+    def __call__(self, *args, key: torch.Generator | None = None,
+                 variation=None):
+        eng = self.engine
+        if key is not None:
+            eng = eng.with_key(key)
+        if variation is not None:
+            eng = eng.with_variation(variation)
+        with engine_context(eng):
+            return self.apply_fn(eng, *args)
+
     @property
     def plan(self) -> ExecutionPlan:
         return self.engine.plan
+
+    @property
+    def ledger(self) -> EnergyLedger | None:
+        """The frozen engine's ledger (None when unattached)."""
+        return self.engine.ledger
 
     def with_engine(self, engine: Engine) -> "Program":
         return Program(self.apply_fn, engine, self.trace)

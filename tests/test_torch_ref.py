@@ -40,6 +40,12 @@ _REF_MODULES = {
     "variation": "repro.robust.variation", "configs": "repro.configs",
     "model": "repro.models.model", "transformer": "repro.models.transformer",
     "serve": "repro.serve", "metrics": "repro.serve.metrics",
+    "mt_kernel": "repro.kernels.mrr_transfer.mrr_transfer",
+    "mt_ops": "repro.kernels.mrr_transfer.ops",
+    "mt_ref": "repro.kernels.mrr_transfer.ref", "cnn": "repro.models.cnn",
+    "module": "repro.models.module", "cnn_train": "repro.training.cnn_train",
+    "synth_cifar": "repro.data.synth_cifar",
+    "paper_cnns": "repro.configs.paper_cnns",
 }
 
 
