@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --phase2   # build and phase 2 only (no result)
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -9,11 +10,16 @@ Phases (any failure raises, so the exit code is non-zero):
      `src/repro_torch/kernels/csrc/` with nvcc (sm_90a);
   2. kernel parity: each kernel against its plain PyTorch version on the
      same CUDA tensors, at the serving shapes (m in {4, 8} rows against the
-     5120 x 51200 and 25600 x 5120 MLP projections) and a ragged shape,
-     held to the flip-aware one-LSB bound; median times from CUDA events
-     for the kernel, its plain version and, for osa_matmul, the one
-     PyTorch call computing the same function (`torch.matmul(q, w)` under
-     ideal gains);
+     5120 x 51200 and 25600 x 5120 MLP projections), the mobilenet_v3
+     conv_stem sheet at eval batch 512 (524288 x 27 x 16, PAPER_NOISE; IS
+     and WS), a ragged shape and, for osa_matmul, 524,289 rows (past the
+     grid's y limit), held to the flip-aware one-LSB bound; two launches
+     on the same inputs must give equal bits.  Timed rows: the median of
+     10 per-call CUDA-event times, a kernel-only time (one event pair
+     around 20 back-to-back launches replayed from a CUDA graph, over 20:
+     no wrapper host time between them), the plain version, the bound and, for
+     osa_matmul fused, the one PyTorch call computing the same function
+     (`torch.matmul(q, w)` under ideal gains);
   3. serve: qwen3-32b at full width, depth cut to 4 of 64 layers, random
      weights from seed 0, through the optical engine with the `rosa_fused`
      kernel and chip 7 pinned: 6 seeded Poisson requests, continuous
@@ -71,6 +77,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -115,6 +122,48 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_only_ms(fn, n: int = 20) -> float:
+    """Device time of `n` back-to-back calls of `fn` under one CUDA-event
+    pair, over n.  The calls are captured once into a CUDA graph and the
+    graph is replayed, so no host work (the wrapper's checks, allocations
+    and ctypes call) sits between the kernels; the difference to
+    `median_ms` is that host time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return a.elapsed_time(b) / n
+
+
+def distinct_bytes(*tensors) -> int:
+    """Bytes of the distinct elements of float32 operands (a stride-0
+    broadcast view counts its stored extent once); None entries and
+    tuples of tensors are taken as they come."""
+    total = 0
+    for t in tensors:
+        if t is None:
+            continue
+        if isinstance(t, (tuple, list)):
+            total += distinct_bytes(*t)
+            continue
+        total += 4 * math.prod(n for n, st in zip(t.shape, t.stride())
+                               if st != 0)
+    return total
 
 
 def quantized_parity(y, y_ref, what: str, qmax: int = 127,
@@ -167,26 +216,66 @@ def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # Phase 2: kernel parity and times
 # ---------------------------------------------------------------------------
+# conv_stem IS sheet of mobilenet_v3 at eval batch 512 (rows, lanes, outs)
+CONV_STEM = (524288, 27, 16)
+
+
 def fused_cases():
+    """(m, k, n, what, keywords, timed)."""
     from repro_torch.core.constants import ComputeMode, Mapping
     is_apv = dict(mapping=Mapping.IS, act_per_vector=True)
-    cases = [(m, k, n, f"IS realize_x {name}", is_apv)
+    cases = [(m, k, n, f"IS realize_x {name}", is_apv, True)
              for name, (k, n) in PROJ.items() for m in M_ROWS]
     k, n = PROJ["mlp/wo"]
-    cases += [(4, k, n, "WS realize_w mlp/wo", dict(mapping=Mapping.WS)),
+    cases += [(4, k, n, "WS realize_w mlp/wo", dict(mapping=Mapping.WS),
+               True),
               (8, *PROJ["mlp/wi"], "mgate 0.5 mlp/wi",
-               dict(mapping=Mapping.WS, mgate=0.5, act_per_vector=True)),
+               dict(mapping=Mapping.WS, mgate=0.5, act_per_vector=True),
+               False),
               (4, *PROJ["mlp/wi"], "ANALOG mlp/wi",
-               dict(mode=ComputeMode.ANALOG))]
+               dict(mode=ComputeMode.ANALOG), False)]
+    # the Table 4 evaluations' largest sheet: PAPER_NOISE, no chip
+    cases += [(*CONV_STEM, f"{mp} conv_stem noisy",
+               dict(mapping=Mapping[mp], noisy=True, chip=False), True)
+              for mp in ("IS", "WS")]
     m, k, n = RAGGED
-    cases += [(m, k, n, "IS ragged", is_apv),
+    cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
-               dict(mapping=Mapping.WS, gate=0.3)),
+               dict(mapping=Mapping.WS, gate=0.3), False),
               (m, k, n, "ANALOG gate 0.7 ragged",
-               dict(mode=ComputeMode.ANALOG, gate=0.7)),
+               dict(mode=ComputeMode.ANALOG, gate=0.7), False),
               (m, k, n, "WS noisy pam2 ragged",
-               dict(mapping=Mapping.WS, noisy=True, pam_bits=2))]
+               dict(mapping=Mapping.WS, noisy=True, pam_bits=2), False)]
     return cases
+
+
+def fused_flops(m, k, n, static) -> int:
+    """Float operations of one call: the contraction, the conditioning of
+    each activation (~12, ~40 with the realization chain) and of each
+    weight (~6, ~46 with the chain)."""
+    return (2 * m * k * n + (40 if static["realize_x"] else 12) * m * k
+            + (46 if static["realize_w"] else 6) * k * n)
+
+
+def time_row(row, fn, plain_fn, nbytes, flops) -> None:
+    """Per-call median, kernel-only time, plain version and bound."""
+    row["ms"] = median_ms(fn)
+    row["kernel_ms"] = kernel_only_ms(fn)
+    row["plain_ms"] = median_ms(plain_fn, reps=5)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+
+
+def timing_text(row) -> str:
+    if "ms" not in row:
+        return ""
+    return (f"  kernel {row['ms']:.4f} ms (kernel only "
+            f"{row['kernel_ms']:.4f})  plain {row['plain_ms']:.3f} ms"
+            + (f"  matmul {row['library_ms']:.4f} ms (kernel only "
+               f"{row['library_kernel_ms']:.4f})"
+               if row.get("library_ms") is not None else "")
+            + f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{100 * row['bound_share']:.1f} %)")
 
 
 def fused_phase(report: dict) -> dict:
@@ -197,9 +286,10 @@ def fused_phase(report: dict) -> dict:
 
     g = torch.Generator(DEVICE).manual_seed(1)
     err, rows, served = 0.0, [], None
-    for m, k, n, what, kw in fused_cases():
+    for m, k, n, what, kw, timed in fused_cases():
         kw = dict(kw)
         gate, mgate = kw.pop("gate", None), kw.pop("mgate", None)
+        with_chip = kw.pop("chip", True)
         key = None
         if kw.pop("noisy", False):
             kw["noise"] = mrr.PAPER_NOISE
@@ -209,7 +299,8 @@ def fused_phase(report: dict) -> dict:
         var = mrr.StaticVariation(
             0.01 * torch.randn(k, device=DEVICE, generator=g),
             0.04 * torch.randn(k, device=DEVICE, generator=g),
-            0.01 * torch.randn(k, device=DEVICE, generator=g))
+            0.01 * torch.randn(k, device=DEVICE, generator=g)) \
+            if with_chip else None
         args, static = ops.operands(x, w, key, var, gate, mgate, **kw)
         y = ops.launch(*args, **static)
         y_plain = ops.plain(*args, **static)
@@ -217,21 +308,19 @@ def fused_phase(report: dict) -> dict:
         e = quantized_parity(y, y_plain, f"rosa_fused {what} {m}x{k}x{n}")
         err = max(err, e)
         row = {"case": what, "m": m, "k": k, "n": n, "max_abs_err": e}
-        if what.startswith("IS realize_x"):
-            # the served shapes: kernel, plain version, bound
-            row["ms"] = median_ms(lambda: ops.launch(*args, **static))
-            row["plain_ms"] = median_ms(
-                lambda: ops.plain(*args, **static), reps=5)
-            nbytes = 4 * (m * k + k * n + m * n + 3 * m + 3 + 7 + 3 * k)
-            flops = 2 * m * k * n + 40 * m * k + 6 * k * n
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        if timed:
+            if not torch.equal(y, ops.launch(*args, **static)):
+                raise AssertionError(f"rosa_fused {what}: two launches on "
+                                     "the same inputs differ")
+            nbytes = distinct_bytes(*args) + 4 * m * n
+            time_row(row, lambda: ops.launch(*args, **static),
+                     lambda: ops.plain(*args, **static), nbytes,
+                     fused_flops(m, k, n, static))
             if what == "IS realize_x mlp/wi" and m == 4:
                 served = row             # the decode tick's larger launch
         rows.append(row)
         print(f"  rosa_fused {what:24s} {m}x{k}x{n}: max_abs_err {e:.3e}"
-              + (f"  kernel {row['ms']:.3f} ms  plain "
-                 f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms"
-                 if "ms" in row else ""))
+              + timing_text(row), flush=True)
         del x, w, args, y, y_plain
         torch.cuda.empty_cache()
     # the requantized 8-bit codes, read back through an identity weight:
@@ -265,8 +354,11 @@ def osa_phase(report: dict) -> dict:
     g = torch.Generator(DEVICE).manual_seed(3)
     gains = Q.plane_weights(device=DEVICE)
     shapes = [(m, k, n) for (k, n) in PROJ.values() for m in M_ROWS]
+    # past the grid's y limit of 65535 row tiles: no ported path runs
+    # osa_matmul this tall, the launcher must take it all the same
+    tall = (CONV_STEM[0] + 1, *CONV_STEM[1:])
     err, rows, served = 0.0, [], None
-    for m, k, n in shapes + [RAGGED]:
+    for m, k, n in shapes + [RAGGED, tall]:
         x = torch.randn(m, k, device=DEVICE, generator=g)
         w = torch.randn(k, n, device=DEVICE, generator=g)
         q, _ = Q.quantize(x, per_vector=True)
@@ -278,23 +370,30 @@ def osa_phase(report: dict) -> dict:
             e = quantized_parity(y, y_plain, f"{what} {m}x{k}x{n}")
             err = max(err, e)
             row = {"case": what, "m": m, "k": k, "n": n, "max_abs_err": e}
-            if (m, k, n) != RAGGED and fused:
-                row["ms"] = median_ms(
-                    lambda: ops.launch(q, w, gains, n_planes=7))
-                row["plain_ms"] = median_ms(
-                    lambda: ops.plain(q, w, gains, n_planes=7), reps=5)
-                row["library_ms"] = median_ms(lambda: torch.matmul(q, w))
-                nbytes = 4 * (m * k + k * n + m * n + 7)
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    nbytes, 2 * m * k * n + 21 * m * k)
-                if (m, k, n) == (4, *PROJ["mlp/wi"]):
+            if (m, k, n) in shapes:
+                if not torch.equal(y, ops.launch(q, w, gains, n_planes=7,
+                                                 fused=fused)):
+                    raise AssertionError(f"{what} {m}x{k}x{n}: two launches "
+                                         "on the same inputs differ")
+                # per-plane: one contraction per plane, 7x the operations
+                planes = 1 if fused else 7
+                time_row(row,
+                         lambda: ops.launch(q, w, gains, n_planes=7,
+                                            fused=fused),
+                         lambda: ops.plain(q, w, gains, n_planes=7,
+                                           fused=fused),
+                         4 * (m * k + k * n + m * n + 7),
+                         planes * 2 * m * k * n + 21 * m * k)
+                row["library_ms"] = row["library_kernel_ms"] = None
+                if fused:
+                    row["library_ms"] = median_ms(lambda: torch.matmul(q, w))
+                    row["library_kernel_ms"] = kernel_only_ms(
+                        lambda: torch.matmul(q, w))
+                if (m, k, n) == (4, *PROJ["mlp/wi"]) and fused:
                     served = row
             rows.append(row)
             print(f"  {what:25s} {m}x{k}x{n}: max_abs_err {e:.3e}"
-                  + (f"  kernel {row['ms']:.3f} ms  plain "
-                     f"{row['plain_ms']:.3f} ms  matmul "
-                     f"{row['library_ms']:.3f} ms  bound "
-                     f"{row['bound_ms']:.3f} ms" if "ms" in row else ""))
+                  + timing_text(row), flush=True)
         del x, w, q, y, y_plain
         torch.cuda.empty_cache()
     report["osa_matmul_cases"] = rows
@@ -976,7 +1075,22 @@ def golden_phase(report: dict) -> dict:
     return out
 
 
-def main() -> int:
+def write_report(report: dict, t_start: float) -> int:
+    report["wall_s"] = time.perf_counter() - t_start
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "CUDA card (all phases by default).")
+    ap.add_argument("--phase2", action="store_true",
+                    help="build and run phase 2 (kernel parity and times) "
+                    "only; prints no summary and no result line")
+    phase2_only = ap.parse_args(argv).phase2
     try:
         import torch
     except ImportError:
@@ -1005,26 +1119,39 @@ def main() -> int:
     libs = kernels.build_all()
     print(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in sorted(libs):
-        for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        log = kernels.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in
+                     re.findall(r"(\d+) bytes spill stores", log))
+        print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)}"
+              f" registers a thread, {spills} bytes of spill stores")
 
-    report: dict = {"card": card}
+    report: dict = {"card": card, "phase_s": {}}
+
+    def phase(name, fn):
+        t = time.perf_counter()
+        out = fn(report)
+        report["phase_s"][name] = time.perf_counter() - t
+        print(f"  ({name}: {report['phase_s'][name]:.1f} s)", flush=True)
+        return out
+
     print("phase 2: kernel parity against the plain versions")
-    fused = fused_phase(report)
-    osa = osa_phase(report)
+    fused = phase("2 rosa_fused", fused_phase)
+    osa = phase("2 osa_matmul", osa_phase)
+    if phase2_only:
+        return write_report(report, t_start)
     print("phases 3-5: serving")
-    launches = serve_phase(report)
+    launches = phase("3-5", serve_phase)
     print("phase 6: ssd_scan parity against the plain version")
-    ssd = ssd_phase(report)
+    ssd = phase("6", ssd_phase)
     print("phase 7: serving mamba2-1.3b")
-    launches["ssd_scan"] = mamba_phase(report)
+    launches["ssd_scan"] = phase("7", mamba_phase)
     print("phase 8: mrr_transfer parity against the plain version")
-    mrr_row = mrr_phase(report)
+    mrr_row = phase("8", mrr_phase)
     print(f"phase 9: the Table 4 pipeline, {CNN}")
-    launches["mrr_transfer"] = table4_phase(report)["mrr_transfer"]
+    launches["mrr_transfer"] = phase("9", table4_phase)["mrr_transfer"]
     print(f"phase 10: {CNN} on the card against the reference's golden file")
-    golden_phase(report)
+    phase("10", golden_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",
@@ -1057,10 +1184,7 @@ def main() -> int:
          "bound_by": mrr_row["bound_by"], "library_ms": None},
     ]}
     report["summary"] = summary
-    report["wall_s"] = time.perf_counter() - t_start
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    write_report(report, t_start)
     for k in summary["kernels"]:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):

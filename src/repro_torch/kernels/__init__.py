@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their loader.
 
-Each kernel lives in `csrc/<name>.cu` behind a plain C interface.  On first
-use `library(name)` compiles every source in `csrc/` with `nvcc` (one
-process per source, all started together) into
-`<checkout>/build/repro_torch_kernels/lib<name>-<hash>.so`, where the hash
-covers the source and the flags, and loads it with `ctypes`.  Nothing is
+Each kernel lives in `csrc/<name>.cu` behind a plain C interface (shared
+device code in `csrc/*.cuh`).  On first use `library(name)` compiles
+every source in `csrc/` with `nvcc` (one process per source, all started
+together) into `<checkout>/build/repro_torch_kernels/lib<name>-<hash>.so`,
+where the hash covers the source, the shared headers and the flags, and
+loads it with `ctypes`.  Nothing is
 built when this package is imported, and nothing is built for a CPU
 tensor: each wrapper takes its plain PyTorch version only for tensors on
 the CPU, and for a CUDA tensor launches its kernel or raises.
@@ -50,7 +51,10 @@ def nvcc_path() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the hash covers the shared headers a source may include
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers
+                       + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

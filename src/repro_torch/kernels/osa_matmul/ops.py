@@ -25,9 +25,11 @@ import functools
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import skinny
 from repro_torch.core import quant as Q
 
-# Tile of the CUDA kernel (csrc/osa_matmul.cu): BM x BN outputs, BK lanes.
+# Tile of the tall path of the CUDA kernel (csrc/osa_matmul.cu, M > 16):
+# BM x BN outputs, BK lanes; M <= 16 takes the decode path (kernels.skinny).
 BM, BN, BK = 8, 128, 32
 LAUNCHES = kernels.LaunchCounter("osa_matmul")
 
@@ -81,11 +83,40 @@ def plain(q: torch.Tensor, w: torch.Tensor, gains: torch.Tensor, *,
 def _lib():
     lib = kernels.library("osa_matmul")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.osa_matmul_splits.argtypes = [i32, i32, i32, i32]
-    lib.osa_matmul_splits.restype = i32
-    lib.osa_matmul_launch.argtypes = [vp] * 5 + [i32] * 9 + [vp]
+    lib.osa_matmul_launch.argtypes = [vp] * 6 + [i32] * 10 + [vp]
     lib.osa_matmul_launch.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, k: int, n: int, *, n_sm: int = 132, fused: bool = True,
+         n_planes: int = 7) -> dict:
+    """The launch `launch` makes for an (m, k, n) contraction: the decode
+    path for m <= 16 (`skinny.decode_plan`; the per-plane mode stages its
+    planes), else the tall path (BM x BN tiles on grid (N tiles, M tiles
+    capped at 65535, K splits); blocks take the M tiles past the cap in
+    turn, and K splits until there are about two blocks per SM).  Cached
+    per shape: do not modify the dict."""
+    if m <= skinny.MAX_M:
+        return skinny.decode_plan(m, k, n, n_sm=n_sm,
+                                  planes=1 if fused else n_planes)
+    cdiv = skinny.cdiv
+    tiles = cdiv(m, BM) * cdiv(n, BN)
+    splits = max(1, min(cdiv(2 * n_sm, tiles), cdiv(k, BK)))
+    k_per_split = cdiv(cdiv(k, splits), BK) * BK
+    splits = cdiv(k, k_per_split)
+    return {"path": "tall",
+            "grid": (cdiv(n, BN), min(cdiv(m, BM), skinny.MAX_GRID_Y),
+                     splits),
+            "splits": splits, "k_per_split": k_per_split, "n_tile": BN,
+            "smem_bytes": 4 * (8 * BM * BK + BK * BN + 8),
+            "operand_floats": 0,
+            "part_floats": splits * m * n if splits > 1 else 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(q: torch.Tensor, w: torch.Tensor, gains: torch.Tensor, *,
@@ -107,29 +138,37 @@ def launch(q: torch.Tensor, w: torch.Tensor, gains: torch.Tensor, *,
     m, k = q.shape
     n = w.shape[1]
     lib = _lib()
-    out = torch.empty((m, n), dtype=torch.float32, device=q.device)
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = lib.osa_matmul_splits(m, k, n, n_sm)
-    work = (torch.empty(splits * m * n, dtype=torch.float32, device=q.device)
-            if splits > 1 else None)
-    with torch.cuda.device(q.device):
+    dev = q.device
+    pl = plan(m, k, n, n_sm=_n_sm(dev.index), fused=fused,
+              n_planes=n_planes)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    xr, part = (torch.empty(pl[key], dtype=torch.float32, device=dev)
+                if pl[key] else None
+                for key in ("operand_floats", "part_floats"))
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.osa_matmul_launch(
             q.data_ptr(), w.data_ptr(), gains.data_ptr(), out.data_ptr(),
-            work.data_ptr() if work is not None else None, m, k, n,
-            q.stride(0), w.stride(0), n, n_planes, int(fused), splits,
-            stream)
+            xr.data_ptr() if xr is not None else None,
+            part.data_ptr() if part is not None else None, m, k, n,
+            q.stride(0), w.stride(0), n, n_planes, int(fused),
+            pl["splits"], pl["k_per_split"], stream)
     kernels.check_launch(rc, name)
     LAUNCHES.add()
     return out
 
 
 def preflight(m: int, k: int, n: int, *, n_sm: int = 132,
-              quant_bits: int = 8, pam_bits: int = 1) -> dict:
+              quant_bits: int = 8, pam_bits: int = 1,
+              fused: bool = True) -> dict:
     """What `launch` would run for an (m, k, n) GEMM on an H100, without
-    launching: grid (N tiles, M tiles, K splits), static shared memory per
-    block against the 227 KB limit, and the fraction of multiply-adds the
-    ragged tile edges waste."""
+    launching: the path (decode for m <= 16, else tall), grid (N tiles,
+    K splits, 1) or (N tiles, M tiles, K splits), the K split, the N tile,
+    shared memory per block against the 227 KB limit (dynamic on the
+    decode path: the 6-stage ring; two fused blocks share an SM, so about
+    twice that is in flight per SM), the workspaces and the fraction of
+    multiply-adds the ragged tile edges waste (rows are never padded on
+    the decode path: its kernel is templated on m)."""
     n_planes = -(-Q.QuantConfig(bits=quant_bits).n_planes // pam_bits)
     issues: list[str] = []
     if min(m, k, n) <= 0:
@@ -138,11 +177,10 @@ def preflight(m: int, k: int, n: int, *, n_sm: int = 132,
                 "issues": [f"non-positive dimension in m,k,n={m},{k},{n}"]}
     if n_planes > 8:
         issues.append(f"{n_planes} planes exceed the kernel's 8")
-    tiles = -(-m // BM) * -(-n // BN)
-    splits = max(1, min(-(-2 * n_sm // tiles), -(-k // BK)))
-    smem = 4 * (8 * BM * BK + BK * BN + 8)
-    if smem > 232448:
-        issues.append(f"{smem} bytes of shared memory exceed 227 KB")
-    pad_waste = (-(-m // BM) * BM * -(-n // BN) * BN) / (m * n) - 1.0
-    return {"kernel": "osa_matmul", "grid": (-(-n // BN), -(-m // BM), splits),
-            "smem_bytes": smem, "pad_waste": pad_waste, "issues": issues}
+    pl = plan(m, k, n, n_sm=n_sm, fused=fused, n_planes=min(n_planes, 8))
+    if pl["smem_bytes"] > skinny.SMEM_LIMIT:
+        issues.append(f"{pl['smem_bytes']} bytes of shared memory exceed "
+                      "227 KB")
+    rows = m if pl["path"] == "decode" else -(-m // BM) * BM
+    pad_waste = rows * -(-n // pl["n_tile"]) * pl["n_tile"] / (m * n) - 1.0
+    return dict(pl, kernel="osa_matmul", pad_waste=pad_waste, issues=issues)

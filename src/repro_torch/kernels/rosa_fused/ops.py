@@ -31,13 +31,17 @@ import functools
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import skinny
 from repro_torch.core import mrr, osa
 from repro_torch.core import quant as Q
 from repro_torch.core.constants import ComputeMode, Mapping
 from repro_torch.kernels.rosa_fused import ref
 
-# Tile of the CUDA kernel (csrc/rosa_fused.cu): BM x BN outputs, BK lanes.
-BM, BN, BK = 8, 128, 32
+# The tall path of the CUDA kernel (csrc/rosa_fused.cu, M > 16): TALL_BM
+# rows and an N tile from N_TILES per block, TALL_BK lanes a step; M <= 16
+# takes the decode path (kernels.skinny).
+TALL_BM, TALL_BK = 128, 32
+N_TILES = (16, 32, 64, 128)
 LAUNCHES = kernels.LaunchCounter("rosa_fused")
 
 
@@ -235,13 +239,46 @@ def _lib():
     lib = kernels.library("rosa_fused")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     pp, p64 = ctypes.POINTER(vp), ctypes.POINTER(i64)
-    lib.rosa_fused_splits.argtypes = [i32, i32, i32, i32]
-    lib.rosa_fused_splits.restype = i32
     lib.rosa_fused_launch.argtypes = (
-        [vp] * 5 + [pp, p64, pp, p64] + [vp, vp] + [i32] * 9
-        + [ctypes.c_float, i32, ctypes.POINTER(ctypes.c_float), i32, vp])
+        [vp] * 5 + [pp, p64, pp, p64] + [vp] * 3 + [i32] * 9
+        + [ctypes.c_float, i32, ctypes.POINTER(ctypes.c_float)] + [i32] * 3
+        + [vp])
     lib.rosa_fused_launch.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _chain(p: mrr.MRRParams):
+    """The folded chain's 19 float32 constants as a ctypes array."""
+    values = mrr.chain_constants(p).values()
+    return (ctypes.c_float * len(values))(*values)
+
+
+def n_tile(n: int) -> int:
+    """The tall path's N tile: the smallest of 16, 32, 64, 128 that holds
+    N, else 128 (wider N takes several tiles)."""
+    return next((t for t in N_TILES if n <= t), N_TILES[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, k: int, n: int, *, n_sm: int = 132) -> dict:
+    """The launch `launch` makes for an (m, k, n) product: the decode path
+    for m <= 16 (`skinny.decode_plan`), else the tall path: grid (row
+    tiles of TALL_BM, N tiles), no K split, the weight conditioned once
+    into a k x n workspace.  Cached per shape: do not modify the dict."""
+    if m <= skinny.MAX_M:
+        return skinny.decode_plan(m, k, n, n_sm=n_sm, planes=1)
+    t = n_tile(n)
+    return {"path": "tall",
+            "grid": (skinny.cdiv(m, TALL_BM), skinny.cdiv(n, t), 1),
+            "splits": 1, "k_per_split": k, "n_tile": t,
+            "smem_bytes": 4 * (TALL_BM * (TALL_BK + 1) + TALL_BK * t),
+            "operand_floats": k * n, "part_floats": 0}
 
 
 def _side(offs, shape, name):
@@ -288,24 +325,26 @@ def launch(x, w, gains, sx, gg, x_off=None, w_off=None, *, analog: bool,
     xp, xs = _side(x_off, (m, k), "x")
     wp, wst = _side(w_off, (k, n), "w")
     lib = _lib()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = lib.rosa_fused_splits(m, k, n, n_sm)
-    work = (torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    dev = x.device
+    pl = plan(m, k, n, n_sm=_n_sm(dev.index))
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    operand = torch.empty(pl["operand_floats"], dtype=torch.float32,
+                          device=dev)
+    part = (torch.empty(pl["part_floats"], dtype=torch.float32, device=dev)
+            if pl["part_floats"] else None)
     on = dict(analog=analog, realize_x=realize_x, realize_w=realize_w,
               use_gate=use_gate, use_mgate=use_mgate)
     flags = sum(bit for key, bit in _FLAGS.items() if on[key])
-    values = mrr.chain_constants(p).values()
-    chain = (ctypes.c_float * len(values))(*values)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rosa_fused_launch(
             x.data_ptr(), w.data_ptr(), gains.data_ptr(), sx.data_ptr(),
             gg.data_ptr(), xp, xs, wp, wst, out.data_ptr(),
-            work.data_ptr() if work is not None else None, m, k, n,
+            operand.data_ptr(),
+            part.data_ptr() if part is not None else None, m, k, n,
             x.stride(0), w.stride(0), n, sx.stride(0), n_planes, radix_bits,
-            float(qmax), flags, chain, splits, stream)
+            float(qmax), flags, _chain(p), pl["splits"], pl["k_per_split"],
+            pl["n_tile"], stream)
     kernels.check_launch(rc, name)
     LAUNCHES.add()
     return out
@@ -314,9 +353,14 @@ def launch(x, w, gains, sx, gg, x_off=None, w_off=None, *, analog: bool,
 def preflight(m: int, k: int, n: int, *, n_sm: int = 132,
               quant_bits: int = 8, pam_bits: int = 1) -> dict:
     """What `launch` would run for an (m, k, n) GEMM on an H100, without
-    launching: grid (N tiles, M tiles, K splits), static shared memory per
-    block against the 227 KB limit, and the fraction of multiply-adds the
-    ragged tile edges waste."""
+    launching: the path (decode for m <= 16, else tall), grid (N tiles, K
+    splits, 1) on the decode path or (row tiles, N tiles, 1) on the tall
+    path, whose row tiles sit on grid x and so never meet the 65535 limit
+    of grid y; the K split, the N tile (decode: 128; tall: 16, 32, 64 or
+    128 following N), shared memory per block against the 227 KB limit
+    (decode: the 6-stage ring, two blocks per SM), the workspaces and the
+    fraction of multiply-adds the ragged tile edges waste (rows are never
+    padded on the decode path: its kernel is templated on m)."""
     n_planes = -(-Q.QuantConfig(bits=quant_bits).n_planes // pam_bits)
     issues: list[str] = []
     if min(m, k, n) <= 0:
@@ -325,12 +369,12 @@ def preflight(m: int, k: int, n: int, *, n_sm: int = 132,
                 "issues": [f"non-positive dimension in m,k,n={m},{k},{n}"]}
     if n_planes > 8:
         issues.append(f"{n_planes} slots exceed the kernel's 8")
-    tiles = -(-m // BM) * -(-n // BN)
-    splits = max(1, min(-(-2 * n_sm // tiles), -(-k // BK)))
-    smem = 4 * (BM * BK + BK * BN + 8)
-    if smem > 232448:
-        issues.append(f"{smem} bytes of shared memory exceed 227 KB")
-    pad_waste = (-(-m // BM) * BM * -(-n // BN) * BN) / (m * n) - 1.0
-    grid_y = min(-(-m // BM), 65535)      # further M tiles taken in turn
-    return {"kernel": "rosa_fused", "grid": (-(-n // BN), grid_y, splits),
-            "smem_bytes": smem, "pad_waste": pad_waste, "issues": issues}
+    pl = plan(m, k, n, n_sm=n_sm)
+    if pl["smem_bytes"] > skinny.SMEM_LIMIT:
+        issues.append(f"{pl['smem_bytes']} bytes of shared memory exceed "
+                      "227 KB")
+    if pl["grid"][1] > skinny.MAX_GRID_Y:
+        issues.append(f"grid y {pl['grid'][1]} exceeds 65535")
+    rows = m if pl["path"] == "decode" else -(-m // TALL_BM) * TALL_BM
+    pad_waste = rows * -(-n // pl["n_tile"]) * pl["n_tile"] / (m * n) - 1.0
+    return dict(pl, kernel="rosa_fused", pad_waste=pad_waste, issues=issues)

@@ -40,10 +40,12 @@ STREAMS = {
 def family(name: str) -> str:
     """The kernel family a profiler event name belongs to."""
     n = name.lower()
-    if "fused_kernel" in n or "flush_splits" in n:
-        return "rosa_fused kernel"
-    if "osa_kernel" in n or "sum_splits" in n:
+    if any(k in n for k in ("osa_kernel", "sum_splits", "osa_operand",
+                            "identity>")):
         return "osa_matmul kernel"
+    if any(k in n for k in ("fused_kernel", "flush_splits", "weightop>",
+                            "x_operand", "w_operand")):
+        return "rosa_fused kernel"
     if "ssd_scan" in n:
         return "ssd_scan kernel"
     if "transfer_kernel" in n:

@@ -215,12 +215,78 @@ def test_launch_refuses_cpu_tensors_and_missing_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("mod", [fused_ops, osa_ops])
 def test_preflight_at_serving_shapes(mod):
+    """The decode path at the served projections: 400 column tiles split 6
+    ways over K for mlp/wi, 40 tiles split 50 ways for mlp/wo (about 16
+    blocks per SM), whole ring stages per split, and a ring that lets two
+    blocks share an SM."""
     wi = mod.preflight(4, 5120, 51200)
     wo = mod.preflight(4, 25600, 5120)
     assert wi["issues"] == [] and wo["issues"] == []
-    assert wi["grid"] == (400, 1, 1)          # 400 N tiles fill the card
-    assert wo["grid"][:2] == (40, 1) and wo["grid"][2] > 1   # split K
-    assert wi["smem_bytes"] < 48 * 1024
+    assert wi["path"] == wo["path"] == "decode"
+    assert wi["grid"] == (400, 6, 1) and wi["k_per_split"] == 864
+    assert wo["grid"] == (40, 50, 1) and wo["k_per_split"] == 512
+    assert 2 * wi["smem_bytes"] + 2048 <= 228 * 1024
+    assert wi["bytes_in_flight_per_sm"] >= 32 * 1024
+    assert wi["pad_waste"] == 0.0          # no padded rows at m = 4
+
+
+@pytest.mark.parametrize("mod", [fused_ops, osa_ops])
+@pytest.mark.parametrize("m,path", [(1, "decode"), (4, "decode"),
+                                    (8, "decode"), (16, "decode"),
+                                    (17, "tall"), (524288, "tall")])
+def test_launch_path_follows_m(mod, m, path):
+    assert mod.plan(m, 27, 16)["path"] == path
+
+
+@pytest.mark.parametrize("mod", [fused_ops, osa_ops])
+def test_grid_y_within_limit_at_600000_rows(mod):
+    pl = mod.preflight(600_000, 27, 16)
+    assert pl["issues"] == [] and pl["grid"][1] <= 65535
+    if mod is fused_ops:       # row tiles on grid x: every row has a block
+        assert pl["grid"] == (-(-600_000 // 128), 1, 1)
+    else:                      # capped; blocks take the rest in turn
+        assert pl["grid"][:2] == (1, 65535)
+
+
+@pytest.mark.parametrize("mod", [fused_ops, osa_ops])
+@pytest.mark.parametrize("m", [1, 4, 8, 16])
+def test_k_split_at_25600x5120(mod, m):
+    pl = mod.plan(m, 25600, 5120)
+    assert pl["splits"] == 50 and pl["k_per_split"] == 512
+    assert pl["part_floats"] == 50 * m * 5120
+    assert pl["operand_floats"] == 25600 * (-(-m // 4) * 4)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 5120, 51200), (3, 700, 130),
+                                   (16, 25600, 5120), (5, 33, 7),
+                                   (9, 100000, 10)])
+def test_decode_splits_cover_k_in_whole_stages(m, k, n):
+    pl = fused_ops.plan(m, k, n)
+    kps, splits = pl["k_per_split"], pl["splits"]
+    assert kps % 32 == 0 and (splits - 1) * kps < k <= splits * kps
+    assert pl["grid"] == (-(-n // 128), splits, 1)
+    assert splits == 1 or pl["part_floats"] == splits * m * n
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+@pytest.mark.parametrize("mode", ["rosa_fused", "osa fused",
+                                  "osa per-plane"])
+def test_dynamic_shared_memory_within_limit(m, mode):
+    pl = (fused_ops.preflight(m, 5120, 51200) if mode == "rosa_fused" else
+          osa_ops.preflight(m, 5120, 51200, fused=mode == "osa fused",
+                            pam_bits=1))
+    assert pl["issues"] == [] and pl["smem_bytes"] <= 232448
+    if mode != "osa per-plane":             # two blocks per SM
+        assert 2 * pl["smem_bytes"] + 2048 <= 228 * 1024
+
+
+@pytest.mark.parametrize("m,n,tile", [(524288, 10, 16), (524288, 16, 16),
+                                      (524288, 96, 128), (524288, 300, 128),
+                                      (4, 51200, 128), (524288, 51200, 128)])
+def test_n_tile_follows_n(m, n, tile):
+    pl = fused_ops.preflight(m, 27, n)
+    assert pl["n_tile"] == tile and pl["issues"] == []
+    assert pl["grid"][1 if pl["path"] == "tall" else 0] == -(-n // tile)
 
 
 # ---------------------------------------------------------------------------
@@ -262,3 +328,113 @@ def test_osa_kernel_matches_plain_on_cuda(fused):
     torch.cuda.synchronize()
     np.testing.assert_allclose(to_np(y_gpu), to_np(y_cpu), rtol=1e-5,
                                atol=1e-4)
+
+
+def _fused_on(x, w, var, **kw):
+    """rosa_fused_matmul on the CPU (the plain version) and on the card."""
+    y_cpu = fused_ops.rosa_fused_matmul(torch.from_numpy(x),
+                                        torch.from_numpy(w), None, var, **kw)
+    xg, wg = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    y_gpu = fused_ops.rosa_fused_matmul(xg, wg, None, var.to("cuda"), **kw)
+    torch.cuda.synchronize()
+    return y_cpu, y_gpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 5, 16])
+@pytest.mark.parametrize("kw", [
+    {"mapping": Mapping.IS, "act_per_vector": True},
+    {"mapping": Mapping.WS}])
+def test_fused_decode_rows_match_plain_on_cuda(m, kw):
+    _need_cuda()
+    x, w, dv = _operands(m, 1100, 260, 20 + m)
+    var = TM.StaticVariation(torch.from_numpy(dv), torch.tensor(0.05),
+                             torch.tensor(1e-4))
+    y_cpu, y_gpu = _fused_on(x, w, var, **kw)
+    assert_quantized_parity(y_gpu, y_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 5, 16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_osa_decode_rows_match_plain_on_cuda(m, fused):
+    _need_cuda()
+    x, w, _ = _operands(m, 1100, 260, 30 + m)
+    y_cpu = osa_ops.osa_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                               fused=fused)
+    y_gpu = osa_ops.osa_matmul(torch.from_numpy(x).cuda(),
+                               torch.from_numpy(w).cuda(), fused=fused)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(to_np(y_gpu), to_np(y_cpu), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 40])
+@pytest.mark.parametrize("view", ["ragged", "unaligned"])
+def test_kernels_take_ragged_and_unaligned_weights_on_cuda(m, view):
+    """Views of a (333, 304) weight: the first 301 columns (aligned rows,
+    a ragged last float4) and a column-offset view starting 4 bytes past a
+    16-byte boundary (every copy 4 bytes wide); both launch the kernels,
+    never the plain version."""
+    _need_cuda()
+    x, w_full, dv = _operands(m, 333, 304, 40 + m)
+    cols = slice(1, None) if view == "unaligned" else slice(None, 301)
+    wg = torch.from_numpy(w_full).cuda()[:, cols]
+    w = np.ascontiguousarray(w_full[:, cols])
+    var = TM.StaticVariation(torch.from_numpy(dv), torch.tensor(0.05),
+                             torch.tensor(1e-4))
+    for kw in ({"mapping": Mapping.WS}, {"mapping": Mapping.IS}):
+        y_cpu = fused_ops.rosa_fused_matmul(
+            torch.from_numpy(x), torch.from_numpy(w), None, var, **kw)
+        y_gpu = fused_ops.rosa_fused_matmul(
+            torch.from_numpy(x).cuda(), wg, None, var.to("cuda"), **kw)
+        torch.cuda.synchronize()
+        assert_quantized_parity(y_gpu, y_cpu)
+    q = torch.round(torch.from_numpy(x) * 20).clamp(-127, 127)
+    g = torch.tensor([2.0 ** t for t in range(7)])
+    for fused in (True, False):
+        y_cpu = osa_ops.osa_matmul_int(q, torch.from_numpy(w), g,
+                                       n_planes=7, fused=fused)
+        y_gpu = osa_ops.osa_matmul_int(q.cuda(), wg, g.cuda(), n_planes=7,
+                                       fused=fused)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(to_np(y_gpu), to_np(y_cpu), rtol=1e-5,
+                                   atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_osa_kernel_takes_524289_rows_on_cuda(fused):
+    _need_cuda()
+    r = np.random.default_rng(7)
+    q = torch.from_numpy(r.integers(-127, 128, size=(524289, 27))
+                         .astype(np.float32)).cuda()
+    w = torch.from_numpy(r.normal(size=(27, 16)).astype(np.float32)).cuda()
+    g = torch.tensor([2.0 ** t for t in range(7)], device="cuda")
+    y = osa_ops.osa_matmul_int(q, w, g, n_planes=7, fused=fused)
+    y_plain = osa_ops.plain(q, w, g, n_planes=7, fused=fused)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(to_np(y), to_np(y_plain), rtol=1e-5,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_split_k_launches_are_bitwise_deterministic_on_cuda():
+    """K split across blocks (4 x 4096 x 256: 2 column tiles, split 32
+    ways) is summed in a fixed order: two launches give equal bits."""
+    _need_cuda()
+    assert fused_ops.plan(4, 4096, 256)["splits"] > 1
+    x, w, dv = _operands(4, 4096, 256, 50)
+    var = TM.StaticVariation(torch.from_numpy(dv), torch.tensor(0.05),
+                             torch.tensor(1e-4)).to("cuda")
+    xg, wg = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    args, static = fused_ops.operands(xg, wg, None, var, mapping=Mapping.WS)
+    assert torch.equal(fused_ops.launch(*args, **static),
+                       fused_ops.launch(*args, **static))
+    q = torch.round(xg * 20).clamp(-127, 127)
+    g = torch.tensor([2.0 ** t for t in range(7)], device="cuda")
+    for fused in (True, False):
+        assert torch.equal(
+            osa_ops.launch(q, wg, g, n_planes=7, fused=fused),
+            osa_ops.launch(q, wg, g, n_planes=7, fused=fused))
