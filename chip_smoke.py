@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --phase2   # build and phase 2 only (no result)
+    python3 chip_smoke.py --kernels  # build and phases 2, 6, 8 (no result)
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -32,9 +32,11 @@ Phases (any failure raises, so the exit code is non-zero):
      4x the float-order floor the script measures (see serve_phase);
   6. ssd_scan parity and times: the kernel against its plain version at
      mamba2-1.3b's served shape (B 1, H 64, P 64, G 1, S 128, chunk 128)
-     for L in {128, 512, 1000} (1000: a ragged tail) and one case with
-     G 2 and B 2, held to 1e-4 of max|y| on y and of max|state| on the
-     final state; median times from CUDA events and the bound;
+     for L in {1, 127, 128, 129, 512, 1000} (ragged tails), one case with
+     G 2 and B 2 and one with G = H, held to 1e-4 of max|y| on y and of
+     max|state| on the final state; two launches must give equal bits;
+     per-call and kernel-only times as in phase 2, the bound and its
+     share, the launches' resident blocks per SM;
   7. serve: mamba2-1.3b at full width and depth (48 layers, 1.34e9 params,
      random weights from seed 0) with the optical engine on (the block
      routes nothing), 8 seeded Poisson requests (prompts 200-700 tokens,
@@ -46,10 +48,11 @@ Phases (any failure raises, so the exit code is non-zero):
      floor, with the same greedy token;
   8. mrr_transfer parity and times: the kernel against its plain version
      on the same CUDA tensors, bit for bit, at the mobilenet_v3 depthwise
-     weight (60, 25) with noise and a chip, the conv_stem IS activation
-     sheet at eval batch 512 (524288, 27), qwen3-32b's mlp/wi (5120,
-     51200) with noise and with a chip only, and a ragged 1-D n =
-     1,000,003; median times from CUDA events and the bound;
+     weight (60, 25) with noise and a chip (per row), the conv_stem IS
+     activation sheet at eval batch 512 (524288, 27) without and with a
+     chip (per column), qwen3-32b's mlp/wi (5120, 51200) with noise and
+     with a chip only, and a ragged 1-D n = 1,000,003; per-call and
+     kernel-only times as in phase 2, the bound and its share;
   9. the paper's Table 4 pipeline for mobilenet_v3 at the reference's
      widths through `launch.table4.run_model`: 400 QAT steps at batch 64
      on 4096 synth-CIFAR images, the per-layer noise profile (n_mc 3), the
@@ -90,9 +93,12 @@ F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 M_ROWS = (4, 8)               # decode batch (4 slots) and a prefill chunk
 PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
 RAGGED = (13, 1000, 300)
-# ssd_scan cases (B, L, H, P, G, S, chunk): mamba2-1.3b's served shape
-SSD_CASES = [(1, 128, 64, 64, 1, 128, 128), (1, 512, 64, 64, 1, 128, 128),
-             (1, 1000, 64, 64, 1, 128, 128), (2, 700, 64, 64, 2, 128, 128)]
+# ssd_scan cases (B, L, H, P, G, S, chunk): mamba2-1.3b's served shape at
+# one step, a chunk's edges, the served L, a ragged 1000; G 2 at B 2; G = H
+SSD_CASES = [(1, 1, 64, 64, 1, 128, 128), (1, 127, 64, 64, 1, 128, 128),
+             (1, 128, 64, 64, 1, 128, 128), (1, 129, 64, 64, 1, 128, 128),
+             (1, 512, 64, 64, 1, 128, 128), (1, 1000, 64, 64, 1, 128, 128),
+             (2, 700, 64, 64, 2, 128, 128), (1, 512, 64, 64, 64, 128, 128)]
 SSD_SERVED_L = 512
 MAMBA_PARAMS = 1_343_532_032  # mamba2-1.3b at full width and depth
 
@@ -619,12 +625,22 @@ def ssd_phase(report: dict) -> dict:
     import torch
     from repro_torch.kernels.ssd_scan import ops
 
+    if hasattr(ops, "plan"):         # the chunk-parallel launches' plan
+        lib = ops._lib()
+        smem = {n: lib.ssd_scan_smem_bytes(i)
+                for i, n in enumerate(ops.LAUNCH_NAMES)}
+        if smem != ops.SMEM:
+            raise AssertionError(f"ssd_scan: the kernels' shared memory "
+                                 f"{smem} disagrees with the plan's")
+        report["ssd_scan_occupancy"] = ops.occupancy()
+        print(f"  resident blocks per SM: {report['ssd_scan_occupancy']}")
     gen = torch.Generator(DEVICE).manual_seed(4)
     rows, served, err = [], None, 0.0
     for bsz, l, h, p, g, s, q in SSD_CASES:
         args = ssd_inputs(bsz, l, h, p, g, s, gen)
         y, st = ops.launch(*args, q)
         y_plain, st_plain = ops.plain(*args, q)
+        y2, st2 = ops.launch(*args, q)
         torch.cuda.synchronize()
         what = f"ssd_scan B{bsz} L{l} H{h} P{p} G{g} S{s} Q{q}"
         rel = {}
@@ -635,6 +651,9 @@ def ssd_phase(report: dict) -> dict:
             if rel[name] > 1e-4:
                 raise AssertionError(f"{what}: {name} deviates by "
                                      f"{rel[name]:.3e} of its max > 1e-4")
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise AssertionError(f"{what}: two launches on the same inputs "
+                                 "differ")
         e = max(float((y - y_plain).abs().max()),
                 float((st - st_plain).abs().max()))
         err = max(err, e)
@@ -642,16 +661,18 @@ def ssd_phase(report: dict) -> dict:
                "S": s, "Q": q, "rel_err_y": rel["y"],
                "rel_err_state": rel["state"], "max_abs_err": e,
                "ms": median_ms(lambda: ops.launch(*args, q)),
+               "kernel_ms": kernel_only_ms(lambda: ops.launch(*args, q)),
                "plain_ms": median_ms(lambda: ops.plain(*args, q), reps=5)}
         row["bound_ms"], row["bound_by"] = ssd_bound(bsz, l, h, p, g, s, q)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        if hasattr(ops, "plan"):
+            row["executed_flops"] = ops.plan(bsz, l, h, p, g, s, q)["flops"]
         rows.append(row)
         if (bsz, l, g) == (1, SSD_SERVED_L, 1):
             served = row
         print(f"  {what}: rel err y {rel['y']:.3e} state "
-              f"{rel['state']:.3e}  kernel {row['ms']:.3f} ms  plain "
-              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})")
-        del args, y, st, y_plain, st_plain
+              f"{rel['state']:.3e}, two launches equal" + timing_text(row))
+        del args, y, st, y_plain, st_plain, y2, st2
     report["ssd_scan_cases"] = rows
     return dict(served, max_abs_err=err)
 
@@ -761,12 +782,15 @@ def mamba_phase(report: dict) -> int:
 # ---------------------------------------------------------------------------
 # Phase 8: mrr_transfer
 # ---------------------------------------------------------------------------
-# (what, shape, per-shot noise, chip variation per lane of axis 0)
-MRR_CASES = [("mobilenet_v3 mb6_dw weight", (60, 25), True, True),
-             ("conv_stem IS sheet, batch 512", (524288, 27), True, False),
-             ("qwen3-32b mlp/wi", (5120, 51200), True, False),
-             ("qwen3-32b mlp/wi, chip only", (5120, 51200), False, True),
-             ("ragged 1-D", (1_000_003,), True, False)]
+# (what, shape, per-shot noise, the axis a chip's per-lane fields run
+# along: 0 per row, as against a (K, N) weight; 1 per column, as against
+# (M, K) activations; None without a chip)
+MRR_CASES = [("mobilenet_v3 mb6_dw weight", (60, 25), True, 0),
+             ("conv_stem IS sheet, batch 512", (524288, 27), True, None),
+             ("conv_stem IS sheet, chip per column", (524288, 27), True, 1),
+             ("qwen3-32b mlp/wi", (5120, 51200), True, None),
+             ("qwen3-32b mlp/wi, chip only", (5120, 51200), False, 0),
+             ("ragged 1-D", (1_000_003,), True, None)]
 MRR_SERVED = "mobilenet_v3 mb6_dw weight"     # the main path's largest
 # float operations per element of the chain (a division or square root
 # counted as one): 38, plus 4 for the draws and 3 for a chip's fields
@@ -782,6 +806,96 @@ def mrr_bound(n: int, noisy: bool, lanes: int) -> tuple[float, str]:
     return bound_ms(nbytes, ops)
 
 
+SASS_INSTR = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_fast_path(sass: str, func: str) -> tuple[int, int]:
+    """(instructions, elements stored) of one pass of the innermost loop
+    that stores, in `cuobjdump -sass` output, along the fast path: each
+    in-loop branch is taken when the code it skips calls a slow-path
+    subroutine (IEEE division and square root) or, in a kernel with
+    16-byte accesses, holds the ragged edge's scalar loads and stores."""
+    start = sass.index(func)
+    end = sass.find("Function :", start + len(func))
+    ins = [(int(a, 16), p.strip(), op, x) for a, p, op, x in
+           SASS_INSTR.findall(sass[start:end if end > 0 else None])]
+    at = {a: i for i, (a, *_) in enumerate(ins)}
+
+    def target(x):
+        return int(re.findall(r"0x[0-9a-f]+", x)[-1], 16)
+
+    def scalar_mem(op):
+        return op.split(".")[0] in ("LDG", "STG") and ".128" not in op
+
+    wide = any(".128" in op for _, _, op, _ in ins)
+    loops = [(at[target(x)], i) for i, (a, _, op, x) in enumerate(ins)
+             if op == "BRA" and target(x) < a
+             and any(o.startswith("STG") for _, _, o, _ in
+                     ins[at[target(x)]:i])]
+    head, back = min(loops, key=lambda hb: hb[1] - hb[0])
+    i, count, stored = head, 0, 0
+    while True:
+        a, p, op, x = ins[i]
+        count += 1
+        if op.startswith("STG"):
+            stored += 4 if op.endswith(".128") else 1
+        if i == back:
+            return count, stored
+        j = at.get(target(x), -1) if op == "BRA" else -1
+        if op == "BRA" and not p and "P" not in x:
+            i = j
+        elif head < j <= back and j > i:
+            seg = ins[i + 1:j]
+            slow = any(o.startswith("CALL") for _, _, o, _ in seg)
+            ragged = wide and any(scalar_mem(o) for _, _, o, _ in seg)
+            i = j if slow or ragged else i + 1
+        else:
+            i += 1
+
+
+# the kernels of the wide sheets: noise without a chip (one stream), a
+# chip (per row) without noise (tiles), both with 16-byte accesses
+# (mangled template arguments)
+MRR_SASS = {
+    "qwen3-32b mlp/wi": "transfer_kernel_flatILb1ELi4E",
+    "qwen3-32b mlp/wi, chip only": "transfer_kernel_tilesILb0ELi1ELi4E"}
+
+
+def mrr_instruction_floor(rows: list) -> None:
+    """The chain's instruction floor on the wide sheets: SASS instructions
+    a thread issues per element on the fast path (`sass_fast_path` over
+    the built library), times n, over 132 SMs x 128 lanes x the SM's
+    maximum clock (4 warp schedulers issue one warp instruction a cycle
+    each)."""
+    import os
+    from repro_torch import kernels
+    lib = kernels.build_all(["mrr_transfer"])["mrr_transfer"]
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for row in rows:
+        func = MRR_SASS.get(row["case"])
+        if func is None or func not in sass:    # not a wide sheet's kernel
+            continue
+        count, stored = sass_fast_path(sass, MRR_SASS[row["case"]])
+        n = math.prod(row["shape"])
+        row["instr_per_element"] = count / stored
+        row["instr_floor_ms"] = n * count / stored / (
+            n_sm * 128 * mhz * 1e6) * 1e3
+        print(f"  mrr_transfer {row['case']}: {count} SASS instructions per "
+              f"{stored} elements on the fast path, floor "
+              f"{row['instr_floor_ms']:.4f} ms at {mhz:.0f} MHz x {n_sm} "
+              f"SMs (kernel only {row['kernel_ms']:.4f} ms)")
+
+
 def mrr_phase(report: dict) -> dict:
     import torch
     from repro_torch.core import mrr
@@ -789,14 +903,16 @@ def mrr_phase(report: dict) -> dict:
 
     g = torch.Generator(DEVICE).manual_seed(5)
     rows, served = [], None
-    for what, shape, noisy, with_var in MRR_CASES:
+    for what, shape, noisy, axis in MRR_CASES:
         w = 2 * torch.rand(shape, device=DEVICE, generator=g) - 1
         var, lanes = None, 0
-        if with_var:
-            lanes = shape[0]
-            var = mrr.expand_lanes(mrr.StaticVariation(
+        if axis is not None:
+            lanes = shape[axis]
+            var = mrr.StaticVariation(
                 *(s * torch.randn(lanes, device=DEVICE, generator=g)
-                  for s in (0.01, 0.04, 0.01))), w)
+                  for s in (0.01, 0.04, 0.01)))
+            if axis == 0:
+                var = mrr.expand_lanes(var, w)
         sig = (mrr.PAPER_NOISE.sigma_dac, mrr.PAPER_NOISE.sigma_th) \
             if noisy else (0.0, 0.0)
         eps = mrr.draw_eps(torch.Generator(DEVICE).manual_seed(6), shape,
@@ -811,19 +927,22 @@ def mrr_phase(report: dict) -> dict:
             raise AssertionError(f"mrr_transfer {what}: kernel differs from "
                                  f"the plain version by {e:.3e}")
         row = {"case": what, "shape": list(shape), "noise": noisy,
-               "chip": with_var, "max_abs_err": e,
+               "chip_axis": axis, "max_abs_err": e,
                "ms": median_ms(lambda: ops.launch(w, *eps, *sig, var=var)),
+               "kernel_ms": kernel_only_ms(
+                   lambda: ops.launch(w, *eps, *sig, var=var)),
                "plain_ms": median_ms(
                    lambda: ops.plain(w, *eps, *sig, var=var))}
         row["bound_ms"], row["bound_by"] = mrr_bound(w.numel(), noisy, lanes)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         rows.append(row)
         if what == MRR_SERVED:
             served = row
-        print(f"  mrr_transfer {what:30s} {tuple(shape)}: bitwise equal  "
-              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        print(f"  mrr_transfer {what:36s} {tuple(shape)}: bitwise equal"
+              + timing_text(row), flush=True)
         del w, var, eps, y, y_plain
         torch.cuda.empty_cache()
+    mrr_instruction_floor(rows)
     report["mrr_transfer_cases"] = rows
     return dict(served, max_abs_err=max(r["max_abs_err"] for r in rows))
 
@@ -1087,10 +1206,11 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "CUDA card (all phases by default).")
-    ap.add_argument("--phase2", action="store_true",
-                    help="build and run phase 2 (kernel parity and times) "
-                    "only; prints no summary and no result line")
-    phase2_only = ap.parse_args(argv).phase2
+    ap.add_argument("--kernels", action="store_true",
+                    help="build and run the kernel phases 2, 6 and 8 only "
+                    "(parity and times of all four kernels); prints no "
+                    "summary and no result line")
+    opts = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1138,7 +1258,11 @@ def main(argv=None) -> int:
     print("phase 2: kernel parity against the plain versions")
     fused = phase("2 rosa_fused", fused_phase)
     osa = phase("2 osa_matmul", osa_phase)
-    if phase2_only:
+    if opts.kernels:
+        print("phase 6: ssd_scan parity against the plain version")
+        phase("6", ssd_phase)
+        print("phase 8: mrr_transfer parity against the plain version")
+        phase("8", mrr_phase)
         return write_report(report, t_start)
     print("phases 3-5: serving")
     launches = phase("3-5", serve_phase)

@@ -1,8 +1,7 @@
 // Noisy MRR voltage -> weight realization (paper Eqs. 3-8) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/mrr_transfer/mrr_transfer.py
-// (mrr_transfer_pallas, body _chain).  Elementwise over a flat stream of
-// target weights:
+// (mrr_transfer_pallas, body _chain).  Elementwise over target weights:
 //
 //   w --inverse chain--> programming voltage V, clipped to [v_min, v_max]
 //     V + sigma_dac * eps_dac  (+ dv)          per-shot DAC noise, chip offset
@@ -18,29 +17,56 @@
 // shift), and the file is built with --fmad=false with IEEE division and
 // square root, so the kernel equals its plain version bit for bit.
 //
-// Operands: w, out and the optional draws eps_dac / eps_th are flat float
-// streams of n elements (no tile padding: the kernel bounds-checks).  The
-// draws are null for a variation-only realization, which then moves two
-// streams fewer.  The optional static variation (dv, ddt, dlam) is read
-// through (row, column) element strides against w viewed as (n / cols,
-// cols): a per-lane (K,) field against a (K, N) weight is a stride-0 view
-// and is never materialized.
+// Operands: w, out and the optional draws eps_dac / eps_th are float
+// streams of n elements, viewed as a (rows, cols) sheet (the wrapper picks
+// the view).  The draws are null for a variation-only realization, which
+// then moves two streams fewer.  The optional static variation (dv, ddt,
+// dlam) comes in one of three layouts: per row (a per-lane (K,) field
+// against a (K, N) weight: element r at p[r * s0]), per column (against
+// (M, K) activations: element c at p[c * s1]), or any broadcast view
+// (element (r, c) at p[r * s0 + c * s1]); none is materialized.
 //
 // What bounds it on the H100: each element reads 4 bytes of w and 8 of
-// draws and writes 4, against about 45 float operations (two divisions and
-// two square roots among them), so it is bound by memory bandwidth:
-// 16 B/element over 3.35 TB/s.  Design: a grid-stride loop, each thread
-// taking four consecutive elements with 16-byte loads and stores when every
-// stream is 16-byte aligned, and a scalar tail.  Making it fast (draws
-// generated in-kernel by Philox instead of read from memory, which would
-// cut the bytes by half) is later work.
+// draws and writes 4, so by bytes 16 B/element over 3.35 TB/s (8 B without
+// draws).  But the chain is four IEEE divisions and two IEEE square roots
+// among ~40 float operations, each division and root a multi-instruction
+// sequence, so on a chip-only sheet the instruction issue rate is the
+// floor (PERF.md states it from the SASS).  A grid-stride walk of the
+// flat index adds to that, per group of four elements, a 64-bit integer
+// division (the row of a flat index), 64-bit address arithmetic for each
+// of three fields and a per-element row-wrap check, and reloads all three
+// fields for every element; this kernel does none of that.
+//
+// Design: without a chip the elements are one stream, each block taking
+// `groups` x 256 segments of 4 (16-byte accesses when every stream is
+// 16-byte aligned, else segments of 1), with no index math beyond a
+// 64-bit block base and 32-bit offsets.  With a chip, blocks walk 2-D
+// tiles of the (rows, cols) sheet, 8 warps x rpt rows by 32 lanes x V
+// columns (V = 4 when rows also start aligned), so each thread knows its
+// row and column without a division; the row base is 64-bit once per row.
+// A per-row field is read once per row and a per-column field once per
+// thread, into registers.  Row tiles sit on grid y (<= 65535, taken in
+// turn past it), column tiles on x; `groups` and `rpt` shrink for small
+// tensors so that every SM gets blocks.  Draws made in the kernel
+// (Philox) would halve the noisy sheet's bytes but change which numbers a
+// key-driven call consumes; parity is by injected draws (ROADMAP), so
+// they are read.
 
 #include <cuda_runtime.h>
+
+// A chip's dv, ddt, dlam: element (r, c) at p[r * s0 + c * s1] (VAR_ROW
+// reads p[r * s0], VAR_COL p[c * s1]).  Outside the anonymous namespace:
+// the C interface takes it.
+struct Fields {
+  const float* p[3];
+  long long s0[3], s1[3];
+};
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 8;
+constexpr int WARPS = THREADS / 32;
+enum { VAR_NONE = 0, VAR_ROW = 1, VAR_COL = 2, VAR_ANY = 3 };
 
 // Float32 constants of the realization chain in its folded form, in the
 // field order of repro_torch.core.mrr.Chain (see there for what each is).
@@ -49,20 +75,10 @@ struct Chain {
       v_max, f_dt, g_lam, n_eff, h_det, g2, i_td, j_w;
 };
 
-struct Variation {        // dv, ddt, dlam: element (r, c) at p[r*s0 + c*s1]
-  const float* p[3];
-  long long s0[3], s1[3];
-  __device__ __forceinline__ float at(int s, long long r, long long c) const {
-    return p[s][r * s0[s] + c * s1[s]];
-  }
-};
-
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-// op for op as repro_torch.core.mrr.realize_weights: voltage_of_chain, then
-// weight_of_voltage with the draws and the variation added one at a time
 template <bool NOISE, bool VAR>
 __device__ __forceinline__ float realize(float w, float ed, float et, float dv,
                                          float ddt, float dlam, float sd,
@@ -86,87 +102,156 @@ __device__ __forceinline__ float realize(float w, float ed, float et, float dv,
   return (2.0f * t + c.i_td) * c.j_w + c.q_min;
 }
 
-// elements [i0, i0 + width) of the stream; width 4 uses 16-byte accesses
-template <bool NOISE, bool VAR, int WIDTH>
-__device__ __forceinline__ void transfer_at(
-    long long i0, const float* __restrict__ w, const float* __restrict__ ed,
-    const float* __restrict__ et, const Variation& var,
-    float* __restrict__ out, long long cols, float sd, float st,
-    const Chain& c) {
-  float wv[WIDTH], ev[WIDTH], tv[WIDTH], o[WIDTH];
-  if (WIDTH == 4) {
-    float4 a = *reinterpret_cast<const float4*>(w + i0);
+// nc <= V consecutive elements at flat offset i (16-byte accesses when V
+// is 4 and all 4 are there); field(s, j) gives element j's chip field s
+template <bool NOISE, bool VAR, int V, class Field>
+__device__ __forceinline__ void segment(
+    const float* __restrict__ w, const float* __restrict__ ed,
+    const float* __restrict__ et, float* __restrict__ out, long long i,
+    int nc, Field field, float sd, float st, const Chain& ch) {
+  float wv[V], ev[V], tv[V], o[V];
+  const bool full = V == 4 && nc == 4;
+  if (full) {
+    const float4 a = *reinterpret_cast<const float4*>(w + i);
     wv[0] = a.x; wv[1] = a.y; wv[2] = a.z; wv[3] = a.w;
     if (NOISE) {
-      float4 d = *reinterpret_cast<const float4*>(ed + i0);
-      float4 h = *reinterpret_cast<const float4*>(et + i0);
+      const float4 d = *reinterpret_cast<const float4*>(ed + i);
+      const float4 h = *reinterpret_cast<const float4*>(et + i);
       ev[0] = d.x; ev[1] = d.y; ev[2] = d.z; ev[3] = d.w;
       tv[0] = h.x; tv[1] = h.y; tv[2] = h.z; tv[3] = h.w;
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) {
-      wv[j] = w[i0 + j];
-      if (NOISE) { ev[j] = ed[i0 + j]; tv[j] = et[i0 + j]; }
+    for (int j = 0; j < V; ++j) {
+      wv[j] = j < nc ? w[i + j] : 0.f;
+      ev[j] = NOISE && j < nc ? ed[i + j] : 0.f;
+      tv[j] = NOISE && j < nc ? et[i + j] : 0.f;
     }
   }
-  long long r = 0, cc = 0;
-  if (VAR) { r = i0 / cols; cc = i0 - r * cols; }
 #pragma unroll
-  for (int j = 0; j < WIDTH; ++j) {
-    float dv = 0.f, ddt = 0.f, dlam = 0.f;
-    if (VAR) {
-      dv = var.at(0, r, cc); ddt = var.at(1, r, cc); dlam = var.at(2, r, cc);
-      if (++cc == cols) { cc = 0; ++r; }
-    }
-    o[j] = realize<NOISE, VAR>(wv[j], NOISE ? ev[j] : 0.f, NOISE ? tv[j] : 0.f,
-                               dv, ddt, dlam, sd, st, c);
-  }
-  if (WIDTH == 4) {
-    *reinterpret_cast<float4*>(out + i0) = make_float4(o[0], o[1], o[2], o[3]);
+  for (int j = 0; j < V; ++j)
+    o[j] = realize<NOISE, VAR>(wv[j], ev[j], tv[j], VAR ? field(0, j) : 0.f,
+                               VAR ? field(1, j) : 0.f,
+                               VAR ? field(2, j) : 0.f, sd, st, ch);
+  if (full) {
+    *reinterpret_cast<float4*>(out + i) = make_float4(o[0], o[1], o[2], o[3]);
   } else {
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) out[i0 + j] = o[j];
+    for (int j = 0; j < V; ++j)
+      if (j < nc) out[i + j] = o[j];
   }
 }
 
-template <bool NOISE, bool VAR, int WIDTH>
+// Without a chip: the n elements as one stream, each block taking
+// `groups` x THREADS segments of V (32-bit offsets from its 64-bit base).
+template <bool NOISE, int V>
 __global__ void __launch_bounds__(THREADS)
-transfer_kernel(const float* __restrict__ w, const float* __restrict__ ed,
-                const float* __restrict__ et, Variation var,
-                float* __restrict__ out, long long n, long long cols, float sd,
-                float st, Chain c) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  const long long groups = n / WIDTH;
-  for (long long g = tid; g < groups; g += step)
-    transfer_at<NOISE, VAR, WIDTH>(g * WIDTH, w, ed, et, var, out, cols, sd,
-                                   st, c);
-  const long long i = groups * WIDTH + tid;     // ragged tail, < WIDTH long
-  if (WIDTH > 1 && i < n)
-    transfer_at<NOISE, VAR, 1>(i, w, ed, et, var, out, cols, sd, st, c);
+transfer_kernel_flat(const float* __restrict__ w,
+                     const float* __restrict__ ed,
+                     const float* __restrict__ et, float* __restrict__ out,
+                     long long n, int groups, float sd, float st, Chain ch) {
+  const long long base = (long long)blockIdx.x * groups * THREADS * V;
+  for (int k = 0; k < groups; ++k) {
+    const long long i = base + (k * THREADS + (int)threadIdx.x) * V;
+    if (i >= n) return;
+    segment<NOISE, false, V>(w, ed, et, out, i, (int)min((long long)V, n - i),
+                             [](int, int) { return 0.f; }, sd, st, ch);
+  }
 }
 
-template <bool NOISE, bool VAR>
-void launch_width(int vec, unsigned blocks, cudaStream_t st, const float* w,
-                  const float* ed, const float* et, const Variation& var,
-                  float* out, long long n, long long cols, float sd, float sth,
-                  const Chain& c) {
-  if (vec)
-    transfer_kernel<NOISE, VAR, 4><<<blocks, THREADS, 0, st>>>(
-        w, ed, et, var, out, n, cols, sd, sth, c);
+// With a chip: 2-D tiles of the (rows, cols) sheet, WARPS x rpt rows by
+// 32 x V columns; warp-rows walk the tile's rows, lanes its columns.
+// Column tiles sit on grid x, row tiles on grid y (taken in turn past its
+// limit).
+template <bool NOISE, int VAR, int V>
+__global__ void __launch_bounds__(THREADS)
+transfer_kernel_tiles(const float* __restrict__ w,
+                      const float* __restrict__ ed,
+                      const float* __restrict__ et, Fields f,
+                      float* __restrict__ out, long long rows, int cols,
+                      int rpt, float sd, float st, Chain ch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (blockIdx.x * 32 + lane) * V;
+  if (c >= cols) return;
+  const int nc = min(V, cols - c);      // V, or fewer at a ragged row end
+  float fc[3][V];                       // per-column fields, read once
+  if (VAR == VAR_COL) {
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        fc[s][j] = j < nc ? f.p[s][(long long)(c + j) * f.s1[s]] : 0.f;
+  }
+  const int tile_rows = WARPS * rpt;
+  for (long long t0 = (long long)blockIdx.y * tile_rows; t0 < rows;
+       t0 += (long long)gridDim.y * tile_rows) {
+    for (int k = 0; k < rpt; ++k) {
+      const long long r = t0 + warp + WARPS * k;
+      if (r >= rows) break;
+      float fr[3] = {0.f, 0.f, 0.f};    // per-row fields, read once a row
+      const float* fa[3] = {};          // any layout: the row's fields
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        if (VAR == VAR_ROW) fr[s] = f.p[s][r * f.s0[s]];
+        if (VAR == VAR_ANY) fa[s] = f.p[s] + r * f.s0[s];
+      }
+      segment<NOISE, true, V>(
+          w, ed, et, out, r * cols + c, nc,
+          [&](int s, int j) {
+            return VAR == VAR_ROW   ? fr[s]
+                   : VAR == VAR_COL ? fc[s][j]
+                   : j < nc         ? fa[s][(long long)(c + j) * f.s1[s]]
+                                    : 0.f;
+          },
+          sd, st, ch);
+    }
+  }
+}
+
+template <bool NOISE, int VAR, int V>
+void launch_one(dim3 grid, cudaStream_t s, const float* w, const float* ed,
+                const float* et, const Fields& f, float* out, long long rows,
+                int cols, int per, float sd, float sth, const Chain& c) {
+  if constexpr (VAR == VAR_NONE)
+    transfer_kernel_flat<NOISE, V><<<grid, THREADS, 0, s>>>(
+        w, ed, et, out, rows * cols, per, sd, sth, c);
   else
-    transfer_kernel<NOISE, VAR, 1><<<blocks, THREADS, 0, st>>>(
-        w, ed, et, var, out, n, cols, sd, sth, c);
+    transfer_kernel_tiles<NOISE, VAR, V><<<grid, THREADS, 0, s>>>(
+        w, ed, et, f, out, rows, cols, per, sd, sth, c);
 }
 
-// blocks of the grid-stride launch for n elements (vec: 4 per thread)
-long long grid_blocks(long long n, int vec, int n_sm) {
-  long long per_thread = vec ? 4 : 1;
-  long long want = (n / per_thread + THREADS - 1) / THREADS;
-  long long cap = (long long)n_sm * BLOCKS_PER_SM;
-  if (want < 1) want = 1;
-  return want < cap ? want : cap;
+template <bool NOISE, int VAR>
+void launch_width(int vec, dim3 grid, cudaStream_t s, const float* w,
+                  const float* ed, const float* et, const Fields& f,
+                  float* out, long long rows, int cols, int per, float sd,
+                  float sth, const Chain& c) {
+  if (vec)
+    launch_one<NOISE, VAR, 4>(grid, s, w, ed, et, f, out, rows, cols, per,
+                              sd, sth, c);
+  else
+    launch_one<NOISE, VAR, 1>(grid, s, w, ed, et, f, out, rows, cols, per,
+                              sd, sth, c);
+}
+
+template <bool NOISE>
+void launch_var(int var_mode, int vec, dim3 grid, cudaStream_t s,
+                const float* w, const float* ed, const float* et,
+                const Fields& f, float* out, long long rows, int cols,
+                int per, float sd, float sth, const Chain& c) {
+  switch (var_mode) {
+    case VAR_ROW:
+      return launch_width<NOISE, VAR_ROW>(vec, grid, s, w, ed, et, f, out,
+                                          rows, cols, per, sd, sth, c);
+    case VAR_COL:
+      return launch_width<NOISE, VAR_COL>(vec, grid, s, w, ed, et, f, out,
+                                          rows, cols, per, sd, sth, c);
+    case VAR_ANY:
+      return launch_width<NOISE, VAR_ANY>(vec, grid, s, w, ed, et, f, out,
+                                          rows, cols, per, sd, sth, c);
+    default:
+      return launch_width<NOISE, VAR_NONE>(vec, grid, s, w, ed, et, f, out,
+                                           rows, cols, per, sd, sth, c);
+  }
 }
 
 }  // namespace
@@ -174,42 +259,37 @@ long long grid_blocks(long long n, int vec, int n_sm) {
 extern "C" {
 
 // eps_dac / eps_th: both device pointers or both null (no per-shot noise).
-// var: three device pointers or null; var_strides: (row, column) element
-// strides of each field against w viewed as (n / cols, cols).
+// fields: the chip's three fields in layout var_mode (0 none, 1 per row,
+// 2 per column, 3 any broadcast), or null with var_mode 0.
 // chain: the 19 float32 constants of struct Chain, in order (host memory).
-// vec: every stream 16-byte aligned (4 elements per thread).
+// The sheet is (rows, cols); vec: 16-byte accesses (every stream 16-byte
+// aligned, and, with a chip, cols % 4 == 0 or rows == 1).  grid_x, grid_y
+// and per (segments a thread without a chip, rows a thread per tile with
+// one) as repro_torch.kernels.mrr_transfer.ops.plan computes them.
 int mrr_transfer_launch(const float* w, const float* eps_dac,
-                        const float* eps_th, const float* const* var,
-                        const long long* var_strides, float* out, long long n,
-                        long long cols, float sigma_dac, float sigma_th,
-                        const float* chain, int vec, int n_sm, void* stream) {
-  if ((eps_dac == nullptr) != (eps_th == nullptr) || n < 0 || cols < 1)
+                        const float* eps_th, const Fields* fields,
+                        int var_mode, float* out, long long rows, int cols,
+                        float sigma_dac, float sigma_th, const float* chain,
+                        int vec, int grid_x, int grid_y, int per,
+                        void* stream) {
+  if ((eps_dac == nullptr) != (eps_th == nullptr) || rows < 0 || cols < 1 ||
+      var_mode < 0 || var_mode > 3 || (var_mode != 0) != (fields != nullptr) ||
+      grid_x < 1 || grid_y < 1 || grid_y > 65535 || per < 1)
     return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
+  if (rows == 0) return (int)cudaSuccess;
   Chain c;
   float* dst = reinterpret_cast<float*>(&c);
-  for (int i = 0; i < (int)(sizeof(Chain) / sizeof(float)); ++i) dst[i] = chain[i];
-  Variation v;
-  for (int s = 0; s < 3; ++s) {
-    v.p[s] = var ? var[s] : nullptr;
-    v.s0[s] = var ? var_strides[2 * s] : 0;
-    v.s1[s] = var ? var_strides[2 * s + 1] : 0;
-  }
-  const bool noise = eps_dac != nullptr, has_var = var != nullptr;
-  unsigned blocks = (unsigned)grid_blocks(n, vec, n_sm);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (noise && has_var)
-    launch_width<true, true>(vec, blocks, st, w, eps_dac, eps_th, v, out, n,
-                             cols, sigma_dac, sigma_th, c);
-  else if (noise)
-    launch_width<true, false>(vec, blocks, st, w, eps_dac, eps_th, v, out, n,
-                              cols, sigma_dac, sigma_th, c);
-  else if (has_var)
-    launch_width<false, true>(vec, blocks, st, w, eps_dac, eps_th, v, out, n,
-                              cols, sigma_dac, sigma_th, c);
+  for (int i = 0; i < (int)(sizeof(Chain) / sizeof(float)); ++i)
+    dst[i] = chain[i];
+  Fields f = fields ? *fields : Fields{};
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (eps_dac != nullptr)
+    launch_var<true>(var_mode, vec, grid, s, w, eps_dac, eps_th, f, out, rows,
+                     cols, per, sigma_dac, sigma_th, c);
   else
-    launch_width<false, false>(vec, blocks, st, w, eps_dac, eps_th, v, out, n,
-                               cols, sigma_dac, sigma_th, c);
+    launch_var<false>(var_mode, vec, grid, s, w, eps_dac, eps_th, f, out,
+                      rows, cols, per, sigma_dac, sigma_th, c);
   return (int)cudaGetLastError();
 }
 

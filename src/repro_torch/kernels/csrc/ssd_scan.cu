@@ -1,4 +1,4 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), chunk-parallel.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/ssd_scan.py
 // (ssd_scan_pallas, body _kernel) together with its wrapper's group
@@ -7,235 +7,592 @@
 // l_i the inclusive prefix sum of log a over the chunk,
 //
 //     att = (C B^T) . tril(exp(l_i - l_j))              (Q, Q)
-//     Y   = att X + exp(l_i) . (C S)                    (Q, P)
-//     S'  = exp(l_Q) S + (B . w)^T X,  w_j = exp(l_Q - l_j)   (S, P)
+//     Y   = att X + exp(l_i) . (C S_in)                 (Q, P)
+//     S_c = (B . w)^T X,  w_j = exp(l_Q - l_j)          (S, P)
+//     S_in(c + 1) = exp(l_Q) S_in(c) + S_c,  S_in(0) = 0
 //
-// with the state S carried from chunk to chunk.  x is (B, L, H, P), loga
-// (B, L, H), b and c (B, L, G, S) with G head groups (head h reads group
-// h / (H / G)); y is (B, L, H, P) and the final state (B, H, S, P), all
-// float32 and contiguous.
+// x is (B, L, H, P), loga (B, L, H), b and c (B, L, G, S) with G head
+// groups (head h reads group h / (H / G)); y is (B, L, H, P) and the final
+// state (B, H, S, P) = S_in after the last chunk, all float32, contiguous.
 //
-// What bounds it on the H100: at the served shapes (H 64, P 64, S 128,
-// Q 128) every chunk is three small matrix products per head, about
-// 1e3 operations per byte moved, so arithmetic bounds it: float32 on the
-// CUDA cores (no TF32).
+// What bounds it on the H100: at the served shape (L 512, H 64, P 64, G 1,
+// S 128, Q 128) the chunked form needs 1.23 GFLOP against 17 MB moved,
+// so float32 arithmetic on the CUDA cores bounds it (no TF32: parity).
+// A kernel with one block per (b, h, 32 columns of P) looping over the
+// chunks executes 3.05x that work, recomputing the group's C B^T on the
+// full square in all 128 blocks, on a grid of one 8-warp block per SM.
 //
-// Design.  The TPU grid walks the chunks of one row in order and keeps the
-// state in VMEM scratch; here one block owns (b, h, a PB-column slice of
-// P) and loops over the chunks itself, the state slice (S x PB) resident
-// in shared memory.  The columns of X, Y and S are independent, so slicing
-// P gives 128 blocks for one 64-head prompt instead of 64 (C B^T is
-// recomputed per slice).  B and C are read by group index, never
-// repeated to heads.  A chunk's C and B (Q x S each, 64 KB) do not fit
-// beside the attention tile, so they stream through shared memory in
-// KS-row strips of S: each strip adds to C B^T (an 8 x 8 register tile
-// per thread) and to C S (4 x 4), then is scaled by w in place and updates
-// its KS rows of the state.  The attention tile then takes the strips'
-// place.  Ragged tails are masked in the kernel as identity steps (log a
-// 0, b = c = x = 0): no padded copies.  The decay is exp(l_i - l_j),
-// never exp(l_i) / exp(l_j), since l reaches about -90 within a chunk and
-// exp(l) leaves float32's normal range; the causal mask is a select, so
-// the overflowing exp(l_i - l_j), j > i, is never formed.  Built without
-// fast math: expf is the accurate one and keeps denormals.  Tensor cores,
-// cp.async and sharing C B^T across the heads of a group are later work.
+// Design: the TPU grid's sequential chunk axis carried the state in VMEM;
+// here only the (S x P) recurrence stays sequential.  Three launches on
+// one stream, no host synchronization, a workspace the wrapper allocates:
+//
+//   1. ssd_chunk_state  C B^T once per (b, group, chunk), 32 x 32 tiles of
+//                       the causal triangle only, into (B, G, NC, Q, Q),
+//                       which every head of the group reads from L2; and,
+//                       in the other blocks, per (b, h, chunk) the prefix
+//                       sums of log a in step order and S_c on 64 x 64
+//                       tiles of S x P;
+//   2. ssd_state_pass   S_in in chunk order, over (b, h, s, p), in place
+//                       over S_c, keeping fmaf(dq, S, S_c);
+//   3. ssd_chunk_out    Y per (b, h, chunk, 64 rows, 64 columns of P).
+//
+// The contractions are 64 x 64 register tiles, 4 x 4 per thread (32 x 32
+// and 2 x 2 for C B^T), over 32-deep strips staged through shared memory
+// by cp.async (16-byte copies when the rows are 16-byte aligned,
+// zero-filled past every edge) in a ring of STAGES slots; each sum runs in
+// step or state order with fmaf.  Offsets inside a block are 32-bit from
+// a 64-bit block base; every grid keeps chunks, heads and tiles on x and
+// the batch on y (<= 65535).  The decay is exp(l_i - l_j), never
+// exp(l_i) / exp(l_j) (l reaches about -90 within a chunk and exp(l)
+// leaves float32's normal range); the causal mask is a select, so the
+// overflowing exp(l_i - l_j), j > i, is never taken.
+// Ragged tails are identity steps (log a 0, b = c = x = 0) by zero-filled
+// loads, with no padded copies; B and C are read by group index.  Built
+// without fast math: expf is the accurate one and keeps denormals.
+// Blocks of the output launch start longest first (the last chunk's
+// last row tile), so the second wave's tail is short.  What bounds it now
+// (per-block timer traces on the H100): each 32-deep strip takes about
+// 3 us in a block, well above its multiply-adds' issue time; 8 x 8 and
+// 8 x 4 thread tiles, 128 x 64 block tiles, deeper rings, 64-deep strips
+// and a third resident block all measured slower or equal, so the two
+// contractions run at about a third of the float32 peak.  Tensor cores
+// (3xTF32) are later work.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int QMAX = 128;         // longest chunk the thread tiles cover
-constexpr int PB = 32;            // head-dim columns per block
-constexpr int KS = 32;            // d_state rows per strip
-constexpr int QS = QMAX + 1;      // padded row of a strip or of att
-constexpr int THREADS = 256;
+constexpr int QMAX = 128;   // longest chunk
+constexpr int MT = 256;     // threads of a block (the state pass's too)
+constexpr int KS = 32;      // depth of a staged strip
+constexpr int LDK = KS + 4; // row of a [rows][KS] strip (16-byte aligned)
+constexpr int CT = 32;      // C B^T tile
+constexpr int BT = 64;      // state and output tiles (BT x BT)
+constexpr int LDT = BT + 4; // row of a [KS][BT] strip
+constexpr int TM = 4, TN = 4;     // a thread's rows and columns of a tile
+constexpr int MT_BLOCKS = 2;      // resident blocks per SM, at least
+static_assert((BT / TM) * (BT / TN) == MT, "one BT x BT tile a block");
+static_assert((CT / 2) * (CT / 2) == MT, "one C B^T tile a block");
 
-__host__ __device__ inline int padded_state(int s) {
-  return (s + KS - 1) / KS * KS;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__host__ inline size_t smem_bytes(int s) {
-  return sizeof(float) * ((size_t)QMAX * QS + (size_t)padded_state(s) * PB +
-                          (size_t)QMAX * PB + 2 * QMAX);
+// cp.async of `bytes` (0..16) from src, zero-filling the rest of 16 bytes
+__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
 }
 
-__global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ loga,
-                const float* __restrict__ bm, const float* __restrict__ cm,
-                float* __restrict__ y, float* __restrict__ sf, int L, int H,
-                int P, int G, int S, int Q) {
-  extern __shared__ float smem[];
-  const int sp = padded_state(S);
-  float* ct = smem;               // C strip, transposed: [KS][QS]
-  float* bt = smem + KS * QS;     // B strip, transposed: [KS][QS]
-  float* att = smem;              // after the strips: [QMAX][QS]
-  float* st = smem + QMAX * QS;   // state slice [sp][PB]
-  float* xs = st + sp * PB;       // X of the chunk [QMAX][PB]
-  float* lc = xs + QMAX * PB;     // l_i, inclusive prefix sum of log a
-  float* el = lc + QMAX;          // exp(l_i)
+__device__ __forceinline__ void cp4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
 
-  const int p0 = blockIdx.x * PB;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (H / G);
-  const int tid = threadIdx.x;
-  const int pw = min(PB, P - p0);           // valid columns of the slice
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  const long long xrow = (long long)H * P;  // step stride of x and y
-  const long long brow = (long long)G * S;  // step stride of b and c
-  const float* xb = x + (long long)b * L * xrow + (long long)h * P + p0;
-  float* yb = y + (long long)b * L * xrow + (long long)h * P + p0;
-  const float* lb = loga + (long long)b * L * H + h;
-  const float* bb = bm + (long long)b * L * brow + (long long)g * S;
-  const float* cb = cm + (long long)b * L * brow + (long long)g * S;
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  // thread tiles: C B^T rows ty + 16 r, columns tx + 16 c (8 x 8);
-  // Y and C S rows yy + 32 r, columns yx + 8 c (4 x 4);
-  // a state strip's rows sy + 16 r, columns sx + 16 c (2 x 2)
-  const int ty = tid >> 4, tx = tid & 15;
-  const int yy = tid >> 3, yx = tid & 7;
-  const int sy = tid >> 4, sx = tid & 15;
-
-  for (int e = tid; e < sp * PB; e += THREADS) st[e] = 0.f;
-
-  const int n_chunks = (L + Q - 1) / Q;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int t0 = ch * Q;
-    const int nv = min(Q, L - t0);          // valid steps of this chunk
-    __syncthreads();                        // the last chunk's reads are done
-    for (int e = tid; e < QMAX * PB; e += THREADS) {
-      const int j = e / PB, p = e % PB;
-      xs[e] = (j < nv && p < pw) ? xb[(long long)(t0 + j) * xrow + p] : 0.f;
+// A ROWS x COLS tile into dst (leading dimension LD): element (r, k) from
+// src[r * stride + k] for r < nr and k < nk, zero elsewhere.  vec: src and
+// stride are 16-byte aligned, so 4 elements go in one copy.  Row 0 of src
+// is in bounds whenever nr > 0; with nr <= 0 src is not touched.
+template <int ROWS, int COLS, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int stride, int nr, int nk,
+                                          bool vec) {
+  if (nr <= 0) {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += MT)
+      dst[(e / COLS) * LD + e % COLS] = 0.f;
+  } else if (vec) {
+    constexpr int G4 = COLS / 4;
+    for (int e = threadIdx.x; e < ROWS * G4; e += MT) {
+      const int r = e / G4, k = (e % G4) * 4;
+      const int n = r < nr ? min(max(nk - k, 0), 4) : 0;
+      cp16(dst + r * LD + k, n ? src + r * stride + k : src, 4 * n);
     }
-    for (int j = tid; j < QMAX; j += THREADS)
-      lc[j] = (j < nv) ? lb[(long long)(t0 + j) * H] : 0.f;
-    __syncthreads();
-    if (tid == 0) {
-      // inclusive prefix sum of log a, in step order as the plain version
-      // sums it: |l| reaches ~100, so a rounding of l is amplified into
-      // exp(l_i - l_j), and another summation order alone moves the
-      // decays by ~1e-5
-      float run = 0.f;
-      for (int j = 0; j < QMAX; ++j) {
-        run += lc[j];
-        lc[j] = run;
+  } else {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += MT) {
+      const int r = e / COLS, k = e % COLS;
+      const bool ok = r < nr && k < nk;
+      cp4(dst + r * LD + k, ok ? src + r * stride + k : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// A thread's outputs in a BT x BT tile: rows ty * TM + r, columns
+// tx * TN + c, so a quarter-warp reads consecutive float4 of a B row (no
+// bank conflict) and one A address; a warp's rows are WROWS consecutive
+// rows.
+constexpr int WROWS = 32 / (BT / TN) * TM;
+
+__device__ __forceinline__ int tile_row(int ty, int r) { return ty * TM + r; }
+
+__device__ __forceinline__ int tile_col(int tx, int c) { return tx * TN + c; }
+
+// acc[r][c] += sum_k A[row r][k] B[k][col c] over the first kq (a
+// multiple of 4) of a strip's KS columns, k in order; A is [BT][LDK]
+// (row-major) or, with AK, [KS][LDT] (k-major); B is [KS][LDT].
+template <bool AK>
+__device__ __forceinline__ void strip_mma(const float* A, const float* B,
+                                          float acc[TM][TN], int ty, int tx,
+                                          int kq = KS) {
+#pragma unroll
+  for (int k = 0; k < KS; k += 4) {
+    if (k >= kq) break;
+    float a[4][TM];                    // a[kk][r]
+    if (AK) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < TM; r += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              A + (k + kk) * LDT + tile_row(ty, r));
+          a[kk][r] = v.x; a[kk][r + 1] = v.y;
+          a[kk][r + 2] = v.z; a[kk][r + 3] = v.w;
+        }
+    } else {
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            A + tile_row(ty, r) * LDK + k);
+        a[0][r] = v.x; a[1][r] = v.y; a[2][r] = v.z; a[3][r] = v.w;
       }
     }
-    __syncthreads();
-    const float lq = lc[QMAX - 1];          // = l at the chunk's last step
-    const float dq = expf(lq);
-    for (int i = tid; i < QMAX; i += THREADS) el[i] = expf(lc[i]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[TN];
+#pragma unroll
+      for (int c = 0; c < TN; c += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            B + (k + kk) * LDT + tile_col(tx, c));
+        b[c] = v.x; b[c + 1] = v.y; b[c + 2] = v.z; b[c + 3] = v.w;
+      }
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c)
+          acc[r][c] = fmaf(a[kk][r], b[c], acc[r][c]);
+    }
+  }
+}
 
-    float acc[8][8], yi[4][4];
-    for (int r = 0; r < 8; ++r)
-      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) yi[r][c] = 0.f;
+// A ring of STAGES strips in shared memory: load(s, slot) issues strip s's
+// copies into a slot, compute(s, slot) consumes it.  ring_fill puts the
+// first STAGES - 1 strips in flight; ring_run keeps strip s + STAGES - 1
+// in flight while strip s is computed, one barrier a strip.
+constexpr int STAGES = 3;
 
-    for (int k0 = 0; k0 < sp; k0 += KS) {
-      __syncthreads();                      // the last strip's reads are done
-      for (int e = tid; e < KS * QMAX; e += THREADS) {
-        const int k = e % KS, j = e / KS;
-        const bool ok = j < nv && k0 + k < S;
-        const long long o = (long long)(t0 + j) * brow + k0 + k;
-        ct[k * QS + j] = ok ? cb[o] : 0.f;
-        bt[k * QS + j] = ok ? bb[o] : 0.f;
-      }
-      __syncthreads();
-      for (int k = 0; k < KS; ++k) {
-        const float* crow = ct + k * QS;
-        const float* brw = bt + k * QS;
-        float cr[8], bc[8];
-        for (int r = 0; r < 8; ++r) cr[r] = crow[ty + 16 * r];
-        for (int c = 0; c < 8; ++c) bc[c] = brw[tx + 16 * c];
-        for (int r = 0; r < 8; ++r)
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(cr[r], bc[c], acc[r][c]);
-        float cy[4], sv[4];
-        for (int r = 0; r < 4; ++r) cy[r] = crow[yy + 32 * r];
-        for (int c = 0; c < 4; ++c) sv[c] = st[(k0 + k) * PB + yx + 8 * c];
-        for (int r = 0; r < 4; ++r)
-          for (int c = 0; c < 4; ++c) yi[r][c] = fmaf(cy[r], sv[c], yi[r][c]);
-      }
-      __syncthreads();                      // rows k0.. of S_in are read
-      // B . w in place: w_j = exp(l_Q - l_j)
-      for (int e = tid; e < KS * QMAX; e += THREADS) {
-        const int k = e / QMAX, j = e % QMAX;
-        bt[k * QS + j] *= expf(lq - lc[j]);
-      }
-      __syncthreads();
-      float su[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      for (int j = 0; j < nv; ++j) {
-        const float b0 = bt[sy * QS + j], b1 = bt[(sy + 16) * QS + j];
-        const float x0 = xs[j * PB + sx], x1 = xs[j * PB + sx + 16];
-        su[0][0] = fmaf(b0, x0, su[0][0]);
-        su[0][1] = fmaf(b0, x1, su[0][1]);
-        su[1][0] = fmaf(b1, x0, su[1][0]);
-        su[1][1] = fmaf(b1, x1, su[1][1]);
-      }
+template <class Load>
+__device__ __forceinline__ void ring_fill(int n, Load load) {
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load(s, s);
+    cp_commit();
+  }
+}
+
+template <class Load, class Compute>
+__device__ __forceinline__ void ring_run(int n, Load load, Compute compute) {
+  for (int s = 0; s < n; ++s) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();              // strip s landed; slot s - 1 is free
+    const int next = s + STAGES - 1;
+    if (next < n) load(next, next % STAGES);
+    cp_commit();
+    compute(s, s % STAGES);
+  }
+}
+
+struct Dims {
+  int L, H, P, G, S, Q, NC;
+  int tri, ns, np, nm;      // tiles: C B^T triangle, S and P of a
+                            // state, rows of an output
+  int vec_x, vec_bc, vec_q; // 16-byte copies for x, b/c, a Q-row
+};
+
+// C B^T of one (b, group, chunk) on one 32 x 32 tile of the causal
+// triangle (diagonal tiles whole), t counting (chunk, group) and then the
+// triangle's tiles row by row.  cbt is (B, G, NC, Q, Q); tiles above the
+// diagonal, and rows past a ragged tail, are never written: the output's
+// causal select and its row mask never take them.  smem: STAGES slots of
+// a C strip and a B strip, [CT][LDK] each.
+__device__ __forceinline__ void cbt_tile(const float* __restrict__ bm,
+                                         const float* __restrict__ cm,
+                                         float* __restrict__ cbt, int t,
+                                         const Dims& d, float* smem) {
+  int tile = t % d.tri;
+  t /= d.tri;
+  const int ch = t % d.NC, g = t / d.NC, b = blockIdx.y;
+  int ti = 0;
+  while (tile > ti) tile -= ++ti;
+  const int i0 = ti * CT, j0 = tile * CT;
+  const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
+  if (i0 >= nv) return;   // rows past a ragged tail: no output reads them
+  const int row = d.G * d.S;
+  const long long base = ((long long)b * d.L + t0) * row + (long long)g * d.S;
+  const float* cb = cm + base + (long long)i0 * row;
+  const float* bb = bm + base + (long long)j0 * row;
+  const int nri = min(CT, nv - i0), nrj = min(CT, nv - j0);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  const int strips = (d.S + KS - 1) / KS;
+  auto load = [&](int s, int slot) {
+    const int k0 = s * KS;
+    float* a = smem + slot * 2 * CT * LDK;
+    load_tile<CT, KS, LDK>(a, cb + k0, row, nri, d.S - k0, d.vec_bc);
+    load_tile<CT, KS, LDK>(a + CT * LDK, bb + k0, row, nrj, d.S - k0,
+                           d.vec_bc);
+  };
+  ring_fill(strips, load);
+  ring_run(strips, load, [&](int, int slot) {
+    const float* A = smem + slot * 2 * CT * LDK;
+    const float* B = A + CT * LDK;
+#pragma unroll
+    for (int k = 0; k < KS; k += 4) {
+      float4 a[2], bv[2];
+      for (int r = 0; r < 2; ++r)
+        a[r] = *reinterpret_cast<const float4*>(A + (ty * 2 + r) * LDK + k);
+      for (int c = 0; c < 2; ++c)
+        bv[c] = *reinterpret_cast<const float4*>(B + (tx * 2 + c) * LDK + k);
       for (int r = 0; r < 2; ++r)
         for (int c = 0; c < 2; ++c) {
-          float* s = st + (k0 + sy + 16 * r) * PB + sx + 16 * c;
-          *s = fmaf(dq, *s, su[r][c]);
+          acc[r][c] = fmaf(a[r].x, bv[c].x, acc[r][c]);
+          acc[r][c] = fmaf(a[r].y, bv[c].y, acc[r][c]);
+          acc[r][c] = fmaf(a[r].z, bv[c].z, acc[r][c]);
+          acc[r][c] = fmaf(a[r].w, bv[c].w, acc[r][c]);
         }
     }
-    __syncthreads();                        // the strips are done: att
-    for (int r = 0; r < 8; ++r) {
-      const int i = ty + 16 * r;
-      for (int c = 0; c < 8; ++c) {
-        const int j = tx + 16 * c;
-        // a select, not a multiply: exp(l_i - l_j) overflows for j > i
-        att[i * QS + j] = (j <= i) ? acc[r][c] * expf(lc[i] - lc[j]) : 0.f;
-      }
+  });
+  float* out = cbt + (((long long)b * d.G + g) * d.NC + ch) * d.Q * d.Q;
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + ty * 2 + r;
+    for (int c = 0; c < 2; ++c) {
+      const int j = j0 + tx * 2 + c;
+      if (i < d.Q && j < d.Q) out[i * d.Q + j] = acc[r][c];
     }
-    __syncthreads();
-    float ya[4][4];
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) ya[r][c] = 0.f;
-    for (int j = 0; j < nv; ++j) {
-      float av[4], xv[4];
-      for (int r = 0; r < 4; ++r) av[r] = att[(yy + 32 * r) * QS + j];
-      for (int c = 0; c < 4; ++c) xv[c] = xs[j * PB + yx + 8 * c];
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) ya[r][c] = fmaf(av[r], xv[c], ya[r][c]);
-    }
-    for (int r = 0; r < 4; ++r) {
-      const int i = yy + 32 * r;
-      if (i >= nv) continue;
-      for (int c = 0; c < 4; ++c) {
-        const int p = yx + 8 * c;
-        if (p < pw)
-          yb[(long long)(t0 + i) * xrow + p] = fmaf(el[i], yi[r][c], ya[r][c]);
+  }
+}
+
+// 1. One launch, two kinds of block.  The last tri * NC * G blocks each
+// compute a C B^T tile (cbt_tile; short, they fill the last wave).  The
+// others each take one (b, h, chunk) and a 64 x 64 tile of S x P: l_i,
+// the inclusive prefix sum of log a over the chunk, in step order as the
+// plain version's cumsum sums it (a tree scan drifted the logits 7x the
+// float-order floor over 48 layers), run on past the chunk's valid steps
+// with log a = 0 up to QMAX, so its tail holds l_Q; the block of the first
+// tile writes l to lc (B, H, NC, Q) for the later launches; then
+// S_c = (B . w)^T X, w_j = exp(l_Q - l_j), into st (B, H, NC, S, P).
+// Dynamic shared memory: STAGES slots of a B strip [j][s] and an X strip
+// [j][p], then l and w.
+constexpr int STATE_SLOT = 2 * KS * LDT;
+constexpr int STATE_SMEM = 4 * (STAGES * STATE_SLOT + 2 * QMAX);
+static_assert(2 * CT * LDK <= STATE_SLOT,
+              "a C B^T slot fits a state slot's shared memory");
+
+__global__ void __launch_bounds__(MT, MT_BLOCKS)
+ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ loga,
+                const float* __restrict__ bm, const float* __restrict__ cm,
+                float* __restrict__ lc, float* __restrict__ cbt,
+                float* __restrict__ st, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_state = d.ns * d.np * d.NC * d.H;
+  if ((int)blockIdx.x >= n_state) {
+    cbt_tile(bm, cm, cbt, blockIdx.x - n_state, d, smem);
+    return;
+  }
+  float* l = smem + STAGES * STATE_SLOT;   // 16-byte aligned
+  float* w = l + QMAX;
+  int t = blockIdx.x;
+  const int tile = t % (d.ns * d.np);
+  t /= d.ns * d.np;
+  const int ch = t % d.NC, h = t / d.NC, b = blockIdx.y;
+  const int g = h / (d.H / d.G);
+  const int s0 = (tile / d.np) * BT, p0 = (tile % d.np) * BT;
+  const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
+  const int brow = d.G * d.S, xrow = d.H * d.P;
+  const float* bb =
+      bm + ((long long)b * d.L + t0) * brow + (long long)g * d.S + s0;
+  const float* xb =
+      x + ((long long)b * d.L + t0) * xrow + (long long)h * d.P + p0;
+  const int tid = threadIdx.x, ty = tid / (BT / TN), tx = tid % (BT / TN);
+  const int strips = (nv + KS - 1) / KS;
+  auto load = [&](int s, int slot) {
+    const int j0 = s * KS;
+    float* a = smem + slot * STATE_SLOT;
+    load_tile<KS, BT, LDT>(a, bb + j0 * brow, brow, nv - j0, d.S - s0,
+                           d.vec_bc);
+    load_tile<KS, BT, LDT>(a + KS * LDT, xb + j0 * xrow, xrow, nv - j0,
+                           d.P - p0, d.vec_x);
+  };
+  ring_fill(strips, load);
+  const float* la = loga + ((long long)b * d.L + t0) * d.H + h;
+  for (int j = tid; j < QMAX; j += MT) l[j] = j < nv ? la[j * d.H] : 0.f;
+  __syncthreads();
+  if (tid == 0) {   // one chain of adds; 16 values a time in registers
+    float run = 0.f;
+    for (int j = 0; j < QMAX / 4; j += 4) {
+      float4 v[4];
+      for (int q = 0; q < 4; ++q) v[q] = reinterpret_cast<float4*>(l)[j + q];
+      float* f = reinterpret_cast<float*>(v);
+      for (int q = 0; q < 16; ++q) {
+        run += f[q];
+        f[q] = run;
       }
+      for (int q = 0; q < 4; ++q) reinterpret_cast<float4*>(l)[j + q] = v[q];
     }
   }
   __syncthreads();
-  float* sb = sf + ((long long)b * H + h) * S * P + p0;
-  for (int e = tid; e < S * PB; e += THREADS) {
-    const int k = e / PB, p = e % PB;
-    if (p < pw) sb[(long long)k * P + p] = st[k * PB + p];
+  if (tile == 0) {
+    float* lo = lc + (((long long)b * d.H + h) * d.NC + ch) * d.Q;
+    for (int j = tid; j < d.Q; j += MT) lo[j] = l[j];
   }
+  const float lq = l[QMAX - 1];
+  for (int j = tid; j < QMAX; j += MT) w[j] = expf(lq - l[j]);
+  float acc[TM][TN] = {};
+  ring_run(strips, load, [&](int s, int slot) {
+    float* a = smem + slot * STATE_SLOT;
+    // B . w in place, once per element: row j of the strip times w_j
+    for (int e = tid; e < KS * BT; e += MT) {
+      const int j = e / BT, k = e % BT;
+      a[j * LDT + k] *= w[s * KS + j];
+    }
+    __syncthreads();
+    strip_mma<true>(a, a + KS * LDT, acc, ty, tx);
+  });
+  float* out = st + ((((long long)b * d.H + h) * d.NC + ch) * d.S) * d.P;
+  for (int r = 0; r < TM; ++r) {
+    const int sr = s0 + tile_row(ty, r);
+    if (sr >= d.S) continue;
+    for (int c = 0; c < TN; ++c) {
+      const int p = p0 + tile_col(tx, c);
+      if (p < d.P) out[sr * d.P + p] = acc[r][c];
+    }
+  }
+}
+
+// 2. In chunk order, per (b, h, s, p): st[c] <- S_in(c) and
+// S_in(c + 1) = fmaf(exp(l_Q), S_in(c), S_c); the final state is S_in
+// after the last chunk.  A thread takes V consecutive (s, p) of one head
+// (V = 4 when S P is a multiple of 4) and loads the next chunk's S_c
+// before it stores the current one's S_in.
+template <int V>
+__global__ void __launch_bounds__(MT, MT_BLOCKS)
+ssd_state_pass(const float* __restrict__ lc, float* __restrict__ st,
+               float* __restrict__ state, Dims d) {
+  using vec = typename std::conditional<V == 4, float4, float>::type;
+  const int sp = d.S * d.P;
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (e >= d.H * sp) return;
+  const int h = e / sp, r = e - h * sp;
+  const long long bh = (long long)blockIdx.y * d.H + h;
+  vec* s_c = reinterpret_cast<vec*>(st + bh * d.NC * sp + r);
+  const long long step = sp / V;
+  const float* lq = lc + bh * d.NC * d.Q + d.Q - 1;
+  float s[V] = {};
+  vec own = s_c[0];
+  for (int ch = 0; ch < d.NC; ++ch) {
+    const vec next = ch + 1 < d.NC ? s_c[(ch + 1) * step] : own;
+    const float dq = expf(lq[(long long)ch * d.Q]);
+    const float* o = reinterpret_cast<const float*>(&own);
+    vec in;
+    float* io = reinterpret_cast<float*>(&in);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      io[k] = s[k];
+      s[k] = fmaf(dq, s[k], o[k]);
+    }
+    s_c[ch * step] = in;
+    own = next;
+  }
+  vec out;
+  float* oo = reinterpret_cast<float*>(&out);
+#pragma unroll
+  for (int k = 0; k < V; ++k) oo[k] = s[k];
+  *reinterpret_cast<vec*>(state + bh * sp + r) = out;
+}
+
+// 3. Y of one (b, h, chunk) on 64 rows x 64 columns of P:
+// (C B^T . tril(exp(l_i - l_j))) X + exp(l_i) (C S_in).  One ring of
+// strips: first the intra-chunk ones (decayed C B^T [i][j] against X
+// [j][p], columns j < i0 + 64 and < nv), then the inter-chunk ones (C
+// [i][s] against S_in [s][p]; none for the first chunk, whose S_in is 0).
+// Dynamic shared memory: STAGES slots of an A strip [i][k] and a B strip
+// [k][p], then l.
+constexpr int OUT_SLOT = BT * LDK + KS * LDT;
+constexpr int OUT_SMEM = 4 * (STAGES * OUT_SLOT + QMAX);
+
+__global__ void __launch_bounds__(MT, MT_BLOCKS)
+ssd_chunk_out(const float* __restrict__ x, const float* __restrict__ cm,
+              const float* __restrict__ lc, const float* __restrict__ cbt,
+              const float* __restrict__ st, float* __restrict__ y, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  float* l = smem + STAGES * OUT_SLOT;
+  // longest blocks first: the last row tile (most intra-chunk strips) of
+  // the last chunk (an incoming state) leads, the first chunk comes last
+  int t = blockIdx.x;
+  const int p0 = (t % d.np) * BT;
+  t /= d.np;
+  const int h = t % d.H;
+  t /= d.H;
+  const int ch = d.NC - 1 - t % d.NC, b = blockIdx.y;
+  const int i0 = (d.nm - 1 - t / d.NC) * BT;
+  const int g = h / (d.H / d.G);
+  const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
+  if (i0 >= nv) return;   // no valid row in this tile
+  const int tid = threadIdx.x, ty = tid / (BT / TN), tx = tid % (BT / TN);
+  const long long bh = (long long)b * d.H + h;
+  const int xrow = d.H * d.P, crow = d.G * d.S;
+  const float* xb =
+      x + ((long long)b * d.L + t0) * xrow + (long long)h * d.P + p0;
+  const float* ab = cbt + (((long long)b * d.G + g) * d.NC + ch) * d.Q * d.Q +
+                    (long long)i0 * d.Q;
+  const float* cb =
+      cm + ((long long)b * d.L + t0 + i0) * crow + (long long)g * d.S;
+  const float* sb = st + (((bh * d.NC + ch) * d.S) * d.P) + p0;
+  const int nr = min(BT, nv - i0);   // valid rows of the tile
+  const int jend = min(nv, i0 + BT);
+  const int n_intra = (jend + KS - 1) / KS;
+  const int n_inter = ch > 0 ? (d.S + KS - 1) / KS : 0;
+  auto load = [&](int s, int slot) {
+    float* a = smem + slot * OUT_SLOT;
+    float* bs = a + BT * LDK;
+    if (s < n_intra) {
+      const int j0 = s * KS;
+      load_tile<BT, KS, LDK>(a, ab + j0, d.Q, min(BT, d.Q - i0), jend - j0,
+                             d.vec_q);
+      load_tile<KS, BT, LDT>(bs, xb + j0 * xrow, xrow, jend - j0, d.P - p0,
+                             d.vec_x);
+    } else {
+      const int k0 = (s - n_intra) * KS;
+      load_tile<BT, KS, LDK>(a, cb + k0, crow, nr, d.S - k0, d.vec_bc);
+      load_tile<KS, BT, LDT>(bs, sb + k0 * d.P, d.P, d.S - k0, d.P - p0,
+                             d.vec_x);
+    }
+  };
+  ring_fill(n_intra + n_inter, load);
+  // l of the chunk, continued past Q with l_Q (identity steps to QMAX)
+  const float* lb = lc + (bh * d.NC + ch) * d.Q;
+  for (int i = tid; i < QMAX; i += MT) l[i] = lb[min(i, d.Q - 1)];
+  float ya[TM][TN] = {}, yi[TM][TN] = {};
+  ring_run(n_intra + n_inter, load, [&](int s, int slot) {
+    float* a = smem + slot * OUT_SLOT;
+    if (s < n_intra) {
+      const int j0 = s * KS;
+      for (int e = tid; e < BT * KS; e += MT) {
+        const int r = e / KS, k = e % KS;
+        const int i = i0 + r, j = j0 + k;
+        float* v = a + r * LDK + k;
+        // a select, not a multiply: exp(l_i - l_j) overflows for j > i
+        *v = (j <= i) ? *v * expf(l[i] - l[j]) : 0.f;
+      }
+      __syncthreads();
+      // causal skip: columns past the warp's last row are zero for the
+      // whole warp (adding them would change nothing)
+      const int last = i0 + (tid / 32) * WROWS + WROWS - 1;
+      const int kq = min(KS, (max(last - j0 + 1, 0) + 3) & ~3);
+      strip_mma<false>(a, a + BT * LDK, ya, ty, tx, kq);
+    } else {
+      strip_mma<false>(a, a + BT * LDK, yi, ty, tx);
+    }
+  });
+
+  float* yb = y + ((long long)b * d.L + t0) * xrow + (long long)h * d.P + p0;
+  for (int r = 0; r < TM; ++r) {
+    const int i = tile_row(ty, r);
+    if (i >= nr) continue;
+    const float el = expf(l[i0 + i]);
+    for (int c = 0; c < TN; ++c) {
+      const int p = tile_col(tx, c);
+      if (p0 + p < d.P)
+        yb[(i0 + i) * xrow + p] = fmaf(el, yi[r][c], ya[r][c]);
+    }
+  }
+}
+
+// Lets the two ring kernels take their dynamic shared memory (past the
+// 48 KB default) on the current device; once a device.
+cudaError_t allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(ssd_chunk_state,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             STATE_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_chunk_out,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               OUT_SMEM);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block for d_state s (bytes).
-long long ssd_scan_smem_bytes(int s) { return (long long)smem_bytes(s); }
+// Shared memory of each launch's block (bytes), in launch order.
+long long ssd_scan_smem_bytes(int which) {
+  return which == 0 ? STATE_SMEM : which == 2 ? OUT_SMEM : 0;
+}
 
+// Resident blocks per SM of launch `which` (0..2; the state pass in its
+// 4-wide form) on the current device.
+int ssd_scan_occupancy(int which) {
+  int n = 0;
+  const void* fn[3] = {(const void*)ssd_chunk_state,
+                       (const void*)ssd_state_pass<4>,
+                       (const void*)ssd_chunk_out};
+  if (which < 0 || which > 2 || allow_smem() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fn[which], MT, (size_t)ssd_scan_smem_bytes(which)) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+// plan: n_chunks, tri, ns, np, nm, then the x extent of the three grids,
+// as repro_torch.kernels.ssd_scan.ops.plan computes them.  ws_l, ws_cbt,
+// ws_st: the workspace's three parts.  vec: bit 0 x and y, bit 1 b and c,
+// bit 2 the C B^T rows may take 16-byte copies.
 int ssd_scan_launch(const float* x, const float* loga, const float* b,
-                    const float* c, float* y, float* state, int B, int L,
-                    int H, int P, int G, int S, int Q, void* stream) {
-  if (B < 1 || L < 0 || H < 1 || P < 1 || G < 1 || S < 1 || H % G != 0 ||
-      Q < 1 || Q > QMAX || H > 65535 || B > 65535)
+                    const float* c, float* y, float* state, float* ws_l,
+                    float* ws_cbt, float* ws_st, int B, int L, int H, int P,
+                    int G, int S, int Q, const int* plan, int vec,
+                    void* stream) {
+  if (B < 1 || B > 65535 || L < 0 || H < 1 || P < 1 || G < 1 || S < 1 ||
+      H % G != 0 || Q < 1 || Q > QMAX ||
+      (long long)H * P * QMAX > 0x7fffffffLL ||
+      (long long)G * S * QMAX > 0x7fffffffLL ||
+      (long long)H * S * P > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  Dims d{L, H, P, G, S, Q, plan[0], plan[1], plan[2], plan[3], plan[4],
+         vec & 1, (vec >> 1) & 1, (vec >> 2) & 1};
+  if (d.NC == 0)
+    return (int)cudaMemsetAsync(state, 0, sizeof(float) * B * H * S * P, st);
+  const cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((P + PB - 1) / PB, H, B);
-  ssd_scan_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, loga, b, c, y, state, L, H, P, G, S, Q);
+  const unsigned by = (unsigned)B;
+  ssd_chunk_state<<<dim3(plan[5], by), MT, STATE_SMEM, st>>>(
+      x, loga, b, c, ws_l, ws_cbt, ws_st, d);
+  if ((S * P) % 4 == 0)
+    ssd_state_pass<4><<<dim3(plan[6], by), MT, 0, st>>>(ws_l, ws_st, state,
+                                                       d);
+  else
+    ssd_state_pass<1><<<dim3(plan[6], by), MT, 0, st>>>(ws_l, ws_st, state,
+                                                       d);
+  ssd_chunk_out<<<dim3(plan[7], by), MT, OUT_SMEM, st>>>(
+      x, c, ws_l, ws_cbt, ws_st, y, d);
   return (int)cudaGetLastError();
 }
 

@@ -4,10 +4,13 @@
 Shapes are model-land: x (B, L, H, P), loga (B, L, H), b and c (B, L, G, S)
 with G head groups; the result is (y (B, L, H, P), state (B, H, S, P)).
 The reference wrapper repeats b and c to heads, folds (B, H) and pads L to
-the chunk multiple before its kernel; the CUDA kernel (`csrc/ssd_scan.cu`)
-reads b and c by group and masks the ragged tail itself, so nothing is
-copied here.  On CPU tensors `ssd_scan` runs the plain version
-(`ref.ssd_chunked`); on CUDA tensors it launches the kernel or raises.
+the chunk multiple before its kernel; the CUDA kernels (`csrc/ssd_scan.cu`)
+read b and c by group and mask the ragged tail themselves, so nothing is
+copied here.  `plan` is the launch arithmetic of the five chunk-parallel
+launches (prefix sums, C B^T per group, chunk states, state passing,
+chunk outputs): `launch` runs it and `preflight` reports it.  On CPU
+tensors `ssd_scan` runs the plain version (`ref.ssd_chunked`); on CUDA
+tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -18,9 +21,25 @@ import functools
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import skinny
 from repro_torch.kernels.ssd_scan import ref
 
-QMAX = 128                      # longest chunk the kernel's tiles cover
+QMAX = 128                      # longest chunk the kernels' tiles cover
+MT = 256                        # threads of every block
+MT_BLOCKS = 2                   # their __launch_bounds__ minimum blocks
+KS = 32                         # depth of a staged strip
+CT = 32                         # C B^T tile (CT x CT)
+BT = 64                         # state and output tiles (BT x BT)
+WROWS = 8                       # output rows of a warp (4 a thread)
+STAGES = 3                      # strips in flight in a block's ring
+SMEM_PER_SM = 233472            # shared memory an SM gives its blocks
+MAX_GRID_X = 2**31 - 1
+LAUNCH_NAMES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+# shared memory of each launch's block (csrc/ssd_scan.cu)
+SMEM = {"ssd_chunk_state": 4 * (STAGES * 2 * KS * (BT + 4) + 2 * QMAX),
+        "ssd_state_pass": 0,
+        "ssd_chunk_out": 4 * (STAGES * (BT * (KS + 4) + KS * (BT + 4))
+                              + QMAX)}
 LAUNCHES = kernels.LaunchCounter("ssd_scan")
 plain = ref.ssd_chunked         # what the kernel computes, in PyTorch ops
 
@@ -36,21 +55,149 @@ def ssd_scan(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     return launch(x, loga, b, c, chunk)
 
 
+def _chunk_kinds(l: int, chunk: int):
+    """(valid steps, chunks, chunks with an incoming state) of a length-l
+    sequence: the full chunks, then the ragged tail."""
+    full, tail = divmod(l, chunk)
+    kinds = [(chunk, full, full - 1)] if full else []
+    return kinds + ([(tail, 1, int(full > 0))] if tail else [])
+
+
+def _executed_flops(bsz, l, h, p, g, s_dim, chunk, tiles) -> int:
+    """Float32 operations the three launches execute (an FMA counts 2, an
+    exp or a multiply 1), zero-filled tile edges included; output tiles
+    whose rows all lie past a ragged tail exit at once."""
+    _, ns, n_p, _ = tiles
+    nc = skinny.cdiv(l, chunk)
+    s_k = skinny.cdiv(s_dim, KS) * KS
+    flops = bsz * h * s_dim * p * nc * 3                         # state pass
+    for nv, count, inter in _chunk_kinds(l, chunk):
+        t = skinny.cdiv(nv, CT)
+        flops += bsz * g * count * t * (t + 1) // 2 * CT * CT * s_k * 2
+        strips = skinny.cdiv(nv, KS)
+        # chunk state: the tile's FMAs, B . w in place, the prefix sums, w
+        per = ns * n_p * (strips * KS * (BT * BT * 2 + BT) + 2 * QMAX)
+        rows = skinny.cdiv(nv, BT)
+        for i0 in range(0, rows * BT, BT):
+            n = skinny.cdiv(min(nv, i0 + BT), KS)
+            # output: decayed C B^T (mask 3 a value); its strips against
+            # X, each warp to the multiple of 4 past its last row; the store
+            fma = sum(WROWS * BT * 2 * min(KS, -(-max(i0 + w + WROWS - j0, 0)
+                                                // 4) * 4)
+                      for j0 in range(0, n * KS, KS)
+                      for w in range(0, BT, WROWS))
+            per += n_p * (n * KS * BT * 3 + fma + BT * BT * 2 + BT)
+        flops += bsz * h * count * per
+        flops += bsz * h * inter * rows * n_p * s_k * BT * BT * 2   # C S_in
+    return flops
+
+
+@functools.lru_cache(maxsize=256)
+def plan(bsz: int, l: int, h: int, p: int, g: int, s_dim: int,
+         chunk: int = 128) -> dict:
+    """The three launches of one scan: grid (x, y) and block of each, its
+    shared memory, the resident blocks per SM its launch bounds and shared
+    memory guarantee (at least), the workspace (prefix sums (B, H, NC, Q),
+    C B^T (B, G, NC, Q, Q), chunk states (B, H, NC, S, P), float32) and the
+    float32 operations executed.  The first launch's grid holds the C B^T
+    tiles' blocks (`cbt_blocks`) after the chunk states'.  Chunks, heads
+    and tiles sit on grid x, the batch on grid y.  Cached per shape: do
+    not modify the dict."""
+    nc = skinny.cdiv(l, chunk)
+    tq = skinny.cdiv(chunk, CT)
+    tiles = (tq * (tq + 1) // 2, skinny.cdiv(s_dim, BT), skinny.cdiv(p, BT),
+             skinny.cdiv(chunk, BT))
+    tri, ns, n_p, nm = tiles
+    # the state pass takes 4 elements a thread when S P allows
+    per = 4 if s_dim * p % 4 == 0 else 1
+    gx = {"ssd_chunk_state": ns * n_p * nc * h + tri * nc * g,
+          "ssd_state_pass": skinny.cdiv(h * s_dim * p, MT * per),
+          "ssd_chunk_out": n_p * nc * h * nm}
+    launches = [{"name": name, "grid": (gx[name], bsz, 1), "block": MT,
+                 "smem_bytes": SMEM[name],
+                 "blocks_per_sm": min(2048 // MT, MT_BLOCKS,
+                                      SMEM_PER_SM // (SMEM[name] + 1024))}
+                for name in LAUNCH_NAMES]
+    ws = {"l": bsz * h * nc * chunk, "cbt": bsz * g * nc * chunk * chunk,
+          "states": bsz * h * nc * s_dim * p}
+    # the workspace's parts start at multiples of 4 floats (16 bytes)
+    o_cbt = skinny.pad4(ws["l"])
+    o_st = o_cbt + skinny.pad4(ws["cbt"])
+    args = (ctypes.c_int * 8)(nc, *tiles, *(gx[n] for n in LAUNCH_NAMES))
+    return {"n_chunks": nc, "tiles": tiles, "launches": launches,
+            "cbt_blocks": tri * nc * g,
+            "smem_bytes": max(SMEM.values()),
+            "workspace_floats": ws,
+            "workspace_bytes": 4 * sum(ws.values()),
+            "flops": _executed_flops(bsz, l, h, p, g, s_dim, chunk, tiles),
+            "offsets": (o_cbt, o_st, o_st + ws["states"]),
+            "fits": bsz <= skinny.MAX_GRID_Y
+            and all(x <= MAX_GRID_X for x in gx.values()),
+            "c_args": args}
+
+
+def preflight(bsz: int, l: int, h: int, p: int, s_dim: int, *,
+              chunk: int = 128, groups: int = 1) -> dict:
+    """What `launch` would run for a scan on an H100, without launching
+    (the reference's `preflight`, for the CUDA kernels): the launches'
+    grids, shared memory per block against the 227 KB limit, resident
+    blocks per SM, the workspace, and `pad_waste`, the fraction of steps
+    computed past L (the ragged tail is masked in the kernels, never
+    copied, but its chunk is computed whole)."""
+    issues: list[str] = []
+    if min(bsz, l, h, p, s_dim, chunk, groups) <= 0:
+        issues.append(f"non-positive dimension in B,L,H,P,S,chunk,G="
+                      f"{bsz},{l},{h},{p},{s_dim},{chunk},{groups}")
+        return {"kernel": "ssd_scan", "launches": [], "smem_bytes": 0,
+                "workspace_bytes": 0, "pad_waste": 0.0, "issues": issues}
+    if chunk > QMAX:
+        issues.append(f"chunk={chunk} exceeds the kernels' {QMAX}")
+    if h % groups:
+        issues.append(f"{groups} groups do not divide {h} heads")
+    if bsz > skinny.MAX_GRID_Y:
+        issues.append(f"batch {bsz} exceeds grid y's 65535")
+    if max(h * p, groups * s_dim) * QMAX >= 2**31 or h * s_dim * p >= 2**31:
+        issues.append("a block's 32-bit offsets overflow at these widths")
+    pl = plan(bsz, l, h, p, groups, s_dim, chunk)
+    for ln in pl["launches"]:
+        if ln["grid"][0] > MAX_GRID_X:
+            issues.append(f"{ln['name']}: grid x {ln['grid'][0]} exceeds "
+                          "2^31 - 1")
+        if ln["smem_bytes"] > skinny.SMEM_LIMIT:
+            issues.append(f"{ln['name']}: {ln['smem_bytes']} bytes of "
+                          "shared memory exceed 227 KB")
+    lp = pl["n_chunks"] * chunk
+    out = {k: v for k, v in pl.items() if k != "c_args"}
+    return dict(out, kernel="ssd_scan", pad_waste=lp / l - 1.0,
+                issues=issues)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = kernels.library("ssd_scan")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+    lib.ssd_scan_launch.argtypes = (
+        [vp] * 9 + [i32] * 7 + [ctypes.POINTER(i32), i32, vp])
     lib.ssd_scan_launch.restype = i32
     lib.ssd_scan_smem_bytes.argtypes = [i32]
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_occupancy.argtypes = [i32]
+    lib.ssd_scan_occupancy.restype = i32
     return lib
+
+
+def occupancy() -> dict:
+    """Resident blocks per SM of each launch on the current card, as the
+    CUDA runtime reports them for the built kernels."""
+    lib = _lib()
+    return {name: lib.ssd_scan_occupancy(i)
+            for i, name in enumerate(LAUNCH_NAMES)}
 
 
 def launch(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
            c: torch.Tensor, chunk: int = 128):
     """Launch csrc/ssd_scan.cu on the current stream; raises on anything
-    the kernel does not take or on a refused launch."""
+    the kernels do not take or on a refused launch."""
     name = "ssd_scan"
     kernels.require_cuda(x, loga, b, c, name=name)
     if x.ndim != 4 or loga.ndim != 3 or b.ndim != 4 or c.ndim != 4:
@@ -58,8 +205,8 @@ def launch(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
                          "b and c (B, L, G, S)")
     bsz, l, h, p = x.shape
     g, s_dim = b.shape[2], b.shape[3]
-    if tuple(loga.shape) != (bsz, l, h) or tuple(b.shape) != \
-            tuple(c.shape) or tuple(b.shape[:2]) != (bsz, l):
+    if loga.shape != (bsz, l, h) or b.shape != c.shape \
+            or b.shape[:2] != (bsz, l):
         raise ValueError(f"{name}: shapes disagree: x {tuple(x.shape)}, "
                          f"loga {tuple(loga.shape)}, b {tuple(b.shape)}, "
                          f"c {tuple(c.shape)}")
@@ -67,21 +214,30 @@ def launch(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: {g} groups do not divide {h} heads")
     if not 1 <= chunk <= QMAX:
         raise ValueError(f"{name}: chunk={chunk} outside 1..{QMAX}")
-    if not all(t.is_contiguous() for t in (x, loga, b, c)):
+    if not (x.is_contiguous() and loga.is_contiguous()
+            and b.is_contiguous() and c.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
+    pl = plan(bsz, l, h, p, g, s_dim, chunk)
+    if not pl["fits"]:
+        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid "
+                         "limits (see preflight)")
     lib = _lib()
-    if lib.ssd_scan_smem_bytes(s_dim) > 232448:
-        raise ValueError(f"{name}: d_state={s_dim} needs more than the "
-                         "227 KB of shared memory a block can have")
     y = torch.empty_like(x)
-    state = torch.empty((bsz, h, s_dim, p), dtype=torch.float32,
-                        device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ssd_scan_launch(
-            x.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), state.data_ptr(), bsz, l, h, p, g, s_dim, chunk,
-            stream)
+    state = x.new_empty((bsz, h, s_dim, p))
+    o_cbt, o_st, n_ws = pl["offsets"]
+    ws = x.new_empty(n_ws)
+    ptrs = (x.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), state.data_ptr(), ws.data_ptr())
+    vec = (int(p % 4 == 0 and (ptrs[0] | ptrs[4]) % 16 == 0)
+           | int(s_dim % 4 == 0 and (ptrs[2] | ptrs[3]) % 16 == 0) << 1
+           | int(chunk % 4 == 0) << 2)
+    args = (*ptrs, ptrs[6] + 4 * o_cbt, ptrs[6] + 4 * o_st, bsz, l, h, p, g,
+            s_dim, chunk, pl["c_args"], vec)
+    if x.get_device() == torch.cuda.current_device():
+        rc = lib.ssd_scan_launch(*args, kernels.stream_of(x))
+    else:
+        with torch.cuda.device(x.device):
+            rc = lib.ssd_scan_launch(*args, kernels.stream_of(x))
     kernels.check_launch(rc, name)
     LAUNCHES.add()
     return y, state

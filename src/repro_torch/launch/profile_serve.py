@@ -46,7 +46,8 @@ def family(name: str) -> str:
     if any(k in n for k in ("fused_kernel", "flush_splits", "weightop>",
                             "x_operand", "w_operand")):
         return "rosa_fused kernel"
-    if "ssd_scan" in n:
+    if any(k in n for k in ("ssd_chunk_state", "ssd_state_pass",
+                            "ssd_chunk_out")):
         return "ssd_scan kernel"
     if "transfer_kernel" in n:
         return "mrr_transfer kernel"

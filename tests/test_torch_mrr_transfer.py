@@ -173,9 +173,10 @@ def test_launch_refuses_what_the_kernel_does_not_take():
 def test_preflight():
     wi = ops.preflight(5120 * 51200)
     assert wi["issues"] == [] and wi["pad_waste"] == 0.0
-    assert wi["grid"] == (132 * ops.BLOCKS_PER_SM,)     # grid-stride cap
+    # one stream of float4 segments, 8 a thread: 8192 elements a block
+    assert wi["grid"] == (5120 * 51200 // 8192, 1, 1)
     assert wi["bytes"] == 16 * 5120 * 51200
-    assert ops.preflight(60 * 25)["grid"] == (2,)
+    assert ops.preflight(60 * 25)["grid"] == (2, 1, 1)
     assert ops.preflight(0)["issues"]
 
 
@@ -218,3 +219,34 @@ def test_cuda_backward_raises_without_plain_fallback():
     y = ops.mrr_transfer(w, torch.Generator("cuda").manual_seed(0))
     with pytest.raises(NotImplementedError, match="variation-aware QAT"):
         y.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient", ["row", "col", "any"])
+@pytest.mark.parametrize("noisy", [True, False])
+def test_kernel_equals_plain_in_each_lane_layout_on_cuda(orient, noisy):
+    """Per-row fields against a (K, N) weight, per-column fields against
+    (M, K) activations (both the lane vectors themselves), and a full-shape
+    field (a strided view): bit for bit, at aligned and ragged widths."""
+    _need_cuda()
+    g = torch.Generator("cuda").manual_seed(2)
+    for shape in [(96, 256), (37, 27)]:
+        w = 2.2 * torch.rand(shape, device="cuda", generator=g) - 1.1
+        if orient == "any":
+            var = TM.StaticVariation(
+                *(s * torch.randn(shape, device="cuda", generator=g)
+                  for s in (0.01, 0.04, 0.01)))
+        else:
+            lanes = shape[0] if orient == "row" else shape[1]
+            var = TM.StaticVariation(
+                *(s * torch.randn(lanes, device="cuda", generator=g)
+                  for s in (0.01, 0.04, 0.01)))
+            if orient == "row":
+                var = TM.expand_lanes(var, w)
+        sig = SIGMAS if noisy else (0.0, 0.0)
+        eps = TM.draw_eps(torch.Generator("cuda").manual_seed(3), shape,
+                          "cuda") if noisy else (None, None)
+        got = ops.launch(w, *eps, *sig, var=var)
+        want = ops.plain(w, *eps, *sig, var=var)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (orient, shape)

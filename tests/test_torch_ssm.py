@@ -383,3 +383,29 @@ def test_kernel_matches_plain_on_cuda(case):
     torch.cuda.synchronize()
     _assert_close_abs(y, y_cpu, 1e-4)
     _assert_close_abs(st, st_cpu, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (1, 1, 8, 64, 1, 128, 128), (1, 127, 8, 64, 1, 128, 128),
+    (1, 128, 8, 64, 1, 128, 128), (1, 129, 8, 64, 1, 128, 128),
+    (1, 1000, 8, 64, 1, 128, 128), (2, 300, 4, 64, 4, 64, 128),
+    (1, 200, 4, 30, 2, 18, 24)])
+def test_chunk_parallel_kernel_matches_plain_on_cuda(case):
+    """The chunk-parallel launches at one step, a chunk's edges, a long
+    ragged sequence, G = H, and widths that take 4-byte copies; two
+    launches give equal bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (kernels build on first "
+                    "use)")
+    bsz, l, h, p, g, s, chunk = case
+    ins = [torch.from_numpy(a) for a in
+           _scan_inputs(bsz, l, h, p, g, s, seed=l, decay=(0.2, 1.2))]
+    y_cpu, st_cpu = ssd_ops.ssd_scan(*ins, chunk=chunk)
+    dev = [a.cuda() for a in ins]
+    y, st = ssd_ops.ssd_scan(*dev, chunk=chunk)
+    y2, st2 = ssd_ops.ssd_scan(*dev, chunk=chunk)
+    torch.cuda.synchronize()
+    _assert_close_abs(y, y_cpu, 1e-4)
+    _assert_close_abs(st, st_cpu, 1e-4)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
