@@ -10,9 +10,12 @@ Phases (any failure raises, so the exit code is non-zero):
      `src/repro_torch/kernels/csrc/` with nvcc (sm_90a);
   2. kernel parity: each kernel against its plain PyTorch version on the
      same CUDA tensors, at the serving shapes (m in {4, 8} rows against the
-     5120 x 51200 and 25600 x 5120 MLP projections), the mobilenet_v3
-     conv_stem sheet at eval batch 512 (524288 x 27 x 16, PAPER_NOISE; IS
-     and WS), a ragged shape and, for osa_matmul, 524,289 rows (past the
+     5120 x 51200 and 25600 x 5120 MLP projections), the largest im2col
+     sheets of the four paper CNNs at eval batch 512 (mobilenet_v3
+     conv_stem 524288 x 27 x 16, alexnet conv1 524288 x 27 x 24 and conv2
+     131072 x 216 x 48, vgg16 conv1_2 524288 x 144 x 16, resnet18 l1
+     524288 x 216 x 24; PAPER_NOISE, IS and WS), a ragged shape and, for
+     osa_matmul, 524,289 rows (past the
      grid's y limit), held to the flip-aware one-LSB bound; two launches
      on the same inputs must give equal bits.  Timed rows: the median of
      10 per-call CUDA-event times, a kernel-only time (one event pair
@@ -53,21 +56,29 @@ Phases (any failure raises, so the exit code is non-zero):
      chip (per column), qwen3-32b's mlp/wi (5120, 51200) with noise and
      with a chip only, and a ragged 1-D n = 1,000,003; per-call and
      kernel-only times as in phase 2, the bound and its share;
-  9. the paper's Table 4 pipeline for mobilenet_v3 at the reference's
-     widths through `launch.table4.run_model`: 400 QAT steps at batch 64
-     on 4096 synth-CIFAR images, the per-layer noise profile (n_mc 3), the
-     hybrid plan, the five accuracies on the 512-image test split, and
-     the EDP of WS, hybrid and DEAP-CNNs.  The launch counts are reset
-     just before and read just after: rosa_fused must have run every noisy
-     conv/fc evaluation and mrr_transfer every noisy depthwise
-     conditioning, counted from the specs and the plan; the WS and DEAP
-     EDPs must equal the values the CPU tests pin from the reference;
+  9. the paper's Table 4 pipeline over the four paper CNNs (alexnet,
+     vgg16, resnet18, mobilenet_v3) at the reference's widths through
+     `launch.table4.run`, one model per main-path run: 400 QAT steps at
+     batch 64 on 4096 synth-CIFAR images, the per-layer noise profile
+     (n_mc 3), the hybrid plan, the five accuracies on the 512-image test
+     split, and the EDP of WS, hybrid and DEAP-CNNs; then the paper's three
+     averages.  The launch counts are reset just before each model and
+     read just after: rosa_fused must have run every noisy conv/fc
+     evaluation and mrr_transfer every noisy depthwise conditioning,
+     counted from the specs and the plan; the WS and DEAP EDPs must equal
+     the reference's floats (TABLE4_EDP);
  10. card vs the reference: the golden file of tests/test_torch_cnn.py
      (JAX-trained mobilenet_v3, a JAX chip, JAX's logits).  Clean accuracy
      within 2 images and chip-pinned WS / IS (per-shot noise ideal)
      within 5 images of 512 of the reference's; the kernel path's logits
      within 4x the float-order floor of the plain path on the card (the
-     plain path with permuted channels, as in phase 5).
+     plain path with permuted channels, as in phase 5);
+ 11. the paper's energy model in float64 on the card: Figs. 7-9, Table 1,
+     the model-zoo DSE sweep (16 workloads, 5176 layer rows, 33
+     candidates), the EDP-only hybrid plan on five zoo architectures and
+     Table 4's EDP-only averages, each within 1e-9 relative of the
+     reference's value (ENERGY_REF; labels and counts equal); the zoo
+     sweep's wall, the median of 10 after 2 warm-ups.
 
 It prints one JSON line summarizing the kernels, then the card's name and
 power limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -222,8 +233,14 @@ def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # Phase 2: kernel parity and times
 # ---------------------------------------------------------------------------
-# conv_stem IS sheet of mobilenet_v3 at eval batch 512 (rows, lanes, outs)
-CONV_STEM = (524288, 27, 16)
+# the paper CNNs' largest im2col sheets at eval batch 512 on 32x32 inputs
+# (rows, lanes, outs), from the traced lite nets (models/cnn.py)
+CONV_STEM = (524288, 27, 16)           # mobilenet_v3
+CNN_SHEETS = {"conv_stem": CONV_STEM,
+              "alexnet conv1": (524288, 27, 24),
+              "alexnet conv2": (131072, 216, 48),
+              "vgg16 conv1_2": (524288, 144, 16),
+              "resnet18 l1": (524288, 216, 24)}
 
 
 def fused_cases():
@@ -240,10 +257,10 @@ def fused_cases():
                False),
               (4, *PROJ["mlp/wi"], "ANALOG mlp/wi",
                dict(mode=ComputeMode.ANALOG), False)]
-    # the Table 4 evaluations' largest sheet: PAPER_NOISE, no chip
-    cases += [(*CONV_STEM, f"{mp} conv_stem noisy",
+    # the Table 4 evaluations' largest sheets: PAPER_NOISE, no chip
+    cases += [(*sheet, f"{mp} {name} noisy",
                dict(mapping=Mapping[mp], noisy=True, chip=False), True)
-              for mp in ("IS", "WS")]
+              for name, sheet in CNN_SHEETS.items() for mp in ("IS", "WS")]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
@@ -948,14 +965,20 @@ def mrr_phase(report: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 9-10: the Table 4 pipeline for mobilenet_v3, and the golden file
+# Phases 9-10: the Table 4 pipeline over the four paper CNNs, and the
+# mobilenet_v3 golden file
 # ---------------------------------------------------------------------------
-CNN = "mobilenet_v3"
+CNNS = ("alexnet", "vgg16", "resnet18", "mobilenet_v3")
+CNN = "mobilenet_v3"                   # the golden file's network
 TABLE4 = dict(steps=400, n_mc=3)       # QAT at batch 64 on 4096 images
-# EDP [J*s] of WS and of DEAP-CNNs on mobilenet_v3's full-size rows at
-# batch 128: the reference's values, pinned by tests/test_torch_cnn.py
-EDP_WS = 1.794560881706427e-05
-EDP_DEAP = 52.23022904750444
+# EDP [J*s] of WS and of DEAP-CNNs on each network's full-size rows at
+# batch 128: the reference's floats (core.mapping.plan_edp and
+# core.energy.network_energy of src/repro), which
+# tests/test_torch_table4.py holds equal to the reference's
+TABLE4_EDP = {"alexnet": (0.09528840575672215, 38968.06817541521),
+              "vgg16": (0.04198542905483209, 119085.41858453903),
+              "resnet18": (0.06639472322351758, 435459.5256307617),
+              "mobilenet_v3": (1.794560881706427e-05, 52.23022904750444)}
 GOLDEN = ROOT / "tests" / "data" / "torch_cnn_mobilenet_v3.npz"
 
 
@@ -989,54 +1012,69 @@ def table4_launches(specs, plan: dict, n_mc: int) -> dict:
 
 
 def table4_phase(report: dict) -> dict:
+    """`launch.table4.run` over the four CNNs, one model per main-path run
+    (counts from 0 before each, read right after); returns the launches
+    summed over the four runs."""
     import torch
     from repro_torch.launch import table4
     from repro_torch.models.cnn import LITE_MODELS
 
-    specs = LITE_MODELS[CNN]
-    # ---- the main path: counts from 0, read right after ------------------
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = table4.run_model(CNN, TABLE4["steps"], TABLE4["n_mc"],
-                           device=DEVICE, verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n = launch_counts()
-    want = table4_launches(specs, res["plan"], TABLE4["n_mc"])
-    accs, edp = res["accs"], res["edp"]
-    print(f"  {CNN}: {len(specs)} layers, {TABLE4['steps']} QAT steps at "
-          f"batch 64, n_mc {TABLE4['n_mc']}, eval batch 512")
-    print(f"  plan: {res['plan_is_layers']}/{len(res['plan'])} layers IS "
-          f"{sorted(k for k, v in res['plan'].items() if v == 'input_stationary')}")
-    print("  acc[%]: " + "  ".join(f"{k}={v:.2f}" for k, v in accs.items())
-          + f"  hybrid - WS {accs['hybrid'] - accs['ws']:+.2f} pp")
-    print(f"  EDP[J*s]: WS={edp['ws']!r} hybrid={edp['hybrid']!r} "
-          f"DEAP={edp['deap']!r}; hybrid below WS by "
-          f"{(1 - edp['hybrid'] / edp['ws']) * 100:.1f}%, below DEAP by "
-          f"{(1 - edp['hybrid'] / edp['deap']) * 100:.4f}%")
-    print("  wall s: " + "  ".join(f"{k}={v:.2f}"
-                                   for k, v in res["wall_s"].items())
-          + f"  (total {wall:.2f}, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
-    print(f"  launches {n} (want rosa_fused {want['rosa_fused']}, "
-          f"mrr_transfer {want['mrr_transfer']})")
-    if n["rosa_fused"] != want["rosa_fused"] or n["mrr_transfer"] \
-            != want["mrr_transfer"] or n["osa_matmul"] or n["ssd_scan"]:
-        # every noisy evaluation must launch these kernels, so equal counts
-        # also show that the QAT training launched neither
-        raise AssertionError("the Table 4 pipeline did not run its noisy "
-                             "evaluations through rosa_fused/mrr_transfer")
-    if not all(math.isfinite(a) and 0.0 <= a <= 100.0
-               for a in accs.values()):
-        raise AssertionError(f"accuracies out of range: {accs}")
-    if edp["ws"] != EDP_WS or edp["deap"] != EDP_DEAP:
-        raise AssertionError(f"EDP differs from the reference's: WS "
-                             f"{edp['ws']!r} vs {EDP_WS!r}, DEAP "
-                             f"{edp['deap']!r} vs {EDP_DEAP!r}")
-    report["table4"] = dict(res, launches=n, want_launches=want,
-                            total_wall_s=wall)
-    return n
+    results, total = {}, {"rosa_fused": 0, "mrr_transfer": 0}
+    print(f"  {TABLE4['steps']} QAT steps at batch 64, n_mc "
+          f"{TABLE4['n_mc']}, eval batch 512")
+    for model in CNNS:
+        specs = LITE_MODELS[model]
+        # ---- the main path: counts from 0, read right after --------------
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = table4.run([model], TABLE4["steps"], TABLE4["n_mc"],
+                         device=DEVICE, verbose=False)[model]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = table4_launches(specs, res["plan"], TABLE4["n_mc"])
+        accs, edp = res["accs"], res["edp"]
+        print(f"  {model}: {len(specs)} layers; plan "
+              f"{res['plan_is_layers']}/{len(res['plan'])} layers IS "
+              f"{sorted(k for k, v in res['plan'].items() if v == 'input_stationary')}")
+        print("    acc[%]: " + "  ".join(f"{k}={v:.2f}"
+                                         for k, v in accs.items())
+              + f"  hybrid - WS {accs['hybrid'] - accs['ws']:+.2f} pp")
+        print(f"    EDP[J*s]: WS={edp['ws']!r} hybrid={edp['hybrid']!r} "
+              f"DEAP={edp['deap']!r}; hybrid below WS by "
+              f"{(1 - edp['hybrid'] / edp['ws']) * 100:.1f}%, below DEAP by "
+              f"{(1 - edp['hybrid'] / edp['deap']) * 100:.4f}%")
+        print("    wall s: " + "  ".join(f"{k}={v:.2f}"
+                                         for k, v in res["wall_s"].items())
+              + f"  (total {wall:.2f}, peak {peak:.2f} GiB)")
+        print(f"    launches {n} (want rosa_fused {want['rosa_fused']}, "
+              f"mrr_transfer {want['mrr_transfer']})", flush=True)
+        if n["rosa_fused"] != want["rosa_fused"] or n["mrr_transfer"] \
+                != want["mrr_transfer"] or n["osa_matmul"] or n["ssd_scan"]:
+            # every noisy evaluation must launch these kernels, so equal
+            # counts also show that the QAT training launched neither
+            raise AssertionError(f"{model}: the Table 4 pipeline did not run "
+                                 "its noisy evaluations through "
+                                 "rosa_fused/mrr_transfer")
+        if not all(math.isfinite(a) and 0.0 <= a <= 100.0
+                   for a in accs.values()):
+            raise AssertionError(f"{model}: accuracies out of range: {accs}")
+        if (edp["ws"], edp["deap"]) != TABLE4_EDP[model]:
+            raise AssertionError(f"{model}: EDP differs from the reference's:"
+                                 f" WS, DEAP {edp['ws']!r}, {edp['deap']!r} "
+                                 f"vs {TABLE4_EDP[model]!r}")
+        results[model] = res
+        report.setdefault("table4", {})[model] = dict(
+            res, launches=n, want_launches=want, total_wall_s=wall,
+            peak_gib=peak)
+        for k in total:
+            total[k] += n[k]
+    avg = table4.averages(results)
+    table4.print_averages(avg)
+    report["table4_averages"] = avg
+    return total
 
 
 def load_golden(device):
@@ -1194,6 +1232,177 @@ def golden_phase(report: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the paper's energy model on the card, in float64
+# ---------------------------------------------------------------------------
+# The reference's values: benchmarks/fig7_array_dse, fig8_osa,
+# fig9_power_breakdown, table1_modes, the dse_zoo and hybrid_zoo benches of
+# benchmarks/run.py and tests/test_paper_golden.py::_table4_edp_reductions,
+# run on src/repro in float64; tests/test_torch_dse.py holds every entry
+# equal to the reference's.
+ENERGY_REF = {
+    "fig7_best_label": "R=8,C=8,T=16",
+    "fig7_reduction_vs_deap": 0.33517400209471915,
+    "fig7_reduction_vs_compact": 0.22607095668842447,
+    "fig8_geomean_reduction_osa": 0.28580986529830166,
+    "fig8_geomean_reduction_osa_ode": 0.33332575119641483,
+    "fig9_n_workloads": 4,
+    "fig9_alexnet_adc_power_reduction": 0.8571428571428571,
+    "table1_ops_mixed_vs_analog": 31250.000000000004,
+    "table1_mixed_edp": 2.180631443342872e-05,
+    "table1_mixed_oadc_energy": 1.5925248e-05,
+    "zoo_n_workloads": 16,
+    "zoo_n_layer_rows": 5176,
+    "zoo_n_candidates": 33,
+    "zoo_best_label": "R=16,C=8,T=8",
+    "zoo_best_metric": 0.7640359493852568,
+    "hybrid_zoo_qwen3-32b": 0.5225714748299136,
+    "hybrid_zoo_mamba2-1.3b": 0.9408820185426022,
+    "hybrid_zoo_gemma3-12b": 0.5698857465373174,
+    "hybrid_zoo_zamba2-1.2b": 0.8661936049304755,
+    "hybrid_zoo_seamless-m4t-medium": 0.4955234548765315,
+    "table4_avg_hybrid_vs_ws_edp_red": 0.2850777915075481,
+    "table4_avg_hybrid_vs_deap_edp_red": 0.9999997594171288,
+}
+ENERGY_REL = 1e-9     # only the order of the per-workload sums may differ
+HYBRID_ZOO = ("qwen3-32b", "mamba2-1.3b", "gemma3-12b", "zamba2-1.2b",
+              "seamless-m4t-medium")
+ZOO_BATCH = 8
+
+
+def hybrid_zoo(device) -> dict:
+    """EDP of the per-layer hybrid plan over all-WS on zoo architectures
+    (accuracy term muted: no behavioural twin for the LLM stacks)."""
+    from repro_torch.configs import get_workload_zoo
+    from repro_torch.core import mapping as M
+    from repro_torch.core.constants import ROSA_OPTIMAL, Mapping
+
+    out = {}
+    for wl in get_workload_zoo(include_paper=False, archs=list(HYBRID_ZOO)):
+        profs = M.profile_layers_fast(wl.layers, ROSA_OPTIMAL,
+                                      batch=ZOO_BATCH, device=device)
+        plan = M.hybrid_plan(profs)
+        e_h = M.plan_edp(wl.layers, plan, ROSA_OPTIMAL, batch=ZOO_BATCH)
+        e_ws = M.plan_edp(wl.layers, {p.name: Mapping.WS for p in profs},
+                          ROSA_OPTIMAL, batch=ZOO_BATCH)
+        out[f"hybrid_zoo_{wl.name}"] = e_h / e_ws
+    return out
+
+
+def table4_edp_only(device) -> dict:
+    """Table 4's EDP side without the behavioural profile: the per-layer
+    EDP argmin on each CNN's lite layers (vectorized profile), priced by
+    the scalar model; averages over the four CNNs."""
+    from repro_torch.core import energy as E
+    from repro_torch.core import mapping as M
+    from repro_torch.core.constants import (DEAP_HIGH_CHANNEL, ROSA_OPTIMAL,
+                                            ComputeMode, Mapping)
+    from repro_torch.launch.table4 import mapped_layers
+
+    ws_red, deap_red = [], []
+    for model in CNNS:
+        mapped = mapped_layers(model)
+        plan = M.hybrid_plan(M.profile_layers_fast(
+            mapped, ROSA_OPTIMAL, batch=128, device=device))
+        e_h = M.plan_edp(mapped, plan, ROSA_OPTIMAL, batch=128)
+        e_ws = M.plan_edp(mapped, {}, ROSA_OPTIMAL, batch=128)
+        e_deap = E.network_energy(mapped, DEAP_HIGH_CHANNEL, Mapping.WS,
+                                  ComputeMode.ANALOG, E.NO_OSA,
+                                  batch=128).edp
+        ws_red.append(1 - e_h / e_ws)
+        deap_red.append(1 - e_h / e_deap)
+    return {"table4_avg_hybrid_vs_ws_edp_red": sum(ws_red) / len(ws_red),
+            "table4_avg_hybrid_vs_deap_edp_red":
+                sum(deap_red) / len(deap_red)}
+
+
+def energy_values(device) -> dict:
+    """Every value of ENERGY_REF, computed by the port on `device`."""
+    from repro_torch.configs import get_workload_zoo
+    from repro_torch.core import dse
+    from repro_torch.launch import (fig7_array_dse, fig8_osa,
+                                    fig9_power_breakdown, table1_modes)
+
+    f7 = fig7_array_dse.run(verbose=False, device=device)
+    f8 = fig8_osa.run(verbose=False, device=device)
+    f9 = fig9_power_breakdown.run(verbose=False, device=device)
+    t1 = table1_modes.run(verbose=False, device=device)
+    alex = f9["alexnet"]
+    wls = get_workload_zoo()
+    pts = dse.sweep(wls, batch=ZOO_BATCH, device=device)
+    return {
+        "fig7_best_label": f7["best"].label,
+        "fig7_reduction_vs_deap": f7["reduction_vs_deap"],
+        "fig7_reduction_vs_compact": f7["reduction_vs_compact"],
+        "fig8_geomean_reduction_osa": f8["geomean_reduction_osa"],
+        "fig8_geomean_reduction_osa_ode": f8["geomean_reduction_osa_ode"],
+        "fig9_n_workloads": len(f9),
+        "fig9_alexnet_adc_power_reduction":
+            1 - alex["osa"]["adc"] / alex["no_osa"]["adc"],
+        "table1_ops_mixed_vs_analog":
+            t1["mixed"]["ops"] / t1["analog"]["ops"],
+        "table1_mixed_edp": t1["mixed"]["edp"],
+        "table1_mixed_oadc_energy": t1["mixed"]["oadc_energy"],
+        "zoo_n_workloads": len(wls),
+        "zoo_n_layer_rows": sum(len(w.layers) for w in wls),
+        "zoo_n_candidates": len(pts),
+        "zoo_best_label": pts[0].label,
+        "zoo_best_metric": pts[0].metric,
+        **hybrid_zoo(device),
+        **table4_edp_only(device),
+    }
+
+
+def energy_mismatches(got: dict, want: dict) -> tuple[list, float]:
+    """([keys that differ], largest relative difference of the floats):
+    labels and counts must be equal, floats within ENERGY_REL."""
+    bad, worst = [], 0.0
+    for k, v in want.items():
+        g = got.get(k)
+        if isinstance(v, float) and isinstance(g, float):
+            rel = abs(g - v) / abs(v)
+            worst = max(worst, rel)
+            if not rel <= ENERGY_REL:
+                bad.append(k)
+        elif g != v:
+            bad.append(k)
+    return bad + sorted(set(got) - set(want)), worst
+
+
+def energy_phase(report: dict) -> dict:
+    import torch
+
+    got = energy_values(DEVICE)
+    bad, worst = energy_mismatches(got, ENERGY_REF)
+    for k, v in got.items():
+        print(f"  {k:36s} {v!r}" + ("" if k not in bad else
+                                    f"   REFERENCE {ENERGY_REF.get(k)!r}"))
+    print(f"  largest relative difference from the reference: {worst:.3e} "
+          f"(bound {ENERGY_REL:g})")
+    if bad:
+        raise AssertionError(f"energy model differs from the reference: "
+                             f"{bad}")
+    # the zoo sweep's wall on the card (the workloads built once, as the
+    # reference's dse_zoo bench times it): median of 10 after 2 warm-ups
+    from repro_torch.configs import get_workload_zoo
+    from repro_torch.core import dse
+
+    wls, times = get_workload_zoo(), []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dse.sweep(wls, batch=ZOO_BATCH, device=DEVICE)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    wall = statistics.median(times)
+    print(f"  zoo sweep (16 workloads x 5176 rows x 33 candidates, float64):"
+          f" median {wall:.4f} s of 10 on {report['card']}")
+    report["energy"] = dict(values=got, max_rel_diff=worst,
+                            zoo_sweep_s=wall, zoo_sweep_runs_s=times)
+    return got
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -1272,10 +1481,12 @@ def main(argv=None) -> int:
     launches["ssd_scan"] = phase("7", mamba_phase)
     print("phase 8: mrr_transfer parity against the plain version")
     mrr_row = phase("8", mrr_phase)
-    print(f"phase 9: the Table 4 pipeline, {CNN}")
+    print(f"phase 9: the Table 4 pipeline, {', '.join(CNNS)}")
     launches["mrr_transfer"] = phase("9", table4_phase)["mrr_transfer"]
     print(f"phase 10: {CNN} on the card against the reference's golden file")
     phase("10", golden_phase)
+    print("phase 11: the paper's energy model on the card (float64)")
+    phase("11", energy_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

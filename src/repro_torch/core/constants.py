@@ -129,6 +129,7 @@ N_BITS_OUTPUT = 8
 # --------------------------------------------------------------------------
 # Architecture constraints (Sec. 3.5)
 # --------------------------------------------------------------------------
+MAX_WDM_CHANNELS = 8            # C <= 8
 MAX_TOTAL_MRRS = 1024           # T * R * C <= 1024
 
 
@@ -174,3 +175,4 @@ class OPEConfig:
 # Reference configurations used throughout the paper's experiments.
 DEAP_HIGH_CHANNEL = OPEConfig(rows=113, cols=9, tiles=1)    # DEAP-CNNs [9]
 ROSA_OPTIMAL = OPEConfig(rows=8, cols=8)                    # paper's winner
+COMPACT_4X4 = OPEConfig(rows=4, cols=4)                     # [7, 27, 28]

@@ -87,6 +87,7 @@ class OSAEnergyConfig:
 
 
 NO_OSA = OSAEnergyConfig(enabled=False)
+OSA_DEFAULT = OSAEnergyConfig(enabled=True, ode_len=4)   # un-optimized chain
 OSA_OPTIMAL = OSAEnergyConfig(enabled=True, ode_len=0)   # sized to n_slots
 
 
@@ -281,3 +282,18 @@ def network_energy(layers: Iterable[LayerShape],
         total = total + layer_energy(layer, ope, mp, mode, osa,
                                      batch=batch, **kw)
     return total
+
+
+# --------------------------------------------------------------------------
+# Table 1 analytical throughput (OPS) formulas
+# --------------------------------------------------------------------------
+def ops_analog(ope: OPEConfig, n_i: int = 8, n_w: int = 8) -> float:
+    return ope.tiles * ope.rows * ope.cols * n_i * n_w / C.T_TO_TUNING_S
+
+
+def ops_digital(ope: OPEConfig) -> float:
+    return ope.tiles * ope.rows * ope.cols / C.T_EO_TUNING_S
+
+
+def ops_mixed(ope: OPEConfig, n_w: int = 8) -> float:
+    return ope.tiles * ope.rows * ope.cols * n_w / C.T_EO_TUNING_S

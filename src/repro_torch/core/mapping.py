@@ -15,11 +15,9 @@ with the paper's hyperparameters alpha_min=0.01, gamma=0.1, d_tol=1.0 —
 layers whose best-case degradation exceeds ~1% get their accuracy term
 up-weighted logarithmically.
 
-This module is model-agnostic and pure Python (PyTorch port of the
-pure-Python part of `repro.core.mapping`).  With a zero degradation
-callback alpha collapses to alpha_min and the plan is the per-layer EDP
-argmin, which is what the reference's vectorized `profile_layers_fast`
-computes on the same shapes.
+This module is model-agnostic (PyTorch port of `repro.core.mapping`): the
+CNN experiment (launch/table4) supplies accuracy callbacks; the LM zoo uses
+the EDP side only, through the vectorized `profile_layers_fast`.
 """
 
 from __future__ import annotations
@@ -28,7 +26,10 @@ import dataclasses
 import math
 from typing import Callable, Sequence
 
+import torch
+
 from repro_torch.core import energy as E
+from repro_torch.core import energy_vec as EV
 from repro_torch.core.constants import ComputeMode, Mapping, OPEConfig
 
 ALPHA_MIN = 0.01
@@ -80,6 +81,12 @@ def hybrid_plan(profiles: Sequence[LayerProfile]) -> dict[str, Mapping]:
     return {p.name: choose_mapping(p) for p in profiles}
 
 
+def degradation_fn_from_matrix(deg) -> Callable[[str, Mapping], float]:
+    """Adapt a `{layer: {mapping.value: pp}}` degradation matrix to the
+    `degradation_fn(name, mapping)` callback the profilers take."""
+    return lambda name, m: deg[name][m.value]
+
+
 def profile_layers(layers: Sequence[E.LayerShape],
                    ope: OPEConfig,
                    degradation_fn: Callable[[str, Mapping], float],
@@ -105,6 +112,41 @@ def profile_layers(layers: Sequence[E.LayerShape],
     return out
 
 
+def profile_layers_fast(layers: Sequence[E.LayerShape],
+                        ope: OPEConfig,
+                        degradation_fn: Callable[[str, Mapping], float]
+                        | None = None,
+                        mode: ComputeMode = ComputeMode.MIXED,
+                        osa: E.OSAEnergyConfig = E.OSA_OPTIMAL,
+                        batch: int = 1,
+                        device: str | torch.device | None = None
+                        ) -> list[LayerProfile]:
+    """Vectorized LayerProfile builder for model-zoo-scale networks.
+
+    Both mappings' per-layer EDPs come from `core.energy_vec` in two
+    broadcast evaluations on `device` (None: CUDA; raises without a card)
+    instead of 2*L scalar ones.  Without a degradation callback (zoo
+    workloads have no behavioural twin) degradations are 0, alpha collapses
+    to alpha_min, and the hybrid plan reduces to the per-layer EDP argmin —
+    the paper's search with the accuracy term muted.
+    """
+    cand = EV.stack_candidates([ope])
+    stacked = EV.stack_layers(layers)
+    edps = {}
+    for mp in (Mapping.IS, Mapping.WS):
+        spec = EV.EnergySpec.make(mapping=mp, mode=mode, osa=osa, batch=batch)
+        en, lat = EV.grid_energy(cand, stacked, spec, device=device)
+        edps[mp] = (en[0] * lat[0]).cpu().tolist()
+    d_fn = degradation_fn if degradation_fn is not None \
+        else (lambda name, m: 0.0)
+    return [LayerProfile(
+        name=layer.name,
+        d_is=d_fn(layer.name, Mapping.IS),
+        d_ws=d_fn(layer.name, Mapping.WS),
+        e_is=edps[Mapping.IS][i], e_ws=edps[Mapping.WS][i])
+        for i, layer in enumerate(layers)]
+
+
 def plan_edp(layers: Sequence[E.LayerShape], plan: dict[str, Mapping],
              ope: OPEConfig, mode: ComputeMode = ComputeMode.MIXED,
              osa: E.OSAEnergyConfig = E.OSA_OPTIMAL,
@@ -116,3 +158,15 @@ def plan_edp(layers: Sequence[E.LayerShape], plan: dict[str, Mapping],
     by construction.
     """
     return E.network_energy(layers, ope, plan, mode, osa, batch=batch).edp
+
+
+def execution_plan(profiles: Sequence[LayerProfile], default_cfg,
+                   layers: Sequence[str] | None = None):
+    """Lift profiled layers straight into an executable `rosa.ExecutionPlan`:
+    per-layer balanced-metric argmin, overriding `default_cfg`'s mapping."""
+    # local import: repro_torch.rosa initializes through repro_torch.core,
+    # so a module-level import here would be circular
+    from repro_torch.rosa.plan import ExecutionPlan
+    return ExecutionPlan.from_mapping_plan(
+        default_cfg, hybrid_plan(profiles),
+        layers if layers is not None else [p.name for p in profiles])

@@ -1,6 +1,6 @@
 """Where the Table 4 pipeline spends its time, on one CUDA card.
 
-    python -m repro_torch.launch.profile_table4
+    python -m repro_torch.launch.profile_table4 [--model resnet18]
 
 Times the pipeline's three kinds of work separately, each as
 `launch.table4.run_model` runs it (batch 64 QAT steps, noisy evaluations
@@ -13,19 +13,25 @@ of the 512-image test split with n_mc 3):
 For qat and eval it prints the wall time with and without the profiler,
 the device time by kernel family and the device's busy share (summed
 kernel time over wall time: kernels on one stream do not overlap).
-Writes the table to `chiprun_out/profile_table4_mobilenet_v3.txt`.
+Writes the table to `chiprun_out/profile_table4_<model>.txt`
+(mobilenet_v3 unless `--model` names another paper CNN).
 """
 
 from __future__ import annotations
 
+import argparse
 import pathlib
 import time
 
 OUT = pathlib.Path("chiprun_out")
-MODEL, STEPS = "mobilenet_v3", 50
+STEPS = 50
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="mobilenet_v3",
+                    choices=["alexnet", "vgg16", "resnet18", "mobilenet_v3"])
+    model = ap.parse_args(argv).model
 
     import numpy as np
     import torch
@@ -44,7 +50,7 @@ def main() -> None:
         raise SystemExit("profile_table4 needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    specs, skips = LITE_MODELS[MODEL], LITE_SKIPS.get(MODEL)
+    specs, skips = LITE_MODELS[model], LITE_SKIPS.get(model)
 
     t0 = time.perf_counter()
     (xtr, ytr), _ = train_test_split(n_train=4096, seed=0)
@@ -52,7 +58,7 @@ def main() -> None:
     xtr_t, ytr_t = torch.from_numpy(xtr).to(dev), torch.from_numpy(ytr).to(dev)
     params = init_params(cnn_def(specs), torch.Generator(dev).manual_seed(0),
                          device=dev)
-    engine = T.cnn_program(MODEL, T.qat_engine(MODEL)).engine
+    engine = T.cnn_program(model, T.qat_engine(model)).engine
     state = {"p": params, "m": map_tree(torch.zeros_like, params),
              "v": map_tree(torch.zeros_like, params), "i": 0}
     rng = np.random.default_rng(0)
@@ -72,10 +78,10 @@ def main() -> None:
         for mode, mp in ((ComputeMode.MIXED, Mapping.WS),
                          (ComputeMode.MIXED, Mapping.IS),
                          (ComputeMode.ANALOG, Mapping.WS)):
-            acc_with(state["p"], MODEL, mode, mp, mrr.PAPER_NOISE, 3)
+            acc_with(state["p"], model, mode, mp, mrr.PAPER_NOISE, 3)
         torch.cuda.synchronize()
 
-    lines = [f"card {torch.cuda.get_device_name(0)}; {MODEL}: synth-CIFAR "
+    lines = [f"card {torch.cuda.get_device_name(0)}; {model}: synth-CIFAR "
              f"4096 training images generated in {data_s:.2f} s (host)"]
     for stage, fn, what in (("qat", lambda: qat(STEPS),
                              f"{STEPS} QAT steps at batch 64"),
@@ -112,7 +118,7 @@ def main() -> None:
     text = "\n".join(lines)
     print(text)
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / f"profile_table4_{MODEL}.txt").write_text(text + "\n")
+    (OUT / f"profile_table4_{model}.txt").write_text(text + "\n")
 
 
 if __name__ == "__main__":

@@ -15,12 +15,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+from repro_torch.configs import PORTED_ARCHS, get_config, get_smoke
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="qwen3-32b", choices=sorted(ARCH_IDS))
+    ap.add_argument("--arch", default="qwen3-32b", choices=PORTED_ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the model to this many layers")

@@ -1,5 +1,6 @@
-"""Table 4 / Fig. 10 pipeline for one reduced CNN (PyTorch port of
-`benchmarks/table4_hybrid.py::run_model`):
+"""Table 4 / Fig. 10 pipeline for the reduced CNNs (PyTorch port of
+`benchmarks/table4_hybrid.py`: `run_model` for one model, `run` over
+`CNN_WORKLOADS`):
 
   1. QAT-train the 8-bit model on synth-CIFAR,
   2. profile d_l(m): the accuracy drop with ONLY layer l noisy-analog under
@@ -10,18 +11,22 @@
   4. accuracies clean | WS | IS | hybrid | analog (DEAP), and EDP of WS,
      hybrid and DEAP-CNNs (high-channel array, fully analog, no OSA).
 
-    python -m repro_torch.launch.table4 --model mobilenet_v3 --steps 400 \\
-        --n-mc 3 --json chiprun_out/table4_mobilenet_v3.json
+Over more than one model, `run` prints the three averages the paper
+reports: hybrid - WS accuracy (paper +8.3 pp), hybrid EDP below DEAP-CNNs
+(54.7 %) and accuracy loss vs clean (3.3 pp).
+
+    python -m repro_torch.launch.table4 --models alexnet vgg16 resnet18 \\
+        mobilenet_v3 --steps 400 --n-mc 3 --json chiprun_out/table4.json
 
 Runs on CUDA unless `--device cpu`; the JSON file has the shape of the
-reference's `run_model` result, plus wall seconds per stage.
+reference's `run` result ({model: run_model result}), each model's entry
+plus wall seconds per stage.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import time
 
 import torch
@@ -33,6 +38,7 @@ from repro_torch.core import mapping as M
 from repro_torch.core import mrr
 from repro_torch.core.constants import (DEAP_HIGH_CHANNEL, ROSA_OPTIMAL,
                                         ComputeMode, Mapping)
+from repro_torch.launch import cli_device, write_json
 from repro_torch.models.cnn import LITE_MODELS
 from repro_torch.training.cnn_train import (QAT_CFG, cnn_program,
                                             evaluate_cnn,
@@ -154,10 +160,50 @@ def run_model(model: str, steps: int = 400, n_mc: int = 3,
     return res
 
 
+def averages(results: dict) -> dict[str, float]:
+    """The paper's three Table 4 averages over `run`'s per-model results:
+    hybrid - WS accuracy [pp], hybrid EDP reduction vs DEAP-CNNs, and the
+    hybrid plan's accuracy loss vs clean [pp]."""
+    rs = list(results.values())
+    return {
+        "hybrid_vs_ws_pp": sum(r["accs"]["hybrid"] - r["accs"]["ws"]
+                               for r in rs) / len(rs),
+        "hybrid_vs_deap_edp_red": sum(1 - r["edp"]["hybrid"] / r["edp"]["deap"]
+                                      for r in rs) / len(rs),
+        "loss_vs_clean_pp": sum(r["accs"]["clean"] - r["accs"]["hybrid"]
+                                for r in rs) / len(rs),
+    }
+
+
+def print_averages(avg: dict[str, float]) -> None:
+    print(f"AVG hybrid-vs-WS acc: {avg['hybrid_vs_ws_pp']:+.2f}pp "
+          "(paper: +8.3pp)")
+    print(f"AVG hybrid-vs-DEAP EDP: {avg['hybrid_vs_deap_edp_red'] * 100:.1f}%"
+          " lower (paper: 54.7%)")
+    print(f"AVG acc loss vs clean: {avg['loss_vs_clean_pp']:.2f}pp "
+          "(paper: 3.3pp)")
+
+
+def run(models=None, steps: int = 400, n_mc: int = 3,
+        sigma_scale: float = 1.0, *, device: str | torch.device = "cuda",
+        verbose: bool = True) -> dict:
+    """`run_model` over `models` (default: all of CNN_WORKLOADS) under the
+    paper's noise scaled by `sigma_scale`; {model: result}."""
+    models = models or list(CNN_WORKLOADS)
+    noise = mrr.NoiseModel(sigma_dac=0.02 * sigma_scale,
+                           sigma_th=0.04 * sigma_scale)
+    out = {m: run_model(m, steps, n_mc, noise, device=device,
+                        verbose=verbose) for m in models}
+    if verbose and len(models) > 1:
+        print_averages(averages(out))
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="mobilenet_v3",
-                    choices=sorted(CNN_WORKLOADS))
+    ap.add_argument("--models", nargs="+", default=None,
+                    choices=list(CNN_WORKLOADS),
+                    help="default: all four paper CNNs")
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--n-mc", type=int, default=3)
     ap.add_argument("--sigma-scale", type=float, default=1.0)
@@ -168,19 +214,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run on the "
-                         "CPU")
+    device = cli_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    noise = mrr.NoiseModel(sigma_dac=0.02 * args.sigma_scale,
-                           sigma_th=0.04 * args.sigma_scale)
-    res = run_model(args.model, args.steps, args.n_mc, noise,
-                    device=args.device)
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(res, f, indent=1, default=str)
+    res = run(args.models, args.steps, args.n_mc, args.sigma_scale,
+              device=device)
+    write_json(args.json, res)
     return res
 
 

@@ -13,7 +13,9 @@ plain dicts of tensors:
 Caches are written in place and returned.  The ssm family (Mamba-2
 blocks, no FFN) prefills whole prompts only: its `chunk_step` raises, as
 the reference's does.  Every family other than "dense" and "ssm" raises
-NotImplementedError naming the family.
+NotImplementedError naming the family; the config fields of those
+families (and the modality frontends) are carried for the model zoo's
+lowering only (`configs/model_zoo.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 
 from repro_torch import rosa
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.module import ParamDef, map_tree
 
@@ -32,7 +36,8 @@ from repro_torch.models.module import ParamDef, map_tree
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | ssm (ported) | moe | mla_moe | ...
+    family: str                  # dense | ssm (ported) | moe | mla_moe |
+    #                              hybrid | encdec (metadata only)
     n_layers: int
     d_model: int
     vocab: int
@@ -47,7 +52,13 @@ class ModelConfig:
     window: int = 0
     window_pattern: int = 0
     rope_theta_local: float = 1e4
+    moe: MOE.MoEConfig | None = None
+    mla: MLA.MLAConfig | None = None
+    first_dense_ff: int = 0
     ssm: SSM.SSMConfig | None = None
+    shared_every: int = 0        # zamba2: shared attn after every k ssm layers
+    n_enc_layers: int = 0        # encdec: encoder depth (n_layers = decoder)
+    frontend: str = "none"       # none | vision | audio
     tie_embeddings: bool = False
     rosa_mlp: bool = False       # route MLP projections through the ROSA MAC
     cache_dtype: Any = torch.bfloat16
@@ -59,6 +70,10 @@ class ModelConfig:
         return L.AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
                             self.head_dim, self.qk_norm, self.rope_theta,
                             uniform_decode=self.uniform_decode)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
 
 
 PORTED_FAMILIES = ("dense", "ssm")

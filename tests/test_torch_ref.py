@@ -46,6 +46,8 @@ _REF_MODULES = {
     "module": "repro.models.module", "cnn_train": "repro.training.cnn_train",
     "synth_cifar": "repro.data.synth_cifar",
     "paper_cnns": "repro.configs.paper_cnns",
+    "energy_vec": "repro.core.energy_vec", "dse": "repro.core.dse",
+    "model_zoo": "repro.configs.model_zoo",
 }
 
 
