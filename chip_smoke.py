@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --kernels  # build and phases 2, 6, 8 (no result)
+    python3 chip_smoke.py --kernels  # build, phases 2, 6, 8, 12(a) (no result)
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -16,7 +16,10 @@ Phases (any failure raises, so the exit code is non-zero):
      131072 x 216 x 48, vgg16 conv1_2 524288 x 144 x 16, resnet18 l1
      524288 x 216 x 24; PAPER_NOISE, IS and WS), a ragged shape and, for
      osa_matmul, 524,289 rows (past the
-     grid's y limit), held to the flip-aware one-LSB bound; two launches
+     grid's y limit), the robust gated evaluator's cells (a chip,
+     PAPER_NOISE, gate 0 / 1 and mgate 0 / 1 on alexnet conv2 at 128
+     images, 32768 x 216 x 48), held to the flip-aware one-LSB bound; two
+     launches
      on the same inputs must give equal bits.  Timed rows: the median of
      10 per-call CUDA-event times, a kernel-only time (one event pair
      around 20 back-to-back launches replayed from a CUDA graph, over 20:
@@ -78,7 +81,26 @@ Phases (any failure raises, so the exit code is non-zero):
      candidates), the EDP-only hybrid plan on five zoo architectures and
      Table 4's EDP-only averages, each within 1e-9 relative of the
      reference's value (ENERGY_REF; labels and counts equal); the zoo
-     sweep's wall, the median of 10 after 2 warm-ups.
+     sweep's wall, the median of 10 after 2 warm-ups;
+ 12. robust: (a) the mrr_transfer backward kernel against its plain
+     derivative on the same CUDA tensors, bit for bit, at mobilenet_v3's
+     four depthwise weights with a chip (per row), with and without
+     draws, a chip per column, a full-shape chip field, no chip, and the
+     (5120, 51200) sheet with a chip, with and without draws; times and
+     bound as in phase 8 (bytes: w, g and dq, and the draws);
+     (b) variation-aware QAT: `train_cnn` of mobilenet_v3, 400 steps at
+     batch 64 over an 8-chip antithetic wafer, every parameter finite and
+     the launches exactly 400 x 11 rosa_fused and 400 x 4 mrr_transfer
+     forward and backward (the clean evaluation after training launches
+     nothing); then `evaluate_cnn_ensemble` of it and of phase 9's plainly
+     trained mobilenet_v3 on a fresh 16-chip wafer at PAPER_NOISE, with
+     launches counted from the specs; (c) the robust CLI runners on alexnet
+     with phase 9's parameters at the reference's defaults (ensemble: 64
+     chips, 4 probes, 512 images; sensitivity: 16 chips, 256 images;
+     drift: 16 chips, 256 images, sine, re-trim every 900 s; sweep: 32
+     chips, 5 scales), each a main-path run with launches counted from the
+     run's shape, and the sensitivity plan and EDP ratio recomputed from
+     its own degradation matrix in float64.
 
 It prints one JSON line summarizing the kernels, then the card's name and
 power limit, then `{"ok": true, "device": {...}}` as the last line.
@@ -212,7 +234,8 @@ def _launch_counters():
     from repro_torch.kernels.rosa_fused import ops as fused_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"rosa_fused": fused_ops.LAUNCHES, "osa_matmul": osa_ops.LAUNCHES,
-            "ssd_scan": ssd_ops.LAUNCHES, "mrr_transfer": mrr_ops.LAUNCHES}
+            "ssd_scan": ssd_ops.LAUNCHES, "mrr_transfer": mrr_ops.LAUNCHES,
+            "mrr_transfer_bwd": mrr_ops.LAUNCHES_BWD}
 
 
 def reset_launches() -> None:
@@ -241,6 +264,7 @@ CNN_SHEETS = {"conv_stem": CONV_STEM,
               "alexnet conv2": (131072, 216, 48),
               "vgg16 conv1_2": (524288, 144, 16),
               "resnet18 l1": (524288, 216, 24)}
+GATED_SHEET = (32768, 216, 48)         # alexnet conv2, 128 images
 
 
 def fused_cases():
@@ -261,6 +285,12 @@ def fused_cases():
     cases += [(*sheet, f"{mp} {name} noisy",
                dict(mapping=Mapping[mp], noisy=True, chip=False), True)
               for name, sheet in CNN_SHEETS.items() for mp in ("IS", "WS")]
+    # the gated evaluator's cells (robust.sensitivity): a chip,
+    # PAPER_NOISE, one-hot analog gates (0 or 1) and constant mapping gates
+    # (0 = WS, 1 = IS), at one micro-batch of 128 images
+    cases += [(*GATED_SHEET, f"gate {g:g} mgate {mg:g} alexnet conv2 b128",
+               dict(mapping=Mapping.WS, noisy=True, gate=g, mgate=mg), False)
+              for g in (0.0, 1.0) for mg in (0.0, 1.0)]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
@@ -873,18 +903,19 @@ def sass_fast_path(sass: str, func: str) -> tuple[int, int]:
 
 # the kernels of the wide sheets: noise without a chip (one stream), a
 # chip (per row) without noise (tiles), both with 16-byte accesses
-# (mangled template arguments)
+# (mangled template arguments: NOISE, [VAR,] BWD, V)
 MRR_SASS = {
-    "qwen3-32b mlp/wi": "transfer_kernel_flatILb1ELi4E",
-    "qwen3-32b mlp/wi, chip only": "transfer_kernel_tilesILb0ELi1ELi4E"}
+    "qwen3-32b mlp/wi": "transfer_kernel_flatILb1ELb0ELi4E",
+    "qwen3-32b mlp/wi, chip only": "transfer_kernel_tilesILb0ELi1ELb0ELi4E"}
 
 
-def mrr_instruction_floor(rows: list) -> None:
+def mrr_instruction_floor(rows: list, kernels_by_case: dict = MRR_SASS,
+                          label: str = "mrr_transfer") -> None:
     """The chain's instruction floor on the wide sheets: SASS instructions
     a thread issues per element on the fast path (`sass_fast_path` over
     the built library), times n, over 132 SMs x 128 lanes x the SM's
     maximum clock (4 warp schedulers issue one warp instruction a cycle
-    each)."""
+    each).  `kernels_by_case` names each wide case's kernel."""
     import os
     from repro_torch import kernels
     lib = kernels.build_all(["mrr_transfer"])["mrr_transfer"]
@@ -899,15 +930,15 @@ def mrr_instruction_floor(rows: list) -> None:
     import torch
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for row in rows:
-        func = MRR_SASS.get(row["case"])
+        func = kernels_by_case.get(row["case"])
         if func is None or func not in sass:    # not a wide sheet's kernel
             continue
-        count, stored = sass_fast_path(sass, MRR_SASS[row["case"]])
+        count, stored = sass_fast_path(sass, func)
         n = math.prod(row["shape"])
         row["instr_per_element"] = count / stored
         row["instr_floor_ms"] = n * count / stored / (
             n_sm * 128 * mhz * 1e6) * 1e3
-        print(f"  mrr_transfer {row['case']}: {count} SASS instructions per "
+        print(f"  {label} {row['case']}: {count} SASS instructions per "
               f"{stored} elements on the fast path, floor "
               f"{row['instr_floor_ms']:.4f} ms at {mhz:.0f} MHz x {n_sm} "
               f"SMs (kernel only {row['kernel_ms']:.4f} ms)")
@@ -980,6 +1011,7 @@ TABLE4_EDP = {"alexnet": (0.09528840575672215, 38968.06817541521),
               "resnet18": (0.06639472322351758, 435459.5256307617),
               "mobilenet_v3": (1.794560881706427e-05, 52.23022904750444)}
 GOLDEN = ROOT / "tests" / "data" / "torch_cnn_mobilenet_v3.npz"
+TRAINED: dict = {}                     # phase 9's parameters, by model
 
 
 def noisy_launches(specs, noisy: set[str], evals: int) -> dict:
@@ -1029,11 +1061,13 @@ def table4_phase(report: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = table4.run([model], TABLE4["steps"], TABLE4["n_mc"],
-                         device=DEVICE, verbose=False)[model]
+                         device=DEVICE, verbose=False,
+                         keep_params=True)[model]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
+        TRAINED[model] = res.pop("params")       # for phase 12
         want = table4_launches(specs, res["plan"], TABLE4["n_mc"])
         accs, edp = res["accs"], res["edp"]
         print(f"  {model}: {len(specs)} layers; plan "
@@ -1052,7 +1086,8 @@ def table4_phase(report: dict) -> dict:
         print(f"    launches {n} (want rosa_fused {want['rosa_fused']}, "
               f"mrr_transfer {want['mrr_transfer']})", flush=True)
         if n["rosa_fused"] != want["rosa_fused"] or n["mrr_transfer"] \
-                != want["mrr_transfer"] or n["osa_matmul"] or n["ssd_scan"]:
+                != want["mrr_transfer"] or n["osa_matmul"] or n["ssd_scan"] \
+                or n["mrr_transfer_bwd"]:
             # every noisy evaluation must launch these kernels, so equal
             # counts also show that the QAT training launched neither
             raise AssertionError(f"{model}: the Table 4 pipeline did not run "
@@ -1403,6 +1438,310 @@ def energy_phase(report: dict) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: robust — the mrr_transfer backward kernel, variation-aware QAT,
+# chip ensembles and the robust CLI runners
+# ---------------------------------------------------------------------------
+MOBILENET_DW = ((16, 9), (36, 9), (48, 25), (60, 25))   # mb1/2/4/6_dw
+# (what, shape, draws, the chip's layout as in MRR_CASES, or "any" for a
+# full-shape field)
+MRR_BWD_CASES = [
+    *(((f"mobilenet_v3 dw {r}x{c}, chip" + (", draws" if noisy else "")),
+       (r, c), noisy, 0) for r, c in MOBILENET_DW for noisy in (False, True)),
+    ("conv_stem IS sheet, chip per column, draws", (524288, 27), True, 1),
+    ("full-shape chip field", (4096, 100), False, "any"),
+    ("ragged 1-D, draws, no chip", (1_000_003,), True, None),
+    ("(5120, 51200), chip", (5120, 51200), False, 0),
+    ("(5120, 51200), chip, draws", (5120, 51200), True, 0)]
+MRR_BWD_SERVED = "mobilenet_v3 dw 60x25, chip"   # QAT's largest dw weight
+MRR_BWD_SASS = {                         # the wide sheets' kernels
+    "(5120, 51200), chip": "transfer_kernel_tilesILb0ELi1ELb1ELi4E",
+    "(5120, 51200), chip, draws": "transfer_kernel_tilesILb1ELi1ELb1ELi4E"}
+# float operations per element: the recomputed chain and its derivative
+# (a division or square root counted as one), plus 4 for the draws and 3
+# for a chip's fields
+MRR_BWD_OPS = (73, 4, 3)
+ROBUST_QAT = dict(steps=400, batch=64, n_chips=8)
+ROBUST_EVAL_CHIPS = 16
+ROBUST_MODEL = "alexnet"
+ROBUST_RUNS = {"ensemble": dict(n_chips=64, n_probe=4, n_eval=512),
+               "sensitivity": dict(n_chips=16, n_eval=256),
+               "drift": dict(n_chips=16, n_eval=256, kind="sine",
+                             retrim_every=900.0),
+               "sweep": dict(n_chips=32, n_eval=256,
+                             scales=(0.0, 0.5, 1.0, 1.5, 2.0))}
+
+
+def mrr_bwd_bound(n: int, noisy: bool, lanes: int) -> tuple[float, str]:
+    """Least time of one backward: w and g in, dq out (and the two draws
+    in when noisy), the chip's three fields once, against the float
+    operations of the recomputed chain and its derivative."""
+    nbytes = 4 * n * (5 if noisy else 3) + 12 * lanes
+    ops = n * (MRR_BWD_OPS[0] + MRR_BWD_OPS[1] * noisy
+               + MRR_BWD_OPS[2] * bool(lanes))
+    return bound_ms(nbytes, ops)
+
+
+def mrr_bwd_phase(report: dict) -> dict:
+    """12(a): the backward kernel against its plain derivative, bit for
+    bit, with per-call and kernel-only times, the bound and its share."""
+    import torch
+    from repro_torch.core import mrr
+    from repro_torch.kernels.mrr_transfer import ops
+
+    g = torch.Generator(DEVICE).manual_seed(12)
+    rows, served = [], None
+    for what, shape, noisy, axis in MRR_BWD_CASES:
+        w = 2.2 * torch.rand(shape, device=DEVICE, generator=g) - 1.1
+        gr = torch.randn(shape, device=DEVICE, generator=g)
+        var, lanes = None, 0
+        if axis == "any":
+            var = mrr.StaticVariation(
+                *(s * torch.randn(shape, device=DEVICE, generator=g)
+                  for s in (0.01, 0.04, 0.01)))
+            lanes = math.prod(shape)
+        elif axis is not None:
+            lanes = shape[axis]
+            var = mrr.StaticVariation(
+                *(s * torch.randn(lanes, device=DEVICE, generator=g)
+                  for s in (0.01, 0.04, 0.01)))
+            if axis == 0:
+                var = mrr.expand_lanes(var, w)
+        sig = (mrr.PAPER_NOISE.sigma_dac, mrr.PAPER_NOISE.sigma_th) \
+            if noisy else (0.0, 0.0)
+        eps = mrr.draw_eps(torch.Generator(DEVICE).manual_seed(13), shape,
+                           DEVICE) if noisy else (None, None)
+
+        def kernel():
+            return ops.launch_backward(gr, w, *eps, *sig, var=var)
+
+        def plain():
+            return ops.plain_grad(gr, w, *eps, *sig, var=var)
+
+        y, y_plain = kernel(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"mrr_transfer_bwd {what}: non-finite")
+        e = float((y - y_plain).abs().max())
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"mrr_transfer_bwd {what}: kernel differs "
+                                 f"from the plain derivative by {e:.3e}")
+        del y, y_plain
+        row = {"case": what, "shape": list(shape), "noise": noisy,
+               "chip_axis": axis, "max_abs_err": e, "ms": median_ms(kernel),
+               "kernel_ms": kernel_only_ms(kernel),
+               "plain_ms": median_ms(plain, reps=5)}
+        row["bound_ms"], row["bound_by"] = mrr_bwd_bound(w.numel(), noisy,
+                                                         lanes)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        if what == MRR_BWD_SERVED:
+            served = row
+        print(f"  mrr_transfer_bwd {what:44s}: bitwise equal"
+              + timing_text(row), flush=True)
+        del w, gr, var, eps
+        torch.cuda.empty_cache()
+    mrr_instruction_floor(rows, MRR_BWD_SASS, "mrr_transfer_bwd")
+    report["mrr_transfer_bwd_cases"] = rows
+    return dict(served, max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def qat_launches(specs, steps: int) -> dict:
+    """Variation-aware QAT with a chip pinned on every step: one rosa_fused
+    per conv/fc forward, one mrr_transfer forward and one backward per
+    depthwise weight; the clean evaluation after training takes the ideal
+    fake-quant path and launches nothing."""
+    dw = sum(1 for s in specs if s.kind == "dwconv")
+    return {"rosa_fused": steps * (len(specs) - dw),
+            "mrr_transfer": steps * dw, "mrr_transfer_bwd": steps * dw,
+            "osa_matmul": 0, "ssd_scan": 0}
+
+
+def robust_qat(report: dict) -> dict:
+    """12(b): variation-aware QAT of mobilenet_v3 over an 8-chip
+    antithetic wafer, then both it and phase 9's plainly trained
+    mobilenet_v3 over a fresh 16-chip wafer at PAPER_NOISE."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch import rosa
+    from repro_torch.core import mrr
+    from repro_torch.models.cnn import LITE_MODELS
+    from repro_torch.robust import ensemble as ENS
+    from repro_torch.robust import variation as V
+    from repro_torch.training.cnn_train import QAT_CFG, train_cnn
+
+    specs = LITE_MODELS[CNN]
+    dims = V.cnn_lane_dims(CNN)
+    wafer = V.sample_ensemble(torch.Generator(DEVICE).manual_seed(17),
+                              ROBUST_QAT["n_chips"], dims, antithetic=True,
+                              device=DEVICE)
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    params, clean = train_cnn(CNN, steps=ROBUST_QAT["steps"],
+                              batch=ROBUST_QAT["batch"], ensemble=wafer,
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launch_counts()
+    want = qat_launches(specs, ROBUST_QAT["steps"])
+    print(f"  variation-aware QAT {CNN}: {ROBUST_QAT['steps']} steps over "
+          f"{ROBUST_QAT['n_chips']} chips in {wall:.2f} s, clean acc "
+          f"{clean:.2f} %; launches {n} (want {want})", flush=True)
+    if n != want:
+        raise AssertionError("variation-aware QAT did not run each step's "
+                             "conv/fc through rosa_fused and its depthwise "
+                             "weights through mrr_transfer forward and "
+                             "backward")
+    if not all(bool(torch.isfinite(t).all()) for layer in params.values()
+               for t in layer.values()):
+        raise AssertionError("variation-aware QAT: non-finite parameters")
+    names = [s.name for s in specs]
+    engine = rosa.Engine.from_config(
+        dc.replace(QAT_CFG, noise=mrr.PAPER_NOISE), layers=names)
+    k_ens, k_mc = mrr.split(torch.Generator(DEVICE).manual_seed(18))
+    fresh = V.sample_ensemble(k_ens, ROBUST_EVAL_CHIPS, dims, device=DEVICE)
+    out = {"qat_wall_s": wall, "qat_clean_acc": clean, "qat_launches": n,
+           "qat_want_launches": want}
+    for label, p in (("variation-aware", params), ("plain", TRAINED[CNN])):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ENS.evaluate_cnn_ensemble(p, CNN, engine, fresh, k_mc)
+        torch.cuda.synchronize()
+        ev_wall, ev_n = time.perf_counter() - t0, launch_counts()
+        forwards = ROBUST_EVAL_CHIPS * 512 // 128
+        ev_want = noisy_launches(specs, set(names), forwards)
+        print(f"  {label:15s} {CNN} on {ROBUST_EVAL_CHIPS} fresh chips, "
+              f"PAPER_NOISE: clean {res.clean_acc:.2f} %, mean "
+              f"{res.mean_acc:.2f} %, min {res.min_acc:.2f} %, yield(2pp) "
+              f"{res.yield_frac(2.0):.3f}; {ev_wall:.2f} s, launches "
+              f"rosa_fused {ev_n['rosa_fused']} mrr_transfer "
+              f"{ev_n['mrr_transfer']}", flush=True)
+        if ev_n["rosa_fused"] != ev_want["rosa_fused"] \
+                or ev_n["mrr_transfer"] != ev_want["mrr_transfer"]:
+            raise AssertionError(f"{label} ensemble evaluation: launches "
+                                 f"{ev_n}, want {ev_want}")
+        if not (len(res.accs) == ROBUST_EVAL_CHIPS and all(
+                math.isfinite(a) and 0.0 <= a <= 100.0 for a in res.accs)):
+            raise AssertionError(f"{label}: accuracies out of range")
+        out[label] = dict(res.summary(), wall_s=ev_wall, launches=ev_n)
+    return out
+
+
+def check_sensitivity(summary: dict) -> dict:
+    """The sensitivity runner's plan and EDP ratio recomputed from its own
+    degradation matrix: the search order (`searched_hybrid_plan`'s key over
+    `profile_layers_mc`'s profiles), the plan as that order's prefix of
+    the chosen length, and the ratio of `mapping.plan_edp` in float64."""
+    import numpy as np
+    from repro_torch.configs.paper_cnns import CNN_WORKLOADS
+    from repro_torch.core import mapping as M
+    from repro_torch.core.constants import ROSA_OPTIMAL, Mapping
+    from repro_torch.robust import sensitivity as S
+
+    deg, search = summary["degradation"], summary["search"]
+    rows = [l for l in CNN_WORKLOADS[ROBUST_MODEL] if l.name in deg]
+    prof = {p.name: p for p in S.profile_layers_mc(
+        rows, ROSA_OPTIMAL, deg, batch=128, device=DEVICE)}
+    order = sorted((n for n, p in prof.items() if p.d_is <= p.d_ws + 0.5),
+                   key=lambda n: (prof[n].d_is - prof[n].d_ws) + 0.5 * np.log(
+                       max(prof[n].e_is, 1e-30) / max(prof[n].e_ws, 1e-30)))
+    order = order[:6]
+    plan = set(summary["plan"])
+    # an empty plan is also the runner's fallback to pure WS
+    want_plan = set(order[:search["n_is"]]) if plan else set()
+    is_plan = {n: Mapping.IS for n in plan}
+    ratio = (M.plan_edp(rows, is_plan, ROSA_OPTIMAL, batch=128)
+             / M.plan_edp(rows, {}, ROSA_OPTIMAL, batch=128))
+    if order != search["order"] or plan != want_plan \
+            or ratio != summary["hybrid_vs_ws_edp"]:
+        raise AssertionError(
+            f"sensitivity: order {search['order']} / plan {sorted(plan)} / "
+            f"EDP ratio {summary['hybrid_vs_ws_edp']!r} differ from the "
+            f"recomputed {order} / {sorted(want_plan)} / {ratio!r}")
+    return {"order": order, "plan": sorted(plan), "edp_ratio": ratio}
+
+
+def cli_launches(name: str, kw: dict, summary: dict) -> dict:
+    """What a runner must launch on alexnet (8 conv/fc layers, no
+    depthwise): one rosa_fused per layer and noisy forward of a
+    micro-batch (the clean references take the ideal path); the ensemble's
+    surrogate one mrr_transfer per (chip, layer).  Micro-batches are 128
+    images, 64 in the plan search; the drift grid has 9 times, twice."""
+    from repro_torch.models.cnn import LITE_MODELS
+    layers = len(LITE_MODELS[ROBUST_MODEL])
+    chips, chunks = kw["n_chips"], kw["n_eval"] // 128
+    if name == "ensemble":
+        return {"rosa_fused": kw["n_probe"] * chunks * layers,
+                "mrr_transfer": chips * layers, "mrr_transfer_bwd": 0,
+                "osa_matmul": 0, "ssd_scan": 0}
+    if name == "sensitivity":
+        cells = 2 * layers * chunks                      # IS, WS x layers
+        search = (len(summary["search"]["order"]) + 1) * (kw["n_eval"] // 64)
+        forwards = chips * (cells + search + 2 * chunks)  # + hybrid, WS
+    elif name == "drift":
+        forwards = 2 * 9 * chips * chunks
+    else:
+        forwards = len(kw["scales"]) * chips * chunks
+    return {"rosa_fused": forwards * layers, "mrr_transfer": 0,
+            "mrr_transfer_bwd": 0, "osa_matmul": 0, "ssd_scan": 0}
+
+
+def robust_cli(report: dict) -> dict:
+    """12(c): the four CLI runners on alexnet at the reference's defaults,
+    with phase 9's alexnet parameters; each a main-path run of its own
+    (counts from 0 before, read right after)."""
+    import torch
+    from repro_torch.robust import cli
+
+    out = {}
+    for name, kw in ROBUST_RUNS.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        summary, metrics = cli.RUNNERS[name](
+            ROBUST_MODEL, params=TRAINED[ROBUST_MODEL], device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        wall, n = time.perf_counter() - t0, launch_counts()
+        head = {m.name: m.value for m in metrics}
+        print(f"  robust.{name} {ROBUST_MODEL}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in head.items()) + f"; {wall:.2f} s; launches "
+            f"rosa_fused {n['rosa_fused']} mrr_transfer "
+            f"{n['mrr_transfer']}", flush=True)
+        if "n_chips" in head and head["n_chips"] != kw["n_chips"]:
+            raise AssertionError(f"robust.{name}: n_chips {head['n_chips']}")
+        if not all(math.isfinite(v) for v in head.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"robust.{name}: non-finite metric")
+        want = cli_launches(name, kw, summary)
+        if {k: n[k] for k in want} != want:
+            raise AssertionError(f"robust.{name}: launches {n}, want {want}")
+        row = {"metrics": head, "wall_s": wall, "launches": n}
+        if name == "sensitivity":
+            row["recomputed"] = check_sensitivity(summary)
+            row["plan"] = summary["plan"]
+            row["degradation"] = summary["degradation"]
+            print(f"    plan {sorted(summary['plan'])}, search order "
+                  f"{summary['search']['order']}, EDP ratio "
+                  f"{summary['hybrid_vs_ws_edp']!r} (recomputed equal)")
+        if name == "sweep":
+            row["rows"] = summary["rows"]
+        out[name] = row
+    return out
+
+
+def robust_phase(report: dict) -> dict:
+    """12(b) and 12(c); returns the mrr_transfer_bwd launches of the
+    variation-aware QAT run."""
+    print(f"phase 12(b): variation-aware QAT, {CNN}")
+    qat = robust_qat(report)
+    print(f"phase 12(c): the robust CLI runners, {ROBUST_MODEL}")
+    cli_rows = robust_cli(report)
+    report["robust"] = {"qat": qat, "cli": cli_rows}
+    return qat["qat_launches"]
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -1416,9 +1755,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "CUDA card (all phases by default).")
     ap.add_argument("--kernels", action="store_true",
-                    help="build and run the kernel phases 2, 6 and 8 only "
-                    "(parity and times of all four kernels); prints no "
-                    "summary and no result line")
+                    help="build and run the kernel phases 2, 6, 8 and "
+                    "12(a) only (parity and times of all five kernels); "
+                    "prints no summary and no result line")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -1472,6 +1811,9 @@ def main(argv=None) -> int:
         phase("6", ssd_phase)
         print("phase 8: mrr_transfer parity against the plain version")
         phase("8", mrr_phase)
+        print("phase 12(a): the mrr_transfer backward against its plain "
+              "derivative")
+        phase("12a", mrr_bwd_phase)
         return write_report(report, t_start)
     print("phases 3-5: serving")
     launches = phase("3-5", serve_phase)
@@ -1487,6 +1829,11 @@ def main(argv=None) -> int:
     phase("10", golden_phase)
     print("phase 11: the paper's energy model on the card (float64)")
     phase("11", energy_phase)
+    print("phase 12(a): the mrr_transfer backward against its plain "
+          "derivative")
+    bwd = phase("12a", mrr_bwd_phase)
+    launches["mrr_transfer_bwd"] = phase("12bc", robust_phase)[
+        "mrr_transfer_bwd"]
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",
@@ -1517,6 +1864,13 @@ def main(argv=None) -> int:
          "max_abs_err": mrr_row["max_abs_err"], "ms": mrr_row["ms"],
          "plain_ms": mrr_row["plain_ms"], "bound_ms": mrr_row["bound_ms"],
          "bound_by": mrr_row["bound_by"], "library_ms": None},
+        {"name": "mrr_transfer_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mrr_transfer.cu",
+         "replaces": "src/repro/core/mrr.py:265",
+         "launches": launches["mrr_transfer_bwd"],
+         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+         "bound_by": bwd["bound_by"], "library_ms": None},
     ]}
     report["summary"] = summary
     write_report(report, t_start)

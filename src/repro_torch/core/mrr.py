@@ -92,6 +92,10 @@ class StaticVariation:
         return StaticVariation(self.dv.to(device), self.ddt.to(device),
                                self.dlam.to(device))
 
+    def shift_ddt(self, offset) -> "StaticVariation":
+        """Add a (scalar) thermal offset: the drift injection point."""
+        return dataclasses.replace(self, ddt=self.ddt + offset)
+
 
 def expand_lanes(var: StaticVariation | None, t: torch.Tensor):
     """Adapt per-lane (K,) variation to an operand's orientation: against a
@@ -201,6 +205,12 @@ def fold_in(key: torch.Generator, data: int) -> torch.Generator:
 def split(key: torch.Generator) -> tuple[torch.Generator, torch.Generator]:
     """Two independent children of `key`."""
     return fold_in(key, 0), fold_in(key, 1)
+
+
+def split_keys(key: torch.Generator, n: int) -> list[torch.Generator]:
+    """`n` independent children of `key` (the reference's
+    `jax.random.split(key, n)`; the first two are `split(key)`)."""
+    return [fold_in(key, i) for i in range(n)]
 
 
 def normal(key: torch.Generator, shape, device=None,

@@ -51,6 +51,21 @@
 // (Philox) would halve the noisy sheet's bytes but change which numbers a
 // key-driven call consumes; parity is by injected draws (ROADMAP), so
 // they are read.
+//
+// Backward (mrr_transfer_backward_launch): dq = g * d realize / d w,
+// elementwise.  The reference has no Pallas backward: JAX differentiates
+// the jnp chain of src/repro/core/mrr.py:265 (realize_weights).  The
+// kernel walks the same plan and lane layouts as the forward, reads g
+// beside w (and the draws), recomputes the forward chain in registers
+// (nothing is saved by the forward, which would cost every evaluation a
+// second output stream), and writes the chain's derivative out once, from
+// the output back, op for op as its plain version
+// repro_torch.kernels.mrr_transfer.ref.mrr_transfer_grad_ref.  A clip
+// passes the whole gradient at a tie, as torch.clamp does.  Bytes: 12 per
+// element (w, g, dq), 20 with draws; the derivative adds ~35 float
+// operations, six of them IEEE divisions, to the recomputed chain's, so
+// its instructions, not its bytes, set its floor (PERF.md states it from
+// the SASS, as for the forward).
 
 #include <cuda_runtime.h>
 
@@ -102,18 +117,68 @@ __device__ __forceinline__ float realize(float w, float ed, float et, float dv,
   return (2.0f * t + c.i_td) * c.j_w + c.q_min;
 }
 
+// g * d realize / d w: the forward chain recomputed as `realize` computes
+// it, then its derivative from the output back (ref.mrr_transfer_grad_ref
+// op for op).  w stays inside [q_min, q_max] after the clip, so v is in
+// [v_min, v_max], dt > 0 and s > 0: no division by zero is reached.
+template <bool NOISE, bool VAR>
+__device__ __forceinline__ float realize_grad(float w, float g, float ed,
+                                              float et, float dv, float ddt,
+                                              float dlam, float sd, float st,
+                                              const Chain& c) {
+  float wq = clampf(w, c.q_min, c.q_max);
+  float tdrop = ((wq - c.q_min) * c.a_td + c.b_td) * 0.5f;
+  float r = 1.0f / tdrop - 1.0f;
+  float sq = sqrtf(fmaxf(r, 0.0f));
+  float dl = sq * c.gamma + c.c_dl;
+  float den = (1.0f - dl * c.d_u) * c.beta;
+  float dt = (dl * c.d_neff) / den;
+  float v2 = fmaxf(dt, 0.0f) * c.e_v2;
+  float s = sqrtf(fmaxf(v2, 0.0f));
+  float v = clampf(s, c.v_min, c.v_max);
+  if (NOISE) v = v + sd * ed;
+  if (VAR) v = v + dv;
+  float heat = (v * v) * c.f_dt;
+  if (NOISE) heat = heat + st * et;
+  if (VAR) heat = heat + ddt;
+  float hd = heat * c.beta + c.n_eff;
+  float shift = (heat * c.g_lam) / hd;
+  if (VAR) shift = shift + dlam;
+  float d2 = shift + c.h_det;
+  float den2 = d2 * d2 + c.g2;
+  float t = c.g2 / den2;
+  // derivative, from the output back
+  float gt = (g * c.j_w) * 2.0f;                        // d/dt (2t + i) j
+  float gd2 = -((gt * t) * ((d2 + d2) / den2));         // t = g2 / den2
+  float gheat = ((gd2 * c.g_lam) * c.n_eff) / (hd * hd);  // shift(heat)
+  float gv = (gheat * (v + v)) * c.f_dt;                // heat = v^2 f
+  float gs = (s >= c.v_min && s <= c.v_max) ? gv : 0.0f;
+  float gv2 = v2 >= 0.0f ? (gs * 0.5f) / s : 0.0f;      // s = sqrt(v2)
+  float gdt = dt >= 0.0f ? gv2 * c.e_v2 : 0.0f;
+  float gdl = (gdt * ((dt * c.d_u) * c.beta + c.d_neff)) / den;  // dt(dl)
+  float gr = r >= 0.0f ? ((gdl * c.gamma) * 0.5f) / sq : 0.0f;
+  float gwq = ((-gr / (tdrop * tdrop)) * 0.5f) * c.a_td;  // 1/tdrop(wq)
+  return (w >= c.q_min && w <= c.q_max) ? gwq : 0.0f;
+}
+
 // nc <= V consecutive elements at flat offset i (16-byte accesses when V
-// is 4 and all 4 are there); field(s, j) gives element j's chip field s
-template <bool NOISE, bool VAR, int V, class Field>
+// is 4 and all 4 are there); field(s, j) gives element j's chip field s.
+// BWD: read the gradient gr beside w and write d realize / d w times it.
+template <bool NOISE, bool VAR, bool BWD, int V, class Field>
 __device__ __forceinline__ void segment(
-    const float* __restrict__ w, const float* __restrict__ ed,
-    const float* __restrict__ et, float* __restrict__ out, long long i,
-    int nc, Field field, float sd, float st, const Chain& ch) {
-  float wv[V], ev[V], tv[V], o[V];
+    const float* __restrict__ w, const float* __restrict__ gr,
+    const float* __restrict__ ed, const float* __restrict__ et,
+    float* __restrict__ out, long long i, int nc, Field field, float sd,
+    float st, const Chain& ch) {
+  float wv[V], gv[V], ev[V], tv[V], o[V];
   const bool full = V == 4 && nc == 4;
   if (full) {
     const float4 a = *reinterpret_cast<const float4*>(w + i);
     wv[0] = a.x; wv[1] = a.y; wv[2] = a.z; wv[3] = a.w;
+    if (BWD) {
+      const float4 b = *reinterpret_cast<const float4*>(gr + i);
+      gv[0] = b.x; gv[1] = b.y; gv[2] = b.z; gv[3] = b.w;
+    }
     if (NOISE) {
       const float4 d = *reinterpret_cast<const float4*>(ed + i);
       const float4 h = *reinterpret_cast<const float4*>(et + i);
@@ -124,15 +189,22 @@ __device__ __forceinline__ void segment(
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       wv[j] = j < nc ? w[i + j] : 0.f;
+      gv[j] = BWD && j < nc ? gr[i + j] : 0.f;
       ev[j] = NOISE && j < nc ? ed[i + j] : 0.f;
       tv[j] = NOISE && j < nc ? et[i + j] : 0.f;
     }
   }
 #pragma unroll
-  for (int j = 0; j < V; ++j)
-    o[j] = realize<NOISE, VAR>(wv[j], ev[j], tv[j], VAR ? field(0, j) : 0.f,
-                               VAR ? field(1, j) : 0.f,
-                               VAR ? field(2, j) : 0.f, sd, st, ch);
+  for (int j = 0; j < V; ++j) {
+    const float dv = VAR ? field(0, j) : 0.f, ddt = VAR ? field(1, j) : 0.f,
+                dlam = VAR ? field(2, j) : 0.f;
+    if constexpr (BWD)
+      o[j] = realize_grad<NOISE, VAR>(wv[j], gv[j], ev[j], tv[j], dv, ddt,
+                                      dlam, sd, st, ch);
+    else
+      o[j] = realize<NOISE, VAR>(wv[j], ev[j], tv[j], dv, ddt, dlam, sd, st,
+                                 ch);
+  }
   if (full) {
     *reinterpret_cast<float4*>(out + i) = make_float4(o[0], o[1], o[2], o[3]);
   } else {
@@ -144,9 +216,10 @@ __device__ __forceinline__ void segment(
 
 // Without a chip: the n elements as one stream, each block taking
 // `groups` x THREADS segments of V (32-bit offsets from its 64-bit base).
-template <bool NOISE, int V>
+template <bool NOISE, bool BWD, int V>
 __global__ void __launch_bounds__(THREADS)
 transfer_kernel_flat(const float* __restrict__ w,
+                     const float* __restrict__ gr,
                      const float* __restrict__ ed,
                      const float* __restrict__ et, float* __restrict__ out,
                      long long n, int groups, float sd, float st, Chain ch) {
@@ -154,8 +227,9 @@ transfer_kernel_flat(const float* __restrict__ w,
   for (int k = 0; k < groups; ++k) {
     const long long i = base + (k * THREADS + (int)threadIdx.x) * V;
     if (i >= n) return;
-    segment<NOISE, false, V>(w, ed, et, out, i, (int)min((long long)V, n - i),
-                             [](int, int) { return 0.f; }, sd, st, ch);
+    segment<NOISE, false, BWD, V>(w, gr, ed, et, out, i,
+                                  (int)min((long long)V, n - i),
+                                  [](int, int) { return 0.f; }, sd, st, ch);
   }
 }
 
@@ -163,9 +237,10 @@ transfer_kernel_flat(const float* __restrict__ w,
 // 32 x V columns; warp-rows walk the tile's rows, lanes its columns.
 // Column tiles sit on grid x, row tiles on grid y (taken in turn past its
 // limit).
-template <bool NOISE, int VAR, int V>
+template <bool NOISE, int VAR, bool BWD, int V>
 __global__ void __launch_bounds__(THREADS)
 transfer_kernel_tiles(const float* __restrict__ w,
+                      const float* __restrict__ gr,
                       const float* __restrict__ ed,
                       const float* __restrict__ et, Fields f,
                       float* __restrict__ out, long long rows, int cols,
@@ -195,8 +270,8 @@ transfer_kernel_tiles(const float* __restrict__ w,
         if (VAR == VAR_ROW) fr[s] = f.p[s][r * f.s0[s]];
         if (VAR == VAR_ANY) fa[s] = f.p[s] + r * f.s0[s];
       }
-      segment<NOISE, true, V>(
-          w, ed, et, out, r * cols + c, nc,
+      segment<NOISE, true, BWD, V>(
+          w, gr, ed, et, out, r * cols + c, nc,
           [&](int s, int j) {
             return VAR == VAR_ROW   ? fr[s]
                    : VAR == VAR_COL ? fc[s][j]
@@ -208,50 +283,76 @@ transfer_kernel_tiles(const float* __restrict__ w,
   }
 }
 
-template <bool NOISE, int VAR, int V>
-void launch_one(dim3 grid, cudaStream_t s, const float* w, const float* ed,
-                const float* et, const Fields& f, float* out, long long rows,
-                int cols, int per, float sd, float sth, const Chain& c) {
+// The operands of one launch (gr null in the forward).
+struct Args {
+  const float *w, *gr, *ed, *et;
+  Fields f;
+  float* out;
+  long long rows;
+  int cols, per;
+  float sd, st;
+  Chain c;
+};
+
+template <bool NOISE, int VAR, bool BWD, int V>
+void launch_one(dim3 grid, cudaStream_t s, const Args& a) {
   if constexpr (VAR == VAR_NONE)
-    transfer_kernel_flat<NOISE, V><<<grid, THREADS, 0, s>>>(
-        w, ed, et, out, rows * cols, per, sd, sth, c);
+    transfer_kernel_flat<NOISE, BWD, V><<<grid, THREADS, 0, s>>>(
+        a.w, a.gr, a.ed, a.et, a.out, a.rows * a.cols, a.per, a.sd, a.st,
+        a.c);
   else
-    transfer_kernel_tiles<NOISE, VAR, V><<<grid, THREADS, 0, s>>>(
-        w, ed, et, f, out, rows, cols, per, sd, sth, c);
+    transfer_kernel_tiles<NOISE, VAR, BWD, V><<<grid, THREADS, 0, s>>>(
+        a.w, a.gr, a.ed, a.et, a.f, a.out, a.rows, a.cols, a.per, a.sd,
+        a.st, a.c);
 }
 
-template <bool NOISE, int VAR>
-void launch_width(int vec, dim3 grid, cudaStream_t s, const float* w,
-                  const float* ed, const float* et, const Fields& f,
-                  float* out, long long rows, int cols, int per, float sd,
-                  float sth, const Chain& c) {
+template <bool NOISE, int VAR, bool BWD>
+void launch_width(int vec, dim3 grid, cudaStream_t s, const Args& a) {
   if (vec)
-    launch_one<NOISE, VAR, 4>(grid, s, w, ed, et, f, out, rows, cols, per,
-                              sd, sth, c);
+    launch_one<NOISE, VAR, BWD, 4>(grid, s, a);
   else
-    launch_one<NOISE, VAR, 1>(grid, s, w, ed, et, f, out, rows, cols, per,
-                              sd, sth, c);
+    launch_one<NOISE, VAR, BWD, 1>(grid, s, a);
 }
 
-template <bool NOISE>
+template <bool NOISE, bool BWD>
 void launch_var(int var_mode, int vec, dim3 grid, cudaStream_t s,
-                const float* w, const float* ed, const float* et,
-                const Fields& f, float* out, long long rows, int cols,
-                int per, float sd, float sth, const Chain& c) {
+                const Args& a) {
   switch (var_mode) {
     case VAR_ROW:
-      return launch_width<NOISE, VAR_ROW>(vec, grid, s, w, ed, et, f, out,
-                                          rows, cols, per, sd, sth, c);
+      return launch_width<NOISE, VAR_ROW, BWD>(vec, grid, s, a);
     case VAR_COL:
-      return launch_width<NOISE, VAR_COL>(vec, grid, s, w, ed, et, f, out,
-                                          rows, cols, per, sd, sth, c);
+      return launch_width<NOISE, VAR_COL, BWD>(vec, grid, s, a);
     case VAR_ANY:
-      return launch_width<NOISE, VAR_ANY>(vec, grid, s, w, ed, et, f, out,
-                                          rows, cols, per, sd, sth, c);
+      return launch_width<NOISE, VAR_ANY, BWD>(vec, grid, s, a);
     default:
-      return launch_width<NOISE, VAR_NONE>(vec, grid, s, w, ed, et, f, out,
-                                           rows, cols, per, sd, sth, c);
+      return launch_width<NOISE, VAR_NONE, BWD>(vec, grid, s, a);
   }
+}
+
+template <bool BWD>
+int launch_checked(const float* gr, const float* w, const float* eps_dac,
+                   const float* eps_th, const Fields* fields, int var_mode,
+                   float* out, long long rows, int cols, float sigma_dac,
+                   float sigma_th, const float* chain, int vec, int grid_x,
+                   int grid_y, int per, void* stream) {
+  if ((eps_dac == nullptr) != (eps_th == nullptr) || rows < 0 || cols < 1 ||
+      var_mode < 0 || var_mode > 3 || (var_mode != 0) != (fields != nullptr) ||
+      grid_x < 1 || grid_y < 1 || grid_y > 65535 || per < 1 ||
+      (BWD && gr == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  Args a{w, gr, eps_dac, eps_th, fields ? *fields : Fields{}, out, rows,
+         cols, per, sigma_dac, sigma_th, {}};
+  float* dst = reinterpret_cast<float*>(&a.c);
+  for (int i = 0; i < (int)(sizeof(Chain) / sizeof(float)); ++i)
+    dst[i] = chain[i];
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (eps_dac != nullptr)
+    launch_var<true, BWD>(var_mode, vec, grid, s, a);
+  else
+    launch_var<false, BWD>(var_mode, vec, grid, s, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -272,25 +373,24 @@ int mrr_transfer_launch(const float* w, const float* eps_dac,
                         float sigma_dac, float sigma_th, const float* chain,
                         int vec, int grid_x, int grid_y, int per,
                         void* stream) {
-  if ((eps_dac == nullptr) != (eps_th == nullptr) || rows < 0 || cols < 1 ||
-      var_mode < 0 || var_mode > 3 || (var_mode != 0) != (fields != nullptr) ||
-      grid_x < 1 || grid_y < 1 || grid_y > 65535 || per < 1)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return (int)cudaSuccess;
-  Chain c;
-  float* dst = reinterpret_cast<float*>(&c);
-  for (int i = 0; i < (int)(sizeof(Chain) / sizeof(float)); ++i)
-    dst[i] = chain[i];
-  Fields f = fields ? *fields : Fields{};
-  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (eps_dac != nullptr)
-    launch_var<true>(var_mode, vec, grid, s, w, eps_dac, eps_th, f, out, rows,
-                     cols, per, sigma_dac, sigma_th, c);
-  else
-    launch_var<false>(var_mode, vec, grid, s, w, eps_dac, eps_th, f, out,
-                      rows, cols, per, sigma_dac, sigma_th, c);
-  return (int)cudaGetLastError();
+  return launch_checked<false>(nullptr, w, eps_dac, eps_th, fields, var_mode,
+                               out, rows, cols, sigma_dac, sigma_th, chain,
+                               vec, grid_x, grid_y, per, stream);
+}
+
+// The backward: dq = g * d realize(w) / d w into `dq`, g a float stream
+// of w's n elements; every other argument as mrr_transfer_launch's (the
+// same plan).
+int mrr_transfer_backward_launch(const float* g, const float* w,
+                                 const float* eps_dac, const float* eps_th,
+                                 const Fields* fields, int var_mode,
+                                 float* dq, long long rows, int cols,
+                                 float sigma_dac, float sigma_th,
+                                 const float* chain, int vec, int grid_x,
+                                 int grid_y, int per, void* stream) {
+  return launch_checked<true>(g, w, eps_dac, eps_th, fields, var_mode, dq,
+                              rows, cols, sigma_dac, sigma_th, chain, vec,
+                              grid_x, grid_y, per, stream);
 }
 
 }  // extern "C"

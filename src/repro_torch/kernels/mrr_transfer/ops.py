@@ -13,11 +13,13 @@ cols) view with one (`plan`), and masks the ragged edges, so nothing is
 padded or copied here.  A chip's per-lane fields go to it as the lane
 vectors themselves, with the axis they run along.
 
-On CPU tensors `mrr_transfer` runs `plain` (`ref.mrr_transfer_ref`); on
-CUDA tensors it launches the kernel or raises.  The CUDA path is a
-`torch.autograd.Function` with no backward kernel: the reference has none
-either (JAX differentiates its jnp chain), and gradients through the
-realization on the card wait for variation-aware QAT.
+On CPU tensors `mrr_transfer` runs `plain` (`ref.mrr_transfer_ref`), which
+autograd differentiates op by op, as JAX differentiates the reference's
+chain; on CUDA tensors it launches the kernel or raises.  The CUDA path is
+a `torch.autograd.Function` whose backward launches the backward kernel
+(`launch_backward`, counted by `LAUNCHES_BWD`; its plain version is
+`plain_grad`, `ref.mrr_transfer_grad_ref`), or raises: there is no plain
+fallback on the card.
 """
 
 from __future__ import annotations
@@ -37,7 +39,9 @@ PER_MAX = 8              # segments or rows a thread takes, at most
 BLOCKS_PER_SM = 8        # blocks per SM the plan aims at
 MAX_GRID_Y = 65535
 LAUNCHES = kernels.LaunchCounter("mrr_transfer")
+LAUNCHES_BWD = kernels.LaunchCounter("mrr_transfer_bwd")
 plain = ref.mrr_transfer_ref    # what the kernel computes, in PyTorch ops
+plain_grad = ref.mrr_transfer_grad_ref    # and its backward
 
 
 def mrr_transfer(w: torch.Tensor, key: torch.Generator | None = None,
@@ -66,18 +70,22 @@ def mrr_transfer(w: torch.Tensor, key: torch.Generator | None = None,
 
 
 class _Transfer(torch.autograd.Function):
-    """The kernel launch; no backward kernel exists."""
+    """The kernel launch; the backward launches the backward kernel, which
+    recomputes the chain from the forward's operands (nothing else is
+    saved).  Gradients flow to `w` only: the draws and the chip's fields
+    are constants, as in the reference."""
 
     @staticmethod
     def forward(ctx, w, e_dac, e_th, sigma_dac, sigma_th, p, var):
+        ctx.save_for_backward(w, e_dac, e_th)
+        ctx.chain = (sigma_dac, sigma_th, p, var)
         return launch(w, e_dac, e_th, sigma_dac, sigma_th, p, var)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "mrr_transfer has no backward kernel on CUDA: gradients through "
-            "the MRR realization on the card wait for variation-aware QAT "
-            "(ROADMAP.md, Queue 1)")
+        w, e_dac, e_th = ctx.saved_tensors
+        dq = launch_backward(g.contiguous(), w, e_dac, e_th, *ctx.chain)
+        return dq, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +111,9 @@ def _lib():
         ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_float), i32,
         i32, i32, i32, vp]
     lib.mrr_transfer_launch.restype = i32
+    lib.mrr_transfer_backward_launch.argtypes = [
+        vp, *lib.mrr_transfer_launch.argtypes]
+    lib.mrr_transfer_backward_launch.restype = i32
     return lib
 
 
@@ -207,20 +218,43 @@ def launch(w: torch.Tensor, e_dac: torch.Tensor | None = None,
            var: mrr.StaticVariation | None = None) -> torch.Tensor:
     """Launch csrc/mrr_transfer.cu on the current stream; raises on anything
     the kernel does not take or on a refused launch."""
-    name = "mrr_transfer"
+    out = _launch(None, w, e_dac, e_th, sigma_dac, sigma_th, p, var)
+    LAUNCHES.add()
+    return out
+
+
+def launch_backward(g: torch.Tensor, w: torch.Tensor,
+                    e_dac: torch.Tensor | None = None,
+                    e_th: torch.Tensor | None = None,
+                    sigma_dac: float = 0.02, sigma_th: float = 0.04,
+                    p: mrr.MRRParams = mrr.DEFAULT_PARAMS,
+                    var: mrr.StaticVariation | None = None) -> torch.Tensor:
+    """Launch the backward kernel of csrc/mrr_transfer.cu: g * d realize /
+    d w at `w` (the forward's operands), `w`'s shape, on the current
+    stream; raises as `launch` does."""
+    out = _launch(g, w, e_dac, e_th, sigma_dac, sigma_th, p, var)
+    LAUNCHES_BWD.add()
+    return out
+
+
+def _launch(g, w, e_dac, e_th, sigma_dac, sigma_th, p, var) -> torch.Tensor:
+    """The forward (`g` None) or the backward launch over w's sheet."""
+    name = "mrr_transfer" if g is None else "mrr_transfer_bwd"
     noisy = sigma_dac != 0.0 or sigma_th != 0.0
     if noisy != (e_dac is not None) or (e_dac is None) != (e_th is None):
         raise ValueError(f"{name}: the draws must be given exactly when a "
                          "sigma is non-zero")
     streams = (w, e_dac, e_th) if noisy else (w,)
+    if g is not None:
+        streams += (g,)
     fs = (var.dv, var.ddt, var.dlam) if var is not None else ()
     kernels.require_cuda(*streams, *fs, name=name)
-    if noisy and not (e_dac.shape == w.shape == e_th.shape):
-        raise ValueError(f"{name}: draws of shapes {tuple(e_dac.shape)}, "
-                         f"{tuple(e_th.shape)} for weights of shape "
-                         f"{tuple(w.shape)}")
+    if any(t.shape != w.shape for t in streams):
+        raise ValueError(f"{name}: operands of shapes "
+                         f"{[tuple(t.shape) for t in streams[1:]]} for "
+                         f"weights of shape {tuple(w.shape)}")
     if not all(t.is_contiguous() for t in streams):
-        raise ValueError(f"{name}: w and the draws must be contiguous")
+        raise ValueError(f"{name}: w, the draws and g must be contiguous")
     rows, cols = _sheet(w.shape, var is not None)
     if var is not None and cols > MAX_COLS:
         raise ValueError(f"{name}: rows of {cols} elements exceed the "
@@ -239,13 +273,15 @@ def launch(w: torch.Tensor, e_dac: torch.Tensor | None = None,
             fields, mode, ptrs[-1], rows, cols, sigma_dac, sigma_th,
             _chain(p), int(vec), gx, gy, pl["per"])
     lib = _lib()
+    fn = lib.mrr_transfer_launch if g is None else functools.partial(
+        lib.mrr_transfer_backward_launch, g.data_ptr())
     if index == torch.cuda.current_device():
-        rc = lib.mrr_transfer_launch(*args, kernels.stream_of(w))
+        rc = fn(*args, kernels.stream_of(w))
     else:
         with torch.cuda.device(w.device):
-            rc = lib.mrr_transfer_launch(*args, kernels.stream_of(w))
+            rc = fn(*args, kernels.stream_of(w))
+    del held
     kernels.check_launch(rc, name)
-    LAUNCHES.add()
     return out
 
 
@@ -256,7 +292,8 @@ def preflight(n_elements: int, *, shape=None, lanes: str | None = None,
     the sheet, its tile plan, the bytes the kernel moves (w in, out, and
     the two draws when `noisy`; a chip's per-lane fields once) and no
     padding (the kernel masks ragged edges).  `lanes`: None, "row" or
-    "col", the orientation of a chip's per-lane fields."""
+    "col", the orientation of a chip's per-lane fields.  `launch_backward`
+    walks the same plan and moves g besides."""
     issues: list[str] = []
     if n_elements <= 0:
         issues.append(f"non-positive size n_elements={n_elements}")

@@ -116,9 +116,10 @@ def plan_edps(model: str, plan: dict[str, Mapping]) -> dict[str, float]:
 def run_model(model: str, steps: int = 400, n_mc: int = 3,
               noise: mrr.NoiseModel = mrr.PAPER_NOISE, *,
               device: str | torch.device = "cuda",
-              verbose: bool = True) -> dict:
+              verbose: bool = True, keep_params: bool = False) -> dict:
     """The whole pipeline for one model; returns the reference's
-    `run_model` dict plus `wall_s` {train, profile, eval}."""
+    `run_model` dict plus `wall_s` {train, profile, eval} (and the trained
+    `params` with `keep_params`)."""
     wall = {}
     t0 = time.perf_counter()
     params, clean = train_cnn(model, steps=steps, device=device)
@@ -144,6 +145,8 @@ def run_model(model: str, steps: int = 400, n_mc: int = 3,
     res = dict(model=model, accs=accs, edp=edp, plan_is_layers=n_is,
                plan={k: v.value for k, v in plan.items()},
                profile=prof, wall_s=wall)
+    if keep_params:
+        res["params"] = params
     if verbose:
         print(f"== {model} ({torch.device(device)}) ==")
         print("  acc[%]: " + "  ".join(f"{k}={v:.1f}"
@@ -186,14 +189,15 @@ def print_averages(avg: dict[str, float]) -> None:
 
 def run(models=None, steps: int = 400, n_mc: int = 3,
         sigma_scale: float = 1.0, *, device: str | torch.device = "cuda",
-        verbose: bool = True) -> dict:
+        verbose: bool = True, keep_params: bool = False) -> dict:
     """`run_model` over `models` (default: all of CNN_WORKLOADS) under the
     paper's noise scaled by `sigma_scale`; {model: result}."""
     models = models or list(CNN_WORKLOADS)
     noise = mrr.NoiseModel(sigma_dac=0.02 * sigma_scale,
                            sigma_th=0.04 * sigma_scale)
     out = {m: run_model(m, steps, n_mc, noise, device=device,
-                        verbose=verbose) for m in models}
+                        verbose=verbose, keep_params=keep_params)
+           for m in models}
     if verbose and len(models) > 1:
         print_averages(averages(out))
     return out

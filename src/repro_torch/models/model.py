@@ -8,10 +8,10 @@ A `ModelBundle` exposes functions over plain dicts of tensors:
     bundle.prefill / decode_step / chunk_step
 
 plus the slot API of continuous-batching serving (`write_slot`,
-`evict_slot`, `read_slot`, `pad_cache`), and the bridges that carry the
-reference's numbers across (`params_from_reference`,
-`chip_from_reference`), so the two packages can compute on identical
-weights and an identical chip.
+`evict_slot`, `read_slot`, `pad_cache`), and `params_from_reference`,
+which carries the reference's numbers across (with
+`robust.variation.from_reference` for a chip), so the two packages can
+compute on identical weights and an identical chip.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import mrr
 from repro_torch.models import transformer as T
 from repro_torch.models.module import (abstract_params, init_params,
                                        map_tree, param_count)
@@ -136,11 +135,3 @@ def params_from_reference(tree, device=None) -> dict:
     w_b, w_c, w_dt, dt_bias, a_log, d_skip, conv_*, gate_norm, w_out) as
     it is."""
     return map_tree(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
-
-
-def chip_from_reference(chip, device=None) -> dict[str, mrr.StaticVariation]:
-    """A `{name: StaticVariation}` chip sampled by the reference, with each
-    field converted through numpy."""
-    conv = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
-    return {name: mrr.StaticVariation(conv(v.dv), conv(v.ddt), conv(v.dlam))
-            for name, v in chip.items()}

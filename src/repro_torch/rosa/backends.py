@@ -166,15 +166,36 @@ def _analog_operand(t, cfg: RosaConfig, key, var, gate,
     return clean + gate * (noisy - clean)
 
 
+def realization_rms_error(t, cfg: RosaConfig,
+                          var: mrr.StaticVariation | None = None,
+                          per_vector: bool = False) -> torch.Tensor:
+    """RMS programming error of realizing `t` on this chip (a 0-d tensor,
+    no key): the noiseless realization of the quantized operand under the
+    chip's static variation against the operand itself, in normalized
+    weight units.  Per-shot noise is left out: it is i.i.d. across chips,
+    so only the static part tells chips apart.  The control-variate
+    surrogate of `robust.ensemble.estimate_ensemble`; one `mrr_transfer`
+    (the kernel on CUDA) per (chip, layer)."""
+    scale = quant.absmax_scale(t, per_vector)
+    q = quant.fake_quant(t / scale, cfg.qcfg)
+    w = mrr_transfer_ops.mrr_transfer(q, None, 0.0, 0.0, cfg.mrr_params,
+                                      mrr.expand_lanes(var, t))
+    return torch.sqrt(torch.mean((w - q) ** 2))
+
+
 def condition_weight(w, cfg: RosaConfig | None, key,
-                     var: mrr.StaticVariation | None = None):
+                     var: mrr.StaticVariation | None = None, gate=None):
     """Weight conditioning outside the matmul path (per-channel contractions
     such as the depthwise conv): the analog realization of `w` under the
-    layer's noise and pinned chip, whatever its mapping and mode.  Identity
-    when the layer is dense or fully ideal (no fake-quant on that path)."""
-    if cfg is None or (cfg.noise.is_ideal and var is None):
+    layer's noise and pinned chip, whatever its mapping and mode, blended
+    against `w` itself by `gate` in [0, 1].  Identity when the layer is
+    dense or fully ideal (no fake-quant on that path)."""
+    if cfg is None or (cfg.noise.is_ideal and var is None and gate is None):
         return w
-    return _noisy_realize(w, cfg, key, mrr.expand_lanes(var, w))
+    noisy = _noisy_realize(w, cfg, key, mrr.expand_lanes(var, w))
+    if gate is None:
+        return noisy
+    return w + gate * (noisy - w)
 
 
 def _forward(x, w, cfg: RosaConfig, key, var=None, gate=None, mgate=None):

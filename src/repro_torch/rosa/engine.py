@@ -63,15 +63,20 @@ def layer_key(base: torch.Generator, name: str, step: int = 0
 class Engine:
     """Routes every named matmul through the resolved execution plan.
 
-    `variation` pins one sampled chip (`{layer: mrr.StaticVariation}`).
-    (The reference's per-layer `gates` / `mapping_gates` wait for the
-    robustness search that sets them.)
+    `variation` pins one sampled chip (`{layer: mrr.StaticVariation}`);
+    `gates` holds per-layer scalars in [0, 1] blending the analog path
+    against the exact digital one (the perturb-one-layer selector of
+    `robust.sensitivity`); `mapping_gates` per-layer WS/IS selectors
+    ({0=WS, 1=IS}) that superpose the two mappings, so a whole hybrid plan
+    is a vector of floats (the plan search of `robust.sensitivity`).
     """
 
     plan: ExecutionPlan = ExecutionPlan()
     key: torch.Generator | None = None
     ledger: EnergyLedger | None = None
     variation: TMapping[str, mrr.StaticVariation] | None = None
+    gates: TMapping[str, float | torch.Tensor] | None = None
+    mapping_gates: TMapping[str, float | torch.Tensor] | None = None
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -114,6 +119,20 @@ class Engine:
             self, variation=dict(variation) if variation is not None
             else None)
 
+    def with_gates(self, gates: TMapping[str, float | torch.Tensor] | None
+                   ) -> "Engine":
+        """Per-layer analog/digital blend gates in [0, 1] (None unsets)."""
+        return dataclasses.replace(
+            self, gates=dict(gates) if gates is not None else None)
+
+    def with_mapping_gates(self, mapping_gates: TMapping[
+            str, float | torch.Tensor] | None) -> "Engine":
+        """Per-layer WS/IS selectors ({0=WS, 1=IS}) superposing the two
+        mappings (None unsets)."""
+        return dataclasses.replace(
+            self, mapping_gates=dict(mapping_gates)
+            if mapping_gates is not None else None)
+
     # -- resolution ---------------------------------------------------------
     @property
     def is_dense(self) -> bool:
@@ -127,6 +146,15 @@ class Engine:
 
     def variation_for(self, name: str) -> mrr.StaticVariation | None:
         return None if self.variation is None else self.variation.get(name)
+
+    def gate_for(self, name: str):
+        """The analog-blend gate of one layer, if any."""
+        return None if self.gates is None else self.gates.get(name)
+
+    def mapping_gate_for(self, name: str):
+        """The WS/IS mapping gate of one layer, if any."""
+        return None if self.mapping_gates is None \
+            else self.mapping_gates.get(name)
 
     # -- the routed matmul --------------------------------------------------
     def matmul(self, x: torch.Tensor, w: torch.Tensor, *, name: str = "",
@@ -148,18 +176,20 @@ class Engine:
         if key is None:
             key = self.key_for(name, step)
         return rosa_matmul(x.float(), w.float(), cfg, key,
-                           self.variation_for(name))
+                           self.variation_for(name), self.gate_for(name),
+                           self.mapping_gate_for(name))
 
     def effective_weight(self, w: torch.Tensor, *, name: str = "",
                          step: int = 0, key: torch.Generator | None = None
                          ) -> torch.Tensor:
         """Noise-place a weight for a contraction the engine does not route
         itself (the per-channel depthwise conv): the analog realization,
-        with the layer's key and pinned chip, that `matmul` gives its WS
-        side; identity for dense or fully ideal layers."""
+        with the layer's key, pinned chip and gate, that `matmul` gives its
+        WS side; identity for dense or fully ideal layers."""
         if w.device.type == "meta":
             return w
         if key is None:
             key = self.key_for(name, step)
         return condition_weight(w, self.plan.resolve(name), key,
-                                self.variation_for(name))
+                                self.variation_for(name),
+                                self.gate_for(name))

@@ -70,6 +70,15 @@ class ExecutionPlan:
                 f"{sorted(self.layers)}")
         return self.default
 
+    def map_configs(self, fn) -> "ExecutionPlan":
+        """Derived plan with `fn(cfg)` applied to every non-None config
+        (default and overrides)."""
+        return ExecutionPlan(
+            fn(self.default) if self.default is not None else None,
+            tuple((n, fn(c) if c is not None else None)
+                  for n, c in self.overrides),
+            self.layers)
+
     @property
     def is_dense(self) -> bool:
         """True when no layer can reach the optical path."""

@@ -13,22 +13,12 @@ are deterministic; wall-clock ones depend on the device.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
+from repro_torch.bench.schema import Metric
 from repro_torch.core.constants import ROSA_OPTIMAL
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.scheduler import ServeReport
-
-
-@dataclasses.dataclass(frozen=True)
-class Metric:
-    """One named result of a serving run."""
-
-    name: str
-    value: float
-    unit: str = ""
 
 
 def abstract_decode_batch(cfg, scfg: ServeConfig) -> dict:

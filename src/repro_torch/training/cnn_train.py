@@ -15,7 +15,13 @@ per-layer overrides (`ExecutionPlan.build`).
 Everything runs on the device the parameters live on; `train_cnn` puts
 them on `device` ("cuda" unless the caller asks for the CPU).  Noise keys
 are `torch.Generator`s on that device, so draws are made where they are
-used.  Variation-aware QAT (a chip `ensemble`) is not ported.
+used.
+
+Variation-aware QAT: pass a chip `ensemble` (`robust.variation`) and step
+i pins chip ``i % n_chips`` on the frozen engine, so the model learns
+weights that survive the sampled wafer.  With a chip pinned every conv/fc
+runs the `rosa_fused` kernel forward (straight-through backward) and each
+depthwise weight the `mrr_transfer` kernel forward and backward.
 """
 
 from __future__ import annotations
@@ -126,12 +132,10 @@ def train_cnn(model: str = "alexnet", steps: int = 400, batch: int = 64,
     """Returns (params, clean_test_accuracy), params on `device`.
 
     Batches are drawn by numpy from `seed` as the reference draws them;
-    the initial parameters come from a generator on `device`."""
-    if ensemble is not None:
-        raise NotImplementedError(
-            "variation-aware QAT (a chip ensemble) is not ported: it needs "
-            "robust.variation.sample_ensemble and a gradient through the "
-            "MRR realization on the card (ROADMAP.md, Queue 1)")
+    the initial parameters come from a generator on `device`.  With a chip
+    `ensemble` ({layer: StaticVariation} with a leading chip axis, on
+    `device`), step i trains through chip ``i % n_chips``; the returned
+    accuracy stays the clean (variation-free) one."""
     device = torch.device(device)
     specs = LITE_MODELS[model]
     skips = LITE_SKIPS.get(model)
@@ -146,14 +150,21 @@ def train_cnn(model: str = "alexnet", steps: int = 400, batch: int = 64,
     program = cnn_program(model, qat_engine(model) if qat
                           else rosa.Engine.dense())
     engine = program.engine
+    chips = []
+    if ensemble is not None:
+        from repro_torch.robust import variation as V
+        chips = [V.chip_at(ensemble, c)
+                 for c in range(V.ensemble_size(ensemble))]
     m = map_tree(torch.zeros_like, params)
     v = map_tree(torch.zeros_like, params)
 
     rng = np.random.default_rng(seed)
     for i in range(steps):
         idx = torch.from_numpy(rng.integers(0, len(xtr), batch)).to(device)
+        eng = engine.with_variation(chips[i % len(chips)]) if chips \
+            else engine
         loss, g = value_and_grad(params, specs, skips, xtr_t[idx],
-                                 ytr_t[idx], engine)
+                                 ytr_t[idx], eng)
         with torch.no_grad():
             params, m, v = adam_step(params, m, v, g, i, lr)
         if verbose and i % 100 == 0:
@@ -173,12 +184,6 @@ def _test_set(seed: int, device: str):
 def params_device(params: dict) -> torch.device:
     """The device the parameter tree lives on."""
     return _leaves(params)[0].device
-
-
-def split_key(key: torch.Generator, n: int) -> list[torch.Generator]:
-    """`n` independent children of `key` (the reference's
-    `jax.random.split(key, n)`)."""
-    return [mrr.fold_in(key, i) for i in range(n)]
 
 
 def eval_logits(params, model: str, program: rosa.Program,
@@ -209,7 +214,7 @@ def evaluate_cnn(params, model: str, engine: rosa.Engine | None = None,
         return float(acc_of(None)) * 100.0
     base = key if key is not None \
         else torch.Generator(device).manual_seed(7)
-    accs = torch.stack([acc_of(k) for k in split_key(base, n_mc)])
+    accs = torch.stack([acc_of(k) for k in mrr.split_keys(base, n_mc)])
     return float(torch.mean(accs)) * 100.0
 
 

@@ -42,7 +42,7 @@ from repro_torch.core.constants import ComputeMode, Mapping
 from repro_torch.data import synth_cifar as TD
 from repro_torch.launch import table4
 from repro_torch.models import cnn as TCNN
-from repro_torch.models.model import chip_from_reference, params_from_reference
+from repro_torch.models.model import params_from_reference
 from repro_torch.robust import variation as TV
 from repro_torch.training import cnn_train as TT
 from test_torch_ref import reference, to_np
@@ -203,7 +203,7 @@ def test_chip_pinned_mobilenet_matches_reference(R, golden, mode, mapping):
         jp, R.jnp.asarray(x), variation=jchip)
     got = _programs(None, MODEL, {"p": _cfg(None, mode, mapping)})["p"](
         params_from_reference(params), torch.from_numpy(x),
-        variation=chip_from_reference(jchip))
+        variation=TV.from_reference(jchip))
     assert_network_parity(got, want)
 
 
@@ -220,7 +220,7 @@ def test_effective_weight_matches_reference(R):
         to_np(eng_t.effective_weight(torch.from_numpy(w), name="mb6_dw")), w)
     want = eng_j.with_variation(chip).effective_weight(R.jnp.asarray(w),
                                                        name="mb6_dw")
-    got = eng_t.with_variation(chip_from_reference(chip)).effective_weight(
+    got = eng_t.with_variation(TV.from_reference(chip)).effective_weight(
         torch.from_numpy(w), name="mb6_dw")
     np.testing.assert_allclose(to_np(got), to_np(want), rtol=0,
                                atol=2e-6 * np.abs(w).max())
@@ -283,10 +283,62 @@ def test_qat_step_matches_reference(R):
                                        atol=1e-7)
 
 
-def test_variation_aware_qat_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.train_cnn(MODEL, steps=1, ensemble={"conv_stem": None},
-                     device="cpu")
+@pytest.mark.parametrize("model", ["alexnet", MODEL])
+def test_qat_step_with_pinned_chip_matches_reference(R, model):
+    """Variation-aware QAT's step: the loss and straight-through gradients
+    with a chip pinned (every conv/fc realizes its weight, every depthwise
+    weight is realized and differentiated through the chain) against
+    `jax.value_and_grad(cnn_train._loss)` with
+    `engine.with_variation(chip)`.  Loss rtol 1e-5, as in
+    `test_qat_step_matches_reference`; the gradient tree within 1e-3 of
+    its norm: a pre-activation within float noise of 0 may take the other
+    side of a ReLU, which moves every gradient upstream of it (alexnet with
+    this chip: one conv5 pre-activation of 8.4e-9 does, 5.9e-4 of the
+    norm; mobilenet_v3 1.7e-7)."""
+    jax, jnp = R.jax, R.jnp
+    jp = _np_params(model, seed=1)
+    x, y = _images(8, seed=4)
+    chip = R.variation.sample_chip(jax.random.PRNGKey(GOLDEN_CHIP_KEY),
+                                   R.variation.cnn_lane_dims(model))
+    specs = R.cnn.LITE_MODELS[model]
+    engine = R.cnn_train.qat_engine(model).with_variation(chip)
+    loss_j, g_j = jax.jit(jax.value_and_grad(
+        lambda p, a, b: R.cnn_train._loss(p, specs, None, a, b, engine)))(
+        jp, jnp.asarray(x), jnp.asarray(y))
+    loss_t, g_t = TT.value_and_grad(
+        params_from_reference(jp), TCNN.LITE_MODELS[model], None,
+        torch.from_numpy(x), torch.from_numpy(y),
+        TT.qat_engine(model).with_variation(TV.from_reference(chip)))
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    pairs = [(to_np(g_t[layer][leaf]), to_np(g_j[layer][leaf]))
+             for layer in g_j for leaf in ("w", "b")]
+    err = np.sqrt(sum(np.sum((a - b) ** 2) for a, b in pairs))
+    assert err <= 1e-3 * np.sqrt(sum(np.sum(b ** 2) for _, b in pairs))
+
+
+def test_variation_aware_qat_runs_on_cpu(monkeypatch):
+    """`train_cnn(ensemble=...)`: step i trains through chip i % n_chips,
+    the parameters stay finite and the accuracy is the clean one."""
+    ens = TV.sample_ensemble(torch.Generator().manual_seed(3), 2,
+                             TV.cnn_lane_dims(MODEL), antithetic=True)
+    pinned = []
+    real = TT.value_and_grad
+
+    def spy(params, specs, skips, x, y, engine):
+        pinned.append(engine.variation)
+        return real(params, specs, skips, x, y, engine)
+
+    monkeypatch.setattr(TT, "value_and_grad", spy)
+    params, acc = TT.train_cnn(MODEL, steps=3, batch=8, n_train=64,
+                               ensemble=ens, device="cpu")
+    assert len(pinned) == 3
+    for i, chip in enumerate(pinned):
+        want = TV.chip_at(ens, i % 2)
+        assert all(torch.equal(chip[n].ddt, want[n].ddt) for n in want)
+    assert not torch.equal(pinned[0]["mb2_dw"].dv, pinned[1]["mb2_dw"].dv)
+    assert all(bool(torch.isfinite(t).all()) for layer in params.values()
+               for t in layer.values())
+    assert acc == TT.evaluate_cnn(params, MODEL, TT.qat_engine(MODEL))
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +535,25 @@ def test_chip_pinned_mobilenet_on_cuda_matches_cpu(cuda, golden, mapping):
                  variation={k: v.to("cuda") for k, v in ct.items()})
     torch.cuda.synchronize()
     assert_network_parity(y_gpu, y_cpu)
+
+
+@pytest.mark.cuda
+def test_variation_aware_qat_on_cuda_launches_the_kernels(cuda):
+    """On the card every step runs each conv/fc through rosa_fused and
+    each depthwise weight through mrr_transfer, forward and backward."""
+    from repro_torch.kernels.mrr_transfer import ops as mrr_ops
+    from repro_torch.kernels.rosa_fused import ops as fused_ops
+    ens = TV.sample_ensemble(torch.Generator("cuda").manual_seed(3), 2,
+                             TV.cnn_lane_dims(MODEL), antithetic=True,
+                             device="cuda")
+    counters = (fused_ops.LAUNCHES, mrr_ops.LAUNCHES, mrr_ops.LAUNCHES_BWD)
+    before = [c.count for c in counters]
+    params, _ = TT.train_cnn(MODEL, steps=2, batch=8, n_train=64,
+                             ensemble=ens, device="cuda")
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [22, 8, 8]
+    assert all(bool(torch.isfinite(t).all()) for layer in params.values()
+               for t in layer.values())
 
 
 if __name__ == "__main__":

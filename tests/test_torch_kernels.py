@@ -76,6 +76,12 @@ _FUSED_CASES = [
     (8, 40, 16, 9, {"mode": "ANALOG", "gate": 0.7}),
     (8, 24, 8, 10, {"pam_bits": 2}),                     # PAM-4 digits
     (8, 24, 8, 11, {"pam_bits": 2, "nonideal_osa": True}),
+    # robust.sensitivity's gated evaluator: one-hot analog gates (0 or 1)
+    # and constant mapping gates (0 = WS, 1 = IS), rows past the decode path
+    (24, 72, 16, 12, {"gate": 0.0, "mgate": 0.0}),
+    (24, 72, 16, 13, {"gate": 1.0, "mgate": 0.0}),
+    (24, 72, 16, 14, {"gate": 0.0, "mgate": 1.0}),
+    (24, 72, 16, 15, {"gate": 1.0, "mgate": 1.0}),
 ]
 
 

@@ -15,6 +15,17 @@ made with numpy.  Tolerances:
     the jitted chain by 1.05e-5, and by 9.4e-5 for targets clipped at
     q_max, where the jitted-chain tests cover the port.
 
+The backward (`ops.plain_grad`, `ref.mrr_transfer_grad_ref`; the CUDA
+backward kernel) is held against `jax.grad` of the reference's
+`core.mrr.realize_weights`, fed the reference's own draws: 2e-6 of the
+gradient's full scale on interior targets (5.2e-7 measured).  At the end
+points the clip conventions differ (stated in
+`test_end_points_follow_torch_clamp`); through `condition_weight`, where
+the absmax element sits at an end point, the gradient holds to 3e-6 of its
+full scale (1.5e-6 measured: the element's two routes, through q and
+through the per-tensor scale, carry the chain's derivative with opposite
+signs, so the convention cancels).
+
 Tests marked `cuda` launch the CUDA kernel and skip without a card.
 """
 
@@ -170,6 +181,110 @@ def test_launch_refuses_what_the_kernel_does_not_take():
         ops.launch(w, torch.zeros(4, 8), torch.zeros(4, 8), 0.02, 0.04)
 
 
+def _ref_draws(R, key, shape):
+    """The reference's (DAC, thermal) draws of `realize_weights(key)`."""
+    k_dac, k_th = R.jax.random.split(key)
+    return tuple(torch.from_numpy(np.array(R.jax.random.normal(k, shape)))
+                 for k in (k_dac, k_th))
+
+
+@pytest.mark.parametrize("chip", [False, True])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_plain_grad_matches_jax_grad_of_realize_weights(R, chip, noisy):
+    """g * d realize / d w on interior targets, with and without a chip
+    (per lane, against a (K, N) weight) and per-shot draws."""
+    jax, jnp = R.jax, R.jnp
+    shape = (40, 24)
+    r = np.random.default_rng(7 + 2 * chip + noisy)
+    w = r.uniform(-0.98, 0.98, shape).astype(np.float32)
+    g = r.normal(size=shape).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    var_j = var_t = None
+    if chip:
+        f = [np.asarray(s * r.normal(size=40), np.float32)
+             for s in (0.01, 0.04, 0.01)]
+        var_j = R.mrr.expand_lanes(R.mrr.StaticVariation(
+            *map(jnp.asarray, f)), jnp.asarray(w))
+        var_t = TM.expand_lanes(TM.StaticVariation(
+            *map(torch.from_numpy, f)), torch.from_numpy(w))
+    noise = R.mrr.PAPER_NOISE if noisy else R.mrr.IDEAL
+    want = np.asarray(jax.jit(jax.grad(lambda a: jnp.sum(
+        R.mrr.realize_weights(a, key, R.mrr.DEFAULT_PARAMS, noise, var_j)
+        * g)))(jnp.asarray(w)))
+    eps = _ref_draws(R, key, shape) if noisy else (None, None)
+    got = to_np(ops.plain_grad(torch.from_numpy(g), torch.from_numpy(w),
+                               *eps, *(SIGMAS if noisy else (0.0, 0.0)),
+                               var=var_t))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-6 * np.abs(want).max())
+
+
+def test_end_points_follow_torch_clamp(R):
+    """At q = -1 (v = v_max) a clip passes the whole gradient here, as
+    `torch.clamp` does, where JAX's `clip` passes half; at q = +1 (v just
+    below v_min) both give 0.  The plain derivative equals autograd of the
+    plain chain, end points included."""
+    w = torch.tensor([-1.0, -0.5, 0.0, 0.5, 1.0, 1.05])
+    wr = w.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ref.mrr_transfer_ref(wr, None, None, 0.0,
+                                                       0.0).sum(), wr)
+    got = ops.plain_grad(torch.ones_like(w), w, None, None, 0.0, 0.0)
+    np.testing.assert_allclose(to_np(got), to_np(auto), rtol=2e-6,
+                               atol=1e-7)
+    jax = R.jax
+    want = np.asarray(jax.vmap(jax.grad(lambda a: R.mrr.realize_weights(
+        a)))(R.jnp.asarray(to_np(w))))
+    got = to_np(got)
+    np.testing.assert_allclose(got[1:4], want[1:4], rtol=2e-6)
+    assert abs(want[0] / got[0] - 0.5) < 1e-3
+    assert got[4] == want[4] == 0.0 and got[5] == want[5] == 0.0
+
+
+@pytest.mark.parametrize("sign", [-1.0, 1.0])
+def test_condition_weight_gradient_matches_reference(R, sign):
+    """The depthwise weight's realization under a PAPER_VARIATION chip,
+    differentiated end to end (per-tensor scale, fake-quant, the chain),
+    with the absmax element negative or positive."""
+    jax, jnp = R.jax, R.jnp
+    r = np.random.default_rng(int(sign) + 3)
+    w = r.normal(size=(16, 9)).astype(np.float32)
+    i = np.unravel_index(np.abs(w).argmax(), w.shape)
+    w[i] = sign * 1.5 * abs(w[i])
+    g = r.normal(size=w.shape).astype(np.float32)
+    chip = R.variation.sample_chip(jax.random.PRNGKey(11), {"l": 16})["l"]
+    want = np.asarray(jax.jit(jax.grad(lambda a: jnp.sum(
+        R.backends.condition_weight(a, R.cnn_train.QAT_CFG, None, chip)
+        * g)))(jnp.asarray(w)))
+    wt = torch.from_numpy(w).requires_grad_(True)
+    y = TB.condition_weight(wt, TB.RosaConfig(), None, TM.StaticVariation(
+        *(torch.from_numpy(np.array(getattr(chip, f)))
+          for f in ("dv", "ddt", "dlam"))))
+    (got,) = torch.autograd.grad((y * torch.from_numpy(g)).sum(), wt)
+    np.testing.assert_allclose(to_np(got), want, rtol=0,
+                               atol=3e-6 * np.abs(want).max())
+
+
+def test_launch_backward_refuses_what_the_kernel_does_not_take():
+    w = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.launch_backward(torch.zeros(4, 8), w, None, None, 0.0, 0.0)
+    with pytest.raises(ValueError, match="draws"):
+        ops.launch_backward(torch.zeros(4, 8), w, None, None, 0.02, 0.04)
+
+
+def test_cpu_gradient_takes_the_plain_chain():
+    """On the CPU the realization is differentiated through the plain
+    chain by autograd: no kernel, no backward launch."""
+    n = ops.LAUNCHES_BWD.count
+    w = (2 * torch.rand(6, 5) - 1).requires_grad_(True)
+    ops.mrr_transfer(w, None, 0.0, 0.0).sum().backward()
+    assert ops.LAUNCHES_BWD.count == n
+    np.testing.assert_allclose(
+        to_np(w.grad), to_np(ops.plain_grad(torch.ones(6, 5), w.detach(),
+                                            None, None, 0.0, 0.0)),
+        rtol=2e-6, atol=1e-7)
+
+
 def test_preflight():
     wi = ops.preflight(5120 * 51200)
     assert wi["issues"] == [] and wi["pad_waste"] == 0.0
@@ -213,12 +328,60 @@ def test_kernel_equals_plain_on_cuda(shape, noisy, with_var):
 
 
 @pytest.mark.cuda
-def test_cuda_backward_raises_without_plain_fallback():
+def test_cuda_backward_launches_the_kernel_without_plain_fallback(
+        monkeypatch):
+    """On CUDA the gradient through `mrr_transfer` is the backward kernel's
+    (one launch, equal to the plain derivative bit for bit), and with the
+    kernel unavailable backward raises instead of falling back."""
     _need_cuda()
-    w = torch.rand(8, 8, device="cuda", requires_grad=True)
-    y = ops.mrr_transfer(w, torch.Generator("cuda").manual_seed(0))
-    with pytest.raises(NotImplementedError, match="variation-aware QAT"):
+    gen = torch.Generator("cuda").manual_seed(0)
+    w0 = 2 * torch.rand(48, 25, device="cuda", generator=gen) - 1
+    var = TM.expand_lanes(TM.StaticVariation(
+        *(s * torch.randn(48, device="cuda", generator=gen)
+          for s in (0.01, 0.04, 0.01))), w0)
+    key = torch.Generator("cuda").manual_seed(1)
+    eps = TM.draw_eps(key, w0.shape, "cuda")
+    monkeypatch.setattr(ops, "plain_grad", None)      # never reached
+    w = w0.clone().requires_grad_(True)
+    n = ops.LAUNCHES_BWD.count
+    ops.mrr_transfer(w, key, *SIGMAS, var=var).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BWD.count == n + 1
+    monkeypatch.undo()
+    assert torch.equal(w.grad, ops.plain_grad(torch.ones_like(w0), w0, *eps,
+                                              *SIGMAS, var=var))
+
+    def unavailable():
+        raise kernels.KernelBuildError("nvcc refused the source")
+
+    y = ops.mrr_transfer(w0.clone().requires_grad_(True), key, *SIGMAS,
+                         var=var)
+    monkeypatch.setattr(ops, "_lib", unavailable)
+    with pytest.raises(kernels.KernelBuildError):
         y.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 9), (36, 9), (48, 25), (60, 25),
+                                   (513, 130)])
+@pytest.mark.parametrize("noisy", [True, False])
+def test_backward_kernel_equals_plain_grad_on_cuda(shape, noisy):
+    """mobilenet_v3's depthwise weights (and a ragged sheet) with a chip
+    per row, with and without draws: bit for bit."""
+    _need_cuda()
+    g = torch.Generator("cuda").manual_seed(4)
+    w = 2.2 * torch.rand(shape, device="cuda", generator=g) - 1.1
+    gr = torch.randn(shape, device="cuda", generator=g)
+    var = TM.expand_lanes(TM.StaticVariation(
+        *(s * torch.randn(shape[0], device="cuda", generator=g)
+          for s in (0.01, 0.04, 0.01))), w)
+    sig = SIGMAS if noisy else (0.0, 0.0)
+    eps = TM.draw_eps(torch.Generator("cuda").manual_seed(5), shape,
+                      "cuda") if noisy else (None, None)
+    got = ops.launch_backward(gr, w, *eps, *sig, var=var)
+    want = ops.plain_grad(gr, w, *eps, *sig, var=var)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -227,7 +390,8 @@ def test_cuda_backward_raises_without_plain_fallback():
 def test_kernel_equals_plain_in_each_lane_layout_on_cuda(orient, noisy):
     """Per-row fields against a (K, N) weight, per-column fields against
     (M, K) activations (both the lane vectors themselves), and a full-shape
-    field (a strided view): bit for bit, at aligned and ragged widths."""
+    field (a strided view): forward and backward bit for bit, at aligned
+    and ragged widths."""
     _need_cuda()
     g = torch.Generator("cuda").manual_seed(2)
     for shape in [(96, 256), (37, 27)]:
@@ -248,5 +412,9 @@ def test_kernel_equals_plain_in_each_lane_layout_on_cuda(orient, noisy):
                           "cuda") if noisy else (None, None)
         got = ops.launch(w, *eps, *sig, var=var)
         want = ops.plain(w, *eps, *sig, var=var)
+        gr = torch.randn(shape, device="cuda", generator=g)
+        got_b = ops.launch_backward(gr, w, *eps, *sig, var=var)
+        want_b = ops.plain_grad(gr, w, *eps, *sig, var=var)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (orient, shape)
+        assert torch.equal(got_b, want_b), (orient, shape, "backward")

@@ -48,6 +48,9 @@ _REF_MODULES = {
     "paper_cnns": "repro.configs.paper_cnns",
     "energy_vec": "repro.core.energy_vec", "dse": "repro.core.dse",
     "model_zoo": "repro.configs.model_zoo",
+    "ensemble": "repro.robust.ensemble",
+    "sensitivity": "repro.robust.sensitivity", "drift": "repro.robust.drift",
+    "robust_report": "repro.robust.report", "schema": "repro.bench.schema",
 }
 
 

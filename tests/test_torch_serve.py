@@ -20,9 +20,10 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.models import transformer as T
-from repro_torch.models.model import (build_model, chip_from_reference,
-                                      evict_slot, params_from_reference,
-                                      read_slot, write_slot)
+from repro_torch.models.model import (build_model, evict_slot,
+                                      params_from_reference, read_slot,
+                                      write_slot)
+from repro_torch.robust.variation import from_reference
 from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
                                run_sequential, serving_model_config)
 from test_torch_ref import reference, to_np
@@ -117,7 +118,7 @@ def test_scheduler_greedy_tokens_equal_reference(R, backend):
     reqs = _reqs(jcfg.vocab)
     jrep = jsched.run(R.serve.poisson_requests(3, 1.0, vocab=jcfg.vocab,
                                                seed=0))
-    chip = (chip_from_reference(jsched.engine.variation) if rosa_on
+    chip = (from_reference(jsched.engine.variation) if rosa_on
             else None)
     scfg = ServeConfig(n_slots=2, max_len=24, rosa=rosa_on,
                        variation_seed=7 if rosa_on else None,
