@@ -100,11 +100,31 @@ Phases (any failure raises, so the exit code is non-zero):
      drift: 16 chips, 256 images, sine, re-trim every 900 s; sweep: 32
      chips, 5 scales), each a main-path run with launches counted from the
      run's shape, and the sensitivity plan and EDP ratio recomputed from
-     its own degradation matrix in float64.
+     its own degradation matrix in float64;
+ 13. compile once and drift-adaptive serving: (a) qwen3-32b's serving
+     Program (full width, 4 of 64 layers, backend fused) compiled twice
+     against one `rosa.PlanCache`: the first searches, the second loads
+     the plan (cache_hit), both plans IS/IS as phase 3's, and `python -m
+     repro_torch.rosa stats` counts one plan; (b) the reference bench's
+     full-size drift_serve scenario (sine 0.6 K over 96 ticks, 16 Poisson
+     requests at 0.5 a tick, 4 slots, max_len 56, chunk 8, probes of 16 x
+     4 tokens every 2 ticks, warm-up 6, chip 0, a forced replan at tick 30)
+     on qwen3-32b at full width, uncontrolled then controlled, each arm a
+     main-path run: no request dropped, the requests done before the
+     first actuator write bit-exact between the arms, and every decode
+     step up to it too, no swap downtime, at least one replan, and
+     rosa_fused launched exactly once per routed projection of every
+     decode step, prefill chunk, warm-up step and chip-pinned probe
+     forward; recovery and the agreements are recorded; (c) `run_smoke`
+     twice on phase 9's alexnet with one cache: the second run finds the
+     degradation matrix, and its launches show the Monte-Carlo stage did
+     not run.
 
-It prints one JSON line summarizing the kernels, then the card's name and
-power limit, then `{"ok": true, "device": {...}}` as the last line.
-Per-case numbers go to chiprun_out/chip_smoke.json.
+Every compile of the run goes through a fresh plan cache (a temporary
+`ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
+cold.  It prints one JSON line summarizing the kernels, then the card's
+name and power limit, then `{"ok": true, "device": {...}}` as the last
+line.  Per-case numbers go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -265,6 +285,8 @@ CNN_SHEETS = {"conv_stem": CONV_STEM,
               "vgg16 conv1_2": (524288, 144, 16),
               "resnet18 l1": (524288, 216, 24)}
 GATED_SHEET = (32768, 216, 48)         # alexnet conv2, 128 images
+PROBE_ROWS = 64                        # drift probes: 16 prompts x 4 tokens
+PROBE_SHIFT_K = 0.3                    # a thermal residual on the chip
 
 
 def fused_cases():
@@ -290,6 +312,15 @@ def fused_cases():
     # (0 = WS, 1 = IS), at one micro-batch of 128 images
     cases += [(*GATED_SHEET, f"gate {g:g} mgate {mg:g} alexnet conv2 b128",
                dict(mapping=Mapping.WS, noisy=True, gate=g, mgate=mg), False)
+              for g in (0.0, 1.0) for mg in (0.0, 1.0)]
+    # the drift probes' and replan cells' forwards (phase 13(b)): the gated
+    # evaluator at qwen3-32b width, IDEAL per-shot noise, per-layer analog
+    # and mapping gates of 0 or 1, the pinned chip shifted by a residual
+    cases += [(PROBE_ROWS, k, n, f"{mp} gate {g:g} mgate {mg:g} probe "
+               f"{name}", dict(mapping=Mapping[mp], act_per_vector=True,
+                               gate=g, mgate=mg, shift_k=PROBE_SHIFT_K),
+               False)
+              for name, (k, n) in PROJ.items() for mp in ("IS", "WS")
               for g in (0.0, 1.0) for mg in (0.0, 1.0)]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
@@ -343,6 +374,7 @@ def fused_phase(report: dict) -> dict:
         kw = dict(kw)
         gate, mgate = kw.pop("gate", None), kw.pop("mgate", None)
         with_chip = kw.pop("chip", True)
+        shift_k = kw.pop("shift_k", None)
         key = None
         if kw.pop("noisy", False):
             kw["noise"] = mrr.PAPER_NOISE
@@ -354,6 +386,8 @@ def fused_phase(report: dict) -> dict:
             0.04 * torch.randn(k, device=DEVICE, generator=g),
             0.01 * torch.randn(k, device=DEVICE, generator=g)) \
             if with_chip else None
+        if shift_k is not None:
+            var = var.shift_ddt(shift_k)
         args, static = ops.operands(x, w, key, var, gate, mgate, **kw)
         y = ops.launch(*args, **static)
         y_plain = ops.plain(*args, **static)
@@ -1742,6 +1776,284 @@ def robust_phase(report: dict) -> dict:
     return qat["qat_launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: compile-once Programs with the plan cache, drift-adaptive
+# serving of qwen3-32b at full width, and the robust smoke run
+# ---------------------------------------------------------------------------
+SMOKE_RUN = dict(n_chips=16, n_probe=2, n_eval=64, max_candidates=3)
+
+
+def qwen_cfg():
+    """qwen3-32b at full width, depth cut to 4 of 64 layers (phase 3)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-32b"), n_layers=4)
+
+
+def compile_once(report: dict) -> dict:
+    """13(a): the serving Program compiled twice against one PlanCache:
+    cold searches (on the card's energy model), warm loads."""
+    import os
+    import torch
+    from repro_torch import rosa
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (ServeConfig, build_serving_program,
+                                   serving_model_config)
+
+    bundle = build_model(serving_model_config(qwen_cfg(), rosa=True))
+    scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
+                       rosa_backend="fused")
+    root = pathlib.Path(os.environ["ROSA_PLAN_CACHE"]) / "13a"
+    progs, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        progs.append(build_serving_program(bundle, scfg, device=DEVICE,
+                                           cache=rosa.PlanCache(root)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    cold, warm = progs
+    plans = [{k: v.name for k, v in p.plan.mapping_plan().items()}
+             for p in progs]
+    stats = json.loads(subprocess.run(
+        [sys.executable, "-m", "repro_torch.rosa", "stats", "--root",
+         str(root)], capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))).stdout)
+    print(f"  compile walls: cold {walls[0] * 1e3:.2f} ms (searched "
+          f"{cold.searched}), warm {walls[1] * 1e3:.2f} ms (cache_hit "
+          f"{warm.cache_hit}); plan {plans[1]}; stats: {stats['plans']} "
+          f"plan(s), {stats['bytes']} bytes")
+    if not (cold.searched and not cold.cache_hit and warm.cache_hit
+            and not warm.searched and cold.cache_key == warm.cache_key):
+        raise AssertionError("13(a): cold compile must search, warm hit")
+    if plans[0] != plans[1] or plans[1] != {"mlp/wi": "IS", "mlp/wo": "IS"}:
+        raise AssertionError(f"13(a): plans {plans} differ from phase 3's")
+    if stats["plans"] != 1:
+        raise AssertionError(f"13(a): cache stats {stats}")
+    return {"cold_ms": walls[0] * 1e3, "warm_ms": walls[1] * 1e3,
+            "plan": plans[1], "stats": stats}
+
+
+def arm_launches(rep, routed: int, chip_forwards: int,
+                 warm_steps: int) -> int:
+    """rosa_fused launches of one A/B arm: every routed projection of every
+    decode step, prefill chunk, warm-up step of a swapped-in program and
+    chip-pinned probe forward (a probe's clean reference is the ideal
+    digital path and launches nothing)."""
+    return routed * (rep.decode_steps + rep.prefill_chunks + warm_steps
+                     + chip_forwards)
+
+
+SPANS = {"serve.decode_step": "decode", "serve.prefill_chunk": "prefill",
+         "adaptive.probe": "probes", "adaptive.replan": "replans"}
+
+
+def span_walls(tracer) -> dict:
+    """Host walls [s] of one arm by span: decode steps (each up to the read
+    of its tokens), prefill chunks, health probes and replans (each ending
+    in a read of the device's result, so it covers its device work)."""
+    walls = dict.fromkeys(SPANS.values(), 0.0)
+    for ev in tracer.events:
+        if ev.get("ph") == "X" and ev["name"] in SPANS:
+            walls[SPANS[ev["name"]]] += ev["dur"] * 1e-6
+    return walls
+
+
+def tokens_through(rep, tick: int) -> dict:
+    """Each request's tokens emitted at or before `tick`: the prefill's
+    token at first_token_tick, then one a decode step from admit_tick
+    through done_tick."""
+    out = {}
+    for rid, c in rep.completions.items():
+        if len(c.tokens) != c.done_tick - c.admit_tick + 2:
+            raise AssertionError(f"13(b): request {rid} did not emit one "
+                                 "token a tick from admission to done")
+        n = int(c.first_token_tick <= tick) \
+            + max(0, min(tick, c.done_tick) - c.admit_tick + 1)
+        out[rid] = c.tokens[:n]
+    return out
+
+
+def drift_serve(report: dict) -> dict:
+    """13(b): the reference bench's full-size drift_serve scenario
+    (`drift_serve_metrics(quick=False)`) on qwen3-32b at full width, built
+    as `run_scenario` builds it; each arm (`run_arm`) a main-path run of
+    its own, its walls from the scheduler's and the controller's spans."""
+    import torch
+    from repro_torch.obs.trace import Tracer, tracing
+    from repro_torch.serve.adaptive import (ScenarioConfig, ScenarioResult,
+                                            run_arm, scenario_metrics,
+                                            scenario_parts)
+
+    cfg = ScenarioConfig(force_replan_at=30)
+    model_cfg = qwen_cfg()
+    t0 = time.perf_counter()
+    parts = scenario_parts(model_cfg, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    sched, reqs, probes = parts.sched, parts.requests, parts.probes
+    routed = 2 * model_cfg.n_layers
+    names = len(probes.names)
+    plan = {k: v.name for k, v in sched.program.plan.mapping_plan().items()}
+    print(f"  set-up {time.perf_counter() - t0:.1f} s; {cfg.n_requests} "
+          f"requests at {cfg.rate}/tick, sine {cfg.amp_k} K over "
+          f"{cfg.period_ticks:g} ticks, probes every {cfg.probe_every} "
+          f"ticks ({cfg.n_probes} x {cfg.prompt_len} tokens), forced "
+          f"replan at tick {cfg.force_replan_at}; plan {plan}")
+
+    arms, launches, walls = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for arm in ("uncontrolled", "controlled"):
+        tracer = Tracer()
+        reset_launches()                  # counts from 0, read right after
+        with tracing(tracer):
+            arms[arm] = run_arm(parts, controlled=arm == "controlled")
+        launches[arm] = launch_counts()
+        walls[arm] = span_walls(tracer)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (monitor, rep_u), (controller, rep_c) = arms.values()
+    want = {
+        # golden, ref and the probes
+        "uncontrolled": arm_launches(rep_u, routed,
+                                     2 + len(monitor.series), 0),
+        # ref, the probes and every replan's (mapping x layer) cells
+        "controlled": arm_launches(
+            rep_c, routed, 1 + len(controller.series)
+            + controller.replans * 2 * names, controller.replans)}
+
+    res = ScenarioResult.from_arms(cfg, sched, arms["uncontrolled"],
+                                   arms["controlled"])
+    s = res.summary()
+    s["dropped_requests"] = res.dropped_requests(reqs)
+    metrics = {m.name: m.value for m in scenario_metrics(res, reqs)}
+    for arm, (_, rep) in arms.items():
+        n, w = launches[arm], walls[arm]
+        w["rest"] = rep.wall_s - sum(w.values())
+        print(f"  {arm} wall {rep.wall_s:.2f} s: decode steps "
+              f"{w['decode']:.2f}, prefill chunks {w['prefill']:.2f}, "
+              f"health probes {w['probes']:.2f}, replans "
+              f"{w['replans']:.2f}, host {w['rest']:.2f}")
+        print(f"  {arm}: {rep.total_tokens} tokens in {rep.wall_s:.2f} s "
+              f"({rep.tokens_per_s:.2f} tok/s), {rep.ticks} ticks, "
+              f"{rep.decode_steps} decode steps, {rep.prefill_chunks} "
+              f"prefill chunks; rosa_fused launches {n['rosa_fused']} "
+              f"(want {want[arm]}), osa_matmul {n['osa_matmul']}, "
+              f"mrr_transfer {n['mrr_transfer']}", flush=True)
+        if n["rosa_fused"] != want[arm] or n["osa_matmul"] \
+                or n["mrr_transfer"] or n["ssd_scan"]:
+            raise AssertionError(f"13(b) {arm}: launches {n}, want "
+                                 f"rosa_fused {want[arm]} and nothing else")
+    print(f"  agreements: ref {s['ref_agreement']!r}, uncontrolled "
+          f"{s['uncontrolled_agreement']!r}, controlled "
+          f"{s['controlled_agreement']!r}; recovery {s['recovery']!r}; "
+          f"retrims {s['retrims']}, trim updates {s['trim_updates']}, "
+          f"replans {s['replans']} (plans "
+          f"{[w['plan'] for w in controller.swaps]})")
+    print(f"  swap wall {s['swap_wall_ms']:.2f} ms, downtime "
+          f"{s['swap_downtime_ticks']} ticks; p99 tick {s['p99_tick_ms']:.2f}"
+          f" ms; epoch requests {s['epoch_requests']} bit-exact "
+          f"{s['epoch_bitexact']}; dropped {s['dropped_requests']}; peak "
+          f"{peak:.1f} GiB")
+    # both arms run the same ticks; every token emitted up to the first
+    # actuator write must be the same bit for bit, finished or not
+    tick = res.first_action_tick
+    epoch = tokens_through(rep_u, tick)
+    n_epoch = sum(map(len, epoch.values()))
+    first_done = min(c.done_tick for c in rep_u.completions.values())
+    same = epoch == tokens_through(rep_c, tick)
+    print(f"  pre-action epoch: {n_epoch} tokens through tick {tick}, "
+          f"equal in both arms {same}; first request done at tick "
+          f"{first_done}")
+    if s["dropped_requests"] != 0 or not s["epoch_bitexact"] \
+            or s["swap_downtime_ticks"] != 0 or s["replans"] < 1:
+        raise AssertionError(f"13(b): scenario gates failed: {s}")
+    if not n_epoch or not same:
+        raise AssertionError("13(b): the arms' tokens differ before the "
+                             "first actuator write")
+    if not all(math.isfinite(v) for v in (
+            s["ref_agreement"], s["uncontrolled_agreement"],
+            s["controlled_agreement"], s["recovery"])):
+        raise AssertionError("13(b): non-finite agreement")
+    return {"summary": s, "metrics": metrics, "peak_gib": peak,
+            "epoch_tokens": n_epoch, "first_done_tick": first_done,
+            "walls_s": walls,
+            "tokens_per_s": {a: r.tokens_per_s for a, (_, r) in arms.items()},
+            "launches": launches,
+            "rosa_fused": sum(n["rosa_fused"] for n in launches.values())}
+
+
+def smoke_launches(order: int, cold: bool) -> dict:
+    """What `run_smoke` launches on alexnet (8 conv/fc layers, no
+    depthwise): one rosa_fused per layer and chip-pinned forward (the
+    ensemble probes, the degradation cells when the matrix is not cached,
+    the search's candidates, the two final plans; each at one micro-batch
+    of n_eval images), one mrr_transfer per (chip, layer) for the
+    surrogate."""
+    from repro_torch.models.cnn import LITE_MODELS
+    layers = len(LITE_MODELS[ROBUST_MODEL])
+    cells = 2 * layers if cold else 0
+    forwards = SMOKE_RUN["n_probe"] * (1 + cells + order + 1 + 2)
+    return {"rosa_fused": forwards * layers,
+            "mrr_transfer": SMOKE_RUN["n_chips"] * layers,
+            "mrr_transfer_bwd": 0, "osa_matmul": 0, "ssd_scan": 0}
+
+
+def robust_smoke(report: dict) -> dict:
+    """13(c): `run_smoke` twice on phase 9's alexnet with one cache: the
+    second run finds the degradation matrix and launches none of the
+    Monte-Carlo stage."""
+    import os
+    import torch
+    from repro_torch import rosa
+    from repro_torch.robust import cli
+
+    root = pathlib.Path(os.environ["ROSA_PLAN_CACHE"]) / "13c"
+    rows, total = [], 0
+    for i in range(2):
+        reset_launches()
+        t0 = time.perf_counter()
+        summary, metrics = cli.run_smoke(
+            ROBUST_MODEL, params=TRAINED[ROBUST_MODEL],
+            cache=rosa.PlanCache(root), device=DEVICE, **SMOKE_RUN)
+        torch.cuda.synchronize()
+        wall, n = time.perf_counter() - t0, launch_counts()
+        want = smoke_launches(len(summary["search"]["order"]), i == 0)
+        head = {m.name: m.value for m in metrics}
+        print(f"  run {i + 1}: matrix_cached {summary['matrix_cached']}, "
+              f"plan {sorted(summary['plan'])}, hybrid "
+              f"{summary['hybrid_mean_acc']:.2f} % vs WS "
+              f"{summary['ws_mean_acc']:.2f} %; {wall:.2f} s; launches "
+              f"rosa_fused {n['rosa_fused']} mrr_transfer "
+              f"{n['mrr_transfer']} (want {want['rosa_fused']}, "
+              f"{want['mrr_transfer']})", flush=True)
+        if summary["matrix_cached"] != (i == 1):
+            raise AssertionError(f"13(c) run {i + 1}: matrix_cached "
+                                 f"{summary['matrix_cached']}")
+        if {k: n[k] for k in want} != want:
+            raise AssertionError(f"13(c) run {i + 1}: launches {n}, want "
+                                 f"{want}")
+        if not all(math.isfinite(v) for v in head.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"13(c) run {i + 1}: non-finite metric")
+        rows.append({"matrix_cached": summary["matrix_cached"],
+                     "plan": summary["plan"], "wall_s": wall,
+                     "launches": n, "metrics": head})
+        total += n["rosa_fused"]
+    if rows[0]["plan"] != rows[1]["plan"]:
+        raise AssertionError("13(c): the warm run chose another plan")
+    return {"runs": rows, "rosa_fused": total}
+
+
+def adaptive_phase(report: dict) -> int:
+    """13(a)-(c); returns phase 13's rosa_fused launches."""
+    print("phase 13(a): compile once, the plan cache")
+    report["compile_once"] = compile_once(report)
+    print("phase 13(b): drift-adaptive serving, qwen3-32b full width")
+    drift = drift_serve(report)
+    report["drift_serve"] = drift
+    print(f"phase 13(c): the robust smoke run twice, {ROBUST_MODEL}")
+    smoke = robust_smoke(report)
+    report["robust_smoke"] = smoke
+    return drift["rosa_fused"] + smoke["rosa_fused"]
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -1776,6 +2088,22 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # a fresh plan cache for this run: every compile starts cold
+    import os
+    import shutil
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    plan_cache = tempfile.mkdtemp(prefix="plan-cache-", dir=ROOT / "build")
+    os.environ["ROSA_PLAN_CACHE"] = plan_cache
+    try:
+        return run_phases(opts)
+    finally:
+        shutil.rmtree(plan_cache, ignore_errors=True)
+
+
+def run_phases(opts) -> int:
+    import torch
     from repro_torch import kernels
 
     t_start = time.perf_counter()
@@ -1834,6 +2162,7 @@ def main(argv=None) -> int:
     bwd = phase("12a", mrr_bwd_phase)
     launches["mrr_transfer_bwd"] = phase("12bc", robust_phase)[
         "mrr_transfer_bwd"]
+    launches["rosa_fused"] += phase("13", adaptive_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

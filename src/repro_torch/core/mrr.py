@@ -213,6 +213,14 @@ def split_keys(key: torch.Generator, n: int) -> list[torch.Generator]:
     return [fold_in(key, i) for i in range(n)]
 
 
+def rng_family(device) -> str:
+    """The family of the random draws keyed on `device`: torch's generators
+    ("torch-cpu", "torch-cuda"), not the reference's threefry.  A cached
+    Monte-Carlo measurement names it in its spec, so numbers drawn by one
+    family are never read back as another's."""
+    return f"torch-{torch.device(device).type}"
+
+
 def normal(key: torch.Generator, shape, device=None,
            dtype=torch.float32) -> torch.Tensor:
     """N(0, 1) draws from `key`, on `device`."""

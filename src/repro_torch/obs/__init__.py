@@ -1,3 +1,4 @@
 """Observability: the span tracer (`trace`, the port's copy of
-`repro.obs.trace`).  The metrics registry, energy counters and
-`launch/serve.py --trace` wait (ROADMAP Queue 1 item 6)."""
+`repro.obs.trace`) and the metrics registry (`metrics`: counters, gauges
+and histograms the plan cache and the drift controller write).  Energy
+counters and `launch/serve.py --trace` wait (ROADMAP Queue 1 item 6)."""

@@ -23,10 +23,10 @@ The paper's noise story at its two time scales:
   reports              `report`: accuracy-vs-sigma and yield curves in the
                        bench schema.
 
-Variation-aware QAT is `training.cnn_train.train_cnn(ensemble=...)`.  CLI:
-``python -m repro_torch.robust {ensemble,sensitivity,drift,sweep}``.  Not
-ported yet (ROADMAP Queue 1 item 4): `cnn_degradation_source` and the
-`smoke` runner, which need `rosa.PlanCache`.
+Variation-aware QAT is `training.cnn_train.train_cnn(ensemble=...)`;
+`sensitivity.cnn_degradation_source` feeds `rosa.compile` through the
+plan cache.  CLI: ``python -m repro_torch.robust
+{ensemble,sensitivity,smoke,drift,sweep}``.
 """
 
 from repro_torch.robust.drift import (DriftModel, DriftResult,
@@ -42,6 +42,7 @@ from repro_torch.robust.ensemble import (FULL_MC, EnsembleResult,
                                          surrogate_features)
 from repro_torch.robust.sensitivity import (accuracy_guarded_plan,
                                             cnn_degradation_matrix,
+                                            cnn_degradation_source,
                                             cnn_profiles_mc,
                                             degradation_matrix,
                                             params_digest, plan_search,
@@ -60,13 +61,13 @@ __all__ = [
     "DriftModel", "DriftResult", "EnsembleResult", "EstimatorConfig",
     "FULL_MC", "NO_VARIATION", "PAPER_VARIATION", "VariationModel",
     "accuracy_guarded_plan", "chip_at", "chip_slice", "clean_reference",
-    "cnn_degradation_matrix", "cnn_lane_dims", "cnn_profiles_mc",
-    "control_variate_accs", "degradation_matrix", "ensemble_size",
-    "estimate_ensemble", "evaluate_cnn_ensemble", "evaluate_ensemble",
-    "from_reference", "layer_weights", "make_ensemble_eval",
-    "make_plan_eval", "params_digest", "plan_search", "profile_layers_mc",
-    "refresh_degradation_matrix", "residual_offsets", "sample_chip",
-    "sample_ensemble", "scale_ensemble", "searched_cnn_hybrid_plan",
-    "searched_hybrid_plan", "shift_thermal", "simulate", "simulate_cnn",
-    "trim_voltages",
+    "cnn_degradation_matrix", "cnn_degradation_source", "cnn_lane_dims",
+    "cnn_profiles_mc", "control_variate_accs", "degradation_matrix",
+    "ensemble_size", "estimate_ensemble", "evaluate_cnn_ensemble",
+    "evaluate_ensemble", "from_reference", "layer_weights",
+    "make_ensemble_eval", "make_plan_eval", "params_digest", "plan_search",
+    "profile_layers_mc", "refresh_degradation_matrix", "residual_offsets",
+    "sample_chip", "sample_ensemble", "scale_ensemble",
+    "searched_cnn_hybrid_plan", "searched_hybrid_plan", "shift_thermal",
+    "simulate", "simulate_cnn", "trim_voltages",
 ]

@@ -3,11 +3,14 @@
 
     PYTHONPATH=src python -m repro_torch.robust ensemble    --model alexnet --n-chips 64
     PYTHONPATH=src python -m repro_torch.robust sensitivity --model alexnet
+    PYTHONPATH=src python -m repro_torch.robust smoke       --steps 40
     PYTHONPATH=src python -m repro_torch.robust drift       --retrim-every 900
     PYTHONPATH=src python -m repro_torch.robust sweep       --scales 0 0.5 1 2
 
-``smoke`` raises until `rosa.PlanCache` is ported.  ``--json PATH`` writes
-the run as a schema-valid report (`repro_torch.bench.schema`).
+``smoke`` keeps its degradation matrix in the plan cache
+(``$ROSA_PLAN_CACHE``), so a second run skips the Monte-Carlo stage.
+``--json PATH`` writes the run as a schema-valid report
+(`repro_torch.bench.schema`).
 """
 
 from __future__ import annotations

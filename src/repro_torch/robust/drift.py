@@ -9,9 +9,9 @@ with its `dt_trim` hook) against the offset measured at trim time, so
 between trims the residual is d(t) - d(t_trim).
 
 `simulate` reuses one ensemble evaluator across the time grid: each step
-only shifts the ensemble's ddt fields.  The reference's per-tick
-`DriftModel.offsets_at` serves its drift-adaptive serving controller and
-waits with it (ROADMAP Queue 1 item 5).
+only shifts the ensemble's ddt fields.  `DriftModel.offsets_at` is the
+per-tick accessor of the drift-adaptive serving plant
+(`serve.adaptive.scenario.DriftEnv`).
 """
 
 from __future__ import annotations
@@ -52,6 +52,31 @@ class DriftModel:
             steps[0] = 0.0
             return self.amp_k * np.cumsum(steps) / max(np.sqrt(len(t) - 1),
                                                        1.0)
+        raise ValueError(f"unknown drift kind {self.kind!r}")
+
+    def offsets_at(self, t, key: torch.Generator | None = None,
+                   t_grid=None) -> np.ndarray:
+        """d(t) at single times `t` (a scalar or an array; float64) instead
+        of on a whole grid.  `sine` and `linear` are closed-form.  `walk` is
+        path-dependent, so it needs the `key` and the `t_grid` the walk is
+        defined on: the walk `offsets` draws on that grid from the key's
+        current state (the key itself is left as it is, so every call
+        sees the same walk), interpolated linearly at `t` (exact on grid
+        points)."""
+        t = np.asarray(t, dtype=np.float64)
+        if self.kind in ("sine", "linear"):
+            return self.offsets(t)
+        if self.kind == "walk":
+            if key is None:
+                raise ValueError("random-walk drift requires a key")
+            if t_grid is None:
+                raise ValueError(
+                    "random-walk drift is path-dependent: offsets_at needs "
+                    "the t_grid the walk is defined on")
+            grid = np.asarray(t_grid, dtype=np.float64)
+            walk_key = torch.Generator(key.device)
+            walk_key.set_state(key.get_state())
+            return np.interp(t, grid, self.offsets(grid, walk_key))
         raise ValueError(f"unknown drift kind {self.kind!r}")
 
 

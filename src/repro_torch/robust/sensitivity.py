@@ -13,10 +13,12 @@ Degradations are Monte-Carlo averages over the chip ensemble (static
 variation + per-shot noise) and feed `mapping.LayerProfile.d_is / d_ws`.
 Models without labels profile on clean-prediction agreement.
 
-Not ported: `cnn_degradation_source`, the cacheable provider for
-`rosa.compile`, which needs `rosa.PlanCache` and `rosa.serialize` (ROADMAP
-Queue 1 item 4).  `params_digest` gives the reference's hex digest for the
-same parameters, so PlanCache keys will agree across the packages.
+`cnn_degradation_source` is the cacheable provider `rosa.compile` takes:
+its `spec` is the reference's JSON for the same settings (`params_digest`
+gives the reference's hex digest for the same parameters) plus the
+random-number family that draws the chips (`mrr.rng_family`): the two
+packages' Monte-Carlo matrices are different measurements and are cached
+apart.
 """
 
 from __future__ import annotations
@@ -253,6 +255,44 @@ def params_digest(params) -> str:
         h.update(str((arr.dtype.str, arr.shape)).encode())
         h.update(arr.tobytes())
     return h.hexdigest()
+
+
+def cnn_degradation_source(params, model: str, *,
+                           n_chips: int = 4,
+                           noise: mrr.NoiseModel = mrr.PAPER_NOISE,
+                           var_model: V.VariationModel = V.PAPER_VARIATION,
+                           n_eval: int = 128, eval_batch: int = 64,
+                           antithetic: bool = True,
+                           seed: int = 42) -> "rosa.DegradationSource":
+    """A cacheable degradation-matrix provider for `rosa.compile`.
+
+    Bundles the measurement (`cnn_degradation_matrix` restricted to the
+    layers the cache is missing, on the parameters' device) with a
+    JSON-able ``spec`` of everything the numbers depend on: model,
+    ensemble size and seed, antithetic pairing, eval-set size, noise
+    model, variation spec and a digest of the trained parameters.
+    `rosa.compile(autotune=...)` content-addresses cached matrices by
+    (spec, RosaConfig) and calls ``measure`` only for absent layers."""
+    from repro_torch.training.cnn_train import params_device
+
+    device = params_device(params)
+    spec = {"kind": "cnn-mc", "model": model, "n_chips": n_chips,
+            "n_eval": n_eval, "eval_batch": eval_batch,
+            "antithetic": antithetic, "seed": seed,
+            "rng": mrr.rng_family(device),
+            "noise": rosa.serialize.to_jsonable(noise),
+            "variation": rosa.serialize.to_jsonable(var_model),
+            "params": params_digest(params)}
+
+    def measure(layer_names: Sequence[str]) -> dict:
+        """DegradationSource hook: measure the named layers' rows."""
+        return cnn_degradation_matrix(
+            params, model, n_chips=n_chips,
+            key=torch.Generator(device).manual_seed(seed), noise=noise,
+            var_model=var_model, n_eval=n_eval, eval_batch=eval_batch,
+            antithetic=antithetic, layers=list(layer_names))
+
+    return rosa.DegradationSource(measure=measure, spec=spec)
 
 
 def searched_cnn_hybrid_plan(profiles: Sequence[M.LayerProfile], params,

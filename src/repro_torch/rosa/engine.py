@@ -19,6 +19,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import warnings
 import zlib
 from typing import Iterable, Mapping as TMapping
 
@@ -49,6 +50,24 @@ def engine_context(engine: "Engine | None"):
         yield engine
     finally:
         _ENGINE_VAR.reset(token)
+
+
+def current_engine() -> "Engine | None":
+    """Deprecated alias of `ambient_engine` (pre-Program API)."""
+    warnings.warn(
+        "rosa.current_engine is deprecated; use rosa.ambient_engine(), or "
+        "better, rosa.compile(...) which threads the engine for you",
+        DeprecationWarning, stacklevel=2)
+    return ambient_engine()
+
+
+def use_engine(engine: "Engine"):
+    """Deprecated alias of `engine_context` (pre-Program API)."""
+    warnings.warn(
+        "rosa.use_engine is deprecated; use rosa.engine_context(engine), or "
+        "better, rosa.compile(...) which installs the engine around its own "
+        "traces", DeprecationWarning, stacklevel=2)
+    return engine_context(engine)
 
 
 def layer_key(base: torch.Generator, name: str, step: int = 0

@@ -1,5 +1,5 @@
 """`ExecutionPlan` — frozen, hashable per-layer config resolution (PyTorch
-port of `repro.rosa.plan`; its JSON round-trip waits with the plan cache).
+port of `repro.rosa.plan`).
 
 A plan is the single object that says, for every named matmul in a network,
 which `RosaConfig` executes it: a `default` config (None = plain dense
@@ -84,6 +84,27 @@ class ExecutionPlan:
         """True when no layer can reach the optical path."""
         return self.default is None and all(c is None
                                             for _, c in self.overrides)
+
+    # -- JSON round-trip -----------------------------------------------------
+    def to_json(self) -> dict:
+        """JSON-native view; `ExecutionPlan.from_json` inverts it exactly.
+        This is what the on-disk plan cache persists."""
+        from repro_torch.rosa.serialize import config_to_json
+        return {
+            "default": config_to_json(self.default),
+            "overrides": [[n, config_to_json(c)] for n, c in self.overrides],
+            "layers": list(self.layers) if self.layers is not None else None,
+        }
+
+    @classmethod
+    def from_json(cls, doc: dict) -> "ExecutionPlan":
+        """Inverse of `to_json`."""
+        from repro_torch.rosa.serialize import config_from_json
+        return cls(
+            config_from_json(doc["default"]),
+            tuple((n, config_from_json(c)) for n, c in doc["overrides"]),
+            tuple(doc["layers"]) if doc["layers"] is not None else None,
+        )
 
     def mapping_plan(self) -> dict[str, Mapping]:
         """Project back to a `{layer: Mapping}` dict (optical layers only)."""

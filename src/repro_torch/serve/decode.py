@@ -117,28 +117,37 @@ def _bind(program, fn):
     return fn if program is None else program.bind(fn)
 
 
+def _step_body(bundle: ModelBundle, scfg: ServeConfig, params,
+               state: DecodeState, admit: dict, temperature: float
+               ) -> tuple[DecodeState, dict]:
+    """One decode token for every slot (inactive rows compute masked
+    garbage; their cache rows never influence active rows), with the
+    admission riding in front.  The serving step and the drift step
+    (`serve.adaptive.make_drift_step`) both run it."""
+    state = _apply_admission(bundle.cfg, state, admit)
+    cache = state.cache
+    logits, cache = bundle.decode_step(
+        params, {"token": state.tok, "pos": cache["pos"], "cache": cache})
+    tok_next = _sample_rows(state.seed, state.rid, state.tidx, logits,
+                            temperature)
+    active = state.active
+    tidx_next = torch.where(active, state.tidx + 1, state.tidx)
+    done = active & (tidx_next >= state.budget)
+    new_state = DecodeState(cache=cache, tok=tok_next, rid=state.rid,
+                            tidx=tidx_next, budget=state.budget,
+                            active=active & ~done, seed=state.seed)
+    out = {"token": tok_next, "emitted": active, "done": done,
+           "pos": cache["pos"]}
+    if scfg.collect_logits:
+        out["logits"] = logits
+    return new_state, out
+
+
 def make_serve_step(bundle: ModelBundle, scfg: ServeConfig, program=None):
     """-> step(params, state, admit, temperature) -> (state, out)."""
 
     def step(params, state: DecodeState, admit: dict, temperature: float):
-        state = _apply_admission(bundle.cfg, state, admit)
-        cache = state.cache
-        logits, cache = bundle.decode_step(
-            params, {"token": state.tok, "pos": cache["pos"],
-                     "cache": cache})
-        tok_next = _sample_rows(state.seed, state.rid, state.tidx, logits,
-                                temperature)
-        active = state.active
-        tidx_next = torch.where(active, state.tidx + 1, state.tidx)
-        done = active & (tidx_next >= state.budget)
-        new_state = DecodeState(cache=cache, tok=tok_next, rid=state.rid,
-                                tidx=tidx_next, budget=state.budget,
-                                active=active & ~done, seed=state.seed)
-        out = {"token": tok_next, "emitted": active, "done": done,
-               "pos": cache["pos"]}
-        if scfg.collect_logits:
-            out["logits"] = logits
-        return new_state, out
+        return _step_body(bundle, scfg, params, state, admit, temperature)
 
     return _bind(program, step)
 

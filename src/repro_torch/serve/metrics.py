@@ -3,8 +3,9 @@
 
 `build_serving_program` traces the decode step once on `meta` tensors to
 discover its GEMMs, autotunes the layer-wise hybrid IS/WS plan on those
-shapes (paper Sec. 3.5, EDP term) and optionally pins one fabricated chip;
-every token is then served through that frozen (plan, chip) pair.
+shapes (paper Sec. 3.5, EDP term) through the on-disk plan cache (a warm
+start loads the plan) and optionally pins one fabricated chip; every token
+is then served through that frozen (plan, chip) pair.
 `trace_serving_shapes` prices the decode step and one prefill chunk onto an
 engine's ledger under "decode" / "prefill" scopes, and `report_metrics`
 turns one scheduler run into named metrics.  Step-unit and tick metrics
@@ -58,11 +59,14 @@ def trace_serving_shapes(bundle, scfg: ServeConfig, engine):
 
 
 def build_serving_program(bundle, scfg: ServeConfig, chip=None,
-                          device: str | torch.device = "cuda"):
+                          device: str | torch.device = "cuda", cache=None):
     """Compile the decode step into a `rosa.Program`: one abstract trace
     discovers the decode GEMMs, the hybrid IS/WS plan is autotuned on that
-    workload, and the program carries the pinned chip: `chip` when given,
-    else one sampled from scfg.variation_seed (on `device`)."""
+    workload (on `device`) and lands in the on-disk plan cache (``cache``,
+    as `rosa.compile` takes it: a warm start with the same model, slots and
+    backend skips the search), and the program carries the pinned chip:
+    `chip` when given, else one sampled from scfg.variation_seed (on
+    `device`)."""
     from repro_torch import rosa
     from repro_torch.robust import variation as V
 
@@ -75,7 +79,8 @@ def build_serving_program(bundle, scfg: ServeConfig, chip=None,
     # the traced GEMMs already carry the slot batch in m: batch=1 here
     program = rosa.compile(
         lambda eng, p, b: bundle.decode_step(p, b), probe, (params, batch),
-        autotune=rosa.AutotuneConfig(ope=ROSA_OPTIMAL, batch=1))
+        autotune=rosa.AutotuneConfig(ope=ROSA_OPTIMAL, batch=1),
+        cache=cache, device=device)
     if chip is None and scfg.variation_seed is not None:
         chip = V.sample_chip(
             torch.Generator().manual_seed(scfg.variation_seed),
@@ -84,6 +89,21 @@ def build_serving_program(bundle, scfg: ServeConfig, chip=None,
         program = program.with_variation(
             {name: v.to(device) for name, v in chip.items()})
     return program
+
+
+def build_serving_engine(bundle, scfg: ServeConfig, with_ledger: bool = True,
+                         cache=None, chip=None,
+                         device: str | torch.device = "cuda"):
+    """The engine of `build_serving_program` (hybrid plan from the decode
+    trace, optional pinned chip), with a fresh `EnergyLedger` when
+    requested."""
+    from repro_torch import rosa
+
+    engine = build_serving_program(bundle, scfg, chip=chip, device=device,
+                                   cache=cache).engine
+    if with_ledger:
+        engine = engine.with_ledger(rosa.EnergyLedger())
+    return engine
 
 
 def report_metrics(rep: ServeReport, prefix: str = "") -> list[Metric]:

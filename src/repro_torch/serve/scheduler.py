@@ -1,5 +1,6 @@
 """Continuous-batching scheduler: slot admission, prefill/decode interleave
-(PyTorch port of `repro.serve.scheduler`, without the tracing spans).
+(PyTorch port of `repro.serve.scheduler`; of its tracing, the prefill
+chunk and decode step spans).
 
 Two admission policies over the same step:
 
@@ -12,7 +13,8 @@ Two admission policies over the same step:
 Each tick runs at most one prefill chunk and one decode step, so cost is
 countable in deterministic step units.  `run_sequential` (same prefill
 path, batch-1 decode, same sampling seeds) is the per-request oracle the
-scheduler is held against.
+scheduler is held against.  A `TickHook` extends the loop per tick (the
+drift-adaptive controller of `serve.adaptive` is one).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import build_model
+from repro_torch.obs import trace as obs
 from repro_torch.serve.config import ServeConfig, serving_model_config
 from repro_torch.serve.decode import (PrefillTask, init_state, make_admit,
                                       make_admit_step, make_chunk_fn,
@@ -154,6 +157,27 @@ class ServeReport:
         return float(np.percentile(vals, q) * 1e3)
 
 
+class TickHook:
+    """Protocol for per-tick scheduler extensions (drift injection and the
+    adaptive controller live in `repro_torch.serve.adaptive`).
+
+    `step_args(tick)` returns extra positional args appended to the
+    decode-step call; the installed `Scheduler.step` must accept them (the
+    adaptive package installs a drift step that takes the residual thermal
+    offset).  `on_tick_end` runs on the host between ticks, after the
+    tick's decode completed: the one place a controller may swap the
+    serving program and steps without touching an in-flight step.  Ticks
+    that make no progress (an idle jump to the next arrival) skip both.
+    """
+
+    def step_args(self, tick: int) -> tuple:
+        return ()
+
+    def on_tick_end(self, sched: "Scheduler", tick: int, state,
+                    idle_slots: int) -> None:
+        pass
+
+
 def _to_device(params, device):
     if isinstance(params, dict):
         return {k: _to_device(v, device) for k, v in params.items()}
@@ -163,21 +187,29 @@ def _to_device(params, device):
 class Scheduler:
     """Builds the serving machinery once; `run` replays a request list under
     a policy.  With `scfg.rosa` the decode step is compiled into ONE
-    `rosa.Program` (hybrid plan autotuned on the decode trace, pinned chip,
+    `rosa.Program` (hybrid plan autotuned on the decode trace through the
+    plan cache `plan_cache`, as `rosa.compile` takes it; pinned chip;
     energy ledger) and every step is built from it.  `chip` pins the given
     `{name: StaticVariation}` instead of sampling one from
-    `scfg.variation_seed`.  Everything runs on `device`."""
+    `scfg.variation_seed`; `engine` serves under a caller's engine, plan
+    as-is.  Everything runs on `device`."""
 
     def __init__(self, model_cfg, scfg: ServeConfig, params=None,
                  init_seed: int = 0, chip=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", engine=None,
+                 plan_cache=None):
         self.device = torch.device(device)
         self.cfg = serving_model_config(model_cfg, rosa=scfg.rosa)
         self.scfg = scfg
         self.bundle = build_model(self.cfg)
-        self.program = _serving_program(self.bundle, scfg, chip, self.device)
-        self.engine = self.program.engine if self.program is not None \
-            else None
+        self.engine = engine
+        self.program = None
+        if engine is not None:
+            self.program = serving_program(self.bundle, scfg, engine)
+        elif scfg.rosa:
+            self.program = _serving_program(self.bundle, scfg, chip,
+                                            self.device, plan_cache)
+            self.engine = self.program.engine
         if params is None:
             gen = torch.Generator(self.device).manual_seed(init_seed)
             params = self.bundle.init(gen, device=self.device)
@@ -208,9 +240,11 @@ class Scheduler:
 
     @torch.inference_mode()
     def run(self, requests: list[Request], policy: str = "continuous",
-            temperature: float | None = None) -> ServeReport:
+            temperature: float | None = None,
+            hook: TickHook | None = None) -> ServeReport:
         """Serve `requests` under `policy`; `temperature` overrides
-        scfg.temperature."""
+        scfg.temperature.  `hook` is a `TickHook`: extra decode-step args
+        and an end-of-tick host callback."""
         if policy not in ("continuous", "oneshot"):
             raise ValueError(policy)
         for r in requests:
@@ -234,6 +268,14 @@ class Scheduler:
         rep = ServeReport(policy=policy, completions=completions,
                           n_slots=n_slots)
         tick = 0
+        # tracing is ambient and fixed for the run: the span contexts are
+        # built once and re-entered every tick
+        tr = obs.current_tracer()
+        if tr is not None:
+            prefill_ctx = tr.span("serve.prefill_chunk", "serve")
+            decode_ctx = tr.span("serve.decode_step", "serve")
+        else:
+            prefill_ctx = decode_ctx = contextlib.nullcontext()
         t0 = time.perf_counter()
 
         def finish(comp: Completion) -> None:
@@ -259,7 +301,7 @@ class Scheduler:
                                              self.whole_fn))
             if inflight is not None:
                 req, task = inflight
-                with self._scope("prefill"):
+                with prefill_ctx, self._scope("prefill"):
                     task.advance(self.params)
                 rep.prefill_chunks += 1
                 progressed = True
@@ -308,13 +350,17 @@ class Scheduler:
 
             # -- one decode step for the whole batch --------------------------
             if any(r is not None for r in slot_rid):
-                with self._scope("decode"):
-                    state, out = self.step(self.params, state, admit, temp)
+                extra = hook.step_args(tick) if hook is not None else ()
+                # the span ends at the host's read of the step's result, so
+                # on the card it covers the step's device work
+                with decode_ctx, self._scope("decode"):
+                    state, out = self.step(self.params, state, admit, temp,
+                                           *extra)
+                    tok = out["token"].cpu().numpy()
+                    emitted = out["emitted"].cpu().numpy()
+                    done = out["done"].cpu().numpy()
                 rep.decode_steps += 1
                 progressed = True
-                tok = out["token"].cpu().numpy()
-                emitted = out["emitted"].cpu().numpy()
-                done = out["done"].cpu().numpy()
                 logits = (out["logits"].cpu().numpy()
                           if scfg.collect_logits else None)
                 for s in range(n_slots):
@@ -337,6 +383,8 @@ class Scheduler:
                     tick = pending[0].arrival
                     continue
                 raise RuntimeError("scheduler deadlock")  # pragma: no cover
+            if hook is not None:
+                hook.on_tick_end(self, tick, state, len(free))
             tick += 1
 
         if self.device.type == "cuda":
@@ -346,14 +394,32 @@ class Scheduler:
         return rep
 
 
-def _serving_program(bundle, scfg: ServeConfig, chip, device):
+def _serving_program(bundle, scfg: ServeConfig, chip, device, cache=None):
     """With `scfg.rosa`, the serving Program with a fresh EnergyLedger."""
     if not scfg.rosa:
         return None
     from repro_torch import rosa
     from repro_torch.serve.metrics import build_serving_program
-    return build_serving_program(bundle, scfg, chip=chip, device=device) \
+    return build_serving_program(bundle, scfg, chip=chip, device=device,
+                                 cache=cache) \
         .with_ledger(rosa.EnergyLedger())
+
+
+def serving_program(bundle, scfg: ServeConfig, engine):
+    """Freeze a caller's engine into a `rosa.Program` (no plan autotune:
+    the caller's plan is taken as-is) so the serving machinery can build
+    its steps from it."""
+    from repro_torch import rosa
+    from repro_torch.serve.metrics import abstract_decode_batch
+
+    params = bundle.abstract(torch.float32)
+    batch = abstract_decode_batch(bundle.cfg, scfg)
+    # compiled with the ledger detached: the serving ledger carries only
+    # the scoped prefill/decode events of the scheduler's steps
+    prog = rosa.compile(lambda eng, p, b: bundle.decode_step(p, b),
+                        engine.with_ledger(None), (params, batch),
+                        autotune=None)
+    return prog.with_engine(engine)
 
 
 def _ledger_scope(engine, tag: str):

@@ -33,7 +33,7 @@ def port():
     bundle = build_model(serving_model_config(cfg, rosa=True))
     scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
                        rosa_backend="fused")
-    prog = build_serving_program(bundle, scfg, device="cpu")
+    prog = build_serving_program(bundle, scfg, device="cpu", cache=False)
     ledger = trace_serving_shapes(
         bundle, scfg, prog.engine.with_ledger(rosa.EnergyLedger()))
     return bundle, prog, ledger

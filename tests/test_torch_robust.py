@@ -352,6 +352,61 @@ def test_params_digest_matches_reference(R):
     assert TS.params_digest(params_from_reference(jp)) != d
 
 
+def test_cnn_degradation_source_spec_equals_reference(R):
+    """The provider's spec is the reference's for the same parameters and
+    settings plus the random-number family that draws the chips, both
+    packages derive the same matrix key from one spec, the reference's own
+    spec keys another entry, and `measure` scores exactly the layers asked
+    for."""
+    jp = _np_params("alexnet", seed=2)
+    src = TS.cnn_degradation_source(params_from_reference(jp), "alexnet",
+                                    n_chips=2, n_eval=16, eval_batch=16)
+    jsrc = R.sensitivity.cnn_degradation_source(jp, "alexnet", n_chips=2,
+                                                n_eval=16, eval_batch=16)
+    assert rosa.serialize.canonical_json(src.spec) == \
+        R.rosa.serialize.canonical_json(dict(jsrc.spec, rng="torch-cpu"))
+    key = rosa.PlanCache.matrix_key(TT.QAT_CFG, src.spec)
+    assert key == R.rosa.PlanCache.matrix_key(R.cnn_train.QAT_CFG, src.spec)
+    assert key != R.rosa.PlanCache.matrix_key(R.cnn_train.QAT_CFG, jsrc.spec)
+    rows = src.measure(["conv2", "fc1"])
+    assert set(rows) == {"conv2", "fc1"}
+    assert all(set(r) == {"input_stationary", "weight_stationary"}
+               and min(r.values()) >= 0.0 for r in rows.values())
+
+
+SMOKE_KW = dict(n_chips=4, n_probe=2, n_eval=16)
+
+
+def test_run_smoke_measures_its_own_matrix_and_matches_reference_schema(
+        R, tmp_path, monkeypatch):
+    """The reference's smoke run stores its degradation matrix; the port's
+    run on the same parameters and cache does not read it (its chips are
+    torch's draws, not threefry's): it runs its own Monte-Carlo stage and
+    stores a second matrix, and reports the reference's summary keys and
+    metric names."""
+    import importlib
+    jcli = importlib.import_module("repro.robust.cli")
+    jp = _np_params("alexnet", seed=4)
+    jsum, jmet = jcli.run_smoke(
+        "alexnet", params={k: {kk: R.jnp.asarray(vv) for kk, vv in v.items()}
+                           for k, v in jp.items()},
+        cache=R.rosa.PlanCache(tmp_path), **SMOKE_KW)
+    calls = []
+    real = TS.degradation_matrix
+    monkeypatch.setattr(TS, "degradation_matrix",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    tsum, tmet = TCLI.run_smoke("alexnet", params=params_from_reference(jp),
+                                cache=rosa.PlanCache(tmp_path),
+                                device="cpu", **SMOKE_KW)
+    assert not jsum["matrix_cached"] and not tsum["matrix_cached"]
+    assert calls == [1]
+    assert set(tsum["degradation"]) == set(jsum["degradation"])
+    assert rosa.PlanCache(tmp_path).stats()["matrices"] == 2
+    assert set(tsum) == set(jsum)
+    assert [m.name for m in tmet] == [m.name for m in jmet]
+    assert [m.gate for m in tmet] == [m.gate for m in jmet]
+
+
 def _fixed_deg(seed=0):
     r = np.random.default_rng(seed)
     return {s.name: {"input_stationary": float(r.uniform(0, 3)),
@@ -452,12 +507,39 @@ def test_cli_runs_end_to_end_on_cpu(cmd, extra, tmp_path, monkeypatch,
     assert doc.results[0].name == f"robust_{cmd}" and doc.results[0].metrics
 
 
+def test_cli_smoke_twice_reports_matrix_cached(tmp_path, monkeypatch,
+                                              capsys):
+    """`python -m repro_torch.robust smoke --device cpu` at a tiny size,
+    twice on one cache: the second run reports matrix_cached true and its
+    Monte-Carlo stage (`degradation_matrix`) never runs."""
+    real = TT.train_cnn
+    monkeypatch.setattr(TT, "train_cnn", lambda *a, **k: real(
+        *a, **dict(k, n_train=64)))
+    calls = []
+    real_deg = TS.degradation_matrix
+    monkeypatch.setattr(TS, "degradation_matrix",
+                        lambda *a, **k: calls.append(1) or real_deg(*a, **k))
+    monkeypatch.setenv("ROSA_PLAN_CACHE", str(tmp_path / "plans"))
+    flags = []
+    for _ in range(2):
+        assert robust_main.main(["smoke", "--device", "cpu", "--steps", "1",
+                                 "--n-eval", "16", "--n-chips", "2",
+                                 "--n-probe", "1"]) == 0
+        text = capsys.readouterr().out
+        assert "== robust.smoke [alexnet] ==" in text
+        flags.append(re.search(r'"matrix_cached": (\w+)', text).group(1))
+    assert flags == ["false", "true"] and calls == [1]
+    assert rosa.PlanCache(tmp_path / "plans").stats()["matrices"] == 1
+
+
 def test_smoke_and_missing_card_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCLI.run_smoke("alexnet")
+    """Without a card the CLI's default device exits naming --device cpu,
+    for smoke as for the other studies (no fallback to the CPU)."""
     if not torch.cuda.is_available():
-        with pytest.raises(SystemExit, match="--device cpu"):
-            robust_main.main(["ensemble"])
+        for cmd in ("ensemble", "smoke"):
+            with pytest.raises(SystemExit, match="--device cpu"):
+                robust_main.main([cmd])
+    assert "smoke" in TCLI.RUNNERS
 
 
 def test_port_imports_neither_jax_nor_the_reference():

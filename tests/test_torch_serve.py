@@ -144,7 +144,10 @@ def fused_sched():
     scfg = ServeConfig(n_slots=2, max_len=24, prefill_chunk=4, rosa=True,
                        rosa_backend="fused", variation_seed=7,
                        collect_logits=True)
-    return Scheduler(get_smoke("qwen3-32b"), scfg, device="cpu")
+    # plan_cache=False: a module fixture runs before conftest points the
+    # plan cache at its per-run directory
+    return Scheduler(get_smoke("qwen3-32b"), scfg, device="cpu",
+                     plan_cache=False)
 
 
 def _staggered(vocab, n=5, seed=1):
