@@ -10,7 +10,9 @@ Phases (any failure raises, so the exit code is non-zero):
      `src/repro_torch/kernels/csrc/` with nvcc (sm_90a);
   2. kernel parity: each kernel against its plain PyTorch version on the
      same CUDA tensors, at the serving shapes (m in {4, 8} rows against the
-     5120 x 51200 and 25600 x 5120 MLP projections), the largest im2col
+     5120 x 51200 and 25600 x 5120 MLP projections, and against
+     deepseek-v2's layer-0 5120 x 24576 and 12288 x 5120 under PAPER_NOISE
+     with chip 7), the largest im2col
      sheets of the four paper CNNs at eval batch 512 (mobilenet_v3
      conv_stem 524288 x 27 x 16, alexnet conv1 524288 x 27 x 24 and conv2
      131072 x 216 x 48, vgg16 conv1_2 524288 x 144 x 16, resnet18 l1
@@ -23,7 +25,9 @@ Phases (any failure raises, so the exit code is non-zero):
      on the same inputs must give equal bits.  Timed rows: the median of
      10 per-call CUDA-event times, a kernel-only time (one event pair
      around 20 back-to-back launches replayed from a CUDA graph, over 20:
-     no wrapper host time between them), the plain version, the bound and, for
+     no wrapper host time between them), the plain version, the bound
+     (for rosa_fused also its bytes at the card's measured copy rate) and,
+     for
      osa_matmul fused, the one PyTorch call computing the same function
      (`torch.matmul(q, w)` under ideal gains);
   3. serve: qwen3-32b at full width, depth cut to 4 of 64 layers, random
@@ -31,7 +35,8 @@ Phases (any failure raises, so the exit code is non-zero):
      kernel and chip 7 pinned: 6 seeded Poisson requests, continuous
      batching over 4 slots.  The launch counts are reset just before the
      run and read just after; every routed MLP projection must have
-     launched the kernel;
+     launched the kernel, and continuous batching must give the
+     sequential oracle's greedy tokens;
   4. a 2-request stream through the `osa_matmul` kernel ("pallas" backend);
   5. end-to-end cross-check: one prompt's prefill logits through the fused
      kernel and through the plain composed ("ref") pipeline, held within
@@ -118,7 +123,22 @@ Phases (any failure raises, so the exit code is non-zero):
      forward; recovery and the agreements are recorded; (c) `run_smoke`
      twice on phase 9's alexnet with one cache: the second run finds the
      degradation matrix, and its launches show the Monte-Carlo stage did
-     not run.
+     not run;
+ 14. serve the moe and mla_moe families at full width, one after the
+     other (the first freed before the second): qwen3-moe-235b-a22b at 3
+     of 94 layers (8.7e9 params) and deepseek-v2-236b at 3 of 60 (layer 0
+     and 2 MoE layers, 9.3e9 params), random weights from seed 0, optical
+     engine on (backend fused, chip 7), 6 seeded Poisson requests as in
+     phase 3, 4 slots.  qwen3-moe's plan must be empty and launch nothing;
+     deepseek-v2 routes layer 0's two MLP projections, and rosa_fused must
+     launch exactly 2 x (decode steps + prefill chunks) times, nothing
+     else.  Continuous batching must give the sequential oracle's greedy
+     tokens, deepseek-v2's fused prefill logits must stay within 4x the
+     float-order floor of the "ref" pipeline (phase 5's rule, the floor
+     taken by permuting only the reduction axis of layer 0's two optical
+     projections, with every run routing each token to the same
+     experts), and the peak memory of each model must stay under 70 GiB.  tokens/s, ticks,
+     peak GiB and set-up seconds are printed.
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -129,6 +149,7 @@ line.  Per-case numbers go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -145,6 +166,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 M_ROWS = (4, 8)               # decode batch (4 slots) and a prefill chunk
 PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
+# deepseek-v2's dense layer 0 (d_ff 12288): its MLP projections are the
+# optical ones of phase 14
+LAYER0_PROJ = {"mlp/wi": (5120, 24576), "mlp/wo": (12288, 5120)}
 RAGGED = (13, 1000, 300)
 # ssd_scan cases (B, L, H, P, G, S, chunk): mamba2-1.3b's served shape at
 # one step, a chunk's edges, the served L, a ragged 1000; G 2 at B 2; G = H
@@ -322,6 +346,11 @@ def fused_cases():
                False)
               for name, (k, n) in PROJ.items() for mp in ("IS", "WS")
               for g in (0.0, 1.0) for mg in (0.0, 1.0)]
+    # deepseek-v2's layer-0 MLP at phase 14's decode and chunk rows: IS
+    # with per-row scales as served, PAPER_NOISE, chip 7 (the served chip)
+    cases += [(m, k, n, f"IS noisy chip 7 layer0 {name}",
+               dict(is_apv, noisy=True, chip=name), True)
+              for name, (k, n) in LAYER0_PROJ.items() for m in M_ROWS]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
@@ -359,7 +388,31 @@ def timing_text(row) -> str:
                f"{row['library_kernel_ms']:.4f})"
                if row.get("library_ms") is not None else "")
             + f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-            f"{100 * row['bound_share']:.1f} %)")
+            f"{100 * row['bound_share']:.1f} %)"
+            + (f"; at the measured copy rate {row['copy_bound_ms']:.4f} ms"
+               if "copy_bound_ms" in row else ""))
+
+
+def copy_rate() -> float:
+    """The card's measured device-to-device copy rate [bytes/s]: a 1 GiB
+    buffer copied kernel-only (read and write both counted)."""
+    import torch
+    src = torch.empty(2**28, device=DEVICE)
+    dst = torch.empty_like(src)
+    ms = kernel_only_ms(lambda: dst.copy_(src))
+    del src, dst
+    torch.cuda.empty_cache()
+    return 2 * 2**30 / (ms * 1e-3)
+
+
+def served_chip(name: str):
+    """Chip 7's static variation of deepseek-v2's layer-0 projection
+    `name`, as phase 14's Scheduler (variation_seed 7) samples it."""
+    import torch
+    from repro_torch.robust.variation import sample_chip
+    lanes = {nm: k for nm, (k, _) in LAYER0_PROJ.items()}
+    return sample_chip(torch.Generator().manual_seed(7), dims=lanes,
+                       device=DEVICE)[name]
 
 
 def fused_phase(report: dict) -> dict:
@@ -370,10 +423,14 @@ def fused_phase(report: dict) -> dict:
 
     g = torch.Generator(DEVICE).manual_seed(1)
     err, rows, served = 0.0, [], None
+    rate = copy_rate()
+    report["copy_rate_bytes_per_s"] = rate
+    print(f"  measured device copy rate {rate / 1e12:.3f} TB/s (data sheet "
+          f"{HBM_BYTES_PER_S / 1e12:.2f})")
     for m, k, n, what, kw, timed in fused_cases():
         kw = dict(kw)
         gate, mgate = kw.pop("gate", None), kw.pop("mgate", None)
-        with_chip = kw.pop("chip", True)
+        chip = kw.pop("chip", True)
         shift_k = kw.pop("shift_k", None)
         key = None
         if kw.pop("noisy", False):
@@ -381,11 +438,14 @@ def fused_phase(report: dict) -> dict:
             key = torch.Generator(DEVICE).manual_seed(2)
         x = torch.randn(m, k, device=DEVICE, generator=g)
         w = torch.randn(k, n, device=DEVICE, generator=g)
-        var = mrr.StaticVariation(
-            0.01 * torch.randn(k, device=DEVICE, generator=g),
-            0.04 * torch.randn(k, device=DEVICE, generator=g),
-            0.01 * torch.randn(k, device=DEVICE, generator=g)) \
-            if with_chip else None
+        if isinstance(chip, str):
+            var = served_chip(chip)
+        else:
+            var = mrr.StaticVariation(
+                0.01 * torch.randn(k, device=DEVICE, generator=g),
+                0.04 * torch.randn(k, device=DEVICE, generator=g),
+                0.01 * torch.randn(k, device=DEVICE, generator=g)) \
+                if chip else None
         if shift_k is not None:
             var = var.shift_ddt(shift_k)
         args, static = ops.operands(x, w, key, var, gate, mgate, **kw)
@@ -403,6 +463,8 @@ def fused_phase(report: dict) -> dict:
             time_row(row, lambda: ops.launch(*args, **static),
                      lambda: ops.plain(*args, **static), nbytes,
                      fused_flops(m, k, n, static))
+            # the same bytes at the copy rate this card measured
+            row["copy_bound_ms"] = nbytes / rate * 1e3
             if what == "IS realize_x mlp/wi" and m == 4:
                 served = row             # the decode tick's larger launch
         rows.append(row)
@@ -538,18 +600,52 @@ def permuted_params(sched, sizes: dict, seed: int):
     return params, perm
 
 
-def permuted(sched, seed: int):
-    """The scheduler's params and pinned chip with the hidden ("embed") and
-    MLP ("mlp") dimensions permuted."""
+def permuted(cfg, ref, seed: int):
+    """The "ref" Scheduler `ref` again with the hidden ("embed") and MLP
+    ("mlp") dimensions of its params and pinned chip permuted."""
     from repro_torch.core import mrr
+    from repro_torch.serve import Scheduler
 
     params, perm = permuted_params(
-        sched, {"embed": sched.cfg.d_model, "mlp": sched.cfg.d_ff}, seed)
+        ref, {"embed": ref.cfg.d_model, "mlp": ref.cfg.d_ff}, seed)
     lanes = {"mlp/wi": perm["embed"], "mlp/wo": perm["mlp"]}
     chip = {name: mrr.StaticVariation(v.dv[lanes[name]], v.ddt[lanes[name]],
                                       v.dlam[lanes[name]])
-            for name, v in sched.engine.variation.items()}
-    return params, chip
+            for name, v in ref.engine.variation.items()}
+    return Scheduler(cfg, ref.scfg, params=params, chip=chip, device=DEVICE)
+
+
+def float_order_floor(rebuild, prompt, lr, logits=prefill_logits) -> float:
+    """The float-order floor of phases 5 and 14: the largest deviation from
+    `lr` of the "ref" pipeline's prefill logits under a function-preserving
+    reordering of its sums, relative to max|lr|, over seeds 1 and 2
+    (`rebuild(seed)` gives the reordered Scheduler)."""
+    import torch
+    scale = float(lr.abs().max())
+    floor = 0.0
+    for seed in (1, 2):
+        sched_p = rebuild(seed)
+        dev = float((logits(sched_p, prompt) - lr).abs().max()) / scale
+        floor = max(floor, dev)
+        print(f"  ref vs ref with permuted reductions (seed {seed}): "
+              f"max rel dev {dev:.3e}")
+        del sched_p
+        torch.cuda.empty_cache()
+    return floor
+
+
+def check_sequential(rep, cfg, scfg, params, reqs, what: str) -> None:
+    """Continuous batching must give each request the greedy tokens it
+    gets decoded alone (`run_sequential`)."""
+    from repro_torch.serve import run_sequential
+    seq = run_sequential(cfg, scfg, params, reqs, device=DEVICE)
+    same = sum(rep.completions[r].tokens == v["tokens"]
+               for r, v in seq.items())
+    print(f"  continuous vs sequential oracle: {same} of {len(reqs)} "
+          "requests give identical tokens")
+    if same != len(reqs):
+        raise AssertionError(f"{what}: continuous tokens differ from the "
+                             "sequential oracle's")
 
 
 def serve_phase(report: dict) -> dict:
@@ -597,6 +693,7 @@ def serve_phase(report: dict) -> dict:
             or n["mrr_transfer"]:
         raise AssertionError("the served path did not run every routed "
                              "projection through rosa_fused")
+    check_sequential(rep, cfg, scfg, sched.params, reqs, "qwen3-32b")
 
     # ---- phase 4: the osa_matmul path -------------------------------------
     pallas = Scheduler(cfg, dataclasses.replace(scfg, rosa_backend="pallas"),
@@ -638,19 +735,9 @@ def serve_phase(report: dict) -> dict:
     lf, lr = prefill_logits(sched, prompt), prefill_logits(ref, prompt)
     if not bool(torch.isfinite(lf).all()) or lf.shape != (cfg.vocab,):
         raise AssertionError("fused prefill logits not finite / bad shape")
-    scale = float(lr.abs().max())
-    rel = float((lf - lr).abs().max()) / scale
-    floor = 0.0
-    for seed in (1, 2):
-        params_p, chip_p = permuted(ref, seed)
-        ref_p = Scheduler(cfg, ref.scfg, params=params_p, chip=chip_p,
-                          device=DEVICE)
-        dev = float((prefill_logits(ref_p, prompt) - lr).abs().max()) / scale
-        floor = max(floor, dev)
-        print(f"  ref vs ref with permuted reductions (seed {seed}): "
-              f"max rel dev {dev:.3e}")
-        del params_p, chip_p, ref_p
-        torch.cuda.empty_cache()
+    rel = float((lf - lr).abs().max()) / float(lr.abs().max())
+    floor = float_order_floor(lambda seed: permuted(cfg, ref, seed), prompt,
+                              lr)
     bound = 4 * floor + 1e-5
     print(f"  fused vs ref prefill logits: max rel dev {rel:.3e} (bound "
           f"{bound:.3e}), argmax {int(lf.argmax())} vs {int(lr.argmax())}")
@@ -764,7 +851,7 @@ def mamba_phase(report: dict) -> int:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import ssm as SSM
     from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
-                                   report_metrics, run_sequential)
+                                   report_metrics)
 
     cfg = get_config("mamba2-1.3b")
     scfg = ServeConfig(n_slots=4, max_len=768, rosa=True,
@@ -807,14 +894,7 @@ def mamba_phase(report: dict) -> int:
                              "ssd_scan kernel once per layer")
 
     # ---- continuous batching against the per-request oracle ---------------
-    seq = run_sequential(cfg, scfg, sched.params, reqs, device=DEVICE)
-    same = sum(rep.completions[r].tokens == v["tokens"]
-               for r, v in seq.items())
-    print(f"  continuous vs sequential oracle: {same} of {len(reqs)} "
-          "requests give identical tokens")
-    if same != len(reqs):
-        raise AssertionError("continuous tokens differ from the sequential "
-                             "oracle's")
+    check_sequential(rep, cfg, scfg, sched.params, reqs, "mamba2-1.3b")
 
     # ---- the kernel against the plain scan, end to end --------------------
     # Bound: the same prefill with the model's hidden, head and state
@@ -2054,6 +2134,177 @@ def adaptive_phase(report: dict) -> int:
     return drift["rosa_fused"] + smoke["rosa_fused"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the moe and mla_moe families at full width
+# ---------------------------------------------------------------------------
+# (arch, layers kept, params at that depth): full width, depth cut
+MOE_MODELS = (("qwen3-moe-235b-a22b", 3, 8_707_928_832),
+              ("deepseek-v2-236b", 3, 9_330_795_520))
+PEAK_GIB = 70.0
+
+
+def k_permuted(cfg, ref, seed: int):
+    """The "ref" Scheduler `ref` again with each optical contraction's
+    reduction axis permuted: x's columns, w's rows and the pinned chip's
+    lanes alike.  The same function with every routed sum in another
+    order, and nothing else moved: the model's own axes, and with them the
+    MoE routing, stay as they are."""
+    import torch
+    from repro_torch.core import mrr
+    from repro_torch.serve import Scheduler
+
+    g = torch.Generator().manual_seed(seed)
+    perms = {name: torch.randperm(v.dv.shape[0], generator=g).to(DEVICE)
+             for name, v in ref.engine.variation.items()}
+
+    class KPermuted(type(ref.engine)):
+        def matmul(self, x, w, *, name="", **kw):
+            p = perms.get(name)
+            if p is not None and x.device.type != "meta":  # not the trace
+                x, w = x.index_select(-1, p), w.index_select(0, p)
+            return super().matmul(x, w, name=name, **kw)
+
+    engine = KPermuted(**{f.name: getattr(ref.engine, f.name)
+                          for f in dataclasses.fields(ref.engine)})
+    chip = {name: mrr.StaticVariation(v.dv[perms[name]], v.ddt[perms[name]],
+                                      v.dlam[perms[name]])
+            for name, v in ref.engine.variation.items()}
+    return Scheduler(cfg, ref.scfg, params=ref.params, device=DEVICE,
+                     engine=engine.with_variation(chip).with_ledger(None))
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The expert ids `moe._route` picks inside the block, in call order."""
+    from repro_torch.models import moe
+    route, ids = moe._route, []
+
+    def recording(p, cfg, x2):
+        w, i = route(p, cfg, x2)
+        ids.append(i)
+        return w, i
+
+    moe._route = recording
+    try:
+        yield ids
+    finally:
+        moe._route = route
+
+
+def moe_serve(arch: str, layers: int, n_params: int) -> dict:
+    """One phase-14 model: serve 6 requests at full width, then the
+    checks.  Returns its report entry (rosa_fused launches included)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
+                                   report_metrics)
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    optical = cfg.first_dense_ff > 0      # deepseek-v2's dense layer 0
+    scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
+                       rosa_backend="fused", variation_seed=7)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sched = Scheduler(cfg, scfg, init_seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    plan = {k: v.name for k, v in sched.program.plan.mapping_plan().items()}
+    print(f"  {arch} full width, {layers} of {get_config(arch).n_layers} "
+          f"layers, {sched.bundle.n_params:,} params (f32), set-up "
+          f"{setup_s:.1f} s; plan {plan}")
+    if sched.bundle.n_params != n_params:
+        raise AssertionError(f"{arch}: not the full-width model")
+    if set(plan) != ({"mlp/wi", "mlp/wo"} if optical else set()):
+        raise AssertionError(f"{arch}: unexpected plan {plan}")
+    reqs = poisson_requests(6, 1.0, vocab=cfg.vocab, prompt_len=(4, 8),
+                            gen_len=(2, 40), seed=0)
+
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    rep = sched.run(reqs)
+    n = launch_counts()
+    check_run(rep, reqs, cfg.vocab, f"{arch} serve")
+    metrics = {m.name: m.value for m in report_metrics(rep)}
+    routed = (2 * (rep.decode_steps + rep.prefill_chunks) if optical
+              else 0)
+    print(f"  served {rep.total_tokens} tokens in {rep.wall_s:.2f} s: "
+          f"{rep.tokens_per_s:.2f} tok/s, {rep.ticks} ticks, "
+          f"{rep.decode_steps} decode steps, {rep.prefill_chunks} prefill "
+          f"chunks, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"  rosa_fused launches {n['rosa_fused']} (routed projections "
+          f"{routed}), osa_matmul {n['osa_matmul']}, mrr_transfer "
+          f"{n['mrr_transfer']}, ssd_scan {n['ssd_scan']}")
+    if n["rosa_fused"] != routed or n["osa_matmul"] or n["mrr_transfer"] \
+            or n["ssd_scan"] or n["mrr_transfer_bwd"]:
+        raise AssertionError(f"{arch}: the kernels launched are not the "
+                             "routed projections")
+
+    check_sequential(rep, cfg, scfg, sched.params, reqs, arch)
+    out = dict(metrics, n_params=sched.bundle.n_params, layers=layers,
+               plan=plan, setup_s=setup_s, rosa_fused_launches=n["rosa_fused"],
+               routed=routed)
+
+    # ---- deepseek-v2: fused vs the plain composed pipeline (phase 5) ------
+    # Phase 5's bound, with a floor from layer 0's optical MLP alone, the
+    # only place where fused and ref differ: permuting the model's hidden
+    # axis would reorder the router's sums too and flip top-k choices,
+    # which the fused path does not do.  Every run must route each token
+    # to the experts the "ref" run picks.
+    if optical:
+        ref = Scheduler(cfg, dataclasses.replace(scfg, rosa_backend="ref"),
+                        params=sched.params, device=DEVICE)
+        prompt = reqs[0].prompt
+        with recorded_routes() as want:
+            lr = prefill_logits(ref, prompt)
+
+        def routed_logits(s, prompt):
+            with recorded_routes() as ids:
+                out = prefill_logits(s, prompt)
+            if len(ids) != len(want) or not all(
+                    torch.equal(a, b) for a, b in zip(ids, want)):
+                raise AssertionError(f"{arch}: the experts routed differ "
+                                     "from the ref pipeline's")
+            return out
+
+        lf = routed_logits(sched, prompt)
+        if not bool(torch.isfinite(lf).all()) or lf.shape != (cfg.vocab,):
+            raise AssertionError("fused prefill logits not finite / bad "
+                                 "shape")
+        rel = float((lf - lr).abs().max()) / float(lr.abs().max())
+        floor = float_order_floor(lambda seed: k_permuted(cfg, ref, seed),
+                                  prompt, lr, routed_logits)
+        bound = 4 * floor + 1e-5
+        print(f"  fused vs ref prefill logits: max rel dev {rel:.3e} (bound "
+              f"{bound:.3e}), argmax {int(lf.argmax())} vs "
+              f"{int(lr.argmax())}; routed experts equal in every run")
+        if rel > bound:
+            raise AssertionError("fused and ref logits disagree beyond the "
+                                 "bound")
+        out.update(fused_vs_ref_logits_rel=rel,
+                   ref_float_order_floor_rel=floor)
+        del ref
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_gib"] = peak
+    print(f"  peak {peak:.1f} GiB over the phase (limit {PEAK_GIB:.0f})")
+    if peak >= PEAK_GIB:
+        raise AssertionError(f"{arch}: peak {peak:.1f} GiB")
+    return out
+
+
+def moe_phase(report: dict) -> int:
+    """Phase 14: qwen3-moe-235b-a22b, then deepseek-v2-236b, each freed
+    before the next.  Returns phase 14's rosa_fused launches."""
+    import gc
+    import torch
+    rows = {}
+    for arch, layers, n_params in MOE_MODELS:
+        rows[arch] = moe_serve(arch, layers, n_params)
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["moe_serve"] = rows
+    return sum(r["rosa_fused_launches"] for r in rows.values())
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -2163,6 +2414,9 @@ def run_phases(opts) -> int:
     launches["mrr_transfer_bwd"] = phase("12bc", robust_phase)[
         "mrr_transfer_bwd"]
     launches["rosa_fused"] += phase("13", adaptive_phase)
+    print("phase 14: serving qwen3-moe-235b-a22b and deepseek-v2-236b at "
+          "full width")
+    launches["rosa_fused"] += phase("14", moe_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

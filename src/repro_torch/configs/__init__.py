@@ -43,7 +43,8 @@ ARCH_IDS = {
 }
 
 # assignment ids whose model code is ported (launch/serve.py --arch)
-PORTED_ARCHS = ("qwen3-32b", "mamba2-1.3b")
+PORTED_ARCHS = ("qwen3-32b", "mamba2-1.3b", "qwen3-moe-235b-a22b",
+                "deepseek-v2-236b")
 
 
 def _module(name: str):

@@ -1,8 +1,10 @@
 """qwen3-moe-235b-a22b [hf:Qwen/Qwen3-235B-A22B family].
 
 94L d_model=4096 64H (GQA kv=4) MoE 128 experts top-8, expert d_ff=1536,
-vocab=151936, qk_norm.  ROSA GEMM mapping applies to QKV/O and all expert
-FFNs; the router stays electronic (DESIGN.md §Arch-applicability).
+vocab=151936, qk_norm.  No projection of this model goes through the
+optical engine: MoE FFNs ignore `rosa_mlp` and attention is always plain,
+so its serving plan is empty (the reference's code does the same; its
+docstring names QKV/O and the expert FFNs as optical).
 """
 
 from repro_torch.models.moe import MoEConfig

@@ -10,7 +10,10 @@ warm up, once timed without the profiler, then again under
                6 requests (prompts 4-8, generations 2-40);
   mamba2-1.3b  full width and depth (48 layers), optical engine on (it
                routes nothing), 4 slots, 8 requests (prompts 200-700,
-               generations 8-32), whole-prompt prefill through `ssd_scan`.
+               generations 8-32), whole-prompt prefill through `ssd_scan`;
+  qwen3-moe-235b-a22b, deepseek-v2-236b
+               full width, 3 layers, as qwen3-32b's stream (phase 14):
+               qwen3-moe routes nothing, deepseek-v2 its layer-0 MLP.
 
 Prints the wall time with and without the profiler, the device time by
 kernel family (the port's kernels, cuBLAS GEMMs, everything else) and the
@@ -35,6 +38,8 @@ STREAMS = {
                              rosa_backend="fused", variation_seed=7),
                     dict(n=8, prompt_len=(200, 700), gen_len=(8, 32))),
 }
+STREAMS["qwen3-moe-235b-a22b"] = STREAMS["deepseek-v2-236b"] = \
+    (3,) + STREAMS["qwen3-32b"][1:]
 
 
 def family(name: str) -> str:

@@ -5,6 +5,8 @@ a synthetic Poisson request stream).
       --rosa --rosa-backend fused --variation-seed 7 --requests 6
   python -m repro_torch.launch.serve --arch mamba2-1.3b --requests 8 \\
       --max-len 768 --prompt-range 200 700 --gen-range 8 32
+  python -m repro_torch.launch.serve --arch deepseek-v2-236b --n-layers 3 \\
+      --rosa --rosa-backend fused --variation-seed 7 --requests 6
 
 `--smoke` takes the reduced CPU-sized config; `--n-layers` cuts the depth
 of the full-width config.  Runs on CUDA unless `--device cpu`.

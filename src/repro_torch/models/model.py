@@ -1,5 +1,6 @@
 """build_model(cfg) — the model API of the port (PyTorch port of the
-serving part of `repro.models.model`, dense and ssm families).
+serving part of `repro.models.model`: the dense, moe, mla_moe and ssm
+families).
 
 A `ModelBundle` exposes functions over plain dicts of tensors:
 
@@ -7,8 +8,9 @@ A `ModelBundle` exposes functions over plain dicts of tensors:
     bundle.abstract(dtype)                  `meta` params (tracing)
     bundle.prefill / decode_step / chunk_step
 
-plus the slot API of continuous-batching serving (`write_slot`,
-`evict_slot`, `read_slot`, `pad_cache`), and `params_from_reference`,
+plus `cache_axes` and the slot API of continuous-batching serving
+(`write_slot`, `evict_slot`, `read_slot`, `pad_cache`, each driven by the
+cache's logical axes), and `params_from_reference`,
 which carries the reference's numbers across (with
 `robust.variation.from_reference` for a chip), so the two packages can
 compute on identical weights and an identical chip.
@@ -59,40 +61,73 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
 
 
 # ---------------------------------------------------------------------------
-# Slot API: a slot cache is a decode cache with batch = n_slots.  Requests
-# come and go by writing or zeroing ONE row of every leaf, in place.
+# Cache logical axes (mirror transformer.init_cache's structure)
 # ---------------------------------------------------------------------------
-def _leaves(cache) -> list[tuple[torch.Tensor, int]]:
-    """(leaf, batch axis) of a cache, in a fixed order.  Dense KV leaves
-    (L, B, S, KV, D) and ssm leaves (L, B, ...: conv_x, conv_b, conv_c,
-    state; no sequence axis) carry the batch at axis 1, `pos` (B,) at
-    axis 0."""
-    layers = cache["layers"]
-    if isinstance(layers, dict):
-        out = [(layers[k], 1) for k in sorted(layers)]
+_KV_AX = ("layers", "cache_batch", "cache_seq", "kv_heads", "head_dim")
+_SSM_AX = {
+    "conv_x": ("layers", "cache_batch", None, "heads", "head_dim"),
+    "conv_b": ("layers", "cache_batch", None, None, "state"),
+    "conv_c": ("layers", "cache_batch", None, None, "state"),
+    "state": ("layers", "cache_batch", "heads", "state", "head_dim"),
+}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of `init_cache(cfg, ...)` for the
+    families the port serves, in the cache's structure: "cache_batch" is
+    the slot axis, "cache_seq" the sequence axis a decode grows."""
+    if cfg.family == "ssm":
+        ax = {"layers": dict(_SSM_AX)}
+    elif cfg.family == "mla_moe":
+        mla_ax = ("layers", "cache_batch", "cache_seq", None)
+        ax = {"layers": (mla_ax, mla_ax)}
+        if cfg.first_dense_ff:
+            ax["layer0"] = (mla_ax[1:], mla_ax[1:])
     else:
-        out = [(t, 1) for t in layers]
-    return out + [(cache["pos"], 0)]
+        ax = {"layers": (_KV_AX, _KV_AX)}
+    ax["pos"] = ("cache_batch",)
+    return ax
 
 
-def _rebuild(cache, leaves: list[torch.Tensor]) -> dict:
-    """A cache of `cache`'s structure holding `leaves` (in `_leaves`
-    order)."""
-    layers = cache["layers"]
-    if isinstance(layers, dict):
-        new = dict(zip(sorted(layers), leaves[:-1]))
-    else:
-        new = tuple(leaves[:-1])
-    return {"layers": new, "pos": leaves[-1]}
+def _flatten(cache, axes) -> list[tuple[torch.Tensor, tuple]]:
+    """(leaf, logical axes) pairs of a cache, dict keys sorted."""
+    if isinstance(cache, dict):
+        return [pair for k in sorted(cache)
+                for pair in _flatten(cache[k], axes[k])]
+    if isinstance(cache, tuple):
+        return [pair for c, a in zip(cache, axes, strict=True)
+                for pair in _flatten(c, a)]
+    return [(cache, axes)]
 
 
+def _unflatten(cache, leaves):
+    """A cache of `cache`'s structure holding the iterator `leaves` (in
+    `_flatten` order)."""
+    if isinstance(cache, dict):
+        return {k: _unflatten(cache[k], leaves) for k in sorted(cache)}
+    if isinstance(cache, tuple):
+        return tuple(_unflatten(c, leaves) for c in cache)
+    return next(leaves)
+
+
+def _leaves(cfg: ModelConfig, cache) -> list[tuple[torch.Tensor, tuple]]:
+    return _flatten(cache, cache_axes(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Slot API: a slot cache is a decode cache with batch = n_slots.  Requests
+# come and go by writing or zeroing ONE row (along "cache_batch") of every
+# leaf, in place.
+# ---------------------------------------------------------------------------
 def write_slot(cfg: ModelConfig, cache, req_cache, slot: int,
                valid: bool = True):
     """Admit one request: copy `req_cache` (batch 1, same seq length) into
     slot `slot` of `cache`, in place; a no-op when `valid` is False."""
     T.check_family(cfg)
     if valid:
-        for (c, ax), (r, _) in zip(_leaves(cache), _leaves(req_cache)):
+        for (c, a), (r, _) in zip(_leaves(cfg, cache),
+                                  _leaves(cfg, req_cache), strict=True):
+            ax = a.index("cache_batch")
             c.select(ax, slot).copy_(r.select(ax, 0))
     return cache
 
@@ -101,28 +136,34 @@ def evict_slot(cfg: ModelConfig, cache, slot: int, valid: bool = True):
     """Zero slot `slot` in place (freed state never outlives its request)."""
     T.check_family(cfg)
     if valid:
-        for c, ax in _leaves(cache):
-            c.select(ax, slot).zero_()
+        for c, a in _leaves(cfg, cache):
+            c.select(a.index("cache_batch"), slot).zero_()
     return cache
 
 
 def read_slot(cfg: ModelConfig, cache, slot: int) -> dict:
     """Slot `slot` as a new batch-1 cache."""
     T.check_family(cfg)
-    return _rebuild(cache, [c.narrow(ax, slot, 1).clone()
-                            for c, ax in _leaves(cache)])
+    return _unflatten(cache, iter(
+        [c.narrow(a.index("cache_batch"), slot, 1).clone()
+         for c, a in _leaves(cfg, cache)]))
 
 
 def pad_cache(cfg: ModelConfig, cache, extra: int) -> dict:
-    """Grow every sequence axis by `extra` zero slots (decode room).  Dense
-    KV leaves have theirs at axis 2; ssm leaves have none and stay as they
-    are."""
+    """Grow every "cache_seq" axis by `extra` zero slots (decode room);
+    leaves without one (ssm states, `pos`) stay as they are, and a cache
+    with none is returned itself."""
     T.check_family(cfg)
-    if cfg.family == "ssm":
+    leaves = _leaves(cfg, cache)
+    if not any("cache_seq" in a for _, a in leaves):
         return cache
-    grown = [torch.nn.functional.pad(c, (0, 0, 0, 0, 0, extra))
-             if ax == 1 else c for c, ax in _leaves(cache)]
-    return _rebuild(cache, grown)
+    grown = []
+    for c, a in leaves:
+        if "cache_seq" in a:
+            after = c.ndim - 1 - a.index("cache_seq")
+            c = torch.nn.functional.pad(c, (0, 0) * after + (0, extra))
+        grown.append(c)
+    return _unflatten(cache, iter(grown))
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +172,9 @@ def pad_cache(cfg: ModelConfig, cache, extra: int) -> dict:
 def params_from_reference(tree, device=None) -> dict:
     """The reference bundle's params, converted leaf by leaf
     (`np.asarray` of each array), in the reference layout: stacked
-    `layers` axis, wi as (d, 2, f), wo as (f, d); the ssm tree (w_x, w_z,
-    w_b, w_c, w_dt, dt_bias, a_log, d_skip, conv_*, gate_norm, w_out) as
-    it is."""
+    `layers` axis, wi as (d, 2, f), wo as (f, d); the moe tree (router,
+    wi (E, d, 2, f), wo (E, f, d), shared_wi, shared_wo), the MLA tree
+    (w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv, wo), the
+    unstacked `layer0` and the ssm tree (w_x, w_z, w_b, w_c, w_dt,
+    dt_bias, a_log, d_skip, conv_*, gate_norm, w_out) as they are."""
     return map_tree(lambda a: torch.from_numpy(np.array(a)).to(device), tree)

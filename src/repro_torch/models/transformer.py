@@ -1,10 +1,15 @@
-"""Decoder-only stacks of the dense and ssm families (PyTorch port of those
-paths of `repro.models.transformer`).
+"""Decoder-only stacks of the dense, moe, mla_moe and ssm families (PyTorch
+port of those paths of `repro.models.transformer`).
 
 Parameters keep the reference's stacked layout (a leading `layers` axis on
 every block leaf); the reference's `scan` over layers becomes a Python loop
-that passes the layer index as `step`.  Step functions take and return
-plain dicts of tensors:
+that passes the layer index as `step`.  deepseek-v2's dense first layer
+(`first_dense_ff`) is one unstacked `layer0` in front of the stack, as in
+the reference: its FFN is dense (width `first_dense_ff`, through the
+optical engine under `rosa_mlp`) and its noise key folds step 0, while the
+stacked layers keep their indices 1..n-1.  MoE FFNs are plain: like the
+reference, the moe block ignores `rosa_mlp`.  Step functions take and
+return plain dicts of tensors:
 
     prefill(params, cfg, batch)      -> (last-token logits (B, V), cache)
     decode_step(params, cfg, batch)  -> (logits (B, V), cache)
@@ -12,10 +17,10 @@ plain dicts of tensors:
 
 Caches are written in place and returned.  The ssm family (Mamba-2
 blocks, no FFN) prefills whole prompts only: its `chunk_step` raises, as
-the reference's does.  Every family other than "dense" and "ssm" raises
-NotImplementedError naming the family; the config fields of those
-families (and the modality frontends) are carried for the model zoo's
-lowering only (`configs/model_zoo.py`).
+the reference's does.  The hybrid and encdec families raise
+NotImplementedError naming the family; their config fields (and the
+modality frontends) are carried for the model zoo's lowering only
+(`configs/model_zoo.py`).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from repro_torch.models.module import ParamDef, map_tree
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | ssm (ported) | moe | mla_moe |
+    family: str                  # dense | moe | mla_moe | ssm (ported) |
     #                              hybrid | encdec (metadata only)
     n_layers: int
     d_model: int
@@ -76,7 +81,7 @@ class ModelConfig:
         return self.n_enc_layers > 0
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "mla_moe", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -105,11 +110,30 @@ def layer_meta(cfg: ModelConfig, i: int) -> dict:
     return {"window": 0, "theta": cfg.rope_theta}
 
 
+def dense0(cfg: ModelConfig) -> ModelConfig:
+    """The config of deepseek-v2's dense first layer: the same block with
+    a dense FFN of width `first_dense_ff` (rosa_mlp kept)."""
+    return dataclasses.replace(cfg, moe=None, d_ff=cfg.first_dense_ff)
+
+
+def n_stacked(cfg: ModelConfig) -> int:
+    """Layers in the stack: all but the unstacked `layer0`, if any."""
+    return cfg.n_layers - (1 if cfg.first_dense_ff else 0)
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
+def _ffn_def(cfg: ModelConfig) -> dict:
+    if cfg.moe is not None:
+        return MOE.moe_def(cfg.moe)
+    return L.mlp_def(cfg.d_model, cfg.d_ff)
+
+
 def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                step: int = 0) -> torch.Tensor:
+    if cfg.moe is not None:
+        return MOE.moe_ref(p, cfg.moe, x)
     if cfg.rosa_mlp:
         # the installed engine (a compiled rosa.Program installs its own)
         # carries the serving plan, the pinned chip and the ledger
@@ -124,9 +148,10 @@ def _block_def(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     if cfg.family == "ssm":
         return {"ln1": L.rmsnorm_def(d), "ssm": SSM.ssm_def(cfg.ssm)}
+    attn = (MLA.mla_def(cfg.mla) if cfg.family == "mla_moe"
+            else L.attn_def(cfg.attn))
     return {"ln1": L.rmsnorm_def(d), "ln2": L.rmsnorm_def(d),
-            "attn": L.attn_def(cfg.attn),
-            "ffn": L.mlp_def(cfg.d_model, cfg.d_ff)}
+            "attn": attn, "ffn": _ffn_def(cfg)}
 
 
 def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
@@ -135,9 +160,12 @@ def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
         # full-sequence ssm + final state capture for the decode cache
         y, cache = _ssm_prefill(p["ssm"], cfg.ssm, h)
         return x + y, cache
-    a, cache = L.attn_prefill(p["attn"], cfg.attn, h, positions,
-                              window=meta["window"], theta=meta["theta"])
-    cache = tuple(c.to(cfg.cache_dtype) for c in cache)
+    if cfg.family == "mla_moe":
+        a, cache = MLA.mla_prefill(p["attn"], cfg.mla, h, positions)
+    else:
+        a, cache = L.attn_prefill(p["attn"], cfg.attn, h, positions,
+                                  window=meta["window"], theta=meta["theta"])
+        cache = tuple(c.to(cfg.cache_dtype) for c in cache)
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + _ffn_apply(p["ffn"], cfg, h, step), cache
@@ -148,8 +176,11 @@ def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step):
     if "ssm" in p:
         y, cache = SSM.ssm_decode(p["ssm"], cfg.ssm, h, cache)
         return x + y, cache
-    a, cache = L.attn_decode(p["attn"], cfg.attn, h, cache, pos,
-                             window=meta["window"], theta=meta["theta"])
+    if cfg.family == "mla_moe":
+        a, cache = MLA.mla_decode(p["attn"], cfg.mla, h, cache, pos)
+    else:
+        a, cache = L.attn_decode(p["attn"], cfg.attn, h, cache, pos,
+                                 window=meta["window"], theta=meta["theta"])
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + _ffn_apply(p["ffn"], cfg, h, step), cache
@@ -181,7 +212,9 @@ def model_def(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     skel: dict = {"embed": L.embed_def(cfg.vocab, d),
                   "final_norm": L.rmsnorm_def(d),
-                  "layers": stack_defs(_block_def(cfg), cfg.n_layers)}
+                  "layers": stack_defs(_block_def(cfg), n_stacked(cfg))}
+    if cfg.first_dense_ff:
+        skel["layer0"] = _block_def(dense0(cfg))
     if not cfg.tie_embeddings:
         skel["unembed"] = L.unembed_def(d, cfg.vocab)
     return skel
@@ -200,10 +233,16 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     x = L.embed_apply(params["embed"], tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    cache: dict = {}
+    off = 0
+    if cfg.first_dense_ff:
+        x, cache["layer0"] = _block_prefill(params["layer0"], dense0(cfg), x,
+                                            positions, layer_meta(cfg, 0), 0)
+        off = 1
     caches = []
-    for i in range(cfg.n_layers):
+    for i in range(n_stacked(cfg)):
         x, c = _block_prefill(layer_at(params["layers"], i), cfg, x,
-                              positions, layer_meta(cfg, i), i)
+                              positions, layer_meta(cfg, i + off), i + off)
         caches.append(c)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_of(params, cfg, x[:, -1:])[:, 0]
@@ -211,8 +250,8 @@ def prefill(params, cfg: ModelConfig, batch: dict):
         layers = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
     else:
         layers = tuple(torch.stack(t) for t in zip(*caches))
-    cache = {"layers": layers,
-             "pos": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+    cache["layers"] = layers
+    cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache
 
 
@@ -225,10 +264,16 @@ def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
             for k, t in new.items():
                 sc[k][i].copy_(t)
         return x
-    kc, vc = cache["layers"]
-    for i in range(cfg.n_layers):
+    off = 0
+    if cfg.first_dense_ff:
+        x, _ = _block_decode(params["layer0"], dense0(cfg), x, pos,
+                             layer_meta(cfg, 0), cache["layer0"], 0)
+        off = 1
+    kc, vc = cache["layers"]          # (k, v), or MLA's (c_kv, k_rope)
+    for i in range(n_stacked(cfg)):
         x, _ = _block_decode(layer_at(params["layers"], i), cfg, x, pos,
-                             layer_meta(cfg, i), (kc[i], vc[i]), i)
+                             layer_meta(cfg, i + off), (kc[i], vc[i]),
+                             i + off)
     return x
 
 
@@ -241,7 +286,7 @@ def decode_step(params, cfg: ModelConfig, batch: dict):
     x = _decode_layers(params, cfg, x, pos, cache)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_of(params, cfg, x)[:, 0]
-    return logits, {"layers": cache["layers"], "pos": pos + 1}
+    return logits, dict(cache, pos=pos + 1)
 
 
 def chunk_step(params, cfg: ModelConfig, batch: dict):
@@ -264,15 +309,19 @@ def chunk_step(params, cfg: ModelConfig, batch: dict):
     idx = torch.clamp(n_valid - 1, min=0).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     logits = logits_of(params, cfg, x_last)[:, 0]
-    return logits, {"layers": cache["layers"], "pos": pos + n_valid}
+    return logits, dict(cache, pos=pos + n_valid)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Zero decode cache.  dense: {"layers": (k, v) each (L, B, S, KV, D)
-    in cfg.cache_dtype}; ssm: {"layers": {conv_x, conv_b, conv_c, state}},
+    """Zero decode cache.  dense and moe: {"layers": (k, v) each (L, B, S,
+    KV, D)}; mla_moe: {"layers": (c_kv (L, B, S, kv_lora), k_rope (L, B, S,
+    qk_rope))} over the stacked layers, and with `first_dense_ff` also
+    "layer0": the same pair without the layer axis; all in
+    cfg.cache_dtype.  ssm: {"layers": {conv_x, conv_b, conv_c, state}},
     each leaf `ssm_cache_def`'s float32 one with a leading layer axis (no
-    sequence axis: max_len does not enter).  Both with "pos": (B,) int32."""
+    sequence axis: max_len does not enter).  All with "pos": (B,) int32;
+    `models.model.cache_axes` names every axis."""
     check_family(cfg)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.family == "ssm":
@@ -281,9 +330,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                           dtype=t.dtype, device=device)
                            for k, t in one.items()},
                 "pos": pos}
+    dt = cfg.cache_dtype
+    if cfg.family == "mla_moe":
+        def mk(lead):
+            return tuple(torch.zeros(lead + (batch, max_len, w), dtype=dt,
+                                     device=device)
+                         for w in (cfg.mla.kv_lora, cfg.mla.qk_rope))
+        cache = {"layers": mk((n_stacked(cfg),)), "pos": pos}
+        if cfg.first_dense_ff:
+            cache["layer0"] = mk(())
+        return cache
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": (torch.zeros(shape, dtype=cfg.cache_dtype,
-                                   device=device),
-                       torch.zeros(shape, dtype=cfg.cache_dtype,
-                                   device=device)),
+    return {"layers": tuple(torch.zeros(shape, dtype=dt, device=device)
+                            for _ in "kv"),
             "pos": pos}

@@ -18,8 +18,8 @@
 from repro_torch.serve.config import ServeConfig, serving_model_config
 from repro_torch.serve.loadgen import poisson_requests
 from repro_torch.serve.metrics import (build_serving_engine,
-                                       build_serving_program, report_metrics,
-                                       trace_serving_shapes)
+                                       build_serving_program, energy_metrics,
+                                       report_metrics, trace_serving_shapes)
 from repro_torch.serve.scheduler import (Completion, Request, Scheduler,
                                          ServeReport, TickHook,
                                          run_sequential, serving_program)
@@ -27,6 +27,6 @@ from repro_torch.serve.scheduler import (Completion, Request, Scheduler,
 __all__ = [
     "Completion", "Request", "Scheduler", "ServeConfig", "ServeReport",
     "TickHook", "build_serving_engine", "build_serving_program",
-    "poisson_requests", "report_metrics", "run_sequential",
+    "energy_metrics", "poisson_requests", "report_metrics", "run_sequential",
     "serving_model_config", "serving_program", "trace_serving_shapes",
 ]

@@ -2,8 +2,10 @@
 (PyTorch port of `repro.serve.config`).
 
 `serving_model_config` derives the serving variant of a `ModelConfig`:
-continuous batching decodes at ragged per-slot positions, and with `rosa`
-the MLP projections route through the optical engine.
+continuous batching decodes at ragged per-slot positions, so every
+attention cache write takes the scatter path (MLA's compressed cache
+included), and with `rosa` the MLP projections route through the optical
+engine.
 """
 
 from __future__ import annotations
@@ -54,8 +56,19 @@ class ServeConfig:
 
 
 def serving_model_config(cfg: ModelConfig, rosa: bool = False) -> ModelConfig:
-    """Ragged (scatter) cache writes, and optionally the optical MLP path."""
+    """Ragged (scatter) cache writes, and optionally the optical MLP path.
+
+    Encoder-decoder configs are refused: the serving prefill has no
+    encoder pass, so their requests would cross-attend to an all-zero
+    memory."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder serving is not supported — the "
+            "request path has no encoder invocation (prompts are token "
+            "ids, not source embeddings)")
     kw: dict = {"uniform_decode": False}
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(cfg.mla, uniform_decode=False)
     if rosa:
         kw["rosa_mlp"] = True
     return dataclasses.replace(cfg, **kw)

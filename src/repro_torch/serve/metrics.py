@@ -7,9 +7,10 @@ shapes (paper Sec. 3.5, EDP term) through the on-disk plan cache (a warm
 start loads the plan) and optionally pins one fabricated chip; every token
 is then served through that frozen (plan, chip) pair.
 `trace_serving_shapes` prices the decode step and one prefill chunk onto an
-engine's ledger under "decode" / "prefill" scopes, and `report_metrics`
-turns one scheduler run into named metrics.  Step-unit and tick metrics
-are deterministic; wall-clock ones depend on the device.
+engine's ledger under "decode" / "prefill" scopes, `energy_metrics` turns
+that trace into per-token energy and the hybrid-vs-WS decode EDP, and
+`report_metrics` turns one scheduler run into named metrics.  Step-unit
+and tick metrics are deterministic; wall-clock ones depend on the device.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.bench.schema import Metric
-from repro_torch.core.constants import ROSA_OPTIMAL
+from repro_torch.core.constants import ROSA_OPTIMAL, Mapping
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.scheduler import ServeReport
 
@@ -104,6 +105,45 @@ def build_serving_engine(bundle, scfg: ServeConfig, with_ledger: bool = True,
     if with_ledger:
         engine = engine.with_ledger(rosa.EnergyLedger())
     return engine
+
+
+def energy_metrics(model_cfg, scfg: ServeConfig, cache=None,
+                   device: str | torch.device = "cuda") -> list[Metric]:
+    """Per-token / per-chunk energy of the optical serving path, plus the
+    hybrid-vs-WS decode EDP ratio the plan search bought (the reference's
+    floats, gated as the reference gates them).  `cache` is the plan
+    cache, as `rosa.compile` takes it."""
+    from repro_torch.core import mapping as M
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.config import serving_model_config
+
+    bundle = build_model(serving_model_config(model_cfg, rosa=True))
+    engine = build_serving_engine(bundle, scfg, cache=cache, device=device)
+    ledger = trace_serving_shapes(bundle, scfg, engine)
+    shapes = [ev.layer_shape() for ev in ledger.unique_events("decode")]
+    plan = {s.name: engine.config(s.name).mapping for s in shapes}
+    # batch=1: the decode-step trace already encodes n_slots in each m
+    e_hybrid = M.plan_edp(shapes, plan, ROSA_OPTIMAL, batch=1)
+    e_ws = M.plan_edp(shapes, {s.name: Mapping.WS for s in shapes},
+                      ROSA_OPTIMAL, batch=1)
+    out = [
+        Metric("energy_per_token_j",
+               ledger.per_token(ROSA_OPTIMAL, batch=scfg.n_slots,
+                                tag="decode"),
+               unit="J", gate=True, rel_tol=1e-3,
+               direction="lower_is_better"),
+        Metric("decode_edp_hybrid_vs_ws", e_hybrid / e_ws, unit="ratio",
+               gate=True, rel_tol=1e-3, direction="lower_is_better"),
+        Metric("decode_is_layers",
+               sum(1 for m in plan.values() if m is Mapping.IS),
+               gate=True, rel_tol=0.0),
+    ]
+    prefill = ledger.breakdown(ROSA_OPTIMAL, batch=1, tag="prefill")
+    if prefill.energy > 0:
+        out.append(Metric("energy_per_prefill_chunk_j", prefill.energy,
+                          unit="J", gate=True, rel_tol=1e-3,
+                          direction="lower_is_better"))
+    return out
 
 
 def report_metrics(rep: ServeReport, prefix: str = "") -> list[Metric]:

@@ -12,9 +12,10 @@ Two admission policies over the same step:
 
 Each tick runs at most one prefill chunk and one decode step, so cost is
 countable in deterministic step units.  `run_sequential` (same prefill
-path, batch-1 decode, same sampling seeds) is the per-request oracle the
-scheduler is held against.  A `TickHook` extends the loop per tick (the
-drift-adaptive controller of `serve.adaptive` is one).
+path, each request decoded alone in a slot-wide batch, same sampling
+seeds) is the per-request oracle the scheduler is held against.  A
+`TickHook` extends the loop per tick (the drift-adaptive controller of
+`serve.adaptive` is one).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.models.model import build_model
+from repro_torch.models import transformer as T
+from repro_torch.models.model import build_model, write_slot
 from repro_torch.obs import trace as obs
 from repro_torch.serve.config import ServeConfig, serving_model_config
 from repro_torch.serve.decode import (PrefillTask, init_state, make_admit,
@@ -435,10 +437,18 @@ def _ledger_scope(engine, tag: str):
 def run_sequential(model_cfg, scfg: ServeConfig, params,
                    requests: list[Request], temperature: float | None = None,
                    chip=None, device: str | torch.device = "cuda") -> dict:
-    """Decode every request ALONE (batch 1), same prefill path, same
-    sampling seeds.  Returns {rid: {"tokens": [...], "logits": [...]}}:
-    whatever the scheduler interleaves, each request's stream must equal
-    this."""
+    """Decode every request ALONE, same prefill path, same sampling seeds.
+    Returns {rid: {"tokens": [...], "logits": [...]}}: whatever the
+    scheduler interleaves, each request's stream must equal this.
+
+    A request decodes in slot 0 of a slot cache as wide as the
+    scheduler's (`scfg.n_slots` rows; the others empty, as idle slots
+    are), where the reference decodes a batch of 1.  On the card a float32
+    GEMM gives a row other bits at 1 row than at 4 (cuBLAS picks another
+    kernel), and the optical path's per-row requantization turns such a
+    difference into whole-LSB code flips; at the scheduler's width a row's
+    result depends on neither the other rows nor its slot, which is what
+    continuous batching must keep."""
     device = torch.device(device)
     cfg = serving_model_config(model_cfg, rosa=scfg.rosa)
     bundle = build_model(cfg)
@@ -447,9 +457,9 @@ def run_sequential(model_cfg, scfg: ServeConfig, params,
     params = _to_device(params, device)
     chunk_fn = make_chunk_fn(bundle, program=program)
     whole_fn = make_whole_fn(bundle, program=program)
-    decode1_fn = lambda p, t, c: bundle.decode_step(
+    decode_fn = lambda p, t, c: bundle.decode_step(
         p, {"token": t, "pos": c["pos"], "cache": c})
-    decode1 = program.bind(decode1_fn) if program is not None else decode1_fn
+    decode = program.bind(decode_fn) if program is not None else decode_fn
     temp = float(scfg.temperature if temperature is None else temperature)
 
     out = {}
@@ -461,10 +471,13 @@ def run_sequential(model_cfg, scfg: ServeConfig, params,
                 pass
         tok = sample_token(scfg.seed, req.rid, 0, task.logits, temp)
         toks, logs = [int(tok)], [task.logits.cpu().numpy()]
-        cache = task.cache
+        cache = write_slot(cfg, T.init_cache(cfg, scfg.n_slots, scfg.max_len,
+                                             device), task.cache, 0)
+        rows = torch.zeros((scfg.n_slots,), dtype=torch.int32, device=device)
         for i in range(1, req.max_new_tokens):
+            rows[0] = tok
             with _ledger_scope(engine, "decode"):
-                logits, cache = decode1(params, tok.reshape(1), cache)
+                logits, cache = decode(params, rows, cache)
             tok = sample_token(scfg.seed, req.rid, i, logits[0], temp)
             toks.append(int(tok))
             logs.append(logits[0].cpu().numpy())

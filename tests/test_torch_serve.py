@@ -210,9 +210,15 @@ def test_slot_api_touches_one_row(cfg):
     assert torch.count_nonzero(c["pos"]) == 0
 
 
-def test_other_families_raise():
-    cfg = dataclasses.replace(get_smoke("qwen3-32b"), family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
+@pytest.mark.parametrize("family", ["hybrid", "encdec"])
+def test_other_families_raise(family):
+    """The families still to port refuse to build; serving refuses an
+    encoder-decoder config outright."""
+    cfg = dataclasses.replace(get_smoke("qwen3-32b"), family=family)
+    with pytest.raises(NotImplementedError, match=family):
         build_model(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
         get_smoke("gemma3-12b")
+    if family == "encdec":
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            serving_model_config(dataclasses.replace(cfg, n_enc_layers=2))

@@ -5,8 +5,8 @@
 
 The zoo rows must be equal (names, m, k, n, groups, kind); its DSE sweep
 and the EDP-only hybrid plans within 1e-9 relative, with equal labels and
-plans.  The eight architectures whose families are not ported are carried
-as metadata only: the registry refuses to hand them out for building.
+plans.  The six architectures not yet ported are carried as metadata
+only: the registry refuses to hand them out for building.
 """
 
 import dataclasses
@@ -125,6 +125,7 @@ def test_new_architectures_refuse_to_build(arch):
 
 def test_serve_offers_only_ported_architectures():
     arch = next(a for a in serve.build_parser()._actions if a.dest == "arch")
-    assert sorted(arch.choices) == ["mamba2-1.3b", "qwen3-32b"]
+    assert sorted(arch.choices) == ["deepseek-v2-236b", "mamba2-1.3b",
+                                    "qwen3-32b", "qwen3-moe-235b-a22b"]
     with pytest.raises(SystemExit):
         serve.build_parser().parse_args(["--arch", "gemma3-12b"])
