@@ -44,10 +44,11 @@ Phases (any failure raises, so the exit code is non-zero):
   6. ssd_scan parity and times: the kernel against its plain version at
      mamba2-1.3b's served shape (B 1, H 64, P 64, G 1, S 128, chunk 128)
      for L in {1, 127, 128, 129, 512, 1000} (ragged tails), one case with
-     G 2 and B 2 and one with G = H, held to 1e-4 of max|y| on y and of
-     max|state| on the final state; two launches must give equal bits;
-     per-call and kernel-only times as in phase 2, the bound and its
-     share, the launches' resident blocks per SM;
+     G 2 and B 2, one with G = H, and zamba2-1.2b's shape (S 64) at L 128
+     and 700, held to 1e-4 of max|y| on y and of max|state| on the final
+     state; two launches must give equal bits; per-call and kernel-only
+     times as in phase 2, the bound and its share, the launches' resident
+     blocks per SM;
   7. serve: mamba2-1.3b at full width and depth (48 layers, 1.34e9 params,
      random weights from seed 0) with the optical engine on (the block
      routes nothing), 8 seeded Poisson requests (prompts 200-700 tokens,
@@ -138,7 +139,33 @@ Phases (any failure raises, so the exit code is non-zero):
      taken by permuting only the reduction axis of layer 0's two optical
      projections, with every run routing each token to the same
      experts), and the peak memory of each model must stay under 70 GiB.  tokens/s, ticks,
-     peak GiB and set-up seconds are printed.
+     peak GiB and set-up seconds are printed;
+ 15. the hybrid and encdec families at full width and depth: (a)
+     zamba2-1.2b (38 Mamba-2 layers in 6 groups of 6 and a tail of 2,
+     one shared attention + MLP block after each group; 1.10e9 params,
+     random weights from seed 0) served as phase 7 serves mamba2 (8
+     seeded Poisson requests, prompts 200-700, generations 8-32, 4 slots,
+     max_len 768, optical engine on): the plan must be empty and nothing
+     but ssd_scan launch, exactly 38 times per whole prefill; continuous
+     batching must give the sequential oracle's greedy tokens; in one
+     700-token prompt's prefill each of the 38 scans, kernel and plain
+     scan on the operands the model gives it, must agree within 1e-4 of
+     the max magnitude on y and on the final state, and the whole
+     prefill through the kernel and through the plain scan within 4x
+     the float-order floor (phase 7's rule; the hidden and state
+     dimensions permuted) on the logits and on every ssm state leaf,
+     with the same argmax;
+     (b) seamless-m4t-medium (12 + 12 layers, vocab 256206, 9.78e8
+     params) through the `--policy batch` entry function
+     (`launch.serve.run_batch`: batch 4, prompt and source 32 tokens, 16
+     generated), once greedy and once at temperature 0.7, launching no
+     kernel: the card's prefill logits against the port's own CPU prefill
+     of the same parameters and inputs within 4x the card's float-order
+     floor (phase 5's rule; the hidden dimension of the params and the
+     source permuted), with the same argmax; after `pad_cache` the cross
+     K/V keep the source's 32 positions and the self K/V grow to 32 + 17;
+     zero source embeddings must change the prefill logits.  tokens/s,
+     ticks, peak GiB and set-up seconds are printed.
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -159,6 +186,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -171,11 +199,13 @@ PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
 LAYER0_PROJ = {"mlp/wi": (5120, 24576), "mlp/wo": (12288, 5120)}
 RAGGED = (13, 1000, 300)
 # ssd_scan cases (B, L, H, P, G, S, chunk): mamba2-1.3b's served shape at
-# one step, a chunk's edges, the served L, a ragged 1000; G 2 at B 2; G = H
+# one step, a chunk's edges, the served L, a ragged 1000; G 2 at B 2; G = H;
+# zamba2-1.2b's (S 64) at one chunk and at its longest prompt
 SSD_CASES = [(1, 1, 64, 64, 1, 128, 128), (1, 127, 64, 64, 1, 128, 128),
              (1, 128, 64, 64, 1, 128, 128), (1, 129, 64, 64, 1, 128, 128),
              (1, 512, 64, 64, 1, 128, 128), (1, 1000, 64, 64, 1, 128, 128),
-             (2, 700, 64, 64, 2, 128, 128), (1, 512, 64, 64, 64, 128, 128)]
+             (2, 700, 64, 64, 2, 128, 128), (1, 512, 64, 64, 64, 128, 128),
+             (1, 128, 64, 64, 1, 64, 128), (1, 700, 64, 64, 1, 64, 128)]
 SSD_SERVED_L = 512
 MAMBA_PARAMS = 1_343_532_032  # mamba2-1.3b at full width and depth
 
@@ -2305,6 +2335,299 @@ def moe_phase(report: dict) -> int:
     return sum(r["rosa_fused_launches"] for r in rows.values())
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the hybrid and encdec families at full width and depth
+# ---------------------------------------------------------------------------
+ZAMBA_PARAMS = 1_104_777_344      # zamba2-1.2b at full width and depth
+ZAMBA_PROMPT = 700                # the kernel-vs-plain prefill's length
+SEAMLESS_PARAMS = 977_758_208     # seamless-m4t-medium, 12 + 12 layers
+SEAMLESS_ARGS = ["--arch", "seamless-m4t-medium", "--policy", "batch",
+                 "--batch", "4", "--prompt-len", "32", "--gen", "16"]
+
+
+def max_rel(got, want) -> float:
+    """max|got - want| over max|want| (both moved to float32)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def zamba_phase(report: dict) -> int:
+    """15(a): zamba2-1.2b served at full width and depth.  Returns the
+    main path's ssd_scan launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
+                                   report_metrics)
+
+    cfg = get_config("zamba2-1.2b")
+    scfg = ServeConfig(n_slots=4, max_len=768, rosa=True,
+                       rosa_backend="fused", variation_seed=7)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sched = Scheduler(cfg, scfg, init_seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sched.bundle.n_params
+    plan = sched.program.plan.mapping_plan()
+    print(f"  zamba2-1.2b full width and depth, {cfg.n_layers} layers "
+          f"({cfg.n_layers // cfg.shared_every} groups of "
+          f"{cfg.shared_every} and a tail of "
+          f"{cfg.n_layers % cfg.shared_every}), {n_params:,} params (f32), "
+          f"set-up {setup_s:.1f} s; routed projections "
+          f"{len(sched.program.trace)}, plan {plan}")
+    if n_params != ZAMBA_PARAMS:
+        raise AssertionError("not zamba2-1.2b at full width and depth")
+    if plan or len(sched.program.trace):
+        raise AssertionError("zamba2: the shared MLP must bypass the "
+                             "optical engine (empty plan)")
+    reqs = poisson_requests(8, 1.0, vocab=cfg.vocab, prompt_len=(200, 700),
+                            gen_len=(8, 32), seed=0)
+
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    rep = sched.run(reqs)
+    n = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check_run(rep, reqs, cfg.vocab, "zamba2 serve")
+    metrics = {m.name: m.value for m in report_metrics(rep)}
+    want = cfg.n_layers * len(reqs)
+    print(f"  served {rep.total_tokens} tokens in {rep.wall_s:.2f} s: "
+          f"{rep.tokens_per_s:.2f} tok/s, {rep.ticks} ticks, "
+          f"{rep.decode_steps} decode steps, {rep.prefill_chunks} whole "
+          f"prefills (prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens), peak "
+          f"{peak_gib:.1f} GiB")
+    print(f"  ssd_scan launches {n['ssd_scan']} ({cfg.n_layers} x "
+          f"{len(reqs)} prefills = {want}), rosa_fused {n['rosa_fused']}, "
+          f"osa_matmul {n['osa_matmul']}, mrr_transfer {n['mrr_transfer']}")
+    if rep.prefill_chunks != len(reqs) or n["ssd_scan"] != want \
+            or n["rosa_fused"] or n["osa_matmul"] or n["mrr_transfer"] \
+            or n["mrr_transfer_bwd"]:
+        raise AssertionError("the zamba2 prefills did not each run the "
+                             "ssd_scan kernel once per ssm layer, and "
+                             "nothing else")
+
+    # ---- continuous batching against the per-request oracle ---------------
+    check_sequential(rep, cfg, scfg, sched.params, reqs, "zamba2-1.2b")
+
+    # ---- one 700-token prefill: the kernel against the plain scan ---------
+    # Each of its 38 scans runs the kernel and the plain scan on the
+    # operands the model gives it: y and the final state within 1e-4 of
+    # their max (the CPU tests' bound).  The whole prefill, through the
+    # kernel and through the plain scan, is held to phase 7's rule: 4x the
+    # float-order floor of the plain path (the hidden and state
+    # dimensions permuted, every reduction summed in another order), on
+    # the logits and on every state leaf; a random-weight stack this deep
+    # moves by more than 1e-4 under a mere reordering (phase 7: 9e-5 to
+    # 1.2e-4 at 48 layers), so a fixed 1e-4 on the whole model would
+    # measure float noise, not the kernel.
+    prompt = torch.randint(0, cfg.vocab, (1, ZAMBA_PROMPT),
+                           generator=torch.Generator().manual_seed(15),
+                           dtype=torch.int32).to(DEVICE)
+    per_scan = []
+
+    def both(x, loga, b, c, chunk):
+        y, st = ssd_ops.ssd_scan(x, loga, b, c, chunk)
+        yp, sp = ssd_ops.plain(x, loga, b, c, chunk)
+        per_scan.append((max_rel(y, yp), max_rel(st, sp)))
+        return y, st
+
+    def prefill(params):
+        with torch.inference_mode():
+            logits, cache = sched.whole_fn(params, {"tokens": prompt})
+        states = {"groups.state": cache["groups"]["ssm"]["state"],
+                  "tail.state": cache["tail"]["state"]}
+        return dict(states, logits=logits)
+
+    SSM.ssd_scan = both
+    try:
+        kern = prefill(sched.params)
+        SSM.ssd_scan = ssd_ops.plain       # the plain scan, on the card
+        plain = prefill(sched.params)
+        floor = dict.fromkeys(plain, 0.0)
+        for seed in (1, 2):
+            params_p, perm = permuted_params(
+                sched, {"embed": cfg.d_model, "state": cfg.ssm.d_state},
+                seed)
+            got = prefill(params_p)
+            # the permuted run's states hold the state axis permuted
+            dev = {k: max_rel(got[k], want if k == "logits" else
+                              want.index_select(-2, perm["state"]))
+                   for k, want in plain.items()}
+            floor = {k: max(floor[k], dev[k]) for k in plain}
+            print(f"  plain vs plain with permuted reductions (seed {seed}):"
+                  " max rel dev " + ", ".join(f"{k} {v:.3e}"
+                                              for k, v in dev.items()))
+            del params_p, got
+            torch.cuda.empty_cache()
+    finally:
+        SSM.ssd_scan = ssd_ops.ssd_scan
+    torch.cuda.synchronize()
+    lk, lp = kern["logits"], plain["logits"]
+    if not bool(torch.isfinite(lk).all()) or lk.shape != (1, cfg.vocab):
+        raise AssertionError("zamba2 prefill logits not finite / bad shape")
+    scan_y = max(e for e, _ in per_scan)
+    scan_state = max(e for _, e in per_scan)
+    print(f"  {len(per_scan)} scans of a {ZAMBA_PROMPT}-token prefill, "
+          f"kernel vs plain on the same operands: max rel dev y "
+          f"{scan_y:.3e}, state {scan_state:.3e} (bound 1e-4)")
+    if len(per_scan) != cfg.n_layers or max(scan_y, scan_state) > 1e-4:
+        raise AssertionError("zamba2: a scan of the prefill disagrees with "
+                             "the plain scan")
+    rel = {k: max_rel(kern[k], plain[k]) for k in plain}
+    bound = {k: 4 * floor[k] + 1e-5 for k in plain}
+    same = int(lk.argmax()) == int(lp.argmax())
+    print("  whole prefill through the kernel vs through the plain scan: "
+          "max rel dev " + ", ".join(
+              f"{k} {rel[k]:.3e} (bound {bound[k]:.3e})" for k in rel)
+          + f", argmax {int(lk.argmax())} vs {int(lp.argmax())}")
+    if any(rel[k] > bound[k] for k in rel) or not same:
+        raise AssertionError("zamba2: kernel and plain-scan prefills "
+                             "disagree beyond the float-order bound")
+    report["zamba2_serve"] = dict(
+        metrics, n_params=n_params, setup_s=setup_s, peak_gib=peak_gib,
+        prompt_lens=[len(r.prompt) for r in reqs],
+        ssd_scan_launches=n["ssd_scan"], scan_max_rel_y=scan_y,
+        scan_max_rel_state=scan_state, kernel_vs_plain_rel=rel,
+        plain_float_order_floor_rel=floor)
+    return n["ssd_scan"]
+
+
+def seamless_run(temperature: str) -> dict:
+    """One `--policy batch` run of seamless-m4t-medium on the card, the
+    launch counts from 0 just before it and read just after."""
+    import torch
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(
+        SEAMLESS_ARGS + ["--temperature", temperature, "--device", DEVICE])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve_cli.run_batch(args)
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = launch_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  temperature {temperature}: {res['tok_s']:.2f} tok/s, "
+          f"prefill {res['prefill_s']:.3f} s, peak {res['peak_gib']:.1f} "
+          f"GiB, launches {res['launches']}")
+    if any(res["launches"].values()):
+        raise AssertionError("seamless: the batch path launched a kernel")
+    toks, vocab = res["tokens"], res["bundle"].cfg.vocab
+    if toks.shape != (4, 16) or not bool(((toks >= 0)
+                                          & (toks < vocab)).all()):
+        raise AssertionError(f"seamless: bad tokens {tuple(toks.shape)}")
+    return res
+
+
+def seamless_phase(report: dict) -> None:
+    """15(b): seamless-m4t-medium through `--policy batch`, greedy and at
+    temperature 0.7."""
+    import gc
+    import torch
+    from repro_torch.models.module import map_tree
+
+    res = seamless_run("0.0")
+    bundle, params, batch = res["bundle"], res["params"], res["batch"]
+    if bundle.n_params != SEAMLESS_PARAMS:
+        raise AssertionError("not seamless-m4t-medium at full width and "
+                             "depth")
+    lg = res["logits"]
+    if lg.shape != (4, bundle.cfg.vocab) or not bool(
+            torch.isfinite(lg).all()):
+        raise AssertionError("seamless prefill logits not finite / bad "
+                             "shape")
+    lens = {k: [t.shape[2] for t in res["cache"]["layers"][k]]
+            for k in ("self", "cross")}
+    print(f"  cache lengths after pad_cache: {lens}")
+    if lens != {"self": [32 + 17] * 2, "cross": [32] * 2}:
+        raise AssertionError("seamless: pad_cache grew the wrong axes")
+
+    # ---- the card against the port's own CPU prefill (TF32 off) ----------
+    # Bound: phase 5's rule.  The CPU sums in another order than the card,
+    # and a random-weight stack of 24 layers moves its logits by more
+    # than float rounding under any reordering.  How far is measured on
+    # the card: the same prefill with the hidden ("embed") dimension of
+    # the params and of the source embeddings permuted (a function-
+    # preserving reordering of every reduction over it).  The CPU prefill
+    # must stay within 4x the largest such deviation over two
+    # permutations (plus 1e-5 of full scale), with the same argmax.
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lc, _ = bundle.prefill(map_tree(lambda t: t.cpu(), params),
+                               {k: v.cpu() for k, v in batch.items()})
+        lz, _ = bundle.prefill(params, dict(
+            batch, src_embeds=torch.zeros_like(batch["src_embeds"])))
+    cpu_s = time.perf_counter() - t0
+    floor = 0.0
+    for seed in (1, 2):
+        params_p, perm = permuted_params(
+            types.SimpleNamespace(bundle=bundle, params=params),
+            {"embed": bundle.cfg.d_model}, seed)
+        src_p = batch["src_embeds"].index_select(-1, perm["embed"])
+        with torch.inference_mode():
+            lperm, _ = bundle.prefill(params_p, dict(batch, src_embeds=src_p))
+        dev = max_rel(lperm, lg)
+        floor = max(floor, dev)
+        print(f"  card vs card with permuted reductions (seed {seed}): max "
+              f"rel dev {dev:.3e}")
+        del params_p, lperm
+        torch.cuda.empty_cache()
+    rel = max_rel(lg.cpu(), lc)
+    bound = 4 * floor + 1e-5
+    same = torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+    zero_rel = max_rel(lz, lg)
+    print(f"  card vs CPU prefill logits: max rel dev {rel:.3e} (bound "
+          f"{bound:.3e}), argmax equal {same}; zero source embeddings move "
+          f"the logits by {zero_rel:.3e} of their max (CPU prefill "
+          f"{cpu_s:.1f} s)")
+    if rel > bound or not same:
+        raise AssertionError("seamless: card and CPU prefills disagree "
+                             "beyond the float-order bound")
+    if zero_rel < 1e-3:
+        raise AssertionError("seamless: the decoder does not read the "
+                             "encoder memory")
+    greedy = res["tokens"]
+    out = {"n_params": bundle.n_params, "card_vs_cpu_logits_rel": rel,
+           "card_float_order_floor_rel": floor,
+           "zero_src_logits_rel": zero_rel, "cache_lengths": lens,
+           "greedy": {k: res[k] for k in ("tok_s", "prefill_s", "decode_s",
+                                          "wall_s", "peak_gib")},
+           "greedy_tokens_row0": greedy[0].tolist()}
+    del res, bundle, params, batch, lg, lc, lz
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hot = seamless_run("0.7")
+    if not torch.equal(hot["tokens"][:, 0], greedy[:, 0]):
+        raise AssertionError("seamless: the first token (the prefill's "
+                             "argmax) differs between the two runs")
+    out["sampled"] = {k: hot[k] for k in ("tok_s", "prefill_s", "decode_s",
+                                          "wall_s", "peak_gib")}
+    report["seamless_batch"] = out
+    del hot
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_phase(report: dict) -> int:
+    """Phase 15: zamba2-1.2b, then seamless-m4t-medium, the first freed
+    before the second.  Returns 15(a)'s ssd_scan launches."""
+    import gc
+    import torch
+    print("phase 15(a): serving zamba2-1.2b at full width and depth")
+    n = zamba_phase(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 15(b): seamless-m4t-medium --policy batch at full width "
+          "and depth")
+    seamless_phase(report)
+    return n
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -2417,6 +2740,7 @@ def run_phases(opts) -> int:
     print("phase 14: serving qwen3-moe-235b-a22b and deepseek-v2-236b at "
           "full width")
     launches["rosa_fused"] += phase("14", moe_phase)
+    launches["ssd_scan"] += phase("15", family_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

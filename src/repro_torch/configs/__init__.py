@@ -44,7 +44,7 @@ ARCH_IDS = {
 
 # assignment ids whose model code is ported (launch/serve.py --arch)
 PORTED_ARCHS = ("qwen3-32b", "mamba2-1.3b", "qwen3-moe-235b-a22b",
-                "deepseek-v2-236b")
+                "deepseek-v2-236b", "zamba2-1.2b", "seamless-m4t-medium")
 
 
 def _module(name: str):

@@ -11,6 +11,8 @@ warm up, once timed without the profiler, then again under
   mamba2-1.3b  full width and depth (48 layers), optical engine on (it
                routes nothing), 4 slots, 8 requests (prompts 200-700,
                generations 8-32), whole-prompt prefill through `ssd_scan`;
+  zamba2-1.2b  full width and depth (38 layers), mamba2's stream (phase
+               15(a));
   qwen3-moe-235b-a22b, deepseek-v2-236b
                full width, 3 layers, as qwen3-32b's stream (phase 14):
                qwen3-moe routes nothing, deepseek-v2 its layer-0 MLP.
@@ -40,6 +42,7 @@ STREAMS = {
 }
 STREAMS["qwen3-moe-235b-a22b"] = STREAMS["deepseek-v2-236b"] = \
     (3,) + STREAMS["qwen3-32b"][1:]
+STREAMS["zamba2-1.2b"] = (38,) + STREAMS["mamba2-1.3b"][1:]
 
 
 def family(name: str) -> str:

@@ -1,12 +1,23 @@
-"""Serving CLI over `repro_torch.serve` (continuous or one-shot batching of
-a synthetic Poisson request stream).
+"""Serving CLI over `repro_torch.serve`.  Three policies:
+
+  continuous  (default) continuous batching of a synthetic Poisson request
+              stream over slots, chunked prefill beside the decode batch
+  oneshot     static batching of the same stream
+  batch       one fixed batch (random prompts, and for the audio frontend
+              random source embeddings): prefill, then `--gen` tokens
+              through `steps.make_sampling_decode_step`; the only policy
+              that runs the encoder-decoder family
 
   python -m repro_torch.launch.serve --arch qwen3-32b --n-layers 4 \\
       --rosa --rosa-backend fused --variation-seed 7 --requests 6
   python -m repro_torch.launch.serve --arch mamba2-1.3b --requests 8 \\
       --max-len 768 --prompt-range 200 700 --gen-range 8 32
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --requests 8 \\
+      --max-len 768 --prompt-range 200 700 --gen-range 8 32
   python -m repro_torch.launch.serve --arch deepseek-v2-236b --n-layers 3 \\
       --rosa --rosa-backend fused --variation-seed 7 --requests 6
+  python -m repro_torch.launch.serve --arch seamless-m4t-medium \\
+      --policy batch --batch 4 --prompt-len 32 --gen 16
 
 `--smoke` takes the reduced CPU-sized config; `--n-layers` cuts the depth
 of the full-width config.  Runs on CUDA unless `--device cpu`.
@@ -16,8 +27,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
+
+import torch
 
 from repro_torch.configs import PORTED_ARCHS, get_config, get_smoke
+from repro_torch.launch import cli_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cut the model to this many layers")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default="continuous",
-                    choices=["continuous", "oneshot"])
+                    choices=["continuous", "oneshot", "batch"])
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=24)
@@ -45,11 +60,93 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rosa-backend", default="ref")
     ap.add_argument("--variation-seed", type=int, default=None)
     ap.add_argument("--trace", default=None, metavar="PATH")
+    # batch policy
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     return ap
+
+
+def model_config(args):
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def batch_inputs(cfg, batch: int, prompt_len: int,
+                 generator: torch.Generator, device) -> dict:
+    """The fixed batch from `generator`: prompt ids (B, S) and, for the
+    audio frontend, source embeddings (B, S, d_model) in bfloat16."""
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                   generator=generator, device=device,
+                                   dtype=torch.int32)}
+    if cfg.frontend == "audio":
+        out["src_embeds"] = torch.randn(
+            (batch, prompt_len, cfg.d_model), generator=generator,
+            device=device).to(torch.bfloat16)
+    return out
+
+
+@torch.inference_mode()
+def generate(bundle, params, batch: dict, gen: int, temperature: float,
+             generator: torch.Generator) -> dict:
+    """Prefill, `pad_cache(gen + 1)`, then gen - 1 steps of
+    `make_sampling_decode_step` (the first token is the prefill's argmax).
+    Returns the tokens (B, gen), the prefill logits, the cache and the
+    prefill and decode walls (s, the device synchronized)."""
+    from repro_torch.launch.steps import make_sampling_decode_step
+    from repro_torch.models.model import pad_cache
+
+    dev = batch["tokens"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(params, batch)
+    cache = pad_cache(bundle.cfg, cache, gen + 1)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    step = make_sampling_decode_step(bundle)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        tok, cache, generator = step(params, tok, cache, temperature,
+                                     generator)
+        out.append(tok)
+    sync()
+    return {"tokens": torch.stack(out, 1), "logits": logits, "cache": cache,
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0}
+
+
+def run_batch(args) -> dict:
+    """The fixed-batch policy: params, prompts and (audio) source
+    embeddings from one generator seeded with `--seed`, then `generate`.
+    Returns its result with the bundle, params, inputs and tok/s."""
+    from repro_torch.models.model import build_model
+
+    device = cli_device(args.device)
+    cfg = model_config(args)
+    bundle = build_model(cfg)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    params = bundle.init(gen, device=device)
+    print(f"arch={cfg.name} layers={cfg.n_layers} "
+          f"params={bundle.n_params:,} policy=batch device={device}")
+    b, s = args.batch, args.prompt_len
+    batch = batch_inputs(cfg, b, s, gen, device)
+    res = generate(bundle, params, batch, args.gen, args.temperature, gen)
+    res["tok_s"] = b * args.gen / max(res["decode_s"], 1e-9)
+    print(f"prefill {b}x{s}: {res['prefill_s']:.2f}s")
+    print(f"decoded {args.gen} tokens x {b} seqs in {res['decode_s']:.2f}s "
+          f"({res['tok_s']:.1f} tok/s)")
+    print("sample token ids:", res["tokens"][0, :12].tolist())
+    return dict(res, bundle=bundle, params=params, batch=batch)
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.policy == "batch":
+        run_batch(args)
+        return
     if args.devices > 1:
         raise SystemExit("--devices > 1: slot-sharded serving is not ported "
                          "to repro_torch yet (one device only)")
@@ -61,9 +158,7 @@ def main(argv=None) -> None:
     from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
                                    report_metrics)
 
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if args.n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    cfg = model_config(args)
     scfg = ServeConfig(n_slots=args.n_slots, max_len=args.max_len,
                        prefill_chunk=args.prefill_chunk,
                        temperature=args.temperature, seed=args.seed,

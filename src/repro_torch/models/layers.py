@@ -1,10 +1,12 @@
 """Shared transformer building blocks (PyTorch port of the parts of
-`repro.models.layers` that dense serving uses).
+`repro.models.layers` that serving uses).
 
 Every block is a pair: `<block>_def(cfg)` gives the ParamDef skeleton,
 `<block>_apply(params, ...)` the activations.  Layouts are the reference's:
 activations (B, S, D), heads (B, S, H, D), KV caches (B, S, KV, D), MLP
-weights wi (D, 2, F) and wo (F, D).
+weights wi (D, 2, F) and wo (F, D).  Attention is causal (decoders),
+bidirectional (encoders: `causal=False`) or cross (`cross=True`: K/V from
+an encoder memory, no RoPE, masked by the memory's positions only).
 
 Caches are updated in place (the reference donates them to its jitted
 steps); writes past the cache's end are dropped, as the reference's
@@ -59,7 +61,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, optional qk-norm)
+# Attention (GQA, optional qk-norm / bidirectional / cross)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
@@ -69,7 +71,8 @@ class AttnConfig:
     head_dim: int
     qk_norm: bool = False
     rope_theta: float = 1e6
-    causal: bool = True
+    causal: bool = True          # False -> bidirectional (encoder)
+    cross: bool = False          # K/V from the encoder memory
     uniform_decode: bool = True  # serving decodes at ragged positions
 
 
@@ -146,6 +149,33 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
 
 
+def attn_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
+               positions: torch.Tensor, *, window=0, theta=None,
+               memory: torch.Tensor | None = None,
+               memory_pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention, no cache. x: (B, S, D).  A cross attention
+    takes K/V from `memory` (B, Sm, D) without RoPE and masks by
+    `memory_pos` only."""
+    theta = cfg.rope_theta if theta is None else theta
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    src = memory if cfg.cross else x
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    if cfg.cross:
+        k_pos = memory_pos
+    else:
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+        k_pos = positions
+    bias = _mask_bias(positions, k_pos, cfg.causal and not cfg.cross, window)
+    o = attention_core(q, _repeat_kv(k, cfg.n_heads),
+                       _repeat_kv(v, cfg.n_heads), bias)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
 def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
                  positions: torch.Tensor, *, window=0, theta=None):
     """Full-prompt attention; also returns the (k, v) cache."""
@@ -165,16 +195,25 @@ def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
 
 
 def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,
-                pos: torch.Tensor, *, window=0, theta=None):
+                pos: torch.Tensor, *, window=0, theta=None,
+                memory_pos: torch.Tensor | None = None):
     """Cached decode. x: (B, C, D); cache: (k, v) each (B, S, KV, D);
     pos: (B,) first position of the chunk (C == 1: one token; C > 1: a
-    prefill chunk).  Returns (out, cache), the cache written in place."""
+    prefill chunk).  Returns (out, cache), the cache written in place.
+    A cross attention reads its static (k, v) memory cache against
+    `memory_pos` (B, Sm) and returns the cache unchanged."""
     theta = cfg.rope_theta if theta is None else theta
     b, c = x.shape[:2]
     q_pos = pos[:, None] + torch.arange(c, device=x.device)[None, :]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
+    if cfg.cross:
+        k_full, v_full = cache
+        bias = _mask_bias(q_pos, memory_pos, False, 0)
+        o = attention_core(q, _repeat_kv(k_full, cfg.n_heads),
+                           _repeat_kv(v_full, cfg.n_heads), bias)
+        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
     q = rope(q, q_pos, theta)
     k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])

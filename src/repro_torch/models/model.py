@@ -1,6 +1,6 @@
 """build_model(cfg) — the model API of the port (PyTorch port of the
-serving part of `repro.models.model`: the dense, moe, mla_moe and ssm
-families).
+serving part of `repro.models.model`: the dense, moe, mla_moe, ssm,
+hybrid and encdec families).
 
 A `ModelBundle` exposes functions over plain dicts of tensors:
 
@@ -75,8 +75,21 @@ _SSM_AX = {
 def cache_axes(cfg: ModelConfig) -> dict:
     """The logical axes of every leaf of `init_cache(cfg, ...)` for the
     families the port serves, in the cache's structure: "cache_batch" is
-    the slot axis, "cache_seq" the sequence axis a decode grows."""
-    if cfg.family == "ssm":
+    the slot axis, "cache_seq" the sequence axis a decode grows
+    ("memory_seq", the encoder memory's, does not grow)."""
+    if cfg.family == "hybrid":
+        ax = {"groups": {
+            "ssm": {k: (None,) + v for k, v in _SSM_AX.items()},
+            "shared": (_KV_AX, _KV_AX)}}
+        if cfg.n_layers % cfg.shared_every:
+            ax["tail"] = dict(_SSM_AX)
+    elif cfg.family == "encdec":
+        mem_ax = ("layers", "cache_batch", "memory_seq", "kv_heads",
+                  "head_dim")
+        ax = {"layers": {"self": (_KV_AX, _KV_AX),
+                         "cross": (mem_ax, mem_ax)},
+              "memory_pos": ("cache_batch", None)}
+    elif cfg.family == "ssm":
         ax = {"layers": dict(_SSM_AX)}
     elif cfg.family == "mla_moe":
         mla_ax = ("layers", "cache_batch", "cache_seq", None)
@@ -175,6 +188,9 @@ def params_from_reference(tree, device=None) -> dict:
     `layers` axis, wi as (d, 2, f), wo as (f, d); the moe tree (router,
     wi (E, d, 2, f), wo (E, f, d), shared_wi, shared_wo), the MLA tree
     (w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv, wo), the
-    unstacked `layer0` and the ssm tree (w_x, w_z, w_b, w_c, w_dt,
-    dt_bias, a_log, d_skip, conv_*, gate_norm, w_out) as they are."""
+    unstacked `layer0`, the ssm tree (w_x, w_z, w_b, w_c, w_dt,
+    dt_bias, a_log, d_skip, conv_*, gate_norm, w_out), zamba2's `groups`
+    (n_groups, shared_every, ...), `tail` and `shared_attn` (ln, attn,
+    ln2, ffn), and seamless's `encoder` (layers, norm) and the decoder
+    layers' `ln_cross` / `cross` as they are."""
     return map_tree(lambda a: torch.from_numpy(np.array(a)).to(device), tree)

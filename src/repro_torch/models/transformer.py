@@ -1,5 +1,5 @@
-"""Decoder-only stacks of the dense, moe, mla_moe and ssm families (PyTorch
-port of those paths of `repro.models.transformer`).
+"""Model stacks of the dense, moe, mla_moe, ssm, hybrid and encdec
+families (PyTorch port of the serving paths of `repro.models.transformer`).
 
 Parameters keep the reference's stacked layout (a leading `layers` axis on
 every block leaf); the reference's `scan` over layers becomes a Python loop
@@ -8,19 +8,27 @@ that passes the layer index as `step`.  deepseek-v2's dense first layer
 the reference: its FFN is dense (width `first_dense_ff`, through the
 optical engine under `rosa_mlp`) and its noise key folds step 0, while the
 stacked layers keep their indices 1..n-1.  MoE FFNs are plain: like the
-reference, the moe block ignores `rosa_mlp`.  Step functions take and
-return plain dicts of tensors:
+reference, the moe block ignores `rosa_mlp`.
+
+zamba2 (`hybrid`) stacks its Mamba-2 layers as `groups` (n_groups,
+shared_every, ...) plus an unstacked remainder `tail`, and applies ONE
+shared attention + MLP block (`shared_attn`) after every group, with a KV
+cache per application.  The shared MLP is plain, as in the reference:
+it never routes through the optical engine.  seamless (`encdec`) runs a
+bidirectional encoder over `batch["src_embeds"]` (the audio frontend's
+frame embeddings) and decoder layers with cross attention to its output;
+prefill caches the cross K/V once (`cache_dtype`), and decode reads them
+against `memory_pos`.  Step functions take and return plain dicts of
+tensors:
 
     prefill(params, cfg, batch)      -> (last-token logits (B, V), cache)
     decode_step(params, cfg, batch)  -> (logits (B, V), cache)
     chunk_step(params, cfg, batch)   -> (logits at the last real token, cache)
 
-Caches are written in place and returned.  The ssm family (Mamba-2
-blocks, no FFN) prefills whole prompts only: its `chunk_step` raises, as
-the reference's does.  The hybrid and encdec families raise
-NotImplementedError naming the family; their config fields (and the
-modality frontends) are carried for the model zoo's lowering only
-(`configs/model_zoo.py`).
+Caches are written in place and returned.  The ssm and hybrid families
+prefill whole prompts only: their `chunk_step` raises, as the reference's
+does.  The vision frontend (phi-3-vision's patch embeddings) is not
+ported: `prefill` raises for it.
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ from repro_torch.models.module import ParamDef, map_tree
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | mla_moe | ssm (ported) |
-    #                              hybrid | encdec (metadata only)
+    family: str                  # dense | moe | mla_moe | ssm | hybrid |
+    #                              encdec
     n_layers: int
     d_model: int
     vocab: int
@@ -81,7 +89,7 @@ class ModelConfig:
         return self.n_enc_layers > 0
 
 
-PORTED_FAMILIES = ("dense", "moe", "mla_moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "mla_moe", "ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -121,6 +129,16 @@ def n_stacked(cfg: ModelConfig) -> int:
     return cfg.n_layers - (1 if cfg.first_dense_ff else 0)
 
 
+def cross_cfg(cfg: ModelConfig) -> L.AttnConfig:
+    """The decoder's cross attention: K/V from the encoder memory."""
+    return dataclasses.replace(cfg.attn, cross=True, causal=False)
+
+
+def hybrid_depth(cfg: ModelConfig) -> tuple[int, int]:
+    """zamba2's (groups of `shared_every` ssm layers, tail layers)."""
+    return divmod(cfg.n_layers, cfg.shared_every)
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -144,22 +162,24 @@ def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return L.mlp_apply(p, x)
 
 
-def _block_def(cfg: ModelConfig) -> dict:
+def _block_def(cfg: ModelConfig, cross: bool = False) -> dict:
     d = cfg.d_model
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return {"ln1": L.rmsnorm_def(d), "ssm": SSM.ssm_def(cfg.ssm)}
     attn = (MLA.mla_def(cfg.mla) if cfg.family == "mla_moe"
             else L.attn_def(cfg.attn))
-    return {"ln1": L.rmsnorm_def(d), "ln2": L.rmsnorm_def(d),
-            "attn": attn, "ffn": _ffn_def(cfg)}
+    p = {"ln1": L.rmsnorm_def(d), "ln2": L.rmsnorm_def(d),
+         "attn": attn, "ffn": _ffn_def(cfg)}
+    if cross:
+        p["ln_cross"] = L.rmsnorm_def(d)
+        p["cross"] = L.attn_def(cross_cfg(cfg))
+    return p
 
 
 def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
-    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if "ssm" in p:
-        # full-sequence ssm + final state capture for the decode cache
-        y, cache = _ssm_prefill(p["ssm"], cfg.ssm, h)
-        return x + y, cache
+        return _ssm_layer_prefill(p, cfg, x)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.family == "mla_moe":
         a, cache = MLA.mla_prefill(p["attn"], cfg.mla, h, positions)
     else:
@@ -171,19 +191,44 @@ def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
     return x + _ffn_apply(p["ffn"], cfg, h, step), cache
 
 
-def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step):
+def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step,
+                  memory_pos=None) -> torch.Tensor:
+    """One attention block on a chunk of C >= 1 tokens; its cache (with
+    a cross attention {"self": (k, v), "cross": (k, v)}) is written in
+    place."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if "ssm" in p:
-        y, cache = SSM.ssm_decode(p["ssm"], cfg.ssm, h, cache)
-        return x + y, cache
     if cfg.family == "mla_moe":
-        a, cache = MLA.mla_decode(p["attn"], cfg.mla, h, cache, pos)
+        a, _ = MLA.mla_decode(p["attn"], cfg.mla, h, cache, pos)
     else:
-        a, cache = L.attn_decode(p["attn"], cfg.attn, h, cache, pos,
-                                 window=meta["window"], theta=meta["theta"])
+        a, _ = L.attn_decode(p["attn"], cfg.attn, h,
+                             cache["self"] if "cross" in p else cache, pos,
+                             window=meta["window"], theta=meta["theta"])
     x = x + a
+    if "cross" in p:
+        h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        a, _ = L.attn_decode(p["cross"], cross_cfg(cfg), h, cache["cross"],
+                             pos, memory_pos=memory_pos)
+        x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + _ffn_apply(p["ffn"], cfg, h, step), cache
+    return x + _ffn_apply(p["ffn"], cfg, h, step)
+
+
+def _ssm_step(p: dict, cfg: ModelConfig, x, cache: dict) -> torch.Tensor:
+    """One ssm block's decode token; `cache` (views into the stacked
+    cache) is advanced in place."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, new = SSM.ssm_decode(p["ssm"], cfg.ssm, h, cache)
+    for k, t in new.items():
+        cache[k].copy_(t)
+    return x + y
+
+
+def _ssm_layer_prefill(p: dict, cfg: ModelConfig, x):
+    """A whole-sequence ssm block: full-sequence scan plus the final state
+    for the decode cache."""
+    y, cache = _ssm_prefill(p["ssm"], cfg.ssm,
+                            L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    return x + y, cache
 
 
 def _ssm_prefill(p: dict, scfg: SSM.SSMConfig, u: torch.Tensor):
@@ -211,12 +256,33 @@ def model_def(cfg: ModelConfig) -> dict:
     check_family(cfg)
     d = cfg.d_model
     skel: dict = {"embed": L.embed_def(cfg.vocab, d),
-                  "final_norm": L.rmsnorm_def(d),
-                  "layers": stack_defs(_block_def(cfg), n_stacked(cfg))}
-    if cfg.first_dense_ff:
-        skel["layer0"] = _block_def(dense0(cfg))
+                  "final_norm": L.rmsnorm_def(d)}
     if not cfg.tie_embeddings:
         skel["unembed"] = L.unembed_def(d, cfg.vocab)
+    if cfg.family == "hybrid":
+        n_groups, rem = hybrid_depth(cfg)
+        skel["groups"] = stack_defs(stack_defs(_block_def(cfg),
+                                               cfg.shared_every), n_groups)
+        if rem:
+            skel["tail"] = stack_defs(_block_def(cfg), rem)
+        skel["shared_attn"] = {"ln": L.rmsnorm_def(d),
+                               "attn": L.attn_def(cfg.attn),
+                               "ln2": L.rmsnorm_def(d),
+                               "ffn": L.mlp_def(d, cfg.d_ff)}
+    elif cfg.family == "encdec":
+        enc_block = {"ln1": L.rmsnorm_def(d), "ln2": L.rmsnorm_def(d),
+                     "attn": L.attn_def(dataclasses.replace(cfg.attn,
+                                                            causal=False)),
+                     "ffn": L.mlp_def(d, cfg.d_ff)}
+        skel["encoder"] = {"layers": stack_defs(enc_block, cfg.n_enc_layers),
+                           "norm": L.rmsnorm_def(d)}
+        skel["layers"] = stack_defs(
+            _block_def(dataclasses.replace(cfg, family="dense"), cross=True),
+            cfg.n_layers)
+    else:
+        skel["layers"] = stack_defs(_block_def(cfg), n_stacked(cfg))
+        if cfg.first_dense_ff:
+            skel["layer0"] = _block_def(dense0(cfg))
     return skel
 
 
@@ -226,13 +292,50 @@ def logits_of(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return L.unembed_apply(params["unembed"], x)
 
 
+def _stack(caches: list[dict]) -> dict:
+    """Leaf-wise `torch.stack` of per-layer dict caches."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _stack_pairs(pairs: list[tuple]) -> tuple:
+    """Element-wise `torch.stack` of per-layer (k, v)-style pairs."""
+    return tuple(torch.stack(t) for t in zip(*pairs))
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+def _embed_in(params, cfg: ModelConfig, batch: dict):
+    """Token embedding and positions (B, S).  The vision frontend (patch
+    embeddings prepended to the tokens) is not ported."""
+    if cfg.frontend == "vision":
+        raise NotImplementedError(
+            f"{cfg.name}: the vision frontend is not ported to repro_torch "
+            "yet")
+    x = L.embed_apply(params["embed"], batch["tokens"])
+    return x, _positions(*x.shape[:2], x.device)
+
+
 def prefill(params, cfg: ModelConfig, batch: dict):
-    """Run the prompt, return (last-token logits (B, V), cache)."""
+    """Run the prompt, return (last-token logits (B, V), cache).  encdec
+    takes the encoder's input as `batch["src_embeds"]` (B, Sm, D)."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    x = L.embed_apply(params["embed"], tokens)
+    x, positions = _embed_in(params, cfg, batch)
+    if cfg.family == "hybrid":
+        x, cache = _hybrid_prefill(params, cfg, x, positions)
+    elif cfg.family == "encdec":
+        x, cache = _encdec_prefill(params, cfg, batch, x, positions)
+    else:
+        x, cache = _stack_prefill(params, cfg, x, positions)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_of(params, cfg, x[:, -1:])[:, 0]
     b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return logits, cache
+
+
+def _stack_prefill(params, cfg: ModelConfig, x, positions):
     cache: dict = {}
     off = 0
     if cfg.first_dense_ff:
@@ -244,36 +347,138 @@ def prefill(params, cfg: ModelConfig, batch: dict):
         x, c = _block_prefill(layer_at(params["layers"], i), cfg, x,
                               positions, layer_meta(cfg, i + off), i + off)
         caches.append(c)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_of(params, cfg, x[:, -1:])[:, 0]
-    if cfg.family == "ssm":
-        layers = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-    else:
-        layers = tuple(torch.stack(t) for t in zip(*caches))
-    cache["layers"] = layers
-    cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return logits, cache
+    cache["layers"] = (_stack(caches) if cfg.family == "ssm"
+                       else _stack_pairs(caches))
+    return x, cache
+
+
+def _shared_prefill(shared: dict, cfg: ModelConfig, x, positions):
+    """zamba2's shared attention + MLP block (plain MLP, no engine)."""
+    h = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
+    a, kv = L.attn_prefill(shared["attn"], cfg.attn, h, positions)
+    x = x + a
+    h = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
+    return (x + L.mlp_apply(shared["ffn"], h),
+            tuple(c.to(cfg.cache_dtype) for c in kv))
+
+
+def _hybrid_prefill(params, cfg: ModelConfig, x, positions):
+    n_groups, _ = hybrid_depth(cfg)
+    ssm, shared = [], []
+    for g in range(n_groups):
+        p_g = layer_at(params["groups"], g)
+        caches = []
+        for i in range(cfg.shared_every):
+            x, c = _ssm_layer_prefill(layer_at(p_g, i), cfg, x)
+            caches.append(c)
+        x, kv = _shared_prefill(params["shared_attn"], cfg, x, positions)
+        ssm.append(_stack(caches))
+        shared.append(kv)
+    cache = {"groups": {"ssm": _stack(ssm), "shared": _stack_pairs(shared)}}
+    if "tail" in params:
+        tails = []
+        for i in range(params["tail"]["ln1"].shape[0]):
+            x, c = _ssm_layer_prefill(layer_at(params["tail"], i), cfg, x)
+            tails.append(c)
+        cache["tail"] = _stack(tails)
+    return x, cache
+
+
+def _encode(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The bidirectional encoder over `batch["src_embeds"]` (B, Sm, D),
+    run in the parameter dtype whatever the input's."""
+    enc = params["encoder"]
+    mem = batch["src_embeds"].to(enc["norm"].dtype)
+    pos = _positions(*mem.shape[:2], mem.device)
+    acfg = dataclasses.replace(cfg.attn, causal=False)
+    for i in range(cfg.n_enc_layers):
+        p = layer_at(enc["layers"], i)
+        h = L.rmsnorm(p["ln1"], mem, cfg.norm_eps)
+        mem = mem + L.attn_apply(p["attn"], acfg, h, pos)
+        h = L.rmsnorm(p["ln2"], mem, cfg.norm_eps)
+        mem = mem + L.mlp_apply(p["ffn"], h)
+    return L.rmsnorm(enc["norm"], mem, cfg.norm_eps)
+
+
+def _encdec_prefill(params, cfg: ModelConfig, batch: dict, x, positions):
+    """Decoder prefill against the encoded memory; the cross K/V are
+    computed once here and cached in `cache_dtype`.  The MLPs are plain,
+    as in the reference's prefill."""
+    mem = _encode(params, cfg, batch)
+    mem_pos = _positions(*mem.shape[:2], mem.device).to(torch.int32)
+    ccfg, dt = cross_cfg(cfg), cfg.cache_dtype
+    selfs, crosses = [], []
+    for i in range(cfg.n_layers):
+        p = layer_at(params["layers"], i)
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        a, kv = L.attn_prefill(p["attn"], cfg.attn, h, positions)
+        x = x + a
+        h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        ck = torch.einsum("bsd,dhk->bshk", mem, p["cross"]["wk"])
+        cv = torch.einsum("bsd,dhk->bshk", mem, p["cross"]["wv"])
+        x = x + L.attn_apply(p["cross"], ccfg, h, positions, memory=mem,
+                             memory_pos=mem_pos)
+        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp_apply(p["ffn"], h)
+        selfs.append(tuple(c.to(dt) for c in kv))
+        crosses.append((ck.to(dt), cv.to(dt)))
+    return x, {"layers": {"self": _stack_pairs(selfs),
+                          "cross": _stack_pairs(crosses)},
+               "memory_pos": mem_pos.contiguous()}
 
 
 def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
+    """Every layer on a chunk x (B, C, D) at positions pos..pos+C-1 (C is
+    1 but for the attention families' prefill chunks), caches in place."""
     if cfg.family == "ssm":
-        sc = cache["layers"]
         for i in range(cfg.n_layers):
-            x, new = _block_decode(layer_at(params["layers"], i), cfg, x,
-                                   pos, None, layer_at(sc, i), i)
-            for k, t in new.items():
-                sc[k][i].copy_(t)
+            x = _ssm_step(layer_at(params["layers"], i), cfg, x,
+                          layer_at(cache["layers"], i))
+        return x
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, x, pos, cache)
+    if cfg.family == "encdec":
+        (sk, sv), (ck, cv) = (cache["layers"]["self"],
+                              cache["layers"]["cross"])
+        for i in range(cfg.n_layers):
+            # noise step 0: the reference's encdec stack passes no layer
+            # index to its FFN
+            x = _block_decode(layer_at(params["layers"], i), cfg, x, pos,
+                              layer_meta(cfg, i),
+                              {"self": (sk[i], sv[i]),
+                               "cross": (ck[i], cv[i])}, 0,
+                              memory_pos=cache["memory_pos"])
         return x
     off = 0
     if cfg.first_dense_ff:
-        x, _ = _block_decode(params["layer0"], dense0(cfg), x, pos,
-                             layer_meta(cfg, 0), cache["layer0"], 0)
+        x = _block_decode(params["layer0"], dense0(cfg), x, pos,
+                          layer_meta(cfg, 0), cache["layer0"], 0)
         off = 1
     kc, vc = cache["layers"]          # (k, v), or MLA's (c_kv, k_rope)
     for i in range(n_stacked(cfg)):
-        x, _ = _block_decode(layer_at(params["layers"], i), cfg, x, pos,
-                             layer_meta(cfg, i + off), (kc[i], vc[i]),
-                             i + off)
+        x = _block_decode(layer_at(params["layers"], i), cfg, x, pos,
+                          layer_meta(cfg, i + off), (kc[i], vc[i]), i + off)
+    return x
+
+
+def _hybrid_decode(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
+    shared = params["shared_attn"]
+    ssm, (sk, sv) = cache["groups"]["ssm"], cache["groups"]["shared"]
+    n_groups, _ = hybrid_depth(cfg)
+    for g in range(n_groups):
+        p_g = layer_at(params["groups"], g)
+        for i in range(cfg.shared_every):
+            x = _ssm_step(layer_at(p_g, i), cfg, x,
+                          {k: t[g, i] for k, t in ssm.items()})
+        h = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
+        a, _ = L.attn_decode(shared["attn"], cfg.attn, h, (sk[g], sv[g]), pos)
+        x = x + a
+        h = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp_apply(shared["ffn"], h)
+    if "tail" in params:
+        for i in range(params["tail"]["ln1"].shape[0]):
+            x = _ssm_step(layer_at(params["tail"], i), cfg, x,
+                          layer_at(cache["tail"], i))
     return x
 
 
@@ -297,7 +502,7 @@ def chunk_step(params, cfg: ModelConfig, batch: dict):
     may be padding), and the logits (B, V) are read at the last real token.
     """
     check_family(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         raise ValueError(f"chunked prefill unsupported for {cfg.family}: "
                          "state-space caches admit no positional chunking")
     tokens, n_valid = batch["tokens"], batch["n_valid"]
@@ -313,34 +518,59 @@ def chunk_step(params, cfg: ModelConfig, batch: dict):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> dict:
-    """Zero decode cache.  dense and moe: {"layers": (k, v) each (L, B, S,
-    KV, D)}; mla_moe: {"layers": (c_kv (L, B, S, kv_lora), k_rope (L, B, S,
-    qk_rope))} over the stacked layers, and with `first_dense_ff` also
-    "layer0": the same pair without the layer axis; all in
-    cfg.cache_dtype.  ssm: {"layers": {conv_x, conv_b, conv_c, state}},
-    each leaf `ssm_cache_def`'s float32 one with a leading layer axis (no
-    sequence axis: max_len does not enter).  All with "pos": (B,) int32;
-    `models.model.cache_axes` names every axis."""
+               device=None, src_len: int = 0) -> dict:
+    """Zero decode cache; `models.model.cache_axes` names every axis.
+
+    * dense and moe: {"layers": (k, v) each (L, B, S, KV, D)};
+    * mla_moe: {"layers": (c_kv (L, B, S, kv_lora), k_rope (L, B, S,
+      qk_rope))} over the stacked layers, and with `first_dense_ff` also
+      "layer0": the same pair without the layer axis;
+    * ssm: {"layers": {conv_x, conv_b, conv_c, state}}, each leaf
+      `ssm_cache_def`'s float32 one with a leading layer axis (no sequence
+      axis: max_len does not enter);
+    * hybrid: {"groups": {"ssm": those leaves with axes (n_groups,
+      shared_every) in front, "shared": (k, v) each (n_groups, B, S, KV,
+      D)}}, and "tail" with the remainder's ssm leaves when
+      shared_every does not divide the depth;
+    * encdec: {"layers": {"self": (k, v), "cross": (k, v) of length
+      `src_len` (else max_len)}, "memory_pos": (B, src_len) int32};
+
+    attention caches in cfg.cache_dtype, all with "pos": (B,) int32."""
     check_family(cfg)
-    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
-    if cfg.family == "ssm":
-        one = SSM.ssm_cache_def(cfg.ssm, batch, device="meta")
-        return {"layers": {k: torch.zeros((cfg.n_layers, *t.shape),
-                                          dtype=t.dtype, device=device)
-                           for k, t in one.items()},
-                "pos": pos}
     dt = cfg.cache_dtype
-    if cfg.family == "mla_moe":
+
+    def kv(n: int, s: int) -> tuple:
+        return tuple(torch.zeros((n, batch, s, cfg.n_kv_heads, cfg.head_dim),
+                                 dtype=dt, device=device) for _ in "kv")
+
+    def ssm_stack(lead: tuple) -> dict:
+        one = SSM.ssm_cache_def(cfg.ssm, batch, device="meta")
+        return {k: torch.zeros(lead + t.shape, dtype=t.dtype, device=device)
+                for k, t in one.items()}
+
+    if cfg.family == "ssm":
+        cache = {"layers": ssm_stack((cfg.n_layers,))}
+    elif cfg.family == "hybrid":
+        n_groups, rem = hybrid_depth(cfg)
+        cache = {"groups": {"ssm": ssm_stack((n_groups, cfg.shared_every)),
+                            "shared": kv(n_groups, max_len)}}
+        if rem:
+            cache["tail"] = ssm_stack((rem,))
+    elif cfg.family == "encdec":
+        m = src_len or max_len
+        cache = {"layers": {"self": kv(cfg.n_layers, max_len),
+                            "cross": kv(cfg.n_layers, m)},
+                 "memory_pos": _positions(batch, m, device)
+                 .to(torch.int32).contiguous()}
+    elif cfg.family == "mla_moe":
         def mk(lead):
             return tuple(torch.zeros(lead + (batch, max_len, w), dtype=dt,
                                      device=device)
                          for w in (cfg.mla.kv_lora, cfg.mla.qk_rope))
-        cache = {"layers": mk((n_stacked(cfg),)), "pos": pos}
+        cache = {"layers": mk((n_stacked(cfg),))}
         if cfg.first_dense_ff:
             cache["layer0"] = mk(())
-        return cache
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": tuple(torch.zeros(shape, dtype=dt, device=device)
-                            for _ in "kv"),
-            "pos": pos}
+    else:
+        cache = {"layers": kv(cfg.n_layers, max_len)}
+    cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache

@@ -192,9 +192,9 @@ class PrefillTask:
 
     Attention-cache families stream `prefill_chunk`-token chunks through
     `chunk_step` against a request-private max_len cache, so a long prompt
-    never blocks the decode batch for more than one chunk.  The ssm family
-    prefills whole, in one tick: one `prefill` of exactly the prompt, then
-    `pad_cache` to the slot cache's shape.
+    never blocks the decode batch for more than one chunk.  The ssm and
+    hybrid families prefill whole, in one tick: one `prefill` of exactly
+    the prompt, then `pad_cache` to the slot cache's shape.
 
     After `advance()` returns True, `.cache` is the admit-ready batch-1
     cache and `.logits` the last-token logits (V,)."""
@@ -209,7 +209,7 @@ class PrefillTask:
             raise ValueError(f"prompt length {len(self.prompt)} >= "
                              f"max_len {scfg.max_len}: no decode room")
         self.device = device
-        self.chunked = bundle.cfg.family != "ssm"
+        self.chunked = bundle.cfg.family not in ("ssm", "hybrid")
         self._chunk_fn = chunk_fn if chunk_fn is not None \
             else make_chunk_fn(bundle)
         self._whole_fn = whole_fn if whole_fn is not None \
@@ -221,8 +221,8 @@ class PrefillTask:
         self.done = False
 
     def advance(self, params) -> bool:
-        """Run one chunk (the whole prompt for ssm); True when the prefill
-        is complete."""
+        """Run one chunk (the whole prompt for ssm and hybrid); True when
+        the prefill is complete."""
         if self.done:
             return True
         if not self.chunked:

@@ -52,7 +52,7 @@ def trace_serving_shapes(bundle, scfg: ServeConfig, engine):
         with ledger.scope("decode"):
             bundle.decode_step(params, abstract_decode_batch(bundle.cfg,
                                                              scfg))
-        if bundle.cfg.family != "ssm":
+        if bundle.cfg.family not in ("ssm", "hybrid"):
             with ledger.scope("prefill"):
                 bundle.chunk_step(params,
                                   abstract_chunk_batch(bundle.cfg, scfg))

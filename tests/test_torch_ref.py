@@ -52,6 +52,7 @@ _REF_MODULES = {
     "sensitivity": "repro.robust.sensitivity", "drift": "repro.robust.drift",
     "robust_report": "repro.robust.report", "schema": "repro.bench.schema",
     "moe": "repro.models.moe", "mla": "repro.models.mla",
+    "layers": "repro.models.layers", "steps": "repro.launch.steps",
 }
 
 
@@ -75,6 +76,51 @@ def to_np(a) -> np.ndarray:
 
 def to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
+
+
+BF16_STEP = 2.0 ** -8          # bfloat16's relative rounding step
+
+
+def cache_leaves(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs of a cache of either package, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in cache_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [pair for i, t in enumerate(tree)
+                for pair in cache_leaves(t, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| over max|want|, in float64; the shapes must agree."""
+    got = to_np(got).astype(np.float64)
+    want = to_np(want).astype(np.float64)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def assert_logits_match(lg, jlg, tol: float = 1e-4) -> None:
+    """Within `tol` of max|ref| with the argmax equal, row by row."""
+    assert rel_err(lg, jlg) <= tol
+    assert np.array_equal(to_np(lg).argmax(-1), to_np(jlg).argmax(-1))
+
+
+def assert_caches_match(cache, jcache, tol: float = 1e-4) -> None:
+    """The same leaves, paths and dtypes; int32 leaves equal, float32
+    leaves within `tol` of their max, bfloat16 leaves within one bfloat16
+    step (2^-8) of their max: a float32 value within float noise of a
+    bfloat16 rounding boundary may round the other way."""
+    got, want = cache_leaves(cache), cache_leaves(jcache)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        assert str(a.dtype).split(".")[-1] == str(b.dtype), path
+        if a.dtype == torch.int32:
+            np.testing.assert_array_equal(to_np(a), to_np(b))
+            continue
+        bound = BF16_STEP if a.dtype == torch.bfloat16 else tol
+        assert rel_err(a.float(), b.astype("float32")) <= bound, path
 
 
 def assert_quantized_parity(y, y_ref, *, qmax: int = 127,

@@ -332,31 +332,76 @@ def test_pad_cache_grows_only_sequence_axes(R):
     assert tuple(grown["pos"].shape) == tuple(jgrown["pos"].shape)
 
 
-def test_two_token_prompt_conv_cache_left_padded(R, jcfg, ref_params):
-    """A prompt shorter than d_conv - 1 = 3 tokens: the reference's conv
-    cache keeps its 2 rows (no slot cache takes it); the port's holds a
-    zero row in front of the same 2, and decoding from it continues the
-    sequence exactly as a 3-token prefill does."""
-    cfg = get_smoke("mamba2-1.3b")
-    p = params_from_reference(ref_params)
+def _conv_leaves(cache) -> list:
+    """(path, leaf) of every conv cache leaf, keys sorted; a leaf's rows
+    lie on axis ndim - 3 ((..., B, rows, heads or groups, width))."""
+    if isinstance(cache, dict):
+        return [(f"{k}/{p}" if p else k, t) for k in sorted(cache)
+                for p, t in ([("", cache[k])] if k.startswith("conv_")
+                             else _conv_leaves(cache[k]))]
+    return []
+
+
+def _left_pad_conv(jnp, cache):
+    """A reference cache with one zero row in front of every conv leaf."""
+    if not isinstance(cache, dict):
+        return cache
+    out = {}
+    for k, v in cache.items():
+        if k.startswith("conv_"):
+            widths = [(0, 0)] * v.ndim
+            widths[v.ndim - 3] = (1, 0)
+            v = jnp.pad(v, widths)
+        out[k] = _left_pad_conv(jnp, v)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_two_token_prompt_conv_cache_left_padded(R, arch):
+    """A prompt shorter than d_conv - 1 = 3 tokens, through mamba2's
+    layers and zamba2's hybrid groups and tail: the reference's conv cache
+    keeps its 2 rows (no slot cache takes it); the port's holds a zero row
+    in front of the same 2, and decoding from it continues the sequence
+    exactly as a 3-token prefill does.  zamba2's deeper conv inputs have
+    passed the shared attention block: its rows are held to the
+    whole-model bound, 1e-4 of the leaf's max."""
+    cfg, jcfg = get_smoke(arch), R.configs.get_smoke(arch)
+    jp = R.model.build_model(jcfg).init(R.jax.random.PRNGKey(0))
+    p = params_from_reference(jp)
     tok = np.array([[17, 42, 99]], np.int32)
     _, cache = T.prefill(p, cfg, {"tokens": torch.from_numpy(tok[:, :2])})
-    _, jc = R.transformer.prefill(ref_params, jcfg,
+    _, jc = R.transformer.prefill(jp, jcfg,
                                   {"tokens": R.jnp.asarray(tok[:, :2])})
-    for k in ("conv_x", "conv_b", "conv_c"):
-        jt = to_np(jc["layers"][k])
-        assert jt.shape[2] == 2                  # the reference's fault
-        got = to_np(cache["layers"][k])
-        assert got.shape[2] == 3
-        assert np.all(got[:, :, 0] == 0)
-        np.testing.assert_allclose(got[:, :, 1:], jt, rtol=1e-5, atol=1e-6)
+    convs, jconvs = _conv_leaves(cache), _conv_leaves(jc)
+    assert [k for k, _ in convs] == [k for k, _ in jconvs]
+    assert len(convs) == (6 if cfg.family == "hybrid" else 3)
+    for (_, t), (_, jt) in zip(convs, jconvs):
+        got, jt, ax = to_np(t), to_np(jt), t.ndim - 3
+        assert jt.shape[ax] == 2                 # the reference's fault
+        assert got.shape[ax] == 3
+        assert np.all(np.take(got, 0, axis=ax) == 0)
+        tol = (dict(rtol=1e-5, atol=1e-6) if cfg.family == "ssm"
+               else dict(rtol=0, atol=1e-4 * np.abs(jt).max()))
+        np.testing.assert_allclose(np.take(got, [1, 2], axis=ax), jt, **tol)
+    cache = pad_cache(cfg, cache, 1)             # room for zamba2's KV
     lg, _ = T.decode_step(p, cfg, {"token": torch.from_numpy(tok[:, 2]),
                                    "pos": cache["pos"], "cache": cache})
-    full, _ = T.prefill(p, cfg, {"tokens": torch.from_numpy(tok)})
-    jfull, _ = R.transformer.prefill(ref_params, jcfg,
-                                     {"tokens": R.jnp.asarray(tok)})
-    _assert_rel(lg, full, 1e-5)
-    _assert_rel(lg, jfull, 1e-4)
+    if cfg.family == "ssm":
+        full, _ = T.prefill(p, cfg, {"tokens": torch.from_numpy(tok)})
+        jfull, _ = R.transformer.prefill(jp, jcfg,
+                                         {"tokens": R.jnp.asarray(tok)})
+        _assert_rel(lg, full, 1e-5)
+        _assert_rel(lg, jfull, 1e-4)
+    else:
+        # the shared attention reads the first two tokens' K/V from the
+        # bfloat16 cache, where a 3-token prefill has them in float32:
+        # held instead to the reference decoding from its own cache with
+        # its conv rows left-padded as the port pads them
+        jc = R.model.pad_cache(jcfg, _left_pad_conv(R.jnp, jc), 1)
+        jlg, _ = R.transformer.decode_step(jp, jcfg, {
+            "token": R.jnp.asarray(tok[:, 2]), "pos": jc["pos"],
+            "cache": jc})
+        _assert_rel(lg, jlg, 1e-4)
     # and a 2-token request is served
     sched = Scheduler(cfg, ServeConfig(n_slots=2, max_len=16),
                       params=p, device="cpu")

@@ -126,6 +126,7 @@ def test_new_architectures_refuse_to_build(arch):
 def test_serve_offers_only_ported_architectures():
     arch = next(a for a in serve.build_parser()._actions if a.dest == "arch")
     assert sorted(arch.choices) == ["deepseek-v2-236b", "mamba2-1.3b",
-                                    "qwen3-32b", "qwen3-moe-235b-a22b"]
+                                    "qwen3-32b", "qwen3-moe-235b-a22b",
+                                    "seamless-m4t-medium", "zamba2-1.2b"]
     with pytest.raises(SystemExit):
         serve.build_parser().parse_args(["--arch", "gemma3-12b"])
