@@ -11,8 +11,12 @@ Phases (any failure raises, so the exit code is non-zero):
   2. kernel parity: each kernel against its plain PyTorch version on the
      same CUDA tensors, at the serving shapes (m in {4, 8} rows against the
      5120 x 51200 and 25600 x 5120 MLP projections, and against
-     deepseek-v2's layer-0 5120 x 24576 and 12288 x 5120 under PAPER_NOISE
-     with chip 7), the largest im2col
+     deepseek-v2's layer-0 5120 x 24576 and 12288 x 5120 and the two MLP
+     projections of each of phase 16's four models (gemma3-12b 3840 x
+     30720 and 15360 x 3840, also at its 64-row prefill chunk;
+     phi-3-vision 3072 x 16384 and 8192 x 3072; deepseek-67b 8192 x 44032
+     and 22016 x 8192; mistral-large 12288 x 57344 and 28672 x 12288)
+     under PAPER_NOISE with chip 7), the largest im2col
      sheets of the four paper CNNs at eval batch 512 (mobilenet_v3
      conv_stem 524288 x 27 x 16, alexnet conv1 524288 x 27 x 24 and conv2
      131072 x 216 x 48, vgg16 conv1_2 524288 x 144 x 16, resnet18 l1
@@ -165,6 +169,33 @@ Phases (any failure raises, so the exit code is non-zero):
      source permuted), with the same argmax; after `pad_cache` the cross
      K/V keep the source's 32 positions and the self K/V grow to 32 + 17;
      zero source embeddings must change the prefill logits.  tokens/s,
+     ticks, peak GiB and set-up seconds are printed;
+ 16. the four dense configs at full width, random weights from seed 0,
+     each freed before the next, served as phase 3 serves qwen3-32b
+     (optical engine on, backend fused, chip 7, 6 seeded Poisson requests,
+     4 slots): the plan routes every layer's two MLP projections, and
+     rosa_fused must launch exactly 2 x layers x (decode steps + prefill
+     chunks) times and nothing else launch; continuous batching must give
+     the sequential oracle's greedy tokens; the peak stays under 70 GiB.
+     (a) gemma3-12b at full depth (48 layers, 1.18e10 params), max_len
+     1200, 64-token prefill chunks, plus one 1100-token prompt past the
+     1024-token window of its 40 local layers: lifting the window must
+     move that prompt's prefill logits (a whole prefill each way, the
+     MLPs plain); fused vs "ref" prefill logits within 4x the float-order
+     floor (phase 14's rule: only the optical products' reduction axis
+     permuted), the argmax equal unless the ref's top two logits lie
+     within that bound of each other, and then the fused pick within it
+     of the ref's top; (b)
+     deepseek-67b and mistral-large-123b cut to 4 layers (4.4e9 / 6.3e9
+     params), phase 3's traffic, the same checks as (a); (c)
+     phi-3-vision-4.2b at full depth (32 layers, 3.8e9 params): first
+     through `--policy batch` (batch 4, 32 prompt tokens, 16 zero patch
+     embeddings, 16 generated; greedy and at 0.7) launching no kernel,
+     the self K/V 16 + 32 + 17 long after `pad_cache`, non-zero patches
+     moving the prefill logits, and the card's prefill at the first 8
+     layers (random patches) against the port's CPU prefill within 4x
+     the card's float-order floor (phase 15(b)'s rule), the argmax equal;
+     then served text-only through the Scheduler as (b).  tokens/s,
      ticks, peak GiB and set-up seconds are printed.
 
 Every compile of the run goes through a fresh plan cache (a temporary
@@ -197,6 +228,15 @@ PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
 # deepseek-v2's dense layer 0 (d_ff 12288): its MLP projections are the
 # optical ones of phase 14
 LAYER0_PROJ = {"mlp/wi": (5120, 24576), "mlp/wo": (12288, 5120)}
+# the MLP projections (K, N) of the four dense configs of phase 16
+DENSE_PROJ = {
+    "gemma3-12b": {"mlp/wi": (3840, 30720), "mlp/wo": (15360, 3840)},
+    "phi-3-vision-4.2b": {"mlp/wi": (3072, 16384), "mlp/wo": (8192, 3072)},
+    "deepseek-67b": {"mlp/wi": (8192, 44032), "mlp/wo": (22016, 8192)},
+    "mistral-large-123b": {"mlp/wi": (12288, 57344),
+                           "mlp/wo": (28672, 12288)},
+}
+GEMMA_CHUNK = 64           # phase 16(a)'s prefill chunk: the tall path
 RAGGED = (13, 1000, 300)
 # ssd_scan cases (B, L, H, P, G, S, chunk): mamba2-1.3b's served shape at
 # one step, a chunk's edges, the served L, a ragged 1000; G 2 at B 2; G = H;
@@ -379,8 +419,18 @@ def fused_cases():
     # deepseek-v2's layer-0 MLP at phase 14's decode and chunk rows: IS
     # with per-row scales as served, PAPER_NOISE, chip 7 (the served chip)
     cases += [(m, k, n, f"IS noisy chip 7 layer0 {name}",
-               dict(is_apv, noisy=True, chip=name), True)
+               dict(is_apv, noisy=True, chip=(LAYER0_PROJ, name)), True)
               for name, (k, n) in LAYER0_PROJ.items() for m in M_ROWS]
+    # the four dense configs' MLPs (phase 16) likewise, and gemma3's at
+    # its 64-row prefill chunk (the tall path)
+    cases += [(m, k, n, f"IS noisy chip 7 {arch} {name}",
+               dict(is_apv, noisy=True, chip=(proj, name)), True)
+              for arch, proj in DENSE_PROJ.items()
+              for name, (k, n) in proj.items() for m in M_ROWS]
+    cases += [(GEMMA_CHUNK, k, n, f"IS noisy chip 7 gemma3-12b {name}",
+               dict(is_apv, noisy=True,
+                    chip=(DENSE_PROJ["gemma3-12b"], name)), True)
+              for name, (k, n) in DENSE_PROJ["gemma3-12b"].items()]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
@@ -435,12 +485,13 @@ def copy_rate() -> float:
     return 2 * 2**30 / (ms * 1e-3)
 
 
-def served_chip(name: str):
-    """Chip 7's static variation of deepseek-v2's layer-0 projection
-    `name`, as phase 14's Scheduler (variation_seed 7) samples it."""
+def served_chip(proj: dict, name: str):
+    """Chip 7's static variation of projection `name` of a model whose
+    optical projections are `proj` {name: (K, N)}, as a Scheduler with
+    variation_seed 7 samples it (phases 14 and 16)."""
     import torch
     from repro_torch.robust.variation import sample_chip
-    lanes = {nm: k for nm, (k, _) in LAYER0_PROJ.items()}
+    lanes = {nm: k for nm, (k, _) in proj.items()}
     return sample_chip(torch.Generator().manual_seed(7), dims=lanes,
                        device=DEVICE)[name]
 
@@ -468,8 +519,8 @@ def fused_phase(report: dict) -> dict:
             key = torch.Generator(DEVICE).manual_seed(2)
         x = torch.randn(m, k, device=DEVICE, generator=g)
         w = torch.randn(k, n, device=DEVICE, generator=g)
-        if isinstance(chip, str):
-            var = served_chip(chip)
+        if isinstance(chip, tuple):
+            var = served_chip(*chip)
         else:
             var = mrr.StaticVariation(
                 0.01 * torch.randn(k, device=DEVICE, generator=g),
@@ -655,10 +706,11 @@ def float_order_floor(rebuild, prompt, lr, logits=prefill_logits) -> float:
     floor = 0.0
     for seed in (1, 2):
         sched_p = rebuild(seed)
-        dev = float((logits(sched_p, prompt) - lr).abs().max()) / scale
+        lp = logits(sched_p, prompt)
+        dev = float((lp - lr).abs().max()) / scale
         floor = max(floor, dev)
         print(f"  ref vs ref with permuted reductions (seed {seed}): "
-              f"max rel dev {dev:.3e}")
+              f"max rel dev {dev:.3e}, argmax {int(lp.argmax())}")
         del sched_p
         torch.cuda.empty_cache()
     return floor
@@ -2495,14 +2547,15 @@ def zamba_phase(report: dict) -> int:
     return n["ssd_scan"]
 
 
-def seamless_run(temperature: str) -> dict:
-    """One `--policy batch` run of seamless-m4t-medium on the card, the
-    launch counts from 0 just before it and read just after."""
+def batch_run(what: str, base_args: list, temperature: str) -> dict:
+    """One `--policy batch` run (batch 4, 16 generated) on the card, the
+    launch counts from 0 just before it and read just after; no kernel
+    may launch."""
     import torch
     from repro_torch.launch import serve as serve_cli
 
     args = serve_cli.build_parser().parse_args(
-        SEAMLESS_ARGS + ["--temperature", temperature, "--device", DEVICE])
+        base_args + ["--temperature", temperature, "--device", DEVICE])
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -2515,11 +2568,11 @@ def seamless_run(temperature: str) -> dict:
           f"prefill {res['prefill_s']:.3f} s, peak {res['peak_gib']:.1f} "
           f"GiB, launches {res['launches']}")
     if any(res["launches"].values()):
-        raise AssertionError("seamless: the batch path launched a kernel")
+        raise AssertionError(f"{what}: the batch path launched a kernel")
     toks, vocab = res["tokens"], res["bundle"].cfg.vocab
     if toks.shape != (4, 16) or not bool(((toks >= 0)
                                           & (toks < vocab)).all()):
-        raise AssertionError(f"seamless: bad tokens {tuple(toks.shape)}")
+        raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
     return res
 
 
@@ -2530,7 +2583,7 @@ def seamless_phase(report: dict) -> None:
     import torch
     from repro_torch.models.module import map_tree
 
-    res = seamless_run("0.0")
+    res = batch_run("seamless", SEAMLESS_ARGS, "0.0")
     bundle, params, batch = res["bundle"], res["params"], res["batch"]
     if bundle.n_params != SEAMLESS_PARAMS:
         raise AssertionError("not seamless-m4t-medium at full width and "
@@ -2601,7 +2654,7 @@ def seamless_phase(report: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    hot = seamless_run("0.7")
+    hot = batch_run("seamless", SEAMLESS_ARGS, "0.7")
     if not torch.equal(hot["tokens"][:, 0], greedy[:, 0]):
         raise AssertionError("seamless: the first token (the prefill's "
                              "argmax) differs between the two runs")
@@ -2626,6 +2679,284 @@ def family_phase(report: dict) -> int:
           "and depth")
     seamless_phase(report)
     return n
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the four dense configs at full width
+# ---------------------------------------------------------------------------
+# (arch, layers served, params at that depth): gemma3-12b and
+# phi-3-vision-4.2b at full depth, the two large ones cut
+GEMMA3 = ("gemma3-12b", 48, 11_765_419_776)
+DENSE_CUT = (("deepseek-67b", 4, 4_446_035_968),
+             ("mistral-large-123b", 4, 6_341_898_240))
+PHI3V = ("phi-3-vision-4.2b", 32, 3_821_079_552)
+PHASE3_SERVE = dict(max_len=56, prefill_chunk=8)
+# gemma3: one prompt past the 1024-token window of its 40 local layers
+LONG_PROMPT = 1100
+GEMMA_SERVE = dict(max_len=1200, prefill_chunk=GEMMA_CHUNK)
+PHI3V_ARGS = ["--arch", "phi-3-vision-4.2b", "--policy", "batch",
+              "--batch", "4", "--prompt-len", "32", "--gen", "16"]
+PHI3V_PATCHES = 16                # the zero patches `--policy batch` feeds
+PHI3V_CPU_LAYERS = 8              # depth of the card-vs-CPU prefill check
+
+
+def dense_serve(arch: str, layers: int, n_params: int, serve_kw: dict,
+                long_prompt: int = 0, ref_check: bool = True) -> dict:
+    """One phase-16 model served through the optical engine (fused, chip
+    7): 6 seeded Poisson requests as in phase 3 (plus one `long_prompt`
+    prompt), 4 slots; every layer's two MLP projections launch
+    rosa_fused once per decode step and prefill chunk, nothing else
+    launches, continuous == sequential and, with `ref_check`, fused vs
+    "ref" prefill logits within 4x the float-order floor (phase 14's rule:
+    only the optical products' reduction axis permuted).  Returns its
+    report entry."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
+                                   report_metrics)
+    from repro_torch.serve.scheduler import Request
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    scfg = ServeConfig(n_slots=4, rosa=True, rosa_backend="fused",
+                       variation_seed=7, **serve_kw)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sched = Scheduler(cfg, scfg, init_seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    plan = {k: v.name for k, v in sched.program.plan.mapping_plan().items()}
+    lanes = {e.name: (e.k, e.n) for e in sched.program.trace.entries}
+    print(f"  {arch} full width, {layers} of {get_config(arch).n_layers} "
+          f"layers, {sched.bundle.n_params:,} params (f32), set-up "
+          f"{setup_s:.1f} s; plan {plan}, projections {lanes}")
+    if sched.bundle.n_params != n_params:
+        raise AssertionError(f"{arch}: not the full-width model")
+    if lanes != DENSE_PROJ[arch] or set(plan) != set(lanes):
+        raise AssertionError(f"{arch}: unexpected plan {plan} / {lanes}")
+    reqs = poisson_requests(6, 1.0, vocab=cfg.vocab, prompt_len=(4, 8),
+                            gen_len=(2, 40), seed=0)
+    if long_prompt:
+        prompt = torch.randint(0, cfg.vocab, (long_prompt,),
+                               generator=torch.Generator().manual_seed(16),
+                               dtype=torch.int32).numpy()
+        reqs.append(Request(rid=len(reqs), prompt=prompt, max_new_tokens=8))
+
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    rep = sched.run(reqs)
+    n = launch_counts()
+    check_run(rep, reqs, cfg.vocab, f"{arch} serve")
+    metrics = {m.name: m.value for m in report_metrics(rep)}
+    routed = 2 * layers * (rep.decode_steps + rep.prefill_chunks)
+    print(f"  served {rep.total_tokens} tokens in {rep.wall_s:.2f} s: "
+          f"{rep.tokens_per_s:.2f} tok/s, {rep.ticks} ticks, "
+          f"{rep.decode_steps} decode steps, {rep.prefill_chunks} prefill "
+          f"chunks, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"  rosa_fused launches {n['rosa_fused']} (2 x {layers} x "
+          f"(steps + chunks) = {routed}), osa_matmul {n['osa_matmul']}, "
+          f"mrr_transfer {n['mrr_transfer']}, ssd_scan {n['ssd_scan']}")
+    if n["rosa_fused"] != routed or n["osa_matmul"] or n["mrr_transfer"] \
+            or n["ssd_scan"] or n["mrr_transfer_bwd"]:
+        raise AssertionError(f"{arch}: the kernels launched are not the "
+                             "routed projections")
+    check_sequential(rep, cfg, scfg, sched.params, reqs, arch)
+    out = dict(metrics, ticks=rep.ticks, decode_steps=rep.decode_steps,
+               prefill_chunks=rep.prefill_chunks, n_params=n_params,
+               layers=layers, plan=plan, setup_s=setup_s,
+               rosa_fused_launches=n["rosa_fused"], routed=routed)
+
+    # ---- fused vs the plain composed pipeline (phases 5 and 14) -----------
+    if ref_check:
+        ref = Scheduler(cfg, dataclasses.replace(scfg, rosa_backend="ref"),
+                        params=sched.params, device=DEVICE)
+        prompt = reqs[0].prompt
+        lr, lf = prefill_logits(ref, prompt), prefill_logits(sched, prompt)
+        if not bool(torch.isfinite(lf).all()) or lf.shape != (cfg.vocab,):
+            raise AssertionError(f"{arch}: fused prefill logits not finite "
+                                 "/ bad shape")
+        rel = max_rel(lf, lr)
+        floor = float_order_floor(lambda seed: k_permuted(cfg, ref, seed),
+                                  prompt, lr)
+        bound = 4 * floor + 1e-5
+        # the argmax: the same, unless the ref's top two logits lie within
+        # the bound of each other (a reordering of the sums can then swap
+        # them); the fused pick must then be one of the ref's logits
+        # within the bound of its top
+        scale = float(lr.abs().max())
+        top2 = torch.topk(lr, 2).values
+        gap = float(top2[0] - top2[1]) / scale
+        pick = int(lf.argmax())
+        near = float(lr.max() - lr[pick]) / scale
+        print(f"  fused vs ref prefill logits: max rel dev {rel:.3e} (bound "
+              f"{bound:.3e}), argmax {pick} vs {int(lr.argmax())} (the "
+              f"ref's top-two gap {gap:.3e}; the fused pick's ref logit "
+              f"{near:.3e} below its top)")
+        if rel > bound or (gap > bound and pick != int(lr.argmax())) \
+                or near > bound:
+            raise AssertionError(f"{arch}: fused and ref logits disagree "
+                                 "beyond the bound")
+        out.update(fused_vs_ref_logits_rel=rel,
+                   ref_float_order_floor_rel=floor, ref_top2_gap_rel=gap,
+                   fused_argmax_below_ref_top_rel=near)
+        del ref
+
+    # ---- gemma3: the window cuts the long prompt --------------------------
+    # its last token's local layers see 1024 of the 1100 positions; with
+    # the window lifted (thetas kept) they see all, and the logits move.
+    # Attention alone decides this: the whole prompt prefills once each
+    # way with the MLPs plain (cuBLAS), not through 18 optical chunks
+    if long_prompt:
+        tokens = torch.from_numpy(reqs[-1].prompt)[None].to(DEVICE)
+        plain_cfg = dataclasses.replace(cfg, rosa_mlp=False)
+        with torch.inference_mode():
+            windowed = T.prefill(sched.params, plain_cfg,
+                                 {"tokens": tokens})[0]
+            lifted = T.prefill(sched.params, dataclasses.replace(
+                plain_cfg, window=0), {"tokens": tokens})[0]
+        moved = max_rel(lifted, windowed)
+        print(f"  {long_prompt}-token prompt: lifting the {cfg.window}-token "
+              f"window moves its prefill logits by {moved:.3e} of their max")
+        if moved < 1e-3:
+            raise AssertionError(f"{arch}: the sliding window cuts nothing")
+        out.update(long_prompt=long_prompt, window_lift_logits_rel=moved)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_gib"] = peak
+    print(f"  peak {peak:.1f} GiB over the model (limit {PEAK_GIB:.0f})")
+    if peak >= PEAK_GIB:
+        raise AssertionError(f"{arch}: peak {peak:.1f} GiB")
+    del sched
+    return out
+
+
+def phi3v_batch(report: dict) -> None:
+    """16(c), first half: phi-3-vision-4.2b through `--policy batch` with
+    16 zero patch embeddings, greedy and at temperature 0.7."""
+    import gc
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import map_tree
+
+    arch, layers, n_params = PHI3V
+    res = batch_run(arch, PHI3V_ARGS, "0.0")
+    bundle, params, batch = res["bundle"], res["params"], res["batch"]
+    cfg = bundle.cfg
+    if bundle.n_params != n_params or cfg.n_layers != layers:
+        raise AssertionError(f"not {arch} at full width and depth")
+    lg = res["logits"]
+    if lg.shape != (4, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{arch}: prefill logits not finite / bad "
+                             "shape")
+    img = batch["patch_embeds"]
+    lens = [t.shape[2] for t in res["cache"]["layers"]]
+    want = PHI3V_PATCHES + 32 + 17
+    print(f"  patch embeddings {tuple(img.shape)} {img.dtype}, zero: "
+          f"{not bool(img.any())}; K/V lengths after pad_cache {lens} "
+          f"({PHI3V_PATCHES} + 32 + 17 = {want})")
+    if img.shape != (4, PHI3V_PATCHES, cfg.d_model) or bool(img.any()) \
+            or lens != [want] * 2:
+        raise AssertionError(f"{arch}: the patches or the cache lengths "
+                             "are not the batch policy's")
+    # non-zero patches must move the prefill logits
+    g = torch.Generator(DEVICE).manual_seed(17)
+    patches = torch.randn(img.shape, generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        lp, _ = bundle.prefill(params, dict(batch, patch_embeds=patches))
+    moved = max_rel(lp, lg)
+
+    # ---- the card against the port's own CPU prefill (TF32 off) ----------
+    # phase 15(b)'s rule at a cut depth (the first PHI3V_CPU_LAYERS
+    # layers, with the random patches): 4x the card's float-order floor,
+    # the hidden dimension of the params and of the patches permuted
+    cut_cfg = dataclasses.replace(cfg, n_layers=PHI3V_CPU_LAYERS)
+    cut_bundle = build_model(cut_cfg)
+    cut = dict(params, layers=map_tree(lambda a: a[:PHI3V_CPU_LAYERS],
+                                       params["layers"]))
+    cut_batch = dict(batch, patch_embeds=patches)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lcard, _ = cut_bundle.prefill(cut, cut_batch)
+        lc, _ = cut_bundle.prefill(map_tree(lambda t: t.cpu(), cut),
+                                   {k: v.cpu() for k, v in
+                                    cut_batch.items()})
+    cpu_s = time.perf_counter() - t0
+    floor = 0.0
+    for seed in (1, 2):
+        params_p, perm = permuted_params(
+            types.SimpleNamespace(bundle=cut_bundle, params=cut),
+            {"embed": cfg.d_model}, seed)
+        with torch.inference_mode():
+            lperm, _ = cut_bundle.prefill(params_p, dict(
+                cut_batch, patch_embeds=patches.index_select(
+                    -1, perm["embed"])))
+        dev = max_rel(lperm, lcard)
+        floor = max(floor, dev)
+        print(f"  card vs card with permuted reductions (seed {seed}, "
+              f"{PHI3V_CPU_LAYERS} layers): max rel dev {dev:.3e}")
+        del params_p, lperm
+        torch.cuda.empty_cache()
+    rel = max_rel(lcard.cpu(), lc)
+    bound = 4 * floor + 1e-5
+    same = torch.equal(lcard.argmax(-1).cpu(), lc.argmax(-1))
+    print(f"  card vs CPU prefill logits at {PHI3V_CPU_LAYERS} of {layers} "
+          f"layers: max rel dev {rel:.3e} (bound {bound:.3e}), argmax equal "
+          f"{same} (CPU prefill {cpu_s:.1f} s); non-zero patches move the "
+          f"{layers}-layer logits by {moved:.3e} of their max")
+    if rel > bound or not same:
+        raise AssertionError(f"{arch}: card and CPU prefills disagree "
+                             "beyond the float-order bound")
+    if moved < 1e-3:
+        raise AssertionError(f"{arch}: the model does not read the patches")
+    greedy = res["tokens"]
+    out = {"n_params": n_params, "card_vs_cpu_logits_rel": rel,
+           "card_vs_cpu_layers": PHI3V_CPU_LAYERS,
+           "card_float_order_floor_rel": floor, "patch_logits_rel": moved,
+           "cache_lengths": lens,
+           "greedy": {k: res[k] for k in ("tok_s", "prefill_s", "decode_s",
+                                          "wall_s", "peak_gib")}}
+    del res, bundle, params, batch, cut, lg, lp, lcard, lc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hot = batch_run(arch, PHI3V_ARGS, "0.7")
+    if not torch.equal(hot["tokens"][:, 0], greedy[:, 0]):
+        raise AssertionError(f"{arch}: the first token (the prefill's "
+                             "argmax) differs between the two runs")
+    out["sampled"] = {k: hot[k] for k in ("tok_s", "prefill_s", "decode_s",
+                                          "wall_s", "peak_gib")}
+    report["phi3v_batch"] = out
+    peak = max(out["greedy"]["peak_gib"], out["sampled"]["peak_gib"])
+    if peak >= PEAK_GIB:
+        raise AssertionError(f"{arch}: peak {peak:.1f} GiB")
+    del hot
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_phase(report: dict) -> int:
+    """Phase 16: gemma3-12b, then deepseek-67b and mistral-large-123b, then
+    phi-3-vision-4.2b, each freed before the next.  Returns the main
+    paths' rosa_fused launches."""
+    import gc
+    import torch
+    rows = {}
+
+    def serve(arch, layers, n_params, **kw):
+        rows[arch] = dense_serve(arch, layers, n_params, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    print("phase 16(a): gemma3-12b at full width and depth")
+    serve(*GEMMA3, serve_kw=GEMMA_SERVE, long_prompt=LONG_PROMPT)
+    print("phase 16(b): deepseek-67b and mistral-large-123b at full width")
+    for model in DENSE_CUT:
+        serve(*model, serve_kw=PHASE3_SERVE)
+    print("phase 16(c): phi-3-vision-4.2b at full width and depth")
+    phi3v_batch(report)
+    serve(*PHI3V, serve_kw=PHASE3_SERVE, ref_check=False)
+    report["dense_serve"] = rows
+    return sum(r["rosa_fused_launches"] for r in rows.values())
 
 
 def write_report(report: dict, t_start: float) -> int:
@@ -2741,6 +3072,7 @@ def run_phases(opts) -> int:
           "full width")
     launches["rosa_fused"] += phase("14", moe_phase)
     launches["ssd_scan"] += phase("15", family_phase)
+    launches["rosa_fused"] += phase("16", dense_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

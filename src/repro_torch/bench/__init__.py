@@ -1,2 +1,3 @@
-"""BENCH JSON reports (the port's copy of `repro.bench.schema`; the
-baseline gate `compare` is not ported yet, ROADMAP Queue 1 item 6)."""
+"""BENCH JSON reports (the port's copy of `repro.bench.schema`) and the
+baseline regression gate `compare` (`python -m repro_torch.bench.compare
+BASE CUR`)."""

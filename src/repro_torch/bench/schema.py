@@ -25,9 +25,8 @@ Layout (schema_version = 1):
     }
 
 Gating semantics live on the metric: only ``gate: true`` metrics are
-compared by the reference's `repro.bench.compare`; ``direction`` says
-which way a change counts as a regression, ``rel_tol`` how much drift is
-tolerated.  Wall
+compared by `bench.compare`; ``direction`` says which way a change
+counts as a regression, ``rel_tol`` how much drift is tolerated.  Wall
 times and stochastic metrics (tiny-step training accuracies) ship with
 ``gate: false`` — recorded for trend plots, never gating CI.
 """

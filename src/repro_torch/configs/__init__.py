@@ -2,11 +2,9 @@
 reference's registry (`repro.configs`).
 
 Each module defines CONFIG (the published dims) and SMOKE (a reduced
-same-family config for CPU tests).  All ten are carried as metadata, which
-the model zoo lowers to GEMM rows (`zoo_config`, `get_workload_zoo`).
-`get_config` and `get_smoke` hand out only the architectures whose model
-code is ported and held against the reference (`PORTED_ARCHS`); the
-others raise NotImplementedError until their families land.
+same-family config for CPU tests).  The model code of all ten is ported
+and held against the reference (`PORTED_ARCHS`); the model zoo lowers
+every CONFIG to GEMM rows (`zoo_config`, `get_workload_zoo`).
 
     from repro_torch.configs import get_config, get_smoke, ARCHS
 """
@@ -43,8 +41,7 @@ ARCH_IDS = {
 }
 
 # assignment ids whose model code is ported (launch/serve.py --arch)
-PORTED_ARCHS = ("qwen3-32b", "mamba2-1.3b", "qwen3-moe-235b-a22b",
-                "deepseek-v2-236b", "zamba2-1.2b", "seamless-m4t-medium")
+PORTED_ARCHS = tuple(ARCH_IDS)
 
 
 def _module(name: str):
@@ -52,27 +49,17 @@ def _module(name: str):
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
-def _ported(name: str):
-    mod = _module(name)
-    if mod.CONFIG.name not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is carried as model-zoo metadata only; "
-            f"its model code is not ported to repro_torch yet (ported: "
-            f"{', '.join(PORTED_ARCHS)})")
-    return mod
-
-
 def get_config(name: str):
-    return _ported(name).CONFIG
+    return _module(name).CONFIG
 
 
 def get_smoke(name: str):
-    return _ported(name).SMOKE
+    return _module(name).SMOKE
 
 
 def zoo_config(name: str):
-    """CONFIG of any registry architecture, as metadata for the model zoo
-    (`get_config` refuses the ones the port cannot build)."""
+    """CONFIG of any registry architecture, as the model zoo reads it
+    (the same object `get_config` hands out)."""
     return _module(name).CONFIG
 
 

@@ -15,7 +15,10 @@ warm up, once timed without the profiler, then again under
                15(a));
   qwen3-moe-235b-a22b, deepseek-v2-236b
                full width, 3 layers, as qwen3-32b's stream (phase 14):
-               qwen3-moe routes nothing, deepseek-v2 its layer-0 MLP.
+               qwen3-moe routes nothing, deepseek-v2 its layer-0 MLP;
+  gemma3-12b, phi-3-vision-4.2b, deepseek-67b, mistral-large-123b
+               full width, at phase 16's depths (48, 32, 4, 4 layers),
+               qwen3-32b's stream (gemma3 without phase 16's long prompt).
 
 Prints the wall time with and without the profiler, the device time by
 kernel family (the port's kernels, cuBLAS GEMMs, everything else) and the
@@ -43,6 +46,9 @@ STREAMS = {
 STREAMS["qwen3-moe-235b-a22b"] = STREAMS["deepseek-v2-236b"] = \
     (3,) + STREAMS["qwen3-32b"][1:]
 STREAMS["zamba2-1.2b"] = (38,) + STREAMS["mamba2-1.3b"][1:]
+for _arch, _depth in (("gemma3-12b", 48), ("phi-3-vision-4.2b", 32),
+                      ("deepseek-67b", 4), ("mistral-large-123b", 4)):
+    STREAMS[_arch] = (_depth,) + STREAMS["qwen3-32b"][1:]
 
 
 def family(name: str) -> str:

@@ -3,10 +3,13 @@
   continuous  (default) continuous batching of a synthetic Poisson request
               stream over slots, chunked prefill beside the decode batch
   oneshot     static batching of the same stream
-  batch       one fixed batch (random prompts, and for the audio frontend
-              random source embeddings): prefill, then `--gen` tokens
-              through `steps.make_sampling_decode_step`; the only policy
-              that runs the encoder-decoder family
+  batch       one fixed batch (random prompts; for the audio frontend
+              random source embeddings, for the vision frontend 16 zero
+              patch embeddings): prefill, then `--gen` tokens through
+              `steps.make_sampling_decode_step`; the only policy that
+              runs the encoder-decoder family, and the one that feeds a
+              vision model its patches (the stream policies serve it
+              text-only)
 
   python -m repro_torch.launch.serve --arch qwen3-32b --n-layers 4 \\
       --rosa --rosa-backend fused --variation-seed 7 --requests 6
@@ -17,6 +20,14 @@
   python -m repro_torch.launch.serve --arch deepseek-v2-236b --n-layers 3 \\
       --rosa --rosa-backend fused --variation-seed 7 --requests 6
   python -m repro_torch.launch.serve --arch seamless-m4t-medium \\
+      --policy batch --batch 4 --prompt-len 32 --gen 16
+  python -m repro_torch.launch.serve --arch gemma3-12b --rosa \\
+      --rosa-backend fused --variation-seed 7 --requests 6
+  python -m repro_torch.launch.serve --arch deepseek-67b --n-layers 4 \\
+      --rosa --rosa-backend fused --variation-seed 7 --requests 6
+  python -m repro_torch.launch.serve --arch mistral-large-123b \\
+      --n-layers 4 --rosa --rosa-backend fused --variation-seed 7
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b \\
       --policy batch --batch 4 --prompt-len 32 --gen 16
 
 `--smoke` takes the reduced CPU-sized config; `--n-layers` cuts the depth
@@ -76,11 +87,15 @@ def model_config(args):
 
 def batch_inputs(cfg, batch: int, prompt_len: int,
                  generator: torch.Generator, device) -> dict:
-    """The fixed batch from `generator`: prompt ids (B, S) and, for the
-    audio frontend, source embeddings (B, S, d_model) in bfloat16."""
+    """The fixed batch from `generator`: prompt ids (B, S); for the
+    vision frontend 16 zero patch embeddings (B, 16, d_model) and for the
+    audio frontend source embeddings (B, S, d_model), in bfloat16."""
     out = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
                                    generator=generator, device=device,
                                    dtype=torch.int32)}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = torch.zeros((batch, 16, cfg.d_model),
+                                          dtype=torch.bfloat16, device=device)
     if cfg.frontend == "audio":
         out["src_embeds"] = torch.randn(
             (batch, prompt_len, cfg.d_model), generator=generator,
@@ -120,7 +135,8 @@ def generate(bundle, params, batch: dict, gen: int, temperature: float,
 
 def run_batch(args) -> dict:
     """The fixed-batch policy: params, prompts and (audio) source
-    embeddings from one generator seeded with `--seed`, then `generate`.
+    embeddings from one generator seeded with `--seed` (vision: zero
+    patch embeddings), then `generate`.
     Returns its result with the bundle, params, inputs and tok/s."""
     from repro_torch.models.model import build_model
 
@@ -151,8 +167,9 @@ def main(argv=None) -> None:
         raise SystemExit("--devices > 1: slot-sharded serving is not ported "
                          "to repro_torch yet (one device only)")
     if args.trace:
-        raise SystemExit("--trace: the span tracer (repro.obs) is not "
-                         "ported to repro_torch yet")
+        raise SystemExit("--trace: the serving spans and their export from "
+                         "this CLI are not wired up yet (the span tracer "
+                         "itself is repro_torch.obs.trace)")
 
     from repro_torch.core.constants import ROSA_OPTIMAL
     from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
@@ -181,6 +198,7 @@ def main(argv=None) -> None:
     for m in report_metrics(rep):
         v = f"{m.value:.4g}" if isinstance(m.value, float) else m.value
         print(f"  {m.name:24s} {v} {m.unit}")
+    print(f"  {'ticks':24s} {rep.ticks} ticks")
     if sched.engine is not None and sched.engine.ledger is not None:
         e = sched.engine.ledger.per_token(ROSA_OPTIMAL, batch=scfg.n_slots)
         print(f"  {'energy_per_token':24s} {e:.4g} J (ledger)")

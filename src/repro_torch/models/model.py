@@ -14,6 +14,13 @@ cache's logical axes), and `params_from_reference`,
 which carries the reference's numbers across (with
 `robust.variation.from_reference` for a chip), so the two packages can
 compute on identical weights and an identical chip.
+
+`make_inputs` builds the inputs of the assignment's shape grid
+(`ASSIGNED_SHAPES`, reduced in `SMOKE_SHAPES`): ``train_*`` shapes give
+tokens and labels, ``prefill_*`` a prompt, ``decode_*`` / ``long_*`` one
+token against a zero cache of the shape's length.  The modality
+frontends are stubs, as in the reference: vision cells get precomputed
+patch embeddings, audio cells source embeddings.
 """
 
 from __future__ import annotations
@@ -27,6 +34,116 @@ from repro_torch.models import transformer as T
 from repro_torch.models.module import (abstract_params, init_params,
                                        map_tree, param_count)
 from repro_torch.models.transformer import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str                 # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+ASSIGNED_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+# reduced shapes for CPU smoke tests
+SMOKE_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 32, 2),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32, 2),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32, 2),
+    "long_500k": ShapeSpec("long_500k", "decode", 64, 1),
+}
+
+
+def applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """The assignment's skip rule: 500k-token decode needs a sub-quadratic
+    path (a state-space layer or a sliding window)."""
+    if shape.name == "long_500k":
+        sub_quadratic = (cfg.family in ("ssm", "hybrid")
+                         or cfg.window_pattern > 0)
+        if not sub_quadratic:
+            return False, ("pure full-attention arch: no sub-quadratic path "
+                           "for 500k decode (skip per assignment)")
+    return True, ""
+
+
+def _split_vlm(seq: int) -> tuple[int, int]:
+    """(image positions, text positions) of a vision cell's sequence."""
+    img = min(1024, max(seq // 4, 1))
+    return img, seq - img
+
+
+def make_inputs(cfg: ModelConfig, shape: ShapeSpec, concrete: bool = False,
+                generator: torch.Generator | None = None):
+    """(batch, logical-axes tree) of one cell of the shape grid.
+
+    concrete=False gives `meta` tensors; True real ones on the generator's
+    device, each field one draw from `generator` (default: the CPU's,
+    seed 0) in the reference's order: token ids uniform over the
+    vocabulary, embeddings N(0, 1) rounded to bfloat16 and scaled by
+    0.02.  Decode cells carry a zero cache from `init_cache`, its cursor
+    at the last position."""
+    b, s = shape.global_batch, shape.seq_len
+    tok_dt, emb_dt = torch.int32, torch.bfloat16
+    gen = generator if generator is not None \
+        else torch.Generator().manual_seed(0)
+    device = gen.device
+
+    def arr(shp, dt):
+        if not concrete:
+            return torch.empty(shp, dtype=dt, device="meta")
+        if dt == tok_dt:
+            return torch.randint(0, cfg.vocab, shp, generator=gen,
+                                 dtype=dt, device=device)
+        return torch.randn(shp, generator=gen, device=device).to(dt) * 0.02
+
+    if shape.kind == "train":
+        s_tok = s
+        batch, axes = {}, {}
+        if cfg.frontend == "vision":
+            s_img, s_tok = _split_vlm(s)
+            batch["patch_embeds"] = arr((b, s_img, cfg.d_model), emb_dt)
+            axes["patch_embeds"] = ("batch", None, None)
+        if cfg.frontend == "audio":
+            batch["src_embeds"] = arr((b, s, cfg.d_model), emb_dt)
+            axes["src_embeds"] = ("batch", "act_seq", None)
+        batch["tokens"] = arr((b, s_tok), tok_dt)
+        batch["labels"] = arr((b, s_tok), tok_dt)   # loss on text positions
+        axes["tokens"] = ("batch", "act_seq")
+        axes["labels"] = ("batch", "act_seq")
+        return batch, axes
+
+    if shape.kind == "prefill":
+        # the reference draws the full-length prompt first and, for a
+        # vision cell, draws it again at the text length: so does this
+        batch = {"tokens": arr((b, s), tok_dt)}
+        axes = {"tokens": ("batch", "act_seq")}
+        if cfg.frontend == "vision":
+            s_img, s_tok = _split_vlm(s)
+            batch = {"tokens": arr((b, s_tok), tok_dt),
+                     "patch_embeds": arr((b, s_img, cfg.d_model), emb_dt)}
+            axes = {"tokens": ("batch", "act_seq"),
+                    "patch_embeds": ("batch", "act_seq", None)}
+        if cfg.frontend == "audio":
+            batch["src_embeds"] = arr((b, s, cfg.d_model), emb_dt)
+            axes["src_embeds"] = ("batch", "act_seq", None)
+        return batch, axes
+
+    # decode: one token against a full cache of length s
+    cache = T.init_cache(cfg, b, s, device=device if concrete else "meta",
+                         src_len=s if cfg.is_encdec else 0)
+    pos = (torch.full((b,), max(s - 1, 0), dtype=torch.int32, device=device)
+           if concrete else torch.empty((b,), dtype=torch.int32,
+                                        device="meta"))
+    batch = {"token": arr((b,), tok_dt), "pos": pos, "cache": cache}
+    axes = {"token": ("cache_batch",), "pos": ("cache_batch",),
+            "cache": cache_axes(cfg)}
+    return batch, axes
 
 
 @dataclasses.dataclass

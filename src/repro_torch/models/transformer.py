@@ -27,8 +27,11 @@ tensors:
 
 Caches are written in place and returned.  The ssm and hybrid families
 prefill whole prompts only: their `chunk_step` raises, as the reference's
-does.  The vision frontend (phi-3-vision's patch embeddings) is not
-ported: `prefill` raises for it.
+does.  The vision frontend (phi-3-vision) takes precomputed patch
+embeddings `batch["patch_embeds"]` (B, S_img, D) that `prefill` puts
+ahead of the token embeddings, so its cache holds S_img + S_tok
+positions; `chunk_step` and `decode_step` embed tokens only, as the
+reference's do, so serving runs such a model text-only.
 """
 
 from __future__ import annotations
@@ -307,13 +310,12 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def _embed_in(params, cfg: ModelConfig, batch: dict):
-    """Token embedding and positions (B, S).  The vision frontend (patch
-    embeddings prepended to the tokens) is not ported."""
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision frontend is not ported to repro_torch "
-            "yet")
+    """Token embedding (with the vision frontend, the patch embeddings in
+    the embedding dtype ahead of it) and positions (B, S) over the whole
+    sequence."""
     x = L.embed_apply(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     return x, _positions(*x.shape[:2], x.device)
 
 

@@ -10,6 +10,8 @@
   `poisson_requests` reproducible synthetic load (Poisson arrivals)
   `TickHook`         per-tick scheduler extension (extra decode-step args,
                      an end-of-tick callback)
+  `smoke_report`     the serving bench: one-shot vs continuous on a smoke
+                     arch, as gated `bench.schema.Metric`s
 
 `serve.adaptive` is closed-loop drift-adaptive serving on top
 (`python -m repro_torch.serve.adaptive`).
@@ -19,7 +21,8 @@ from repro_torch.serve.config import ServeConfig, serving_model_config
 from repro_torch.serve.loadgen import poisson_requests
 from repro_torch.serve.metrics import (build_serving_engine,
                                        build_serving_program, energy_metrics,
-                                       report_metrics, trace_serving_shapes)
+                                       report_metrics, smoke_report,
+                                       trace_serving_shapes)
 from repro_torch.serve.scheduler import (Completion, Request, Scheduler,
                                          ServeReport, TickHook,
                                          run_sequential, serving_program)
@@ -28,5 +31,6 @@ __all__ = [
     "Completion", "Request", "Scheduler", "ServeConfig", "ServeReport",
     "TickHook", "build_serving_engine", "build_serving_program",
     "energy_metrics", "poisson_requests", "report_metrics", "run_sequential",
-    "serving_model_config", "serving_program", "trace_serving_shapes",
+    "serving_model_config", "serving_program", "smoke_report",
+    "trace_serving_shapes",
 ]

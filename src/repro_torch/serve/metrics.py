@@ -9,8 +9,11 @@ is then served through that frozen (plan, chip) pair.
 `trace_serving_shapes` prices the decode step and one prefill chunk onto an
 engine's ledger under "decode" / "prefill" scopes, `energy_metrics` turns
 that trace into per-token energy and the hybrid-vs-WS decode EDP, and
-`report_metrics` turns one scheduler run into named metrics.  Step-unit
-and tick metrics are deterministic; wall-clock ones depend on the device.
+`report_metrics` turns one scheduler run into named metrics, and
+`smoke_report` is the serving bench (one-shot vs continuous on a smoke
+arch, plus `energy_metrics`).  Step-unit and tick metrics are
+deterministic and gate; wall-clock ones depend on the device and never
+do.
 """
 
 from __future__ import annotations
@@ -146,20 +149,69 @@ def energy_metrics(model_cfg, scfg: ServeConfig, cache=None,
     return out
 
 
-def report_metrics(rep: ServeReport, prefix: str = "") -> list[Metric]:
-    """Throughput/latency metrics of one scheduler run: step-unit and tick
-    metrics are deterministic, wall-clock ones depend on the device."""
+def report_metrics(rep: ServeReport, prefix: str = "",
+                   gate: bool = True) -> list[Metric]:
+    """Throughput/latency metrics of one scheduler run.  Step-unit and
+    tick metrics are deterministic and gate (unless `gate` is False);
+    wall-clock ones depend on the device and never do."""
     p = prefix
     return [
-        Metric(f"{p}total_tokens", rep.total_tokens),
-        Metric(f"{p}tokens_per_unit", rep.tokens_per_unit, "tok/step"),
-        Metric(f"{p}occupancy", rep.occupancy, "frac"),
-        Metric(f"{p}latency_p50_ticks", rep.percentile(50), "ticks"),
-        Metric(f"{p}latency_p99_ticks", rep.percentile(99), "ticks"),
-        Metric(f"{p}ttft_p50_ticks", rep.percentile(50, "ttft"), "ticks"),
-        Metric(f"{p}ticks", rep.ticks, "ticks"),
-        Metric(f"{p}tokens_per_s", rep.tokens_per_s, "tok/s"),
-        Metric(f"{p}wall_s", rep.wall_s, "s"),
-        Metric(f"{p}ttft_p50_ms", rep.wall_percentile_ms(50, "ttft"), "ms"),
-        Metric(f"{p}latency_p99_ms", rep.wall_percentile_ms(99), "ms"),
+        Metric(f"{p}total_tokens", rep.total_tokens, gate=gate,
+               rel_tol=0.0),
+        Metric(f"{p}tokens_per_unit", rep.tokens_per_unit, unit="tok/step",
+               gate=gate, rel_tol=1e-6, direction="higher_is_better"),
+        Metric(f"{p}occupancy", rep.occupancy, unit="frac", gate=gate,
+               rel_tol=1e-6, direction="higher_is_better"),
+        Metric(f"{p}latency_p50_ticks", rep.percentile(50), unit="ticks",
+               gate=gate, rel_tol=1e-6, direction="lower_is_better"),
+        Metric(f"{p}latency_p99_ticks", rep.percentile(99), unit="ticks",
+               gate=gate, rel_tol=1e-6, direction="lower_is_better"),
+        Metric(f"{p}ttft_p50_ticks", rep.percentile(50, "ttft"),
+               unit="ticks", gate=gate, rel_tol=1e-6,
+               direction="lower_is_better"),
+        Metric(f"{p}tokens_per_s", rep.tokens_per_s, unit="tok/s"),
+        Metric(f"{p}wall_s", rep.wall_s, unit="s"),
+        Metric(f"{p}ttft_p50_ms", rep.wall_percentile_ms(50, "ttft"),
+               unit="ms"),
+        Metric(f"{p}latency_p99_ms", rep.wall_percentile_ms(99), unit="ms"),
     ]
+
+
+def smoke_report(arch: str = "qwen3-32b", n_requests: int = 24,
+                 rate: float = 1.0, scfg: ServeConfig | None = None,
+                 seed: int = 0,
+                 device: str | torch.device = "cuda") -> list[Metric]:
+    """The `serve_smoke` bench: one Poisson stream on the smoke arch,
+    served one-shot and then continuous; gates continuous throughput, the
+    continuous / one-shot ratio, latency percentiles and per-token
+    energy.
+
+    The workload is ragged (generation budgets 2..40), the regime
+    continuous batching exists for: a static batch decodes max(budget)
+    steps while its short requests idle, continuous refills their slots
+    the next tick."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.serve.loadgen import poisson_requests
+    from repro_torch.serve.scheduler import Scheduler
+
+    cfg = get_smoke(arch)
+    scfg = scfg or ServeConfig(n_slots=4, max_len=56, prefill_chunk=8,
+                               seed=seed)
+    sched = Scheduler(cfg, scfg, init_seed=seed, device=device)
+    reqs = poisson_requests(n_requests, rate, vocab=cfg.vocab,
+                            prompt_len=(4, 8), gen_len=(2, 40), seed=seed)
+    ones = sched.run(reqs, policy="oneshot")
+    cont = sched.run(reqs, policy="continuous")
+
+    out = report_metrics(cont, prefix="cont_")
+    out += [m for m in report_metrics(ones, prefix="oneshot_", gate=False)
+            if m.name in ("oneshot_tokens_per_unit", "oneshot_occupancy",
+                          "oneshot_tokens_per_s")]
+    out.append(Metric(
+        "throughput_ratio_vs_oneshot",
+        cont.tokens_per_unit / max(ones.tokens_per_unit, 1e-12),
+        unit="x", gate=True, rel_tol=1e-6, direction="higher_is_better"))
+
+    # energy of the same serving shapes through the optical engine
+    out += energy_metrics(cfg, scfg, device=device)
+    return out

@@ -238,10 +238,26 @@ def test_decoder_reads_the_memory(R, ref_params):
 
 
 def test_vision_frontend_is_not_ported():
+    """Once refused; since slice 11 the vision frontend prepends the patch
+    embeddings (cast to the embedding dtype) to the token embeddings, and
+    positions run over both: the cache holds S_img + S_tok positions."""
     cfg = dataclasses.replace(get_smoke("qwen3-32b"), frontend="vision")
-    with pytest.raises(NotImplementedError, match="vision"):
-        T.prefill({"embed": torch.zeros(4, 2)}, cfg,
-                  {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
+    bundle = build_model(cfg)
+    p = bundle.init(torch.Generator().manual_seed(0))
+    tok = torch.tensor([[5, 9, 200]], dtype=torch.int32)
+    img = torch.randn(1, 4, cfg.d_model,
+                      generator=torch.Generator().manual_seed(1))
+    x, pos = T._embed_in(p, cfg, {"tokens": tok,
+                                  "patch_embeds": img.to(torch.bfloat16)})
+    assert x.dtype == p["embed"].dtype and x.shape == (1, 7, cfg.d_model)
+    assert torch.equal(x[:, :4], img.to(torch.bfloat16).float())
+    assert torch.equal(x[:, 4:], p["embed"][tok])
+    assert torch.equal(pos, torch.arange(7)[None])
+    lg, cache = T.prefill(p, cfg, {"tokens": tok, "patch_embeds": img})
+    assert cache["layers"][0].shape[2] == 7 and int(cache["pos"][0]) == 7
+    text, _ = T.prefill(p, dataclasses.replace(cfg, frontend="none"),
+                        {"tokens": tok})
+    assert rel_err(lg, text) > 1e-3
 
 
 # ---------------------------------------------------------------------------

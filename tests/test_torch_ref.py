@@ -51,6 +51,7 @@ _REF_MODULES = {
     "ensemble": "repro.robust.ensemble",
     "sensitivity": "repro.robust.sensitivity", "drift": "repro.robust.drift",
     "robust_report": "repro.robust.report", "schema": "repro.bench.schema",
+    "compare": "repro.bench.compare",
     "moe": "repro.models.moe", "mla": "repro.models.mla",
     "layers": "repro.models.layers", "steps": "repro.launch.steps",
 }

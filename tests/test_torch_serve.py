@@ -212,17 +212,16 @@ def test_slot_api_touches_one_row(cfg):
 
 @pytest.mark.parametrize("family", ["hybrid", "encdec"])
 def test_other_families_raise(family):
-    """hybrid and encdec build since slice 10; a family the port does not
-    know still refuses to build, naming itself, and so does an
-    architecture whose model code is not ported; serving refuses an
-    encoder-decoder config outright."""
+    """hybrid and encdec build since slice 10, and every registry
+    architecture since slice 11 (gemma3 among them); a family the port
+    does not know still refuses to build, naming itself; serving refuses
+    an encoder-decoder config outright."""
     arch = {"hybrid": "zamba2-1.2b", "encdec": "seamless-m4t-medium"}[family]
     assert build_model(get_smoke(arch)).cfg.family == family
     cfg = dataclasses.replace(get_smoke("qwen3-32b"), family=f"{family}2")
     with pytest.raises(NotImplementedError, match=f"{family}2"):
         build_model(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_smoke("gemma3-12b")
+    assert build_model(get_smoke("gemma3-12b")).cfg.family == "dense"
     if family == "encdec":
         with pytest.raises(NotImplementedError, match="encoder-decoder"):
             serving_model_config(get_smoke(arch))

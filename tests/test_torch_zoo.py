@@ -5,8 +5,9 @@
 
 The zoo rows must be equal (names, m, k, n, groups, kind); its DSE sweep
 and the EDP-only hybrid plans within 1e-9 relative, with equal labels and
-plans.  The six architectures not yet ported are carried as metadata
-only: the registry refuses to hand them out for building.
+plans.  All ten architectures build; the four dense ones that were
+metadata only until slice 11 now come from `get_config` / `get_smoke`
+as the zoo reads them.
 """
 
 import dataclasses
@@ -28,7 +29,9 @@ from test_torch_ref import reference
 
 # ModelConfig fields of the reference that only steer XLA layout
 XLA_ONLY = {"remat", "parallelism", "moe_ep"}
-NEW_ARCHS = sorted(set(ARCH_IDS) - set(PORTED_ARCHS))
+# metadata only until slice 11 (the dense configs and the vision frontend)
+NEW_ARCHS = ["deepseek-67b", "gemma3-12b", "mistral-large-123b",
+             "phi-3-vision-4.2b"]
 
 
 @pytest.fixture(scope="module")
@@ -112,21 +115,24 @@ def test_profile_and_hybrid_plan_on_the_zoo_match_reference(R):
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_new_architectures_refuse_to_build(arch):
-    """Metadata only: the registry refuses to hand out the config, and a
-    model of an unported family refuses to build from the metadata."""
+    """Once refused as metadata only, each of the four now builds from the
+    registry: `get_config` hands out the zoo's CONFIG, and the full and
+    smoke configs build models of a ported family."""
+    assert arch in PORTED_ARCHS
+    assert get_config(arch) is zoo_config(arch)
     for get in (get_config, get_smoke):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(get(arch))
-    cfg = zoo_config(arch)
-    if cfg.family not in PORTED_FAMILIES:
-        with pytest.raises(NotImplementedError, match=cfg.family):
-            build_model(cfg)
+        bundle = build_model(get(arch))
+        assert bundle.cfg.family == "dense" in PORTED_FAMILIES
+        assert bundle.n_params > 0
+    assert (get_config(arch).frontend == "vision") == (
+        arch == "phi-3-vision-4.2b")
 
 
 def test_serve_offers_only_ported_architectures():
     arch = next(a for a in serve.build_parser()._actions if a.dest == "arch")
-    assert sorted(arch.choices) == ["deepseek-v2-236b", "mamba2-1.3b",
-                                    "qwen3-32b", "qwen3-moe-235b-a22b",
-                                    "seamless-m4t-medium", "zamba2-1.2b"]
+    assert sorted(arch.choices) == sorted(ARCH_IDS) == [
+        "deepseek-67b", "deepseek-v2-236b", "gemma3-12b", "mamba2-1.3b",
+        "mistral-large-123b", "phi-3-vision-4.2b", "qwen3-32b",
+        "qwen3-moe-235b-a22b", "seamless-m4t-medium", "zamba2-1.2b"]
     with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(["--arch", "gemma3-12b"])
+        serve.build_parser().parse_args(["--arch", "llama-70b"])
