@@ -33,7 +33,8 @@ Phases (any failure raises, so the exit code is non-zero):
      (for rosa_fused also its bytes at the card's measured copy rate) and,
      for
      osa_matmul fused, the one PyTorch call computing the same function
-     (`torch.matmul(q, w)` under ideal gains);
+     (`torch.matmul(q, w)` under ideal gains); rosa_fused also at phase
+     17's 2048-row tall rows;
   3. serve: qwen3-32b at full width, depth cut to 4 of 64 layers, random
      weights from seed 0, through the optical engine with the `rosa_fused`
      kernel and chip 7 pinned: 6 seeded Poisson requests, continuous
@@ -196,7 +197,31 @@ Phases (any failure raises, so the exit code is non-zero):
      layers (random patches) against the port's CPU prefill within 4x
      the card's float-order floor (phase 15(b)'s rule), the argmax equal;
      then served text-only through the Scheduler as (b).  tokens/s,
-     ticks, peak GiB and set-up seconds are printed.
+     ticks, peak GiB and set-up seconds are printed;
+ 17. the LM training path, qwen3-32b at full width, random weights from
+     seed 0: (a) `python -m repro_torch.launch.train --n-layers 4 --steps
+     10 --batch 8 --seq 256 --warmup 2` in-process (plain MLPs, as the
+     reference's CLI configures it; no checkpoint written), each step's
+     loss, |g| and wall, tokens/s after one warm-up step, peak GiB: every
+     loss and |g| finite, peak under 70 GiB, no kernel launched; (b)
+     `make_train_step` on the same model with `rosa_mlp` and the "fused"
+     backend (IDEAL noise, WS, no chip) for 2 steps on the CLI's batches:
+     rosa_fused exactly 2 projections x (forward + remat recompute) x 4
+     layers x 2 steps = 32 times and nothing else; the same steps with
+     the "ref" backend launch nothing, and the fused losses and the first
+     step's gradients agree with them within 4x a float-order floor
+     (phase 14's rule: each optical product's reduction axis permuted,
+     two seeds; per step for the loss, per leaf for the gradients); (c)
+     one train step at full width and 1 layer (batch 1 x 64) on the card
+     and on the CPU from the same params: loss, |g| and every gradient
+     leaf within 4x the card's float-order floor (the hidden and MLP axes
+     of the params permuted, two seeds), then one AdamW update of the
+     card's gradients on each side within 1e-6 of every leaf's max (the
+     host's available memory checked first); (d) qwen3-32b-smoke, 4
+     steps straight against 2 steps, a checkpoint saved and restored on
+     the card, and 2 more: params and optimizer state bit for bit.  Phase
+     2 times rosa_fused at the train step's tall rows (2048 x 5120 x
+     51200 and 2048 x 25600 x 5120, WS, IDEAL noise, 3 calls each).
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -237,6 +262,7 @@ DENSE_PROJ = {
                            "mlp/wo": (28672, 12288)},
 }
 GEMMA_CHUNK = 64           # phase 16(a)'s prefill chunk: the tall path
+TRAIN_ROWS = 2048          # phase 17's train batch: 8 x 256 tokens
 RAGGED = (13, 1000, 300)
 # ssd_scan cases (B, L, H, P, G, S, chunk): mamba2-1.3b's served shape at
 # one step, a chunk's edges, the served L, a ragged 1000; G 2 at B 2; G = H;
@@ -431,6 +457,12 @@ def fused_cases():
                dict(is_apv, noisy=True,
                     chip=(DENSE_PROJ["gemma3-12b"], name)), True)
               for name, (k, n) in DENSE_PROJ["gemma3-12b"].items()]
+    # the optical train step's forward (phase 17(b)): qwen3-32b's MLPs at
+    # the CLI's 2048 rows, WS, IDEAL noise, no chip (the tall path); timed
+    # over fewer calls, each a large fraction of a second
+    cases += [(TRAIN_ROWS, k, n, f"WS ideal train {name}",
+               dict(mapping=Mapping.WS, chip=False), "tall")
+              for name, (k, n) in PROJ.items()]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
@@ -450,11 +482,12 @@ def fused_flops(m, k, n, static) -> int:
             + (46 if static["realize_w"] else 6) * k * n)
 
 
-def time_row(row, fn, plain_fn, nbytes, flops) -> None:
-    """Per-call median, kernel-only time, plain version and bound."""
-    row["ms"] = median_ms(fn)
-    row["kernel_ms"] = kernel_only_ms(fn)
-    row["plain_ms"] = median_ms(plain_fn, reps=5)
+def time_row(row, fn, plain_fn, nbytes, flops, reps: int = 10) -> None:
+    """Per-call median of `reps` calls, kernel-only time (over 2 x reps
+    graph-replayed launches, at most 20), plain version and bound."""
+    row["ms"] = median_ms(fn, reps=reps)
+    row["kernel_ms"] = kernel_only_ms(fn, n=min(2 * reps, 20))
+    row["plain_ms"] = median_ms(plain_fn, reps=min(reps, 5))
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
 
@@ -543,7 +576,8 @@ def fused_phase(report: dict) -> dict:
             nbytes = distinct_bytes(*args) + 4 * m * n
             time_row(row, lambda: ops.launch(*args, **static),
                      lambda: ops.plain(*args, **static), nbytes,
-                     fused_flops(m, k, n, static))
+                     fused_flops(m, k, n, static),
+                     reps=3 if timed == "tall" else 10)
             # the same bytes at the copy rate this card measured
             row["copy_bound_ms"] = nbytes / rate * 1e3
             if what == "IS realize_x mlp/wi" and m == 4:
@@ -2225,6 +2259,21 @@ MOE_MODELS = (("qwen3-moe-235b-a22b", 3, 8_707_928_832),
 PEAK_GIB = 70.0
 
 
+def k_permuted_engine(engine, perms: dict):
+    """`engine` with the reduction axis of each named optical product
+    permuted (x's columns and w's rows alike, `perms` {name: index}): the
+    same function, every routed sum in another order."""
+    class KPermuted(type(engine)):
+        def matmul(self, x, w, *, name="", **kw):
+            p = perms.get(name)
+            if p is not None and x.device.type != "meta":  # not the trace
+                x, w = x.index_select(-1, p), w.index_select(0, p)
+            return super().matmul(x, w, name=name, **kw)
+
+    return KPermuted(**{f.name: getattr(engine, f.name)
+                        for f in dataclasses.fields(engine)})
+
+
 def k_permuted(cfg, ref, seed: int):
     """The "ref" Scheduler `ref` again with each optical contraction's
     reduction axis permuted: x's columns, w's rows and the pinned chip's
@@ -2238,16 +2287,7 @@ def k_permuted(cfg, ref, seed: int):
     g = torch.Generator().manual_seed(seed)
     perms = {name: torch.randperm(v.dv.shape[0], generator=g).to(DEVICE)
              for name, v in ref.engine.variation.items()}
-
-    class KPermuted(type(ref.engine)):
-        def matmul(self, x, w, *, name="", **kw):
-            p = perms.get(name)
-            if p is not None and x.device.type != "meta":  # not the trace
-                x, w = x.index_select(-1, p), w.index_select(0, p)
-            return super().matmul(x, w, name=name, **kw)
-
-    engine = KPermuted(**{f.name: getattr(ref.engine, f.name)
-                          for f in dataclasses.fields(ref.engine)})
+    engine = k_permuted_engine(ref.engine, perms)
     chip = {name: mrr.StaticVariation(v.dv[perms[name]], v.ddt[perms[name]],
                                       v.dlam[perms[name]])
             for name, v in ref.engine.variation.items()}
@@ -2959,6 +2999,385 @@ def dense_phase(report: dict) -> int:
     return sum(r["rosa_fused_launches"] for r in rows.values())
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the LM training path
+# ---------------------------------------------------------------------------
+# qwen3-32b at full width, depth cut to 4 of 64 layers: params, grads and
+# AdamW's two float32 moments are 4 x 14.0 GB
+TRAIN = ("qwen3-32b", 4, 3_506_223_104)
+TRAIN_CLI = ["--arch", "qwen3-32b", "--n-layers", "4", "--steps", "10",
+             "--batch", "8", "--seq", "256", "--warmup", "2",
+             "--ckpt-every", "100", "--log-every", "1"]
+OPT_STEPS = 2                     # 17(b)'s optical train steps
+TRAIN_CPU = (1, 2_043_428_096)    # 17(c): layers, params
+TRAIN_CPU_BATCH = (1, 64)
+RESUME_STEPS = (2, 2)             # 17(d): steps before and after the save
+
+
+def train_opt_cfg():
+    """17(a)'s optimizer: the CLI's cosine schedule for its flags."""
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    return AdamWConfig(lr=cosine_schedule(3e-4, 2, 10))
+
+
+def train_cli_phase(report: dict) -> dict:
+    """17(a): `python -m repro_torch.launch.train` as the reference's CLI
+    configures it (plain MLPs), in-process: 10 steps at batch 8 x 256."""
+    import gc
+    import torch
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(TRAIN_CLI + [
+        "--device", DEVICE, "--ckpt-dir", str(ROOT / "build" / "ckpt-17a")])
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    res = train.run(args)
+    n = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = res["history"]
+    if res["bundle"].n_params != TRAIN[2]:
+        raise AssertionError("17(a): not qwen3-32b at full width")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist) or len(hist) != args.steps:
+        raise AssertionError("17(a): a loss or |g| is not finite")
+    if any(n.values()):
+        raise AssertionError(f"17(a): plain MLPs launched kernels {n}")
+    if peak >= PEAK_GIB:
+        raise AssertionError(f"17(a): peak {peak:.1f} GiB")
+    steady = [h["wall_s"] for h in hist[1:]]
+    tokens = args.batch * args.seq
+    tok_s = tokens * len(steady) / sum(steady)
+    for h in hist:
+        print(f"  step {h['step']}: loss {h['loss']:.6f}  |g| "
+              f"{h['grad_norm']:.4f}  lr {h['lr']:.3e}  wall "
+              f"{h['wall_s']:.3f} s")
+    print(f"  {tok_s:.1f} tokens/s over steps 1-{len(hist) - 1} (median "
+          f"step {statistics.median(steady):.3f} s), peak {peak:.1f} GiB, "
+          f"no kernel launched")
+    out = {"history": hist, "tokens_per_s": tok_s, "peak_gib": peak,
+           "median_step_s": statistics.median(steady),
+           "n_params": res["bundle"].n_params}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_rel(got: dict, want: dict) -> dict:
+    """{path: max|got - want| / max|want|} over two trees' leaves."""
+    from repro_torch.models.module import leaves
+    w = dict(leaves(want))
+    return {"/".join(p): max_rel(g, w[p]) for p, g in leaves(got)}
+
+
+def optical_train_phase(report: dict) -> int:
+    """17(b): `make_train_step` on 17(a)'s model with `rosa_mlp` and the
+    "fused" backend (IDEAL noise, WS, no chip), 2 steps on the CLI's
+    batches; then the "ref" backend on the same steps.  Returns the main
+    path's rosa_fused launches."""
+    import gc
+    import torch
+    from repro_torch import rosa
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import (init_opt_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.model import build_model
+    from repro_torch.rosa.backends import RosaConfig
+
+    arch, layers, n_params = TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              rosa_mlp=True)
+    bundle = build_model(cfg)
+    if bundle.n_params != n_params:
+        raise AssertionError("17(b): not qwen3-32b at full width")
+    b, s = (int(TRAIN_CLI[TRAIN_CLI.index(f) + 1])
+            for f in ("--batch", "--seq"))
+    pipe = TokenPipeline(cfg.vocab, s, b, seed=0)
+    batches = [pipe.batch(i, DEVICE) for i in range(OPT_STEPS)]
+    engines = {be: rosa.Engine.from_config(RosaConfig(backend=be))
+               for be in ("fused", "ref")}
+    g = torch.Generator().manual_seed(1)
+    perm_sets = [{"mlp/wi": torch.randperm(cfg.d_model, generator=g)
+                  .to(DEVICE),
+                  "mlp/wo": torch.randperm(cfg.d_ff, generator=g)
+                  .to(DEVICE)} for _ in (1, 2)]
+
+    def init():
+        return bundle.init(torch.Generator(DEVICE).manual_seed(0),
+                           device=DEVICE)
+
+    def train(engine) -> list:
+        params = init()
+        opt = init_opt_state(params)
+        step = make_train_step(bundle, train_opt_cfg())
+        out = []
+        with rosa.engine_context(engine):
+            for batch in batches:
+                params, opt, m = step(params, opt, batch)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    fused = train(engines["fused"])
+    wall = time.perf_counter() - t0
+    n = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # two MLP projections a layer, each once in the forward and once more
+    # when remat "full" recomputes the block in the backward
+    want = 2 * 2 * layers * OPT_STEPS
+    print(f"  fused: {OPT_STEPS} steps in {wall:.2f} s, losses "
+          f"{[round(l, 6) for l, _ in fused]}, |g| "
+          f"{[round(x, 4) for _, x in fused]}; rosa_fused launches "
+          f"{n['rosa_fused']} (2 projections x (forward + recompute) x "
+          f"{layers} layers x {OPT_STEPS} steps = {want}); peak {peak:.1f} "
+          "GiB")
+    if n["rosa_fused"] != want or any(v for k, v in n.items()
+                                      if k != "rosa_fused"):
+        raise AssertionError(f"17(b): launches {n}, wanted {want} of "
+                             "rosa_fused and nothing else")
+    if peak >= PEAK_GIB:
+        raise AssertionError(f"17(b): peak {peak:.1f} GiB")
+    reset_launches()
+    ref = train(engines["ref"])
+    if any(launch_counts().values()):
+        raise AssertionError("17(b): the ref backend launched a kernel")
+    # ---- fused vs ref: 4x the float order floor (phase 14's rule) --------
+    # Both backends quantize alike and differ only in the order of the
+    # optical products' sums, so the floor permutes only their reduction
+    # axes ("ref" again with each product's K permuted).
+    perm = [train(k_permuted_engine(engines["ref"], ps)) for ps in perm_sets]
+    loss_dev, loss_floor = [], []
+    for i in range(OPT_STEPS):
+        lr_ = ref[i][0]
+        loss_dev.append(abs(fused[i][0] - lr_) / abs(lr_))
+        loss_floor.append(max(abs(p[i][0] - lr_) / abs(lr_) for p in perm))
+    print(f"  ref: losses {[round(l, 6) for l, _ in ref]}, no launch; "
+          f"fused vs ref loss rel dev {[f'{d:.2e}' for d in loss_dev]}, "
+          f"floor {[f'{f:.2e}' for f in loss_floor]}")
+    if any(d > 4 * f + 1e-6 for d, f in zip(loss_dev, loss_floor)):
+        raise AssertionError("17(b): fused and ref losses disagree beyond "
+                             "4x the float-order floor")
+    # gradients of the first step, leaf by leaf (no optimizer state held)
+    params = init()
+
+    def grads_of(engine):
+        with rosa.engine_context(engine):
+            return loss_and_grads(bundle, params, batches[0])[1]
+
+    g_ref = grads_of(engines["ref"])
+    dev = leaf_rel(grads_of(engines["fused"]), g_ref)
+    floor = {k: 0.0 for k in dev}
+    for ps in perm_sets:
+        for k, d in leaf_rel(grads_of(k_permuted_engine(engines["ref"], ps)),
+                             g_ref).items():
+            floor[k] = max(floor[k], d)
+        torch.cuda.empty_cache()
+    worst = max(dev, key=lambda k: dev[k] / (4 * floor[k] + 1e-6))
+    print(f"  step-1 gradients fused vs ref: the leaf nearest its bound is "
+          f"{worst} at {dev[worst]:.3e} (floor {floor[worst]:.3e}); largest "
+          f"deviation {max(dev.values()):.3e}")
+    bad = [k for k, d in dev.items() if d > 4 * floor[k] + 1e-6]
+    if bad:
+        raise AssertionError(f"17(b): gradient leaves beyond 4x their "
+                             f"float-order floor: {bad}")
+    report["train_optical"] = {
+        "launches": n["rosa_fused"], "wanted": want, "wall_s": wall,
+        "peak_gib": peak, "fused": fused, "ref": ref,
+        "loss_rel_dev": loss_dev, "loss_floor": loss_floor,
+        "grad_rel_dev": dev, "grad_floor": floor}
+    del params, g_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n["rosa_fused"]
+
+
+def mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def card_vs_cpu_phase(report: dict) -> None:
+    """17(c): one train step's loss, |g| and gradients of qwen3-32b at
+    full width and 1 layer (batch 1 x 64) on the card and on the CPU from
+    the same params, within 4x the card's float-order floor (the hidden
+    and MLP axes of the params permuted, as phases 5 and 15(b) measure
+    it); then one AdamW update of the card's gradients on each side,
+    every leaf within 1e-6 of its max."""
+    import gc
+    import types as _types
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import leaves, map_tree
+    from repro_torch.optim import adamw_init, adamw_update, global_norm
+
+    layers, n_params = TRAIN_CPU
+    cfg = dataclasses.replace(get_config(TRAIN[0]), n_layers=layers)
+    bundle = build_model(cfg)
+    if bundle.n_params != n_params:
+        raise AssertionError("17(c): not qwen3-32b at full width")
+    # host: the params, the CPU's grads, the card's grads and the two
+    # moments, float32
+    need = 5 * 4 * n_params / 2**30 + 4
+    avail = mem_available_gib()
+    print(f"  host memory available {avail:.1f} GiB, needed {need:.1f}")
+    if avail < need:
+        raise AssertionError(f"17(c): {avail:.1f} GiB of host memory "
+                             f"available, {need:.1f} needed")
+    params = bundle.init(torch.Generator(DEVICE).manual_seed(0),
+                         device=DEVICE)
+    b, s = TRAIN_CPU_BATCH
+    batch = TokenPipeline(cfg.vocab, s, b, seed=0).batch(0, DEVICE)
+    loss, grads = loss_and_grads(bundle, params, batch)
+    gnorm = global_norm(grads)
+    floor = {"loss": 0.0, "grad_norm": 0.0}
+    axes = dict(leaves(map_tree(lambda d: d.axes, bundle.skeleton)))
+    for seed in (1, 2):
+        pp, perm = permuted_params(
+            _types.SimpleNamespace(bundle=bundle, params=params),
+            {"embed": cfg.d_model, "mlp": cfg.d_ff}, seed)
+        lp, gp = loss_and_grads(bundle, pp, batch)
+        floor["loss"] = max(floor["loss"], max_rel(lp, loss))
+        floor["grad_norm"] = max(floor["grad_norm"],
+                                 max_rel(global_norm(gp), gnorm))
+        gp_by_path = dict(leaves(gp))
+        for path, t in leaves(grads):
+            for ax, name in enumerate(axes[path]):
+                if name in perm:
+                    t = t.index_select(ax, perm[name])
+            k = "/".join(path)
+            floor[k] = max(floor.get(k, 0.0), max_rel(gp_by_path[path], t))
+        del pp, lp, gp, gp_by_path
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params_c = map_tree(lambda t: t.cpu(), params)
+    lc, gc_ = loss_and_grads(bundle, params_c,
+                             {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    dev = {"loss": max_rel(lc, loss.cpu()),
+           "grad_norm": max_rel(global_norm(gc_), gnorm.cpu())}
+    dev.update(leaf_rel(gc_, map_tree(lambda t: t.cpu(), grads)))
+    del gc_
+    gc.collect()
+    bad = [k for k in dev if dev[k] > 4 * floor[k] + 1e-6]
+    worst = max(dev, key=lambda k: dev[k] / (4 * floor[k] + 1e-6))
+    print(f"  card vs CPU (CPU step {cpu_s:.1f} s): loss {dev['loss']:.2e} "
+          f"(floor {floor['loss']:.2e}), |g| {dev['grad_norm']:.2e} (floor "
+          f"{floor['grad_norm']:.2e}); nearest its bound: {worst} "
+          f"{dev[worst]:.2e} (floor {floor[worst]:.2e})")
+    if bad:
+        raise AssertionError(f"17(c): card and CPU beyond 4x the card's "
+                             f"float-order floor at {bad}")
+    # one AdamW update of the same (the card's) gradients on each side
+    cfg_opt = train_opt_cfg()
+    st = adamw_init(params)
+    adamw_update(params, grads, st, cfg_opt)
+    grads_c = map_tree(lambda t: t.cpu(), grads)
+    del grads
+    torch.cuda.empty_cache()
+    st_c = adamw_init(params_c)
+    adamw_update(params_c, grads_c, st_c, cfg_opt)
+    upd = leaf_rel({"params": map_tree(lambda t: t.cpu(), params),
+                    "mu": map_tree(lambda t: t.cpu(), st["mu"]),
+                    "nu": map_tree(lambda t: t.cpu(), st["nu"])},
+                   {"params": params_c, "mu": st_c["mu"], "nu": st_c["nu"]})
+    worst_u = max(upd.values())
+    print(f"  one AdamW update on the card vs the CPU: largest leaf "
+          f"deviation {worst_u:.2e} (bound 1e-6)")
+    if worst_u > 1e-6:
+        raise AssertionError("17(c): the AdamW updates disagree")
+    report["train_card_vs_cpu"] = {"dev": dev, "floor": floor,
+                                   "cpu_step_s": cpu_s,
+                                   "adamw_max_rel": worst_u}
+    del params, params_c, grads_c, st, st_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resume_phase(report: dict) -> None:
+    """17(d): qwen3-32b-smoke on the card, 4 steps straight against 2
+    steps, a checkpoint saved and restored, and 2 more: params and
+    optimizer state equal bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import leaves, map_tree
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+
+    cfg = get_smoke(TRAIN[0])
+    bundle = build_model(cfg)
+    pipe = TokenPipeline(cfg.vocab, 32, 2, seed=0)
+    first, then = RESUME_STEPS
+    step = make_train_step(bundle, AdamWConfig(
+        lr=cosine_schedule(1e-3, 1, first + then)))
+
+    def fresh():
+        p = bundle.init(torch.Generator(DEVICE).manual_seed(0),
+                        device=DEVICE)
+        return p, init_opt_state(p)
+
+    def run(p, o, steps):
+        for i in steps:
+            p, o, _ = step(p, o, pipe.batch(i, DEVICE))
+        return p, o
+
+    straight = dict(zip(("params", "opt"),
+                        run(*fresh(), range(first + then))))
+    p, o = run(*fresh(), range(first))
+    root = ROOT / "build" / "ckpt-17d"
+    shutil.rmtree(root, ignore_errors=True)
+    save(str(root), first, {"params": p, "opt": o}, meta={"arch": cfg.name})
+    like = map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"),
+                    {"params": p, "opt": o})
+    back = restore(str(root), first, like, device=DEVICE)
+    p, o = run(back["params"], back["opt"], range(first, first + then))
+    resumed = {"params": p, "opt": o}
+    shutil.rmtree(root, ignore_errors=True)
+    differ = [("/".join(k), a.dtype) for (k, a), (_, b) in
+              zip(leaves(resumed), leaves(straight), strict=True)
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    n = sum(1 for _ in leaves(resumed))
+    print(f"  {first} + save/restore + {then} steps against {first + then} "
+          f"straight: {n - len(differ)} of {n} leaves equal bit for bit "
+          f"(step counter {int(o['adam']['step'])})")
+    if differ:
+        raise AssertionError(f"17(d): resumed state differs at {differ}")
+    report["train_resume"] = {"leaves": n, "equal": n - len(differ)}
+
+
+def train_phase(report: dict) -> int:
+    """Phase 17; returns the main path's rosa_fused launches (17(b))."""
+    print(f"phase 17(a): python -m repro_torch.launch.train, {TRAIN[0]} "
+          f"full width, {TRAIN[1]} layers")
+    report["train_cli"] = train_cli_phase(report)
+    print("phase 17(b): the optical train step (rosa_mlp, fused vs ref)")
+    n = optical_train_phase(report)
+    print("phase 17(c): a full-width 1-layer train step, card vs CPU")
+    card_vs_cpu_phase(report)
+    print("phase 17(d): resume on the card")
+    resume_phase(report)
+    return n
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -3073,6 +3492,7 @@ def run_phases(opts) -> int:
     launches["rosa_fused"] += phase("14", moe_phase)
     launches["ssd_scan"] += phase("15", family_phase)
     launches["rosa_fused"] += phase("16", dense_phase)
+    launches["rosa_fused"] += phase("17", train_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

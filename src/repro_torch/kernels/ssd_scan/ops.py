@@ -49,9 +49,20 @@ def ssd_scan(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     """x: (B, L, H, P); loga: (B, L, H); b, c: (B, L, G, S), G dividing H
     (heads within a group share B/C, Mamba-2's GVA).
 
-    Returns (y: (B, L, H, P), state: (B, H, S, P))."""
+    Returns (y: (B, L, H, P), state: (B, H, S, P)).
+
+    The kernels have no backward: with grad enabled and an input that
+    requires grad, a CUDA call raises rather than hand back outputs cut
+    off from the graph (the plain version on the CPU differentiates)."""
     if x.device.type == "cpu":
         return plain(x, loga, b, c, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, loga, b, c)):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernels have no backward yet, so training "
+            "an ssm or hybrid model on the card would drop the gradients "
+            "of everything before the scan; run it on the CPU, or under "
+            "torch.no_grad() to serve")
     return launch(x, loga, b, c, chunk)
 
 

@@ -1,5 +1,5 @@
-"""Shared transformer building blocks (PyTorch port of the parts of
-`repro.models.layers` that serving uses).
+"""Shared transformer building blocks (PyTorch port of
+`repro.models.layers` without `flash_decode`).
 
 Every block is a pair: `<block>_def(cfg)` gives the ParamDef skeleton,
 `<block>_apply(params, ...)` the activations.  Layouts are the reference's:
@@ -36,10 +36,47 @@ def rmsnorm_def(dim: int, axis: str = "embed") -> ParamDef:
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm (forward) with float32 statistics."""
+    """RMSNorm with float32 statistics and the reference's hand-written
+    backward (`_RMSNorm`): every (B, S, D) cotangent stays in the
+    activation dtype, and only the (B, S, 1) reductions run in float32.
+    Without a graph to record (serving, `no_grad`) the same forward runs
+    as plain ops."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_fwd(x, scale, eps)[0]
+
+
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """(x * r * scale, r): r = rsqrt(mean(x^2) + eps) in float32, cast to
+    the activation dtype."""
     var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
     r = torch.rsqrt(var + eps).to(x.dtype)
-    return x * r * scale
+    return x * r * scale, r
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's `_rmsnorm_fwd2` / `_rmsnorm_bwd2`: d_scale summed in
+    float32 over every leading axis, then cast to the scale's dtype; the
+    mean of (g * scale) * x_hat in float32, cast to the activation dtype;
+    dx = r * (g * scale - x_hat * m)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        y, r = _rmsnorm_fwd(x, scale, eps)
+        ctx.save_for_backward(x, r, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, r, scale = ctx.saved_tensors
+        xh = x * r
+        d_scale = torch.sum((g * xh).float(),
+                            dim=tuple(range(g.ndim - 1))).to(scale.dtype)
+        gsc = g * scale
+        m = torch.mean((gsc * xh).float(), dim=-1,
+                       keepdim=True).to(x.dtype)
+        dx = r * (gsc - xh * m)
+        return dx, d_scale, None
 
 
 # ---------------------------------------------------------------------------
@@ -284,3 +321,20 @@ def unembed_def(d_model: int, vocab: int) -> ParamDef:
 
 def unembed_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, w)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross entropy in float32; logits (B, S, V), labels
+    (B, S).  With a mask, the masked mean over max(sum(mask), 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

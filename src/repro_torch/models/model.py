@@ -1,19 +1,20 @@
-"""build_model(cfg) — the model API of the port (PyTorch port of the
-serving part of `repro.models.model`: the dense, moe, mla_moe, ssm,
-hybrid and encdec families).
+"""build_model(cfg) — the model API of the port (PyTorch port of
+`repro.models.model` without logical-axis sharding: the dense, moe,
+mla_moe, ssm, hybrid and encdec families).
 
 A `ModelBundle` exposes functions over plain dicts of tensors:
 
     bundle.init(generator, dtype, device)   real params
     bundle.abstract(dtype)                  `meta` params (tracing)
-    bundle.prefill / decode_step / chunk_step
+    bundle.train_loss / forward / prefill / decode_step / chunk_step
+    bundle.input_specs(shape) / step_fn(shape)
 
 plus `cache_axes` and the slot API of continuous-batching serving
 (`write_slot`, `evict_slot`, `read_slot`, `pad_cache`, each driven by the
-cache's logical axes), and `params_from_reference`,
-which carries the reference's numbers across (with
-`robust.variation.from_reference` for a chip), so the two packages can
-compute on identical weights and an identical chip.
+cache's logical axes), and `params_from_reference` /
+`opt_state_from_reference`, which carry the reference's numbers across
+(with `robust.variation.from_reference` for a chip), so the two packages
+can compute on identical weights, optimizer state and chip.
 
 `make_inputs` builds the inputs of the assignment's shape grid
 (`ASSIGNED_SHAPES`, reduced in `SMOKE_SHAPES`): ``train_*`` shapes give
@@ -162,6 +163,12 @@ class ModelBundle:
     def n_params(self) -> int:
         return param_count(self.skeleton)
 
+    def train_loss(self, params, batch):
+        return T.train_loss(params, self.cfg, batch)
+
+    def forward(self, params, batch):
+        return T.forward(params, self.cfg, batch)
+
     def prefill(self, params, batch):
         return T.prefill(params, self.cfg, batch)
 
@@ -171,6 +178,17 @@ class ModelBundle:
     def chunk_step(self, params, batch):
         """Serving prefill chunk: batch = {tokens (B, C), n_valid, cache}."""
         return T.chunk_step(params, self.cfg, batch)
+
+    def input_specs(self, shape: ShapeSpec, concrete: bool = False,
+                    generator: torch.Generator | None = None):
+        return make_inputs(self.cfg, shape, concrete, generator)
+
+    def step_fn(self, shape: ShapeSpec):
+        if shape.kind == "train":
+            return self.train_loss
+        if shape.kind == "prefill":
+            return self.prefill
+        return self.decode_step
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
@@ -311,3 +329,11 @@ def params_from_reference(tree, device=None) -> dict:
     ln2, ffn), and seamless's `encoder` (layers, norm) and the decoder
     layers' `ln_cross` / `cross` as they are."""
     return map_tree(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def opt_state_from_reference(tree, device=None) -> dict:
+    """The reference's `init_opt_state` tree ({"adam": {"mu", "nu",
+    "step"}} and, with gradient compression, "err"), converted leaf by
+    leaf as `params_from_reference` converts; the step counter stays an
+    int32 (0-d) tensor."""
+    return params_from_reference(tree, device)

@@ -52,6 +52,17 @@ def leaves(skel, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
         yield prefix, skel
 
 
+def unflatten(pairs) -> dict:
+    """The nested dict of (path, leaf) pairs (`leaves`' inverse)."""
+    out: dict = {}
+    for path, t in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
 def map_tree(fn: Callable, skel):
     """Nested dict with `fn(leaf)` at every leaf."""
     if isinstance(skel, dict):
@@ -64,7 +75,7 @@ def init_params(skel, generator: torch.Generator, dtype=torch.float32,
     """Real parameters: zeros/ones, or N(0, std^2) drawn from `generator`
     leaf after leaf in sorted-key order.  The generator must live on
     `device` (or on the CPU when `device` is None)."""
-    out: dict = {}
+    out = []
     for path, d in leaves(skel):
         if d.init == "zeros":
             t = torch.zeros(d.shape, dtype=dtype, device=device)
@@ -73,11 +84,8 @@ def init_params(skel, generator: torch.Generator, dtype=torch.float32,
         else:
             t = torch.randn(d.shape, generator=generator, device=device)
             t = t.mul_(d.std).to(dtype)
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = t
-    return out
+        out.append((path, t))
+    return unflatten(out)
 
 
 def abstract_params(skel, dtype=torch.bfloat16) -> dict:

@@ -1,5 +1,6 @@
 """Model stacks of the dense, moe, mla_moe, ssm, hybrid and encdec
-families (PyTorch port of the serving paths of `repro.models.transformer`).
+families (PyTorch port of `repro.models.transformer` without its sharding
+hooks and expert-parallel path).
 
 Parameters keep the reference's stacked layout (a leading `layers` axis on
 every block leaf); the reference's `scan` over layers becomes a Python loop
@@ -21,6 +22,8 @@ prefill caches the cross K/V once (`cache_dtype`), and decode reads them
 against `memory_pos`.  Step functions take and return plain dicts of
 tensors:
 
+    forward(params, cfg, batch)      -> final hidden states (B, S, D)
+    train_loss(params, cfg, batch)   -> scalar loss (labels in the batch)
     prefill(params, cfg, batch)      -> (last-token logits (B, V), cache)
     decode_step(params, cfg, batch)  -> (logits (B, V), cache)
     chunk_step(params, cfg, batch)   -> (logits at the last real token, cache)
@@ -76,6 +79,8 @@ class ModelConfig:
     n_enc_layers: int = 0        # encdec: encoder depth (n_layers = decoder)
     frontend: str = "none"       # none | vision | audio
     tie_embeddings: bool = False
+    remat: str = "full"          # full | dots | none: what the train-time
+    #                              backward recomputes (memory, not numbers)
     rosa_mlp: bool = False       # route MLP projections through the ROSA MAC
     cache_dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
@@ -252,6 +257,65 @@ def _ssm_prefill(p: dict, scfg: SSM.SSMConfig, u: torch.Tensor):
     return out, cache
 
 
+def _block_fwd(p: dict, cfg: ModelConfig, x, positions, meta, step,
+               memory=None, memory_pos=None) -> torch.Tensor:
+    """Full-sequence block forward (the train path: no cache)."""
+    if "ssm" in p:
+        return x + SSM.ssm_apply(p["ssm"], cfg.ssm,
+                                 L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.family == "mla_moe":
+        a = MLA.mla_apply(p["attn"], cfg.mla, h, positions)
+    else:
+        a = L.attn_apply(p["attn"], cfg.attn, h, positions,
+                         window=meta["window"], theta=meta["theta"])
+    x = x + a
+    if "cross" in p:
+        h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        x = x + L.attn_apply(p["cross"], cross_cfg(cfg), h, positions,
+                             memory=memory, memory_pos=memory_pos)
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + _ffn_apply(p["ffn"], cfg, h, step)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective recomputation that keeps only the outputs of plain 2-D
+    products (`dots_with_no_batch_dims_saveable`)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """`fn` under the config's recomputation policy.  A policy changes
+    what the backward keeps, never a number: the optical engine folds a
+    fresh generator per (layer name, step), so a recomputed block draws
+    its noise again bit for bit without the global RNG state stashed.
+    The recomputation runs where autograd runs the backward (for CUDA
+    tensors a device thread of its own, which does not see the caller's
+    context), so it re-installs the engine the forward saw."""
+    if cfg.remat == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+    kw: dict = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(
+            _dots_policy)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: full | dots | none")
+
+    def run(*args):
+        engine = rosa.ambient_engine()
+
+        def body(*a):
+            with rosa.engine_context(engine):
+                return fn(*a)
+        return ckpt.checkpoint(body, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Whole model
 # ---------------------------------------------------------------------------
@@ -293,6 +357,74 @@ def logits_of(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return L.unembed_apply(params["unembed"], x)
+
+
+def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Full-sequence forward to the final hidden states (B, S, D): each
+    block of the stack (zamba2: each group with its shared block; the
+    encoder's layers) under `_remat`.  The layer index is the optical
+    noise `step`, as the reference's scanned `meta["idx"]`: 0 for
+    deepseek-v2's `layer0`, 1..n-1 for the layers after it, 0 for every
+    encdec layer (its stack passes no index)."""
+    check_family(cfg)
+    x, positions = _embed_in(params, cfg, batch)
+    if cfg.family == "hybrid":
+        x = _hybrid_fwd(params, cfg, x, positions)
+    elif cfg.family == "encdec":
+        mem = _encode(params, cfg, batch)
+        mem_pos = _positions(*mem.shape[:2], mem.device)
+        meta = {"window": 0, "theta": cfg.rope_theta}
+        body = _remat(cfg, lambda p, x: _block_fwd(
+            p, cfg, x, positions, meta, 0, mem, mem_pos))
+        for i in range(cfg.n_layers):
+            x = body(layer_at(params["layers"], i), x)
+    else:
+        off = 0
+        if cfg.first_dense_ff:
+            x = _block_fwd(params["layer0"], dense0(cfg), x, positions,
+                           {"window": 0, "theta": cfg.rope_theta}, 0)
+            off = 1
+        body = _remat(cfg, lambda p, x, meta, step: _block_fwd(
+            p, cfg, x, positions, meta, step))
+        for i in range(n_stacked(cfg)):
+            x = body(layer_at(params["layers"], i), x,
+                     layer_meta(cfg, i + off), i + off)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _hybrid_fwd(params, cfg: ModelConfig, x, positions) -> torch.Tensor:
+    """zamba2: each group of `shared_every` ssm layers and the shared
+    attention + MLP block after it as one recomputed unit, then the
+    `tail` layers as they are."""
+    shared = params["shared_attn"]
+
+    def group(p_g, x):
+        for i in range(cfg.shared_every):
+            x = _block_fwd(layer_at(p_g, i), cfg, x, positions, None, 0)
+        h = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
+        x = x + L.attn_apply(shared["attn"], cfg.attn, h, positions)
+        h = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
+        return x + L.mlp_apply(shared["ffn"], h)
+
+    body = _remat(cfg, group)
+    for g in range(hybrid_depth(cfg)[0]):
+        x = body(layer_at(params["groups"], g), x)
+    if "tail" in params:
+        for i in range(params["tail"]["ln1"].shape[0]):
+            x = _block_fwd(layer_at(params["tail"], i), cfg, x, positions,
+                           None, 0)
+    return x
+
+
+def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross entropy of `forward` against
+    batch["labels"] (masked by batch["mask"] if given); a vision model's
+    loss skips the patch positions."""
+    x = forward(params, cfg, batch)
+    if cfg.frontend == "vision":
+        x = x[:, batch["patch_embeds"].shape[1]:]
+    return L.softmax_xent(logits_of(params, cfg, x), batch["labels"],
+                          batch.get("mask"))
 
 
 def _stack(caches: list[dict]) -> dict:
@@ -393,12 +525,16 @@ def _encode(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     mem = batch["src_embeds"].to(enc["norm"].dtype)
     pos = _positions(*mem.shape[:2], mem.device)
     acfg = dataclasses.replace(cfg.attn, causal=False)
-    for i in range(cfg.n_enc_layers):
-        p = layer_at(enc["layers"], i)
+
+    def layer(p, mem):
         h = L.rmsnorm(p["ln1"], mem, cfg.norm_eps)
         mem = mem + L.attn_apply(p["attn"], acfg, h, pos)
         h = L.rmsnorm(p["ln2"], mem, cfg.norm_eps)
-        mem = mem + L.mlp_apply(p["ffn"], h)
+        return mem + L.mlp_apply(p["ffn"], h)
+
+    body = _remat(cfg, layer) if torch.is_grad_enabled() else layer
+    for i in range(cfg.n_enc_layers):
+        mem = body(layer_at(enc["layers"], i), mem)
     return L.rmsnorm(enc["norm"], mem, cfg.norm_eps)
 
 

@@ -54,6 +54,9 @@ _REF_MODULES = {
     "compare": "repro.bench.compare",
     "moe": "repro.models.moe", "mla": "repro.models.mla",
     "layers": "repro.models.layers", "steps": "repro.launch.steps",
+    "optim": "repro.optim", "optim_schedules": "repro.optim.schedules",
+    "compress": "repro.distributed.compress", "tokens": "repro.data.tokens",
+    "checkpoint": "repro.checkpoint",
 }
 
 
