@@ -221,7 +221,24 @@ Phases (any failure raises, so the exit code is non-zero):
      steps straight against 2 steps, a checkpoint saved and restored on
      the card, and 2 more: params and optimizer state bit for bit.  Phase
      2 times rosa_fused at the train step's tall rows (2048 x 5120 x
-     51200 and 2048 x 25600 x 5120, WS, IDEAL noise, 3 calls each).
+     51200 and 2048 x 25600 x 5120, WS, IDEAL noise, 3 calls each);
+ 18. observability and the static checks, qwen3-32b as phase 3 serves
+     it: the same requests once untraced and once under a `Tracer`, a
+     fresh metrics registry and `obs.install_kernel_hooks()`, each a
+     main-path run: identical tokens and rosa_fused launches (every routed
+     projection), one `serve.tick` span per tick, one prefill / decode
+     span per chunk / step, one request begin, first_token and end per
+     request, `serve.requests_completed` equal to the requests, and the
+     `energy.decode` track's final J equal to the decode steps times the
+     ledger's priced decode step (1e-12 relative); `python -m
+     repro_torch.obs summarize` on the saved trace; `python -m
+     repro_torch.launch.serve ... --trace` at the same width (its trace
+     holds the ticks, the request events and energy.decode); the
+     analysis CLI (`python -m repro_torch.analysis`'s `main`, in this
+     process) against the package baseline on the card; and
+     `rosa.compile(verify="error")` of phase 13's serving program, which
+     must return the Program.  The traced and untraced tok/s and the
+     trace's size are printed, not gated.
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -3378,6 +3395,198 @@ def train_phase(report: dict) -> int:
     return n
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: observability and the static checks at qwen3-32b's full width
+# ---------------------------------------------------------------------------
+SERVE_CLI = ["--arch", "qwen3-32b", "--n-layers", "4", "--rosa",
+             "--rosa-backend", "fused", "--variation-seed", "7",
+             "--requests", "6"]
+ENERGY_J_REL = 1e-12     # a sum of n equal steps against n times the step
+
+
+def run_module(*args: str, what: str) -> str:
+    """`python -m <args>` in a subprocess from this checkout; fails on a
+    non-zero exit.  Returns its standard output."""
+    import os
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if proc.returncode != 0:
+        raise AssertionError(f"18: {what} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def trace_counts(events: list) -> dict:
+    """Spans by name, request events by (phase, name) per id, and each
+    counter track's values in order."""
+    spans: dict = {}
+    requests: dict = {}
+    tracks: dict = {}
+    for e in events:
+        ph = e.get("ph")
+        if ph == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+        elif ph in ("b", "n", "e"):
+            requests.setdefault(e["id"], []).append((ph, e["name"]))
+        elif ph == "C":
+            tracks.setdefault(e["name"], []).append(e["args"])
+    return {"spans": spans, "requests": requests, "tracks": tracks}
+
+
+def check_traced_run(rep, reqs, counts: dict, reg, step_j: float,
+                     what: str) -> float:
+    """The trace of one serving run against its report: one tick, prefill
+    and decode span per tick, chunk and step; one b, first_token and e per
+    request; every request completed; the energy.decode track the decode
+    steps times the priced step.  Returns its final J."""
+    spans = counts["spans"]
+    want = {"serve.tick": rep.ticks, "serve.prefill_chunk":
+            rep.prefill_chunks, "serve.decode_step": rep.decode_steps}
+    got = {k: spans.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: spans {got} != report {want}")
+    for r in reqs:
+        evs = counts["requests"].get(str(r.rid), [])
+        if [evs.count(k) for k in (("b", "request"), ("n", "first_token"),
+                                   ("e", "request"))] != [1, 1, 1]:
+            raise AssertionError(f"{what}: request {r.rid} events {evs}")
+    done = reg.counter("serve.requests_completed").value
+    if done != len(reqs):
+        raise AssertionError(f"{what}: serve.requests_completed {done}")
+    track = counts["tracks"].get("energy.decode")
+    if not track:
+        raise AssertionError(f"{what}: no energy.decode track")
+    final_j = track[-1]["J"]
+    want_j = rep.decode_steps * step_j
+    if not (final_j > 0 and abs(final_j - want_j) <= ENERGY_J_REL * want_j):
+        raise AssertionError(f"{what}: energy.decode {final_j!r} J != "
+                             f"{rep.decode_steps} x {step_j!r} J")
+    return final_j
+
+
+def obs_phase(report: dict) -> int:
+    """18: phase 3's serving run untraced, then traced (tracer, a fresh
+    registry, the kernel-build hooks); the summarizer, the `--trace` CLI,
+    the analysis CLI and `rosa.compile(verify="error")` on the card.
+    Returns the phase's rosa_fused launches."""
+    import gc
+    import io
+    import torch
+    from repro_torch import obs, rosa
+    from repro_torch.analysis import cli as analysis_cli
+    from repro_torch.core.constants import ROSA_OPTIMAL
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
+                                   serving_model_config)
+    from repro_torch.serve.metrics import abstract_decode_batch
+
+    cfg = qwen_cfg()
+    scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
+                       rosa_backend="fused", variation_seed=7)
+    sched = Scheduler(cfg, scfg, init_seed=0, device=DEVICE)
+    reqs = poisson_requests(6, 1.0, vocab=cfg.vocab, prompt_len=(4, 8),
+                            gen_len=(2, 40), seed=0)
+
+    # ---- the main path, untraced then traced: counts from 0 each ---------
+    reset_launches()
+    rep0 = sched.run(reqs)
+    n0 = launch_counts()["rosa_fused"]
+    tracer, reg = obs.Tracer(), obs.MetricsRegistry()
+    obs.install_kernel_hooks()
+    reset_launches()
+    with obs.tracing(tracer), obs.swap_registry(reg):
+        rep1 = sched.run(reqs)
+    n1 = launch_counts()["rosa_fused"]
+
+    routed = 2 * cfg.n_layers * (rep1.decode_steps + rep1.prefill_chunks)
+    if {r: c.tokens for r, c in rep0.completions.items()} != \
+            {r: c.tokens for r, c in rep1.completions.items()}:
+        raise AssertionError("18: traced tokens differ from untraced")
+    if not n0 == n1 == routed:
+        raise AssertionError(f"18: rosa_fused launches {n0} untraced, {n1} "
+                             f"traced, {routed} routed")
+    step_j = sched.engine.ledger.breakdown(ROSA_OPTIMAL, batch=1,
+                                           tag="decode").energy
+    path = ROOT / "chiprun_out" / "phase18_serve.trace.json"
+    path.parent.mkdir(exist_ok=True)
+    tracer.save(path)
+    counts = trace_counts(json.loads(path.read_text())["traceEvents"])
+    final_j = check_traced_run(rep1, reqs, counts, reg, step_j, "18")
+    summary = run_module("repro_torch.obs", "summarize", str(path),
+                         what="python -m repro_torch.obs summarize")
+    print(f"  untraced {rep0.tokens_per_s:.2f} tok/s, traced "
+          f"{rep1.tokens_per_s:.2f} tok/s ({rep1.total_tokens} tokens, "
+          f"{rep1.ticks} ticks); rosa_fused {n0} / {n1} launches; trace "
+          f"{len(tracer)} events, {path.stat().st_size} bytes; "
+          f"energy.decode {final_j!r} J = {rep1.decode_steps} x "
+          f"{step_j!r} J")
+    print("  summarizer: " + summary.splitlines()[0])
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the CLIs at the same width ---------------------------------------
+    cli_path = path.with_name("phase18_cli.trace.json")
+    t0 = time.perf_counter()
+    out = run_module("repro_torch.launch.serve", *SERVE_CLI, "--device",
+                     DEVICE, "--trace", str(cli_path),
+                     what="launch.serve --trace")
+    cli_s = time.perf_counter() - t0
+    cli = trace_counts(json.loads(cli_path.read_text())["traceEvents"])
+    begins = sum(evs.count(("b", "request"))
+                 for evs in cli["requests"].values())
+    if not cli["spans"].get("serve.tick") or begins != 6 \
+            or "energy.decode" not in cli["tracks"]:
+        raise AssertionError("18: the --trace CLI's trace lacks serve.tick, "
+                             "the request events or energy.decode")
+    print(f"  launch.serve --trace: {cli['spans']['serve.tick']} ticks, "
+          f"{begins} requests, {cli_path.stat().st_size} bytes, "
+          f"{cli_s:.1f} s; " + next(line for line in out.splitlines()
+                                    if line.startswith("trace:")))
+    # the analysis CLI in this process: the card is initialized already
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_cli.main(["--device", DEVICE])
+    analysis_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"18: python -m repro_torch.analysis exited "
+                             f"{rc}:\n{out.getvalue()[-3000:]}")
+    print(f"  analysis: {out.getvalue().splitlines()[-1]} "
+          f"({analysis_s:.1f} s)")
+
+    # ---- rosa.compile(verify="error") on phase 13's serving program ------
+    bundle = build_model(serving_model_config(cfg, rosa=True))
+    base = rosa.RosaConfig(backend="fused", act_per_vector=True)
+    t0 = time.perf_counter()
+    prog = rosa.compile(
+        lambda eng, p, b: bundle.decode_step(p, b),
+        rosa.Engine.from_config(base),
+        (bundle.abstract(torch.float32),
+         abstract_decode_batch(bundle.cfg, scfg)),
+        autotune=rosa.AutotuneConfig(ope=ROSA_OPTIMAL, batch=1),
+        device=DEVICE, verify="error")
+    verify_s = time.perf_counter() - t0
+    if not isinstance(prog, rosa.Program):
+        raise AssertionError("18: verify='error' returned no Program")
+    plan = {k: v.name for k, v in prog.plan.mapping_plan().items()}
+    print(f"  rosa.compile(verify='error'): a Program, plan {plan} "
+          f"({verify_s:.1f} s)")
+    del prog, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["obs"] = {
+        "untraced_tok_s": rep0.tokens_per_s, "traced_tok_s":
+        rep1.tokens_per_s, "untraced_wall_s": rep0.wall_s,
+        "traced_wall_s": rep1.wall_s, "trace_events": len(tracer),
+        "trace_bytes": path.stat().st_size, "spans": counts["spans"],
+        "energy_decode_j": final_j, "decode_step_j": step_j,
+        "rosa_fused": [n0, n1], "registry": reg.snapshot(),
+        "cli_s": cli_s, "analysis_s": analysis_s, "verify_s": verify_s}
+    return n0 + n1
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -3493,6 +3702,9 @@ def run_phases(opts) -> int:
     launches["ssd_scan"] += phase("15", family_phase)
     launches["rosa_fused"] += phase("16", dense_phase)
     launches["rosa_fused"] += phase("17", train_phase)
+    print("phase 18: observability and the static checks, qwen3-32b full "
+          "width")
+    launches["rosa_fused"] += phase("18", obs_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

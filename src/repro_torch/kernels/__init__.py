@@ -19,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 import torch
 
@@ -34,6 +35,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+# Observers of `build_all`, each called as fn(event, name, seconds): event
+# "build" after nvcc built library `name` (`seconds` from its start to its
+# collection), "cache_hit" for a library found up to date.  Empty unless
+# `repro_torch.obs.install_kernel_hooks` registered one.
+BUILD_LISTENERS: list = []
+
+
+def _notify(event: str, name: str, seconds: float = 0.0) -> None:
+    for fn in BUILD_LISTENERS:
+        fn(event, name, seconds)
 
 
 class KernelBuildError(RuntimeError):
@@ -67,23 +79,27 @@ def build_all(names: list[str] | None = None) -> dict[str, pathlib.Path]:
         srcs = [s for s in srcs if s.stem in names]
     out = {s.stem: _target(s) for s in srcs}
     todo = [s for s in srcs if not out[s.stem].exists()]
+    for s in srcs:
+        if s not in todo:
+            _notify("cache_hit", s.stem)
     if todo:
         nvcc = nvcc_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
         for s in todo:
             tmp = out[s.stem].with_suffix(f".{os.getpid()}.tmp")
-            procs.append((s, tmp, subprocess.Popen(
+            procs.append((s, tmp, time.perf_counter(), subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(s)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         errors = []
-        for s, tmp, proc in procs:
+        for s, tmp, t0, proc in procs:
             log, _ = proc.communicate()
             (BUILD_DIR / f"{s.stem}.log").write_bytes(log)
             if proc.returncode != 0:
                 errors.append(f"{s.name}:\n{log.decode(errors='replace')}")
             else:
                 os.replace(tmp, out[s.stem])
+                _notify("build", s.stem, time.perf_counter() - t0)
         if errors:
             raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
     return out

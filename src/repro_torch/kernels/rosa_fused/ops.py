@@ -36,6 +36,7 @@ from repro_torch.core import mrr, osa
 from repro_torch.core import quant as Q
 from repro_torch.core.constants import ComputeMode, Mapping
 from repro_torch.kernels.rosa_fused import ref
+from repro_torch.obs import trace as obs
 
 # The tall path of the CUDA kernel (csrc/rosa_fused.cu, M > 16): TALL_BM
 # rows and an N tile from N_TILES per block, TALL_BK lanes a step; M <= 16
@@ -77,6 +78,19 @@ def rosa_fused_matmul(x: torch.Tensor, w: torch.Tensor, key=None,
     by at most one LSB.  Keywords as `operands`.
     """
     args, static = operands(x, w, key, var, gate, mgate, **kw)
+    if obs.enabled():
+        # once per shape and specialization (the reference's instant fires
+        # at trace time): the compile timeline shows ONE kernel where the
+        # composed path shows its device ops
+        spec = dict(m=x.shape[0], k=x.shape[1], n=w.shape[1],
+                    mapping=kw.get("mapping", Mapping.WS).name,
+                    mode=kw.get("mode", ComputeMode.MIXED).name,
+                    realize_x=static["realize_x"],
+                    realize_w=static["realize_w"],
+                    gated=static["use_gate"],
+                    mapping_gated=static["use_mgate"])
+        obs.instant_once(tuple(spec.values()), "kernels.rosa_fused",
+                         "compile", **spec)
     return rosa_fused(*args, **static)
 
 

@@ -31,12 +31,16 @@
       --policy batch --batch 4 --prompt-len 32 --gen 16
 
 `--smoke` takes the reduced CPU-sized config; `--n-layers` cuts the depth
-of the full-width config.  Runs on CUDA unless `--device cpu`.
+of the full-width config.  `--trace PATH` saves a Chrome trace of a
+stream policy's run (construction included), which `python -m
+repro_torch.obs summarize PATH` reads.  Runs on CUDA unless `--device
+cpu`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -166,14 +170,19 @@ def main(argv=None) -> None:
     if args.devices > 1:
         raise SystemExit("--devices > 1: slot-sharded serving is not ported "
                          "to repro_torch yet (one device only)")
-    if args.trace:
-        raise SystemExit("--trace: the serving spans and their export from "
-                         "this CLI are not wired up yet (the span tracer "
-                         "itself is repro_torch.obs.trace)")
-
     from repro_torch.core.constants import ROSA_OPTIMAL
     from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
                                    report_metrics)
+
+    tracer = None
+    ctx = contextlib.nullcontext()
+    if args.trace:
+        from repro_torch import obs
+        obs.install_kernel_hooks()
+        tracer = obs.Tracer()
+        # installed around construction too, so the compile, plan-cache and
+        # kernel-build spans land in the same trace as the serving ticks
+        ctx = obs.tracing(tracer)
 
     cfg = model_config(args)
     scfg = ServeConfig(n_slots=args.n_slots, max_len=args.max_len,
@@ -181,20 +190,28 @@ def main(argv=None) -> None:
                        temperature=args.temperature, seed=args.seed,
                        rosa=args.rosa, rosa_backend=args.rosa_backend,
                        variation_seed=args.variation_seed)
-    sched = Scheduler(cfg, scfg, init_seed=args.seed, device=args.device)
-    print(f"arch={cfg.name} layers={cfg.n_layers} "
-          f"params={sched.bundle.n_params:,} slots={scfg.n_slots} "
-          f"max_len={scfg.max_len} chunk={scfg.prefill_chunk} "
-          f"policy={args.policy} device={args.device}"
-          + (f" rosa backend={args.rosa_backend}" if args.rosa else ""))
-    if sched.program is not None:
-        plan = {n: m.name for n, m in sched.program.plan.mapping_plan()
-                .items()}
-        print(f"  plan {plan}")
-    reqs = poisson_requests(args.requests, args.rate, vocab=cfg.vocab,
-                            prompt_len=tuple(args.prompt_range),
-                            gen_len=tuple(args.gen_range), seed=args.seed)
-    rep = sched.run(reqs, policy=args.policy)
+    with ctx:
+        sched = Scheduler(cfg, scfg, init_seed=args.seed, device=args.device)
+        print(f"arch={cfg.name} layers={cfg.n_layers} "
+              f"params={sched.bundle.n_params:,} slots={scfg.n_slots} "
+              f"max_len={scfg.max_len} chunk={scfg.prefill_chunk} "
+              f"policy={args.policy} device={args.device}"
+              + (f" rosa backend={args.rosa_backend}" if args.rosa else ""))
+        if sched.program is not None:
+            plan = {n: m.name for n, m in sched.program.plan.mapping_plan()
+                    .items()}
+            print(f"  plan {plan}")
+        reqs = poisson_requests(args.requests, args.rate, vocab=cfg.vocab,
+                                prompt_len=tuple(args.prompt_range),
+                                gen_len=tuple(args.gen_range),
+                                seed=args.seed)
+        rep = sched.run(reqs, policy=args.policy)
+
+    if tracer is not None:
+        tracer.save(args.trace)
+        print(f"trace: {len(tracer)} events -> {args.trace} "
+              f"(load in https://ui.perfetto.dev, or summarize with "
+              f"`python -m repro_torch.obs summarize {args.trace}`)")
     for m in report_metrics(rep):
         v = f"{m.value:.4g}" if isinstance(m.value, float) else m.value
         print(f"  {m.name:24s} {v} {m.unit}")

@@ -86,9 +86,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
     """x: (..., S, H, D); positions: (..., S)."""
     d = x.shape[-1]
     half = d // 2
+    # torch.full fills on the device; a tensor made from the host scalar
+    # would be a synchronizing copy in every layer of every step
     freq = torch.exp(
-        -torch.log(torch.as_tensor(theta, dtype=torch.float32,
-                                   device=x.device))
+        -torch.log(torch.full((), theta, dtype=torch.float32,
+                              device=x.device))
         * (torch.arange(half, dtype=torch.float32, device=x.device) / half))
     ang = positions[..., None].float() * freq
     cos = torch.cos(ang)[..., None, :].to(x.dtype)
@@ -168,8 +170,8 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
     if causal:
         ok = ok & (diff >= 0)
-    window = torch.as_tensor(window, device=diff.device)
-    ok = ok & ((window <= 0) | (diff < window))
+    if window > 0:
+        ok = ok & (diff < window)
     if k_len_valid is not None:
         ok = ok & (k_pos[..., None, :] < k_len_valid[..., None])
     return torch.where(ok, 0.0, NEG_INF).float()

@@ -18,11 +18,19 @@ instrumented subsystems maintain:
     rosa.plancache_hits / rosa.plancache_misses     PlanCache plan IO
     rosa.plancache_evictions                        PlanCache LRU bound
     rosa.degstore_layer_hits / _misses              degradation-matrix rows
+    serve.queue_depth / serve.slots_active          scheduler gauges
+    serve.evictions / serve.requests_completed      scheduler counters
     serve.adaptive.retrims / .replans               drift controller actions
     serve.adaptive.state / .drift_est_k             drift controller gauges
+    kernels.builds / kernels.build_s                nvcc builds (hooks)
+    kernels.build_cache_hits                        libraries up to date
 
-The reference's `install_jax_hooks` (XLA retrace and compile counters
-from `jax.monitoring`) has no counterpart here.
+`install_kernel_hooks` is the counterpart of the reference's
+`install_jax_hooks`: where the reference counts XLA compiles and
+compile-cache hits, the port counts nvcc builds of its CUDA kernels
+(`repro_torch.kernels.build_all`).  The listener resolves `registry()` at
+fire time (so tests can swap the registry) and drops a back-dated
+``kernels.build`` span onto the ambient trace.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import contextlib
 import math
 import re
 import threading
+
+from repro_torch.obs import trace as _trace
 
 # log-spaced seconds buckets: ~30 us .. ~5 min, x4 per step — wide enough
 # for both a single serving tick and a cold compile
@@ -279,3 +289,42 @@ def swap_registry(reg: MetricsRegistry):
         yield reg
     finally:
         _REGISTRY = prev
+
+
+# ---------------------------------------------------------------------------
+# Kernel-build bridge: nvcc builds and up-to-date libraries
+# ---------------------------------------------------------------------------
+_KERNEL_HOOKS_LOCK = threading.Lock()
+_KERNEL_HOOKS_INSTALLED = False
+
+
+def _on_build(event: str, name: str, seconds: float) -> None:
+    reg = registry()
+    tr = _trace.current_tracer()
+    if event == "cache_hit":
+        reg.counter("kernels.build_cache_hits").inc()
+        if tr is not None:
+            tr.instant("kernels.build_cache_hits", cat="kernels", kernel=name)
+        return
+    reg.counter("kernels.builds").inc()
+    reg.histogram("kernels.build_s").observe(seconds)
+    if tr is not None:
+        # the duration arrives after the fact: back-date the span start
+        tr._emit({"name": "kernels.build", "cat": "kernels", "ph": "X",
+                  "ts": tr.now_us() - seconds * 1e6, "dur": seconds * 1e6,
+                  "args": {"kernel": name}})
+
+
+def install_kernel_hooks() -> bool:
+    """Register the kernel-build listener (idempotent; returns True).
+
+    Until it is called `build_all` notifies nobody; after, every build and
+    every up-to-date library found dispatches through `registry()` and the
+    ambient tracer at fire time."""
+    global _KERNEL_HOOKS_INSTALLED
+    with _KERNEL_HOOKS_LOCK:
+        if not _KERNEL_HOOKS_INSTALLED:
+            from repro_torch import kernels
+            kernels.BUILD_LISTENERS.append(_on_build)
+            _KERNEL_HOOKS_INSTALLED = True
+        return True

@@ -87,6 +87,7 @@ class Tracer:
         self._events: "list[dict | tuple]" = []
         self._pid = os.getpid()
         self._thread_names: dict[int, str] = {}
+        self._once: set = set()
         self.wall_epoch = time.time()
 
     # -- timebase ------------------------------------------------------------
@@ -180,6 +181,14 @@ class Tracer:
         self._append(("i", name, cat or "instant", self._clock(), args,
                       threading.get_ident()))
 
+    def first(self, key) -> bool:
+        """True the first time `key` is seen by this tracer, then False."""
+        with self._lock:
+            if key in self._once:
+                return False
+            self._once.add(key)
+            return True
+
     # -- counters ------------------------------------------------------------
     def counter(self, name: str, value: "float | int | dict",
                 cat: str = "counter") -> None:
@@ -269,6 +278,16 @@ def instant(name: str, cat: str = "", **args: Any) -> None:
     """`Tracer.instant` on the ambient tracer; no-op when disabled."""
     tr = _TRACER_VAR.get()
     if tr is not None:
+        tr.instant(name, cat, **args)
+
+
+def instant_once(key: tuple, name: str, cat: str = "", **args: Any) -> None:
+    """`instant`, the first time (name, *key) is seen by the installed
+    tracer.  The reference's compile instants fire while JAX traces a step,
+    once per compiled shape; the port runs eagerly and keys them on the
+    shape instead, so a step that runs a thousand times emits one."""
+    tr = _TRACER_VAR.get()
+    if tr is not None and tr.first((name, *key)):
         tr.instant(name, cat, **args)
 
 

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import mrr
 from repro_torch.core.constants import Mapping
+from repro_torch.obs import trace as obs
 from repro_torch.rosa.backends import (DEFAULT, RosaConfig, condition_weight,
                                        rosa_matmul)
 from repro_torch.rosa.ledger import EnergyLedger
@@ -182,11 +183,17 @@ class Engine:
         """y = x @ w through this layer's resolved config; x (..., K),
         w (K, N).  Dense layers contract exactly in the caller's dtype."""
         cfg = self.plan.resolve(name)
+        m = math.prod(x.shape[:-1])
+        k, n = int(x.shape[-1]), int(w.shape[-1])
+        if obs.enabled():
+            # once per (layer, shape) and tracer: the compile timeline shows
+            # every shape the engine routes (and which fall through to dense)
+            layer = name or "unnamed"
+            obs.instant_once((layer, m, k, n), "rosa.matmul", "compile",
+                             layer=layer, m=m, k=k, n=n, dense=cfg is None)
         if cfg is None:
             return torch.einsum("...k,kn->...n", x, w)
         if self.ledger is not None:
-            m = math.prod(x.shape[:-1])
-            k, n = int(x.shape[-1]), int(w.shape[-1])
             self.ledger.record(name or f"unnamed_{m}x{k}x{n}",
                                m=m, k=k, n=n, cfg=cfg)
         if x.device.type == "meta":

@@ -22,8 +22,7 @@
      that engine installed as the ambient context.
 
 `Program.plan` / `Program.lower()` expose the resolved plan for inspection
-and JSON round-trip.  The reference's `verify=` (static checks of the
-lowered XLA program, `repro.analysis`) has no counterpart yet.
+and JSON round-trip; `verify=` runs `repro_torch.analysis` over it.
 """
 
 from __future__ import annotations
@@ -558,14 +557,17 @@ def compile(apply_fn: ApplyFn, engine: Engine,
 
     The reference's ``donate_argnums`` is not taken: the port's steps
     update their state in place, so there is nothing to donate.
-    ``verify`` other than "off" raises: the reference's checks read the
-    lowered XLA program (ROADMAP Queue 1 item 6).
+
+    ``verify`` runs the `repro_torch.analysis` checks (generator-state
+    reuse, host round trips, float64 promotion) over one call of the
+    compiled program, its `meta` example arguments as zeros on ``device``
+    (None: CUDA) and a fresh generator as its key: ``"error"`` raises
+    `analysis.VerificationError` on ERROR-severity findings, ``"warn"``
+    emits a warning per finding, ``"off"`` (default) skips the pass.
     """
-    if verify != "off":
-        raise NotImplementedError(
-            f"verify={verify!r}: the reference's static checks read XLA HLO "
-            "(repro.analysis), which the port has no counterpart of yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+    if verify not in ("off", "warn", "error"):
+        raise ValueError(
+            f"verify must be 'off'|'warn'|'error', got {verify!r}")
     example_args = tuple(example_args)
     trace = capture_trace(apply_fn, engine, example_args)
 
@@ -631,5 +633,20 @@ def compile(apply_fn: ApplyFn, engine: Engine,
             final = final.with_ledger(None)
         with obs.span("rosa.freeze", cat="compile"):
             _abstract_run(apply_fn, final, example_args)
-    return Program(apply_fn, engine, trace, searched=searched,
-                   cache_hit=cache_hit, cache_key=cache_key)
+    program = Program(apply_fn, engine, trace, searched=searched,
+                      cache_hit=cache_hit, cache_key=cache_key)
+
+    if verify != "off":
+        # lazy import: rosa stays importable without the analysis package,
+        # which imports rosa for its CLI targets
+        from repro_torch import analysis as A
+        report = A.verify_program(program, example_args, device=device)
+        if verify == "error" and report.errors:
+            raise A.VerificationError(report)
+        if report.findings:
+            import warnings
+            for f in report.findings:
+                # past `obs.traced`'s wrapper, at compile's caller
+                warnings.warn(f"rosa.compile verification: {f}",
+                              stacklevel=3)
+    return program

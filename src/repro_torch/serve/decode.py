@@ -2,10 +2,11 @@
 `repro.serve.decode`, single device).
 
 The decode state (slot cache + per-slot bookkeeping) lives on the device
-and is updated in place, where the reference donates it to its jitted
-step.  Admission (refill of one slot) rides inside the decode step: the
-admit payload carries a prefilled batch-1 cache, and `valid` says whether
-there is anything to admit this tick.
+and every step updates it in place, where the reference donates it to its
+jitted step (`repro_torch.analysis`'s DON001 holds the steps to it).
+Admission (refill of one slot) rides inside the decode step: the admit
+payload carries a prefilled batch-1 cache, and `valid` says whether there
+is anything to admit this tick.
 
 Sampling is scheduling-invariant: a request's i-th token is drawn with a
 generator seeded from (seed, request id, i), so continuous batching,
@@ -104,11 +105,13 @@ def _apply_admission(cfg: T.ModelConfig, state: DecodeState,
     if admit["valid"]:
         s = admit["slot"]
         write_slot(cfg, state.cache, admit["cache"], s)
-        state.tok[s] = admit["token"]
-        state.rid[s] = admit["rid"]
-        state.tidx[s] = 1     # the prefill already produced token #1
-        state.budget[s] = admit["budget"]
-        state.active[s] = True
+        # fill_ takes the host scalar as a kernel argument; item
+        # assignment would copy it from host memory and sync the stream
+        state.tok[s].fill_(admit["token"])
+        state.rid[s].fill_(admit["rid"])
+        state.tidx[s].fill_(1)    # the prefill already produced token #1
+        state.budget[s].fill_(admit["budget"])
+        state.active[s].fill_(True)
     return state
 
 
@@ -126,21 +129,30 @@ def _step_body(bundle: ModelBundle, scfg: ServeConfig, params,
     (`serve.adaptive.make_drift_step`) both run it."""
     state = _apply_admission(bundle.cfg, state, admit)
     cache = state.cache
-    logits, cache = bundle.decode_step(
+    logits, stepped = bundle.decode_step(
         params, {"token": state.tok, "pos": cache["pos"], "cache": cache})
+    _write_back(cache, stepped)
     tok_next = _sample_rows(state.seed, state.rid, state.tidx, logits,
                             temperature)
-    active = state.active
-    tidx_next = torch.where(active, state.tidx + 1, state.tidx)
-    done = active & (tidx_next >= state.budget)
-    new_state = DecodeState(cache=cache, tok=tok_next, rid=state.rid,
-                            tidx=tidx_next, budget=state.budget,
-                            active=active & ~done, seed=state.seed)
-    out = {"token": tok_next, "emitted": active, "done": done,
+    emitted = state.active.clone()
+    tidx_next = torch.where(emitted, state.tidx + 1, state.tidx)
+    done = emitted & (tidx_next >= state.budget)
+    state.tok.copy_(tok_next)
+    state.tidx.copy_(tidx_next)
+    state.active.copy_(emitted & ~done)
+    out = {"token": tok_next, "emitted": emitted, "done": done,
            "pos": cache["pos"]}
     if scfg.collect_logits:
         out["logits"] = logits
-    return new_state, out
+    return state, out
+
+
+def _write_back(cache: dict, stepped: dict) -> dict:
+    """Keep a step's cache in the caller's storage: the model writes the
+    K/V (and state-space) leaves in place but returns the advanced `pos`
+    as a new tensor, which is copied back.  Returns `cache`."""
+    cache["pos"].copy_(stepped["pos"])
+    return cache
 
 
 def make_serve_step(bundle: ModelBundle, scfg: ServeConfig, program=None):
@@ -164,7 +176,7 @@ def make_evict(bundle: ModelBundle, scfg: ServeConfig, program=None):
 
     def evict(state: DecodeState, slot: int) -> DecodeState:
         evict_slot(bundle.cfg, state.cache, slot)
-        state.active[slot] = False
+        state.active[slot].fill_(False)
         return state
 
     return _bind(program, evict)
@@ -174,11 +186,15 @@ def make_evict(bundle: ModelBundle, scfg: ServeConfig, program=None):
 # Prefill
 # ---------------------------------------------------------------------------
 def make_chunk_fn(bundle: ModelBundle, program=None):
-    """The shared chunk step (params, tokens (1, C), n_valid (1,), cache)."""
-    return _bind(program, lambda params, tokens, n_valid, cache:
-                 bundle.chunk_step(params, {"tokens": tokens,
-                                            "n_valid": n_valid,
-                                            "cache": cache}))
+    """The shared chunk step (params, tokens (1, C), n_valid (1,), cache)
+    -> (logits, cache), the cache advanced in place."""
+
+    def chunk(params, tokens, n_valid, cache):
+        logits, stepped = bundle.chunk_step(
+            params, {"tokens": tokens, "n_valid": n_valid, "cache": cache})
+        return logits, _write_back(cache, stepped)
+
+    return _bind(program, chunk)
 
 
 def make_whole_fn(bundle: ModelBundle, program=None):

@@ -1,6 +1,7 @@
 """Continuous-batching scheduler: slot admission, prefill/decode interleave
-(PyTorch port of `repro.serve.scheduler`; of its tracing, the prefill
-chunk and decode step spans).
+(PyTorch port of `repro.serve.scheduler`, with its tracing: the tick,
+prefill and decode spans, the request lifecycle as async events, the queue
+and slot counters and the energy tracks).
 
 Two admission policies over the same step:
 
@@ -31,7 +32,9 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model, write_slot
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs
+from repro_torch.obs.energy import EnergyTrack
 from repro_torch.serve.config import ServeConfig, serving_model_config
 from repro_torch.serve.decode import (PrefillTask, init_state, make_admit,
                                       make_admit_step, make_chunk_fn,
@@ -68,6 +71,7 @@ class Completion:
     slot: int = -1
     # wall-clock stamps (seconds relative to the run's start)
     enqueue_wall: float = 0.0
+    admit_wall: float = 0.0
     first_token_wall: float = 0.0
     done_wall: float = 0.0
 
@@ -270,124 +274,174 @@ class Scheduler:
         rep = ServeReport(policy=policy, completions=completions,
                           n_slots=n_slots)
         tick = 0
-        # tracing is ambient and fixed for the run: the span contexts are
-        # built once and re-entered every tick
+        # tracing is ambient and fixed for the run: resolve it once, keep
+        # the disabled path at one None check per emission site, and hoist
+        # every registry lookup out of the tick loop
         tr = obs.current_tracer()
+        reg = obs_metrics.registry()
+        c_completed = reg.counter("serve.requests_completed")
+        c_evicted = reg.counter("serve.evictions")
+        g_depth = reg.gauge("serve.queue_depth")
+        g_active = reg.gauge("serve.slots_active")
+        last_depth = last_active = -1
+        # span contexts are stateless between uses: build the per-tick ones
+        # once and re-enter them
         if tr is not None:
+            tick_ctx = tr.span("serve.tick", "serve")
             prefill_ctx = tr.span("serve.prefill_chunk", "serve")
             decode_ctx = tr.span("serve.decode_step", "serve")
         else:
-            prefill_ctx = decode_ctx = contextlib.nullcontext()
+            tick_ctx = prefill_ctx = decode_ctx = contextlib.nullcontext()
+        etrack = None
+        if tr is not None and self.engine is not None \
+                and self.engine.ledger is not None:
+            etrack = EnergyTrack(self.engine.ledger)
         t0 = time.perf_counter()
 
         def finish(comp: Completion) -> None:
             comp.done_tick = tick
             comp.done_wall = time.perf_counter() - t0
+            c_completed.inc()
+            if tr is not None:
+                tr.async_end("request", comp.rid, cat="request",
+                             tokens=len(comp.tokens))
 
         def mark_admit(comp: Completion, slot: int) -> None:
             comp.admit_tick = tick
             comp.slot = slot
+            comp.admit_wall = time.perf_counter() - t0
+            if tr is not None:
+                tr.async_instant("admit", comp.rid, cat="request", slot=slot)
 
         while n_done < len(requests):
-            progressed = False
-            while pending and pending[0].arrival <= tick:
-                r = pending.popleft()
-                completions[r.rid].enqueue_wall = time.perf_counter() - t0
-                prefill_q.append(r)
+            with tick_ctx:
+                progressed = False
+                while pending and pending[0].arrival <= tick:
+                    r = pending.popleft()
+                    completions[r.rid].enqueue_wall = time.perf_counter() - t0
+                    if tr is not None:
+                        tr.async_begin("request", r.rid, cat="request",
+                                       prompt_len=len(r.prompt))
+                    prefill_q.append(r)
 
-            # -- one prefill chunk per tick -----------------------------------
-            if inflight is None and prefill_q:
-                req = prefill_q.popleft()
-                inflight = (req, PrefillTask(self.bundle, scfg, req.prompt,
-                                             self.chunk_fn, self.device,
-                                             self.whole_fn))
-            if inflight is not None:
-                req, task = inflight
-                with prefill_ctx, self._scope("prefill"):
-                    task.advance(self.params)
-                rep.prefill_chunks += 1
-                progressed = True
-                if task.done:
-                    comp = completions[req.rid]
-                    tok0 = int(sample_token(scfg.seed, req.rid, 0,
-                                            task.logits, temp))
-                    comp.tokens.append(tok0)
-                    comp.first_token_tick = tick
-                    comp.first_token_wall = time.perf_counter() - t0
-                    if scfg.collect_logits:
-                        comp.logits.append(task.logits.cpu().numpy())
-                    if req.max_new_tokens == 1:      # done at prefill
-                        finish(comp)
-                        n_done += 1
-                    else:
-                        ready.append((req, task.cache, tok0))
-                    inflight = None
+                # -- one prefill chunk per tick -------------------------------
+                if inflight is None and prefill_q:
+                    req = prefill_q.popleft()
+                    inflight = (req, PrefillTask(self.bundle, scfg,
+                                                 req.prompt, self.chunk_fn,
+                                                 self.device, self.whole_fn))
+                if inflight is not None:
+                    req, task = inflight
+                    with prefill_ctx, self._scope("prefill"):
+                        task.advance(self.params)
+                    if etrack is not None:
+                        etrack.tick("prefill")
+                    rep.prefill_chunks += 1
+                    progressed = True
+                    if task.done:
+                        comp = completions[req.rid]
+                        tok0 = int(sample_token(scfg.seed, req.rid, 0,
+                                                task.logits, temp))
+                        comp.tokens.append(tok0)
+                        comp.first_token_tick = tick
+                        comp.first_token_wall = time.perf_counter() - t0
+                        if tr is not None:
+                            tr.async_instant("first_token", req.rid,
+                                             cat="request")
+                        if scfg.collect_logits:
+                            comp.logits.append(task.logits.cpu().numpy())
+                        if req.max_new_tokens == 1:      # done at prefill
+                            finish(comp)
+                            n_done += 1
+                        else:
+                            ready.append((req, task.cache, tok0))
+                        inflight = None
 
-            # -- admission ----------------------------------------------------
-            admit = null_admit()
-            if policy == "continuous":
-                if ready and free:
-                    slot = heapq.heappop(free)
-                    req, cache0, tok0 = ready.popleft()
-                    admit = make_admit(cache0, slot, req.rid, tok0,
-                                       req.max_new_tokens)
-                    slot_rid[slot] = req.rid
-                    mark_admit(completions[req.rid], slot)
-            else:
-                outstanding = (len(pending) + len(prefill_q) + len(ready)
-                               + (1 if inflight is not None else 0))
-                if (len(free) == n_slots and ready
-                        and (len(ready) >= min(n_slots, outstanding)
-                             or (not pending and not prefill_q
-                                 and inflight is None))):
-                    while ready and free:
+                # -- admission ------------------------------------------------
+                admit = null_admit()
+                if policy == "continuous":
+                    if ready and free:
                         slot = heapq.heappop(free)
                         req, cache0, tok0 = ready.popleft()
-                        state = self.admit_step(
-                            state, make_admit(cache0, slot, req.rid, tok0,
-                                              req.max_new_tokens))
+                        admit = make_admit(cache0, slot, req.rid, tok0,
+                                           req.max_new_tokens)
                         slot_rid[slot] = req.rid
                         mark_admit(completions[req.rid], slot)
+                else:
+                    outstanding = (len(pending) + len(prefill_q)
+                                   + len(ready)
+                                   + (1 if inflight is not None else 0))
+                    if (len(free) == n_slots and ready
+                            and (len(ready) >= min(n_slots, outstanding)
+                                 or (not pending and not prefill_q
+                                     and inflight is None))):
+                        while ready and free:
+                            slot = heapq.heappop(free)
+                            req, cache0, tok0 = ready.popleft()
+                            state = self.admit_step(
+                                state, make_admit(cache0, slot, req.rid,
+                                                  tok0, req.max_new_tokens))
+                            slot_rid[slot] = req.rid
+                            mark_admit(completions[req.rid], slot)
+                        progressed = True
+
+                # -- one decode step for the whole batch ----------------------
+                if any(r is not None for r in slot_rid):
+                    extra = hook.step_args(tick) if hook is not None else ()
+                    # the span ends at the host's read of the step's result,
+                    # so on the card it covers the step's device work
+                    with decode_ctx, self._scope("decode"):
+                        state, out = self.step(self.params, state, admit,
+                                               temp, *extra)
+                        tok = out["token"].cpu().numpy()
+                        emitted = out["emitted"].cpu().numpy()
+                        done = out["done"].cpu().numpy()
+                    if etrack is not None:
+                        etrack.tick("decode")
+                    rep.decode_steps += 1
                     progressed = True
+                    logits = (out["logits"].cpu().numpy()
+                              if scfg.collect_logits else None)
+                    for s in range(n_slots):
+                        if not emitted[s]:
+                            continue
+                        comp = completions[slot_rid[s]]
+                        comp.tokens.append(int(tok[s]))
+                        if logits is not None:
+                            comp.logits.append(logits[s])
+                        if done[s]:
+                            finish(comp)
+                            n_done += 1
+                            slot_rid[s] = None
+                            heapq.heappush(free, s)
+                            if self.evict is not None:
+                                c_evicted.inc()
+                                state = self.evict(state, s)
 
-            # -- one decode step for the whole batch --------------------------
-            if any(r is not None for r in slot_rid):
-                extra = hook.step_args(tick) if hook is not None else ()
-                # the span ends at the host's read of the step's result, so
-                # on the card it covers the step's device work
-                with decode_ctx, self._scope("decode"):
-                    state, out = self.step(self.params, state, admit, temp,
-                                           *extra)
-                    tok = out["token"].cpu().numpy()
-                    emitted = out["emitted"].cpu().numpy()
-                    done = out["done"].cpu().numpy()
-                rep.decode_steps += 1
-                progressed = True
-                logits = (out["logits"].cpu().numpy()
-                          if scfg.collect_logits else None)
-                for s in range(n_slots):
-                    if not emitted[s]:
+                if tr is not None:
+                    # counters sample on change only: Perfetto renders
+                    # steps, and a flat line is pure per-tick overhead
+                    depth = (len(pending) + len(prefill_q) + len(ready)
+                             + (1 if inflight is not None else 0))
+                    active = sum(1 for r in slot_rid if r is not None)
+                    if depth != last_depth:
+                        last_depth = depth
+                        tr.counter("serve.queue_depth", depth)
+                        g_depth.set(depth)
+                    if active != last_active:
+                        last_active = active
+                        tr.counter("serve.slots_active", active)
+                        g_active.set(active)
+
+                if not progressed:
+                    if pending:             # idle: jump to the next arrival
+                        tick = pending[0].arrival
                         continue
-                    comp = completions[slot_rid[s]]
-                    comp.tokens.append(int(tok[s]))
-                    if logits is not None:
-                        comp.logits.append(logits[s])
-                    if done[s]:
-                        finish(comp)
-                        n_done += 1
-                        slot_rid[s] = None
-                        heapq.heappush(free, s)
-                        if self.evict is not None:
-                            state = self.evict(state, s)
-
-            if not progressed:
-                if pending:                 # idle: jump to the next arrival
-                    tick = pending[0].arrival
-                    continue
-                raise RuntimeError("scheduler deadlock")  # pragma: no cover
-            if hook is not None:
-                hook.on_tick_end(self, tick, state, len(free))
-            tick += 1
+                    raise RuntimeError(
+                        "scheduler deadlock")   # pragma: no cover
+                if hook is not None:
+                    hook.on_tick_end(self, tick, state, len(free))
+                tick += 1
 
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -481,9 +481,12 @@ def test_lower_round_trips(R, tmp_path):
 
 def test_verify_and_base_config_are_checked(R):
     fn, args = _toy(True, R)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rosa.compile(fn, rosa.Engine.from_config(_noisy(_Port)), args,
-                     verify="warn")
+    eng = rosa.Engine.from_config(_noisy(_Port))
+    with pytest.raises(ValueError, match="verify"):
+        rosa.compile(fn, eng, args, verify="loud")
+    # the noisy toy net draws per layer from folded keys: nothing to flag
+    assert isinstance(rosa.compile(fn, eng, args, verify="error",
+                                   device="cpu"), rosa.Program)
     with pytest.raises(ValueError, match="autotune"):
         rosa.compile(fn, rosa.Engine.dense(), args,
                      autotune=rosa.AutotuneConfig(), cache=False)

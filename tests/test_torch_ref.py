@@ -57,6 +57,8 @@ _REF_MODULES = {
     "optim": "repro.optim", "optim_schedules": "repro.optim.schedules",
     "compress": "repro.distributed.compress", "tokens": "repro.data.tokens",
     "checkpoint": "repro.checkpoint",
+    "obs": "repro.obs", "obs_cli": "repro.obs.cli",
+    "analysis": "repro.analysis", "analysis_cli": "repro.analysis.cli",
 }
 
 
