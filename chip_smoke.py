@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --kernels  # build, phases 2, 6, 8, 12(a) (no result)
+    python3 chip_smoke.py --kernels  # build, phases 2, 6, 8, 12(a), 19(a)
+                                     # (no result line)
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -239,6 +240,30 @@ Phases (any failure raises, so the exit code is non-zero):
      `rosa.compile(verify="error")` of phase 13's serving program, which
      must return the Program.  The traced and untraced tok/s and the
      trace's size are printed, not gated.
+ 19. training the ssm and hybrid families at full width and depth,
+     random weights from seed 0: (a) the ssd_scan backward kernel
+     against the float64 plain backward on the same CUDA tensors at
+     mamba2-1.3b's and zamba2-1.2b's train shapes (B 8, L 256, H 64, P
+     64, G 1, S 128 / 64, chunk 128), at L 1, L 129, a ragged L 700 at G
+     2 and B 2, and G = H, each with N(0, 1) cotangents and a non-zero
+     dstate: each gradient within 4x the float32 plain backward's
+     distance from float64 (plus 1e-6 of its max) and within 1e-4 of its
+     max, finite, two launches equal bit for bit, a None dstate giving a
+     zero one's bits; times as phase 6, the bound from the chunked
+     formulas' float32 operations; (b) `python -m
+     repro_torch.launch.train --arch mamba2-1.3b --steps 4 --batch 8
+     --seq 256` in-process (48 layers, 1.34e9 params): losses and |g|
+     finite, peak under 70 GiB, ssd_scan exactly 2 x 48 x 4 launches
+     (forward and remat recompute) and its backward 48 x 4, nothing else;
+     (c) zamba2-1.2b the same way (38 layers: the 36 in recomputed
+     groups twice a step, the 2 tail layers once, the backward 38 a
+     step); (d) one train step of mamba2-1.3b at full width and 1 layer
+     (batch 1 x 64, a single ragged chunk) on the card and on the CPU
+     from the same params: loss, |g| and every gradient leaf within 4x
+     the card's float-order floor (phase 17(c)'s rule with the hidden,
+     head and state axes permuted, or, where larger, the distance of the
+     card's float32 step through the plain scan from its float64 step).
+     s a step, tokens/s and peak GiB are printed, not gated.
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -392,7 +417,8 @@ def _launch_counters():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"rosa_fused": fused_ops.LAUNCHES, "osa_matmul": osa_ops.LAUNCHES,
             "ssd_scan": ssd_ops.LAUNCHES, "mrr_transfer": mrr_ops.LAUNCHES,
-            "mrr_transfer_bwd": mrr_ops.LAUNCHES_BWD}
+            "mrr_transfer_bwd": mrr_ops.LAUNCHES_BWD,
+            "ssd_scan_bwd": ssd_ops.LAUNCHES_BWD}
 
 
 def reset_launches() -> None:
@@ -1801,7 +1827,7 @@ def qat_launches(specs, steps: int) -> dict:
     dw = sum(1 for s in specs if s.kind == "dwconv")
     return {"rosa_fused": steps * (len(specs) - dw),
             "mrr_transfer": steps * dw, "mrr_transfer_bwd": steps * dw,
-            "osa_matmul": 0, "ssd_scan": 0}
+            "osa_matmul": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def robust_qat(report: dict) -> dict:
@@ -3225,48 +3251,32 @@ def mem_available_gib() -> float:
     raise RuntimeError("/proc/meminfo has no MemAvailable")
 
 
-def card_vs_cpu_phase(report: dict) -> None:
-    """17(c): one train step's loss, |g| and gradients of qwen3-32b at
-    full width and 1 layer (batch 1 x 64) on the card and on the CPU from
-    the same params, within 4x the card's float-order floor (the hidden
-    and MLP axes of the params permuted, as phases 5 and 15(b) measure
-    it); then one AdamW update of the card's gradients on each side,
-    every leaf within 1e-6 of its max."""
+def card_vs_cpu_grads(bundle, params, batch, sizes: dict, what: str,
+                      plain=None):
+    """One train step's loss, |g| and gradients on the card and on the
+    CPU from the same params: each within 4x the card's float-order floor
+    (the axes `sizes` names permuted in the params, two seeds; 1e-6 of
+    slack for a floor of 0).  `plain`, where given, is a context manager
+    that routes the step's kernels to their plain versions; the floor is
+    then the larger of the permutations' and the distance of the card's
+    float32 step through the plain versions from its float64 step, a
+    floor that runs none of the kernels under test.  Returns the card's
+    loss and grads, the params on the host, the deviations, the floors
+    and the CPU step's seconds."""
     import gc
     import types as _types
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.data import TokenPipeline
     from repro_torch.launch.steps import loss_and_grads
-    from repro_torch.models.model import build_model
     from repro_torch.models.module import leaves, map_tree
-    from repro_torch.optim import adamw_init, adamw_update, global_norm
+    from repro_torch.optim import global_norm
 
-    layers, n_params = TRAIN_CPU
-    cfg = dataclasses.replace(get_config(TRAIN[0]), n_layers=layers)
-    bundle = build_model(cfg)
-    if bundle.n_params != n_params:
-        raise AssertionError("17(c): not qwen3-32b at full width")
-    # host: the params, the CPU's grads, the card's grads and the two
-    # moments, float32
-    need = 5 * 4 * n_params / 2**30 + 4
-    avail = mem_available_gib()
-    print(f"  host memory available {avail:.1f} GiB, needed {need:.1f}")
-    if avail < need:
-        raise AssertionError(f"17(c): {avail:.1f} GiB of host memory "
-                             f"available, {need:.1f} needed")
-    params = bundle.init(torch.Generator(DEVICE).manual_seed(0),
-                         device=DEVICE)
-    b, s = TRAIN_CPU_BATCH
-    batch = TokenPipeline(cfg.vocab, s, b, seed=0).batch(0, DEVICE)
     loss, grads = loss_and_grads(bundle, params, batch)
     gnorm = global_norm(grads)
     floor = {"loss": 0.0, "grad_norm": 0.0}
     axes = dict(leaves(map_tree(lambda d: d.axes, bundle.skeleton)))
     for seed in (1, 2):
         pp, perm = permuted_params(
-            _types.SimpleNamespace(bundle=bundle, params=params),
-            {"embed": cfg.d_model, "mlp": cfg.d_ff}, seed)
+            _types.SimpleNamespace(bundle=bundle, params=params), sizes, seed)
         lp, gp = loss_and_grads(bundle, pp, batch)
         floor["loss"] = max(floor["loss"], max_rel(lp, loss))
         floor["grad_norm"] = max(floor["grad_norm"],
@@ -3279,6 +3289,18 @@ def card_vs_cpu_phase(report: dict) -> None:
             k = "/".join(path)
             floor[k] = max(floor.get(k, 0.0), max_rel(gp_by_path[path], t))
         del pp, lp, gp, gp_by_path
+        torch.cuda.empty_cache()
+    if plain is not None:
+        with plain():
+            l32, g32 = loss_and_grads(bundle, params, batch)
+            l64, g64 = loss_and_grads(
+                bundle, map_tree(torch.Tensor.double, params), batch)
+        f64 = {"loss": max_rel(l32, l64),
+               "grad_norm": max_rel(global_norm(g32), global_norm(g64))}
+        f64.update(leaf_rel(g32, g64))
+        for k, v in f64.items():
+            floor[k] = max(floor[k], v)
+        del l32, g32, l64, g64
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params_c = map_tree(lambda t: t.cpu(), params)
@@ -3297,8 +3319,46 @@ def card_vs_cpu_phase(report: dict) -> None:
           f"{floor['grad_norm']:.2e}); nearest its bound: {worst} "
           f"{dev[worst]:.2e} (floor {floor[worst]:.2e})")
     if bad:
-        raise AssertionError(f"17(c): card and CPU beyond 4x the card's "
+        raise AssertionError(f"{what}: card and CPU beyond 4x the card's "
                              f"float-order floor at {bad}")
+    return loss, grads, params_c, dev, floor, cpu_s
+
+
+def card_vs_cpu_phase(report: dict) -> None:
+    """17(c): one train step's loss, |g| and gradients of qwen3-32b at
+    full width and 1 layer (batch 1 x 64) on the card and on the CPU from
+    the same params, within 4x the card's float-order floor (the hidden
+    and MLP axes of the params permuted, as phases 5 and 15(b) measure
+    it); then one AdamW update of the card's gradients on each side,
+    every leaf within 1e-6 of its max."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import map_tree
+    from repro_torch.optim import adamw_init, adamw_update
+
+    layers, n_params = TRAIN_CPU
+    cfg = dataclasses.replace(get_config(TRAIN[0]), n_layers=layers)
+    bundle = build_model(cfg)
+    if bundle.n_params != n_params:
+        raise AssertionError("17(c): not qwen3-32b at full width")
+    # host: the params, the CPU's grads, the card's grads and the two
+    # moments, float32
+    need = 5 * 4 * n_params / 2**30 + 4
+    avail = mem_available_gib()
+    print(f"  host memory available {avail:.1f} GiB, needed {need:.1f}")
+    if avail < need:
+        raise AssertionError(f"17(c): {avail:.1f} GiB of host memory "
+                             f"available, {need:.1f} needed")
+    params = bundle.init(torch.Generator(DEVICE).manual_seed(0),
+                         device=DEVICE)
+    b, s = TRAIN_CPU_BATCH
+    batch = TokenPipeline(cfg.vocab, s, b, seed=0).batch(0, DEVICE)
+    _, grads, params_c, dev, floor, cpu_s = card_vs_cpu_grads(
+        bundle, params, batch, {"embed": cfg.d_model, "mlp": cfg.d_ff},
+        "17(c)")
     # one AdamW update of the same (the card's) gradients on each side
     cfg_opt = train_opt_cfg()
     st = adamw_init(params)
@@ -3587,6 +3647,296 @@ def obs_phase(report: dict) -> int:
     return n0 + n1
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: training the ssm and hybrid families
+# ---------------------------------------------------------------------------
+# ssd_scan backward cases (B, L, H, P, G, S, chunk): mamba2-1.3b's and
+# zamba2-1.2b's train shapes (8 x 256), one step, a chunk and one, a
+# ragged 700 at G 2 and B 2, G = H
+SSD_BWD_CASES = [(8, 256, 64, 64, 1, 128, 128), (8, 256, 64, 64, 1, 64, 128),
+                 (1, 1, 64, 64, 1, 128, 128), (1, 129, 64, 64, 1, 128, 128),
+                 (2, 700, 64, 64, 2, 128, 128),
+                 (1, 256, 64, 64, 64, 128, 128)]
+SSD_BWD_SERVED = (8, 256, 1, 128)          # (B, L, G, S) of the train step
+SSM_TRAIN = (("mamba2-1.3b", MAMBA_PARAMS), ("zamba2-1.2b", ZAMBA_PARAMS))
+SSM_TRAIN_CLI = ["--steps", "4", "--batch", "8", "--seq", "256",
+                 "--warmup", "2", "--ckpt-every", "100", "--log-every", "1"]
+SSM_CPU = ("mamba2-1.3b", 1)               # 19(d): arch, layers
+SSM_CPU_BATCH = (1, 64)
+
+
+def ssd_bwd_bound(bsz, l, h, p, g, s, q) -> tuple[float, str]:
+    """Least time of one scan's backward given the forward's saved l, C
+    B^T and incoming states: the bytes of x, b, c, dy, dstate, l, C B^T
+    on each chunk's causal triangle and the incoming states in, dx,
+    dloga, db, dc out, against the float32 operations the chunked
+    formulas need on these inputs (ref.ssd_chunked_backward), term by
+    term below: the triangle's products once per head, the state's from
+    the second chunk on (the first state is zero, and the first chunk's
+    dS_in is no output); per group the heads' dB and dC summed."""
+    r = h // g
+    nc = -(-l // q)
+    tri_all = sum(n * (n + 1) // 2 for n in (min(q, l - lo)
+                                              for lo in range(0, l, q)))
+    nbytes = 4 * (2 * bsz * l * h * p + 2 * bsz * l * g * s
+                  + bsz * h * s * p + bsz * h * nc * q + bsz * g * tri_all
+                  + bsz * h * nc * s * p
+                  + bsz * l * h * p + bsz * l * h + 2 * bsz * l * g * s)
+    flops = 0
+    for lo in range(0, l, q):
+        n = min(q, l - lo)
+        tri = n * (n + 1) // 2
+        per_head = (2 * tri              # the decay: a difference, an exp
+                    + 2 * tri * p        # dY X^T
+                    + 5 * tri            # D, M, A; A's row and column sums
+                    + 2 * tri * p        # M^T dY
+                    + 4 * tri * s        # D^T C, D B
+                    + 4 * n * s * p      # B G, X G^T
+                    + 2 * n * p + 2 * n * s   # the carry scaled, added
+                    + 3 * n * p          # the carry's dot products
+                    + 3 * n)             # dl's terms, the reverse cumsum
+        if lo:                           # an incoming state
+            per_head += (2 * n * s * p + 2 * n * s   # dY S_in^T into dC
+                         + 3 * n * s     # its dot products with C
+                         + 2 * n * s * p + n * s     # C^T diag(exp l) dY
+                         + 4 * s * p)    # G's decay, <S_in, G>
+        flops += bsz * h * per_head + bsz * g * (r - 1) * 2 * n * s
+    return bound_ms(nbytes, flops)
+
+
+def ssd_bwd_phase(report: dict) -> dict:
+    """19(a): the ssd_scan backward kernel against the float64 plain
+    backward on the same CUDA tensors: each of dx, dloga, db, dc within 4x
+    the float32 plain backward's own distance from float64 (plus 1e-6 of
+    its max: at L 1 d loga is exactly 0 on every path) and within 1e-4 of
+    its max; every value finite and two launches equal bit for bit.  The
+    cotangents are N(0, 1) with a non-zero dstate; at the train shape a
+    None dstate must give the zero dstate's bits.  Times as phase 6."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+
+    lib = ops._lib()
+    smem = {n: lib.ssd_scan_backward_smem_bytes(i)
+            for i, n in enumerate(ops.BWD_NAMES)}
+    if smem != ops.SMEM_BWD:
+        raise AssertionError(f"ssd_scan_bwd: the kernels' shared memory "
+                             f"{smem} disagrees with the plan's")
+    report["ssd_scan_bwd_occupancy"] = ops.occupancy_backward()
+    print(f"  resident blocks per SM: {report['ssd_scan_bwd_occupancy']}")
+    gen = torch.Generator(DEVICE).manual_seed(19)
+    rows, served, err = [], None, 0.0
+    for bsz, l, h, p, g, s, q in SSD_BWD_CASES:
+        x, loga, b, c = ssd_inputs(bsz, l, h, p, g, s, gen)
+        dy = torch.randn(bsz, l, h, p, device=DEVICE, generator=gen)
+        ds = torch.randn(bsz, h, s, p, device=DEVICE, generator=gen)
+        _, _, ws = ops._launch(x, loga, b, c, q)
+
+        def run(dstate=ds):
+            return ops.launch_backward(x, b, c, dy, dstate, ws, q)
+        got, again = run(), run()
+        want = ops.plain_backward(*(t.double() for t in (x, loga, b, c, dy,
+                                                         ds)), q)
+        p32 = ops.plain_backward(x, loga, b, c, dy, ds, q)
+        torch.cuda.synchronize()
+        what = f"ssd_scan_bwd B{bsz} L{l} H{h} P{p} G{g} S{s} Q{q}"
+        row = {"case": what, "B": bsz, "L": l, "H": h, "P": p, "G": g,
+               "S": s, "Q": q}
+        e = 0.0
+        for name, a, a2, w, f in zip(("dx", "dloga", "db", "dc"), got,
+                                     again, want, p32):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{what}: non-finite {name}")
+            if not torch.equal(a, a2):
+                raise AssertionError(f"{what}: two launches differ in "
+                                     f"{name}")
+            scale = float(w.abs().max())
+            dev = float((a.double() - w).abs().max())
+            floor = float((f.double() - w).abs().max())
+            row[f"err_{name}"], row[f"floor_{name}"] = dev, floor
+            if dev > 4 * floor + 1e-6 * scale or dev > 1e-4 * scale:
+                raise AssertionError(
+                    f"{what}: {name} deviates by {dev:.3e} from float64 "
+                    f"(float32 floor {floor:.3e}, max {scale:.3e})")
+            e = max(e, dev)
+        if (bsz, l, g, s) == SSD_BWD_SERVED:
+            zero = run(torch.zeros_like(ds))
+            none = run(None)
+            if not all(torch.equal(a, b_) for a, b_ in zip(zero, none)):
+                raise AssertionError(f"{what}: a None dstate differs from "
+                                     "a zero one")
+        err = max(err, e)
+        row["max_abs_err"] = e
+        row["ms"] = median_ms(run)
+        row["kernel_ms"] = kernel_only_ms(run)
+        row["plain_ms"] = median_ms(
+            lambda: ops.plain_backward(x, loga, b, c, dy, ds, q), reps=5)
+        row["bound_ms"], row["bound_by"] = ssd_bwd_bound(bsz, l, h, p, g, s,
+                                                         q)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        if (bsz, l, g) == SSD_BWD_SERVED[:3]:    # a train step's forward
+            row["fwd_kernel_ms"] = kernel_only_ms(
+                lambda: ops.launch(x, loga, b, c, q))
+        rows.append(row)
+        if (bsz, l, g, s) == SSD_BWD_SERVED:
+            served = row
+        print(f"  {what}: err / float32 floor " + ", ".join(
+            f"{n} {row['err_' + n]:.2e} / {row['floor_' + n]:.2e}"
+            for n in ("dx", "dloga", "db", "dc"))
+            + ", two launches equal" + timing_text(row))
+        del x, loga, b, c, dy, ds, ws, got, again, want, p32
+        torch.cuda.empty_cache()
+    report["ssd_scan_bwd_cases"] = rows
+    return dict(served, max_abs_err=err)
+
+
+def ssm_train_cli(arch: str, n_params: int) -> dict:
+    """19(b) / (c): `python -m repro_torch.launch.train --arch ARCH` at full
+    width and depth, batch 8 x 256, in-process: losses and |g| finite,
+    peak under 70 GiB, and the scans' launches exactly as many as the
+    layers give (remat "full": each recomputed layer's scan twice a step,
+    zamba2's tail layers once; the backward once a layer)."""
+    import gc
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import hybrid_depth
+
+    args = train.build_parser().parse_args(
+        ["--arch", arch] + SSM_TRAIN_CLI
+        + ["--device", DEVICE, "--ckpt-dir", str(ROOT / "build" / "ckpt-19")])
+    cfg = train.model_config(args)
+    if cfg.family == "hybrid":
+        n_groups, tail = hybrid_depth(cfg)
+        recomputed = n_groups * cfg.shared_every
+    else:
+        recomputed, tail = cfg.n_layers, 0
+    want = {"ssd_scan": (2 * recomputed + tail) * args.steps,
+            "ssd_scan_bwd": (recomputed + tail) * args.steps}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0, read right after ------------------
+    reset_launches()
+    res = train.run(args)
+    n = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = res["history"]
+    if res["bundle"].n_params != n_params:
+        raise AssertionError(f"19: not {arch} at full width and depth")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist) or len(hist) != args.steps:
+        raise AssertionError(f"19: {arch}: a loss or |g| is not finite")
+    others = {k: v for k, v in n.items() if k not in want and v}
+    if any(n[k] != v for k, v in want.items()) or others:
+        raise AssertionError(f"19: {arch}: launches {n}, want {want}")
+    if peak >= PEAK_GIB:
+        raise AssertionError(f"19: {arch}: peak {peak:.1f} GiB")
+    steady = [h["wall_s"] for h in hist[1:]]
+    tok_s = args.batch * args.seq * len(steady) / sum(steady)
+    for h in hist:
+        print(f"  step {h['step']}: loss {h['loss']:.6f}  |g| "
+              f"{h['grad_norm']:.4f}  wall {h['wall_s']:.3f} s")
+    print(f"  {arch}: {cfg.n_layers} layers, {res['bundle'].n_params:,} "
+          f"params; {statistics.median(steady):.3f} s a step (median of "
+          f"steps 1-{len(hist) - 1}), {tok_s:.1f} tokens/s, peak "
+          f"{peak:.1f} GiB; ssd_scan {n['ssd_scan']}, ssd_scan_bwd "
+          f"{n['ssd_scan_bwd']} launches (want {want['ssd_scan']}, "
+          f"{want['ssd_scan_bwd']})")
+    out = {"history": hist, "tokens_per_s": tok_s, "peak_gib": peak,
+           "median_step_s": statistics.median(steady),
+           "n_params": res["bundle"].n_params, "launches": n,
+           "d_state": cfg.ssm.d_state}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_card_vs_cpu(report: dict) -> None:
+    """19(d): one train step of mamba2-1.3b at full width and 1 layer
+    (batch 1 x 64: one ragged chunk) on the card and on the CPU from the
+    same params: loss, |g| and every gradient leaf within 4x the card's
+    float-order floor, the larger of two: the hidden, head and state axes
+    permuted (as phase 7 measures it; two seeds), and the card's float32
+    step through the plain scan against its float64 step (neither runs
+    the kernels).  The permutations leave the scan's sums over time and
+    every elementwise op in their order, and at 1 layer the card's
+    float32 error is up to 3x their floor (on an H100: gate_norm 1.44e-5
+    from float64 through the plain scan against 4.67e-6 permuted)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.model import build_model
+
+    arch, layers = SSM_CPU
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    bundle = build_model(cfg)
+    need = 5 * 4 * bundle.n_params / 2**30 + 4
+    avail = mem_available_gib()
+    print(f"  {arch} at {layers} layer, {bundle.n_params:,} params; host "
+          f"memory available {avail:.1f} GiB, needed {need:.1f}")
+    if avail < need:
+        raise AssertionError(f"19(d): {avail:.1f} GiB of host memory "
+                             f"available, {need:.1f} needed")
+    params = bundle.init(torch.Generator(DEVICE).manual_seed(0),
+                         device=DEVICE)
+    b, s = SSM_CPU_BATCH
+    batch = TokenPipeline(cfg.vocab, s, b, seed=0).batch(0, DEVICE)
+
+    @contextlib.contextmanager
+    def plain_scan():
+        SSM.ssd_scan = ssd_ops.plain
+        try:
+            yield
+        finally:
+            SSM.ssd_scan = ssd_ops.ssd_scan
+
+    _, grads, params_c, dev, floor, cpu_s = card_vs_cpu_grads(
+        bundle, params, batch, {"embed": cfg.d_model,
+                                "heads": cfg.ssm.n_heads,
+                                "state": cfg.ssm.d_state}, "19(d)",
+        plain_scan)
+    report["ssm_train_card_vs_cpu"] = {"dev": dev, "floor": floor,
+                                       "cpu_step_s": cpu_s}
+    del params, params_c, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssm_train_phase(report: dict) -> tuple[dict, dict]:
+    """Phase 19; returns the backward's timed row (19(a)) and the main
+    path's launches (19(b) and (c))."""
+    print("phase 19(a): the ssd_scan backward against its plain version")
+    row = ssd_bwd_phase(report)
+    launches = {"ssd_scan": 0, "ssd_scan_bwd": 0}
+    for tag, (arch, n_params) in zip("bc", SSM_TRAIN):
+        print(f"phase 19({tag}): python -m repro_torch.launch.train --arch "
+              f"{arch}, full width and depth")
+        res = ssm_train_cli(arch, n_params)
+        # the scans' device time a step: launches x 19(a)'s kernel-only
+        # times at this model's train shape
+        case = next(r for r in report["ssd_scan_bwd_cases"]
+                    if (r["B"], r["L"], r["G"]) == SSD_BWD_SERVED[:3]
+                    and r["S"] == res["d_state"])
+        steps = len(res["history"])
+        res["scan_ms_per_step"] = (
+            res["launches"]["ssd_scan"] * case["fwd_kernel_ms"]
+            + res["launches"]["ssd_scan_bwd"] * case["kernel_ms"]) / steps
+        print(f"  the scans' kernels ≈ {res['scan_ms_per_step']:.1f} ms a "
+              f"step ({100 * res['scan_ms_per_step'] / 1e3 / res['median_step_s']:.1f}"
+              f" % of it; forward {case['fwd_kernel_ms']:.4f} ms, "
+              f"backward {case['kernel_ms']:.4f} ms kernel-only a call)")
+        report[f"ssm_train_{arch}"] = res
+        for k in launches:
+            launches[k] += res["launches"][k]
+    print(f"phase 19(d): a full-width 1-layer {SSM_CPU[0]} train step, card "
+          "vs CPU")
+    ssm_card_vs_cpu(report)
+    return row, launches
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -3600,9 +3950,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "CUDA card (all phases by default).")
     ap.add_argument("--kernels", action="store_true",
-                    help="build and run the kernel phases 2, 6, 8 and "
-                    "12(a) only (parity and times of all five kernels); "
-                    "prints no summary and no result line")
+                    help="build and run the kernel phases 2, 6, 8, "
+                    "12(a) and 19(a) only (parity and times of all six "
+                    "kernels); prints no summary and no result line")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -3675,6 +4025,8 @@ def run_phases(opts) -> int:
         print("phase 12(a): the mrr_transfer backward against its plain "
               "derivative")
         phase("12a", mrr_bwd_phase)
+        print("phase 19(a): the ssd_scan backward against its plain version")
+        phase("19a", ssd_bwd_phase)
         return write_report(report, t_start)
     print("phases 3-5: serving")
     launches = phase("3-5", serve_phase)
@@ -3705,6 +4057,10 @@ def run_phases(opts) -> int:
     print("phase 18: observability and the static checks, qwen3-32b full "
           "width")
     launches["rosa_fused"] += phase("18", obs_phase)
+    print("phase 19: training mamba2-1.3b and zamba2-1.2b at full width and "
+          "depth")
+    ssd_bwd, ssm_n = phase("19", ssm_train_phase)
+    launches["ssd_scan"] += ssm_n["ssd_scan"]
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",
@@ -3742,6 +4098,13 @@ def run_phases(opts) -> int:
          "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
          "bound_by": bwd["bound_by"], "library_ms": None},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/models/ssm.py:94",
+         "launches": ssm_n["ssd_scan_bwd"],
+         "max_abs_err": ssd_bwd["max_abs_err"], "ms": ssd_bwd["ms"],
+         "plain_ms": ssd_bwd["plain_ms"], "bound_ms": ssd_bwd["bound_ms"],
+         "bound_by": ssd_bwd["bound_by"], "library_ms": None},
     ]}
     report["summary"] = summary
     write_report(report, t_start)

@@ -217,7 +217,48 @@ struct Dims {
   int tri, ns, np, nm;      // tiles: C B^T triangle, S and P of a
                             // state, rows of an output
   int vec_x, vec_bc, vec_q; // 16-byte copies for x, b/c, a Q-row
+  int tq = 0;               // the backward's: C B^T tiles along Q, and
+  int vec_ws = 0;           // 16-byte copies for a state row (P % 4 == 0)
 };
+
+// acc[r][c] = <row ty * 2 + r of a, row tx * 2 + c of b> over `depth`
+// columns, for a CT x CT tile: nra / nrb valid rows (zero past them),
+// rows `stride` floats apart, strips of KS columns staged by the ring
+// (smem: STAGES slots of two [CT][LDK] strips), sums in column order.
+__device__ __forceinline__ void rowdot_tile(const float* a, const float* b,
+                                            int stride, int nra, int nrb,
+                                            int depth, bool vec, float* smem,
+                                            float acc[2][2]) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int strips = (depth + KS - 1) / KS;
+  auto load = [&](int s, int slot) {
+    const int k0 = s * KS;
+    float* p = smem + slot * 2 * CT * LDK;
+    load_tile<CT, KS, LDK>(p, a + k0, stride, nra, depth - k0, vec);
+    load_tile<CT, KS, LDK>(p + CT * LDK, b + k0, stride, nrb, depth - k0,
+                           vec);
+  };
+  ring_fill(strips, load);
+  ring_run(strips, load, [&](int, int slot) {
+    const float* A = smem + slot * 2 * CT * LDK;
+    const float* B = A + CT * LDK;
+#pragma unroll
+    for (int k = 0; k < KS; k += 4) {
+      float4 av[2], bv[2];
+      for (int r = 0; r < 2; ++r)
+        av[r] = *reinterpret_cast<const float4*>(A + (ty * 2 + r) * LDK + k);
+      for (int c = 0; c < 2; ++c)
+        bv[c] = *reinterpret_cast<const float4*>(B + (tx * 2 + c) * LDK + k);
+      for (int r = 0; r < 2; ++r)
+        for (int c = 0; c < 2; ++c) {
+          acc[r][c] = fmaf(av[r].x, bv[c].x, acc[r][c]);
+          acc[r][c] = fmaf(av[r].y, bv[c].y, acc[r][c]);
+          acc[r][c] = fmaf(av[r].z, bv[c].z, acc[r][c]);
+          acc[r][c] = fmaf(av[r].w, bv[c].w, acc[r][c]);
+        }
+    }
+  });
+}
 
 // C B^T of one (b, group, chunk) on one 32 x 32 tile of the causal
 // triangle (diagonal tiles whole), t counting (chunk, group) and then the
@@ -241,37 +282,10 @@ __device__ __forceinline__ void cbt_tile(const float* __restrict__ bm,
   const long long base = ((long long)b * d.L + t0) * row + (long long)g * d.S;
   const float* cb = cm + base + (long long)i0 * row;
   const float* bb = bm + base + (long long)j0 * row;
-  const int nri = min(CT, nv - i0), nrj = min(CT, nv - j0);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  const int strips = (d.S + KS - 1) / KS;
-  auto load = [&](int s, int slot) {
-    const int k0 = s * KS;
-    float* a = smem + slot * 2 * CT * LDK;
-    load_tile<CT, KS, LDK>(a, cb + k0, row, nri, d.S - k0, d.vec_bc);
-    load_tile<CT, KS, LDK>(a + CT * LDK, bb + k0, row, nrj, d.S - k0,
-                           d.vec_bc);
-  };
-  ring_fill(strips, load);
-  ring_run(strips, load, [&](int, int slot) {
-    const float* A = smem + slot * 2 * CT * LDK;
-    const float* B = A + CT * LDK;
-#pragma unroll
-    for (int k = 0; k < KS; k += 4) {
-      float4 a[2], bv[2];
-      for (int r = 0; r < 2; ++r)
-        a[r] = *reinterpret_cast<const float4*>(A + (ty * 2 + r) * LDK + k);
-      for (int c = 0; c < 2; ++c)
-        bv[c] = *reinterpret_cast<const float4*>(B + (tx * 2 + c) * LDK + k);
-      for (int r = 0; r < 2; ++r)
-        for (int c = 0; c < 2; ++c) {
-          acc[r][c] = fmaf(a[r].x, bv[c].x, acc[r][c]);
-          acc[r][c] = fmaf(a[r].y, bv[c].y, acc[r][c]);
-          acc[r][c] = fmaf(a[r].z, bv[c].z, acc[r][c]);
-          acc[r][c] = fmaf(a[r].w, bv[c].w, acc[r][c]);
-        }
-    }
-  });
+  rowdot_tile(cb, bb, row, min(CT, nv - i0), min(CT, nv - j0), d.S,
+              d.vec_bc, smem, acc);
   float* out = cbt + (((long long)b * d.G + g) * d.NC + ch) * d.Q * d.Q;
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + ty * 2 + r;
@@ -518,7 +532,478 @@ ssd_chunk_out(const float* __restrict__ x, const float* __restrict__ cm,
   }
 }
 
-// Lets the two ring kernels take their dynamic shared memory (past the
+// ---------------------------------------------------------------------------
+// The backward.  Per (b, h, chunk), with G = dL/dS_out of the chunk,
+// M = (C B^T) . decay, D = (dY X^T) . decay, A = M . (dY X^T):
+//
+//   dX = M^T dY + diag(w) B G          dB = D^T C + diag(w) X G^T
+//   dC = D B + diag(exp l) dY S_in^T   dS_in = exp(l_Q) G + C^T diag(exp l) dY
+//   dl_i = sum_j A_ij - sum_i' A_i'i + <C_i, exp(l_i) (dY S_in^T)_i>
+//          - w_i <x_i, (B G)_i>,   dl_Q += sum_j w_j <x_j, (B G)_j>
+//                                          + exp(l_Q) <S_in, G>
+//   d loga = the reverse cumulative sum of dl within the chunk
+//
+// (kernels/ssd_scan/ref.py::ssd_chunked_backward).  Four launches on one
+// stream after the forward's, which the autograd Function keeps: its
+// workspace holds l, C B^T and every chunk's S_in, so nothing of the
+// forward is recomputed (under recomputation the forward has just run):
+//
+//   1. ssd_bwd_chunk    per (b, h, chunk) and 64 x 64 tile of S x P,
+//                       dS_c = (C . exp l)^T dY; and in the other blocks,
+//                       per 32 x 32 tile of the causal triangle, D (into
+//                       the workspace) and the tile's row and column sums
+//                       of A;
+//   2. ssd_bwd_state    G in reverse chunk order, in place over dS_c,
+//                       keeping fmaf(exp(l_Q), G, dS_c);
+//   3. ssd_bwd_grads    dX, and each head's dB and dC, on 64-row tiles
+//                       (dX's dot products of the carry, dC's of the
+//                       incoming state, per row, beside them);
+//   4. ssd_bwd_finish   dl from the partial sums in a fixed order and its
+//                       reverse cumulative sum in step order; and, when
+//                       heads share a group, dB and dC summed over the
+//                       group's heads in head order.
+//
+// It replaces no TPU kernel: the reference trains through jax.grad of
+// its jnp chunking (src/repro/models/ssm.py, ssd_chunked).  No float
+// atomics anywhere: every sum has one order, so two runs give equal
+// bits.  The products share the forward's strips, ring and 4 x 4 thread
+// tiles; operands read transposed (G^T and S_in^T) are staged with plain
+// loads.  What bounds it is the forward's story: float32 on the CUDA
+// cores, 1.3e10 operations at mamba2-1.3b's train shape (B 8, L 256, H
+// 64, P 64, S 128) against 0.11 GB moved; on an H100 it runs at about a
+// sixth of that bound (chip_smoke.py phase 19(a)).
+
+struct BwdPtrs {
+  const float *x, *b, *c, *dy, *dstate;   // operands (dstate may be null)
+  const float *lc, *cbt, *st;             // the forward's workspace
+  float *dx, *dloga, *db, *dc;            // gradients
+  // workspace: G (B, H, NC, S, P), D (B, H, NC, Q, Q), A's row and column
+  // sums (B, H, NC, TQ, Q) each, the dot products of dC's incoming state
+  // (B, H, NC, NS, Q) and of dX's carry (B, H, NC, NP, Q); each head's dB
+  // and dC (B, L, H, S) when heads share a group (else null)
+  float *g, *d, *prow, *pcol, *pint, *pcar, *pdb, *pdc;
+};
+
+// A KR x COLS tile into dst (leading dimension LD), read transposed:
+// element (k, c) from src[c * stride + k] for k < nk and c < nc, zero
+// elsewhere; plain loads (consecutive threads read consecutive k).
+template <int KR, int COLS, int LD>
+__device__ __forceinline__ void load_tile_t(float* dst, const float* src,
+                                            int stride, int nk, int nc) {
+  for (int e = threadIdx.x; e < KR * COLS; e += MT) {
+    const int c = e / KR, k = e % KR;
+    dst[k * LD + c] = (k < nk && c < nc) ? src[c * stride + k] : 0.f;
+  }
+}
+
+// sum of v over the 16 lanes of a half warp (one row of a 4 x 4 thread
+// tile), in a fixed butterfly order; every lane gets the sum
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 1b. D and A's partial sums of one (b, h, chunk) on one 32 x 32 tile of
+// the causal triangle, t counting (chunk, head) and then the tiles row by
+// row: T = dY X^T over P on the tile; D_ij = T_ij exp(l_i - l_j) for
+// j <= i < nv, else 0 (a select), into d (the whole tile); A_ij = D_ij
+// (C B^T)_ij; prow[tj][i] = sum over the tile's columns j of A_ij,
+// pcol[ti][j] = sum over its rows i.
+__device__ __forceinline__ void dyx_tile(const BwdPtrs& a, int t,
+                                         const Dims& d, float* smem) {
+  int tile = t % d.tri;
+  t /= d.tri;
+  const int ch = t % d.NC, h = t / d.NC, b = blockIdx.y;
+  int ti = 0;
+  while (tile > ti) tile -= ++ti;
+  const int tj = tile;
+  const int i0 = ti * CT, j0 = tj * CT;
+  const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
+  if (i0 >= nv) return;
+  const int g = h / (d.H / d.G);
+  const int xrow = d.H * d.P;
+  const long long bh = (long long)b * d.H + h;
+  const long long base = ((long long)b * d.L + t0) * xrow + (long long)h * d.P;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float* l = smem + STAGES * 2 * CT * LDK;
+  const float* lb = a.lc + (bh * d.NC + ch) * d.Q;
+  for (int i = tid; i < QMAX; i += MT) l[i] = lb[min(i, d.Q - 1)];
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  rowdot_tile(a.dy + base + (long long)i0 * xrow,
+              a.x + base + (long long)j0 * xrow, xrow, min(CT, nv - i0),
+              min(CT, nv - j0), d.P, d.vec_x, smem, acc);
+  const float* cb = a.cbt + (((long long)b * d.G + g) * d.NC + ch) * d.Q * d.Q;
+  float* dout = a.d + (bh * d.NC + ch) * d.Q * d.Q;
+  float rs[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + ty * 2 + r;
+    for (int c = 0; c < 2; ++c) {
+      const int j = j0 + tx * 2 + c;
+      const bool on = j <= i && i < nv;
+      const float dv = on ? acc[r][c] * expf(l[i] - l[j]) : 0.f;
+      const float av = on ? dv * cb[i * d.Q + j] : 0.f;
+      if (i < d.Q && j < d.Q) dout[i * d.Q + j] = dv;
+      rs[r] += av;
+      cs[c] += av;
+    }
+  }
+  // rows: over the half warp; columns: over the 16 rows of threads
+  float* red = smem;   // the ring is done: [16][CT] column partials
+  __syncthreads();
+  for (int c = 0; c < 2; ++c) red[ty * CT + tx * 2 + c] = cs[c];
+  for (int r = 0; r < 2; ++r) rs[r] = row_sum16(rs[r]);
+  const long long pb = (bh * d.NC + ch) * d.tq;
+  if (tx == 0)
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + ty * 2 + r;
+      if (i < d.Q) a.prow[(pb + tj) * d.Q + i] = rs[r];
+    }
+  __syncthreads();
+  if (tid < CT && j0 + tid < d.Q) {
+    float sum = 0.f;
+    for (int y = 0; y < 16; ++y) sum += red[y * CT + tid];
+    a.pcol[(pb + ti) * d.Q + j0 + tid] = sum;
+  }
+}
+
+// 1. One launch, two kinds of block.  The last tri * NC * H blocks each
+// take a tile of D (dyx_tile).  The others each take one (b, h, chunk)
+// and a 64 x 64 tile of S x P: dS_c = (C . exp l)^T dY into g (B, H, NC,
+// S, P), the state pass's input.
+__global__ void __launch_bounds__(MT, MT_BLOCKS)
+ssd_bwd_chunk(BwdPtrs a, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_state = d.ns * d.np * d.NC * d.H;
+  if ((int)blockIdx.x >= n_state) {
+    dyx_tile(a, blockIdx.x - n_state, d, smem);
+    return;
+  }
+  float* el = smem + STAGES * STATE_SLOT;
+  int t = blockIdx.x;
+  const int tile = t % (d.ns * d.np);
+  t /= d.ns * d.np;
+  const int ch = t % d.NC, h = t / d.NC, b = blockIdx.y;
+  const int g = h / (d.H / d.G);
+  const int s0 = (tile / d.np) * BT, p0 = (tile % d.np) * BT;
+  const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
+  const int crow = d.G * d.S, xrow = d.H * d.P;
+  const long long bh = (long long)b * d.H + h;
+  const float* cb =
+      a.c + ((long long)b * d.L + t0) * crow + (long long)g * d.S + s0;
+  const float* yb =
+      a.dy + ((long long)b * d.L + t0) * xrow + (long long)h * d.P + p0;
+  const int tid = threadIdx.x, ty = tid / (BT / TN), tx = tid % (BT / TN);
+  const int strips = (nv + KS - 1) / KS;
+  auto load = [&](int s, int slot) {
+    const int i0 = s * KS;
+    float* p = smem + slot * STATE_SLOT;
+    load_tile<KS, BT, LDT>(p, cb + i0 * crow, crow, nv - i0, d.S - s0,
+                           d.vec_bc);
+    load_tile<KS, BT, LDT>(p + KS * LDT, yb + i0 * xrow, xrow, nv - i0,
+                           d.P - p0, d.vec_x);
+  };
+  ring_fill(strips, load);
+  const float* lb = a.lc + (bh * d.NC + ch) * d.Q;
+  for (int i = tid; i < QMAX; i += MT) el[i] = expf(lb[min(i, d.Q - 1)]);
+  float acc[TM][TN] = {};
+  ring_run(strips, load, [&](int s, int slot) {
+    float* p = smem + slot * STATE_SLOT;
+    // C . exp l in place: row i of the strip times exp(l_i)
+    for (int e = tid; e < KS * BT; e += MT) {
+      const int i = e / BT, k = e % BT;
+      p[i * LDT + k] *= el[s * KS + i];
+    }
+    __syncthreads();
+    strip_mma<true>(p, p + KS * LDT, acc, ty, tx);
+  });
+  float* out = a.g + ((bh * d.NC + ch) * d.S) * d.P;
+  for (int r = 0; r < TM; ++r) {
+    const int sr = s0 + tile_row(ty, r);
+    if (sr >= d.S) continue;
+    for (int c = 0; c < TN; ++c) {
+      const int p = p0 + tile_col(tx, c);
+      if (p < d.P) out[sr * d.P + p] = acc[r][c];
+    }
+  }
+}
+
+// 2. In reverse chunk order, per (b, h, s, p): g[c] <- G_c and
+// G_{c-1} = fmaf(exp(l_Q(c)), G_c, dS_c), from G of the last chunk =
+// dstate (zero when null).  V elements a thread, as the forward's pass.
+template <int V>
+__global__ void __launch_bounds__(MT, MT_BLOCKS)
+ssd_bwd_state(BwdPtrs a, Dims d) {
+  using vec = typename std::conditional<V == 4, float4, float>::type;
+  const int sp = d.S * d.P;
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (e >= d.H * sp) return;
+  const int h = e / sp, r = e - h * sp;
+  const long long bh = (long long)blockIdx.y * d.H + h;
+  vec* gc = reinterpret_cast<vec*>(a.g + bh * d.NC * sp + r);
+  const long long step = sp / V;
+  const float* lq = a.lc + bh * d.NC * d.Q + d.Q - 1;
+  float s[V] = {};
+  if (a.dstate) {
+    const vec v = *reinterpret_cast<const vec*>(a.dstate + bh * sp + r);
+    const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+    for (int k = 0; k < V; ++k) s[k] = f[k];
+  }
+  vec own = gc[(d.NC - 1) * step];
+  for (int ch = d.NC - 1; ch >= 0; --ch) {
+    const vec next = ch > 0 ? gc[(ch - 1) * step] : own;
+    const float dq = expf(lq[(long long)ch * d.Q]);
+    const float* o = reinterpret_cast<const float*>(&own);
+    vec out;
+    float* io = reinterpret_cast<float*>(&out);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      io[k] = s[k];
+      s[k] = fmaf(dq, s[k], o[k]);
+    }
+    gc[ch * step] = out;
+    own = next;
+  }
+}
+
+// 3. One launch, three kinds of block, each one (b, h, chunk) and 64
+// rows of the chunk, t counting (chunk, head) and then the tiles:
+//   kind 0, dX on 64 columns of P: strips of M^T [i][j] (C B^T read
+//     transposed, times the decay, a select above the diagonal) against
+//     dY [i][p] for i >= j, then of B [j][s] against G [s][p]; dX =
+//     M^T dY + w . (B G); pcar[np][j] = w_j <x_j, (B G)_j> over the tile;
+//   kind 1, the head's dB on 64 columns of S: strips of D^T [i][j]
+//     against C [i][s] for i >= j, then of X [j][p] against G^T [p][s];
+//     dB = D^T C + w . (X G^T);
+//   kind 2, the head's dC on 64 columns of S: strips of D [i][j] against
+//     B [j][s] for j <= i, then (from the second chunk on) of dY [i][p]
+//     against S_in^T [p][s]; dC = D B + exp(l) . (dY S_in^T);
+//     pint[ns][i] = <C_i, exp(l_i) (dY S_in^T)_i> over the tile.
+// dB and dC go to db / dc when a group has one head, else to pdb / pdc.
+__global__ void __launch_bounds__(MT, MT_BLOCKS)
+ssd_bwd_grads(BwdPtrs a, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  float* l = smem + STAGES * OUT_SLOT;
+  const int n_dx = d.np * d.nm * d.NC * d.H;
+  const int n_s = d.ns * d.nm * d.NC * d.H;
+  int t = blockIdx.x, kind = 0;
+  if (t >= n_dx) {
+    t -= n_dx;
+    kind = 1 + t / n_s;
+    t %= n_s;
+  }
+  const int ncol = kind == 0 ? d.np : d.ns;
+  const int c0 = (t % ncol) * BT;
+  t /= ncol;
+  const int r0 = (t % d.nm) * BT;
+  t /= d.nm;
+  const int ch = t % d.NC, h = t / d.NC, b = blockIdx.y;
+  const int g = h / (d.H / d.G);
+  const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
+  if (r0 >= nv) return;
+  const int tid = threadIdx.x, ty = tid / (BT / TN), tx = tid % (BT / TN);
+  const int xrow = d.H * d.P, brow = d.G * d.S;
+  const long long bh = (long long)b * d.H + h;
+  const long long xoff = ((long long)b * d.L + t0) * xrow + (long long)h * d.P;
+  const long long boff = ((long long)b * d.L + t0) * brow + (long long)g * d.S;
+  const float* cbt = a.cbt + (((long long)b * d.G + g) * d.NC + ch) * d.Q * d.Q;
+  const float* dm = a.d + (bh * d.NC + ch) * d.Q * d.Q;
+  const float* gs = a.g + (bh * d.NC + ch) * d.S * d.P;
+  const float* sin = a.st + (bh * d.NC + ch) * d.S * d.P;
+  const int nr = min(BT, nv - r0);   // valid rows of the tile
+  // kinds 0 and 1 sum over i >= j: strips from r0 to nv; kind 2 over
+  // j <= i: strips from 0 to the tile's end
+  const int kbeg = kind == 2 ? 0 : r0;
+  const int kend = kind == 2 ? min(nv, r0 + BT) : nv;
+  const int n_intra = (kend - kbeg + KS - 1) / KS;
+  const int n_second = kind == 0 ? (d.S + KS - 1) / KS
+                       : kind == 1 ? (d.P + KS - 1) / KS
+                       : ch > 0 ? (d.P + KS - 1) / KS : 0;
+  auto load = [&](int s, int slot) {
+    float* p = smem + slot * OUT_SLOT;
+    float* q = p + BT * LDK;
+    if (s < n_intra) {
+      const int k0 = kbeg + s * KS;
+      if (kind == 0) {
+        load_tile<KS, BT, LDT>(p, cbt + (long long)k0 * d.Q + r0, d.Q,
+                               nv - k0, d.Q - r0, d.vec_q);
+        load_tile<KS, BT, LDT>(q, a.dy + xoff + (long long)k0 * xrow + c0,
+                               xrow, nv - k0, d.P - c0, d.vec_x);
+      } else if (kind == 1) {
+        load_tile<KS, BT, LDT>(p, dm + (long long)k0 * d.Q + r0, d.Q,
+                               nv - k0, d.Q - r0, d.vec_q);
+        load_tile<KS, BT, LDT>(q, a.c + boff + (long long)k0 * brow + c0,
+                               brow, nv - k0, d.S - c0, d.vec_bc);
+      } else {
+        load_tile<BT, KS, LDK>(p, dm + (long long)r0 * d.Q + k0, d.Q, nr,
+                               kend - k0, d.vec_q);
+        load_tile<KS, BT, LDT>(q, a.b + boff + (long long)k0 * brow + c0,
+                               brow, kend - k0, d.S - c0, d.vec_bc);
+      }
+    } else {
+      const int k0 = (s - n_intra) * KS;
+      if (kind == 0) {
+        load_tile<BT, KS, LDK>(p, a.b + boff + (long long)r0 * brow + k0,
+                               brow, nr, d.S - k0, d.vec_bc);
+        load_tile<KS, BT, LDT>(q, gs + (long long)k0 * d.P + c0, d.P,
+                               d.S - k0, d.P - c0, d.vec_ws);
+      } else {
+        const float* src = kind == 1 ? a.x : a.dy;
+        load_tile<BT, KS, LDK>(p, src + xoff + (long long)r0 * xrow + k0,
+                               xrow, nr, d.P - k0, d.vec_x);
+        load_tile_t<KS, BT, LDT>(q, (kind == 1 ? gs : sin) +
+                                        (long long)c0 * d.P + k0,
+                                 d.P, d.P - k0, d.S - c0);
+      }
+    }
+  };
+  ring_fill(n_intra + n_second, load);
+  const float* lb = a.lc + (bh * d.NC + ch) * d.Q;
+  for (int i = tid; i < QMAX; i += MT) l[i] = lb[min(i, d.Q - 1)];
+  float ya[TM][TN] = {}, yb[TM][TN] = {};
+  ring_run(n_intra + n_second, load, [&](int s, int slot) {
+    float* p = smem + slot * OUT_SLOT;
+    if (s < n_intra) {
+      const int k0 = kbeg + s * KS;
+      if (kind == 2) {   // D [i][j], j <= i
+        for (int e = tid; e < BT * KS; e += MT) {
+          const int r = e / KS, k = e % KS;
+          float* v = p + r * LDK + k;
+          *v = (k0 + k <= r0 + r) ? *v : 0.f;
+        }
+        __syncthreads();
+        const int last = r0 + (tid / 32) * WROWS + WROWS - 1;
+        const int kq = min(KS, (max(last - k0 + 1, 0) + 3) & ~3);
+        strip_mma<false>(p, p + BT * LDK, ya, ty, tx, kq);
+      } else {           // M^T or D^T [k = i][r = j], i >= j
+        for (int e = tid; e < KS * BT; e += MT) {
+          const int k = e / BT, r = e % BT;
+          const int i = k0 + k, j = r0 + r;
+          float* v = p + k * LDT + r;
+          *v = i >= j ? (kind == 0 ? *v * expf(l[i] - l[j]) : *v) : 0.f;
+        }
+        __syncthreads();
+        strip_mma<true>(p, p + BT * LDK, ya, ty, tx);
+      }
+    } else {
+      strip_mma<false>(p, p + BT * LDK, yb, ty, tx);
+    }
+  });
+
+  const float lq = l[QMAX - 1];
+  const int rowlen = kind == 0 ? d.P : d.S;
+  float* out;
+  long long orow;
+  if (kind == 0) {
+    out = a.dx + xoff;
+    orow = xrow;
+  } else if (d.G == d.H) {
+    out = (kind == 1 ? a.db : a.dc) + boff;
+    orow = brow;
+  } else {
+    out = (kind == 1 ? a.pdb : a.pdc) +
+          (((long long)b * d.L + t0) * d.H + h) * d.S;
+    orow = (long long)d.H * d.S;
+  }
+  for (int r = 0; r < TM; ++r) {
+    const int i = tile_row(ty, r);
+    const int row = r0 + i;
+    const float sc = kind == 2 ? expf(l[row]) : expf(lq - l[row]);
+    float dot = 0.f;
+    for (int c = 0; c < TN; ++c) {
+      const int col = c0 + tile_col(tx, c);
+      if (i < nr && col < rowlen) {
+        out[row * orow + col] = fmaf(sc, yb[r][c], ya[r][c]);
+        if (kind == 0)
+          dot = fmaf(a.x[xoff + row * xrow + col], yb[r][c], dot);
+        else if (kind == 2)
+          dot = fmaf(a.c[boff + row * brow + col], yb[r][c], dot);
+      }
+    }
+    if (kind != 1) {
+      dot = row_sum16(dot);
+      if (tx == 0 && i < nr) {
+        const long long pb = (bh * d.NC + ch) * ncol + c0 / BT;
+        (kind == 0 ? a.pcar : a.pint)[pb * d.Q + row] = sc * dot;
+      }
+    }
+  }
+}
+
+// 4. One launch, two kinds of block.  The first NC * H take one (b, h,
+// chunk): dl_i = sum_tj prow[tj][i] - sum_ti pcol[ti][i] + sum pint[.][i]
+// - sum pcar[.][i] over the tiles that hold row / column i, in tile
+// order; dl_{nv-1} += sum_j pcar_j + exp(l_Q) <S_in, G>; d loga its
+// reverse cumulative sum in step order (one thread).  The others, when
+// heads share a group, each sum MT elements of dB and dC over the group's
+// heads in head order.
+__global__ void __launch_bounds__(MT, MT_BLOCKS)
+ssd_bwd_finish(BwdPtrs a, Dims d) {
+  __shared__ float dl[QMAX], car[QMAX], red[MT];
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int n_dl = d.NC * d.H;
+  if ((int)blockIdx.x >= n_dl) {
+    const long long e =
+        (long long)(blockIdx.x - n_dl) * MT + tid;   // over (L, G, S)
+    const long long n = (long long)d.L * d.G * d.S;
+    if (e >= n) return;
+    const int r = d.H / d.G;
+    const int gs = (int)(e % (d.G * d.S));
+    const long long t = e / (d.G * d.S);
+    const int g = gs / d.S, s = gs % d.S;
+    const long long src = (((long long)b * d.L + t) * d.H + g * r) * d.S + s;
+    float sb = 0.f, sc = 0.f;
+    for (int k = 0; k < r; ++k) {
+      sb += a.pdb[src + (long long)k * d.S];
+      sc += a.pdc[src + (long long)k * d.S];
+    }
+    a.db[(long long)b * n + e] = sb;
+    a.dc[(long long)b * n + e] = sc;
+    return;
+  }
+  const int ch = blockIdx.x % d.NC, h = blockIdx.x / d.NC;
+  const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
+  const long long bh = (long long)b * d.H + h, bc = bh * d.NC + ch;
+  // <S_in, G>: a strided sum a thread, then a fixed tree
+  float sg = 0.f;
+  if (ch > 0) {
+    const float* sin = a.st + bc * d.S * d.P;
+    const float* gs = a.g + bc * d.S * d.P;
+    for (int e = tid; e < d.S * d.P; e += MT) sg = fmaf(sin[e], gs[e], sg);
+  }
+  red[tid] = sg;
+  __syncthreads();
+  for (int o = MT / 2; o > 0; o >>= 1) {
+    if (tid < o) red[tid] += red[tid + o];
+    __syncthreads();
+  }
+  for (int i = tid; i < nv; i += MT) {
+    const float* pr = a.prow + bc * d.tq * d.Q + i;
+    const float* pc = a.pcol + bc * d.tq * d.Q + i;
+    float rs = 0.f, cs = 0.f, in = 0.f, cr = 0.f;
+    for (int k = 0; k <= i / CT; ++k) rs += pr[k * d.Q];
+    for (int k = i / CT; k <= (nv - 1) / CT; ++k) cs += pc[k * d.Q];
+    for (int k = 0; k < d.ns; ++k) in += a.pint[(bc * d.ns + k) * d.Q + i];
+    for (int k = 0; k < d.np; ++k) cr += a.pcar[(bc * d.np + k) * d.Q + i];
+    dl[i] = rs - cs + in - cr;
+    car[i] = cr;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+    for (int i = 0; i < nv; ++i) total += car[i];
+    const float lq = a.lc[bc * d.Q + d.Q - 1];
+    float run = total + expf(lq) * red[0];
+    float* out = a.dloga + ((long long)b * d.L + t0) * d.H + h;
+    for (int i = nv - 1; i >= 0; --i) {
+      run += dl[i];
+      out[(long long)i * d.H] = run;
+    }
+  }
+}
+
+// Lets the ring kernels take their dynamic shared memory (past the
 // 48 KB default) on the current device; once a device.
 cudaError_t allow_smem() {
   static bool done[64] = {};
@@ -530,6 +1015,14 @@ cudaError_t allow_smem() {
                              STATE_SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_chunk_out,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               OUT_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               STATE_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_grads,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                OUT_SMEM);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
@@ -593,6 +1086,70 @@ int ssd_scan_launch(const float* x, const float* loga, const float* b,
                                                        d);
   ssd_chunk_out<<<dim3(plan[7], by), MT, OUT_SMEM, st>>>(
       x, c, ws_l, ws_cbt, ws_st, y, d);
+  return (int)cudaGetLastError();
+}
+
+
+// Shared memory of each backward launch's block (bytes), in launch order.
+long long ssd_scan_backward_smem_bytes(int which) {
+  return which == 0 ? STATE_SMEM : which == 2 ? OUT_SMEM : 0;
+}
+
+// Resident blocks per SM of backward launch `which` (0..3; the state pass
+// in its 4-wide form) on the current device.
+int ssd_scan_backward_occupancy(int which) {
+  int n = 0;
+  const void* fn[4] = {(const void*)ssd_bwd_chunk,
+                       (const void*)ssd_bwd_state<4>,
+                       (const void*)ssd_bwd_grads,
+                       (const void*)ssd_bwd_finish};
+  if (which < 0 || which > 3 || allow_smem() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fn[which], MT, (size_t)ssd_scan_backward_smem_bytes(which)) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+// The backward of one scan, after ssd_scan_launch on the same operands:
+// ws_l, ws_cbt, ws_st are that launch's workspace (l, C B^T, S_in).  dy
+// (B, L, H, P) and dstate (B, H, S, P; null: zero) are the cotangents;
+// dx, dloga, db, dc the gradients, shaped as x, loga, b, c.  ws: the
+// backward's workspace, in BwdPtrs order from g (pdb and pdc null when
+// G == H).  plan: n_chunks, tri, ns, np, nm, tq, then the x extent of the
+// four grids, as repro_torch.kernels.ssd_scan.ops.plan_backward computes
+// them.  vec: bit 0 x and dy, bit 1 b and c, bit 2 a Q-row, bit 3 a state
+// row (P % 4 == 0) may take 16-byte copies.
+int ssd_scan_backward_launch(const float* x, const float* b, const float* c,
+                             const float* dy, const float* dstate,
+                             const float* ws_l, const float* ws_cbt,
+                             const float* ws_st, float* dx, float* dloga,
+                             float* db, float* dc, float* const* ws, int B,
+                             int L, int H, int P, int G, int S, int Q,
+                             const int* plan, int vec, void* stream) {
+  if (B < 1 || B > 65535 || L < 0 || H < 1 || P < 1 || G < 1 || S < 1 ||
+      H % G != 0 || Q < 1 || Q > QMAX ||
+      (long long)H * P * QMAX > 0x7fffffffLL ||
+      (long long)G * S * QMAX > 0x7fffffffLL ||
+      (long long)H * S * P > 0x7fffffffLL ||
+      (G != H && (ws[6] == nullptr || ws[7] == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Dims d{L, H, P, G, S, Q, plan[0], plan[1], plan[2], plan[3], plan[4],
+         vec & 1, (vec >> 1) & 1, (vec >> 2) & 1, plan[5], (vec >> 3) & 1};
+  if (d.NC == 0) return 0;
+  const cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  BwdPtrs a{x,  b,     c,  dy, dstate, ws_l,  ws_cbt, ws_st, dx,    dloga, db,
+            dc, ws[0], ws[1], ws[2], ws[3], ws[4], ws[5], ws[6], ws[7]};
+  const unsigned by = (unsigned)B;
+  ssd_bwd_chunk<<<dim3(plan[6], by), MT, STATE_SMEM, st>>>(a, d);
+  if ((S * P) % 4 == 0)
+    ssd_bwd_state<4><<<dim3(plan[7], by), MT, 0, st>>>(a, d);
+  else
+    ssd_bwd_state<1><<<dim3(plan[7], by), MT, 0, st>>>(a, d);
+  ssd_bwd_grads<<<dim3(plan[8], by), MT, OUT_SMEM, st>>>(a, d);
+  ssd_bwd_finish<<<dim3(plan[9], by), MT, 0, st>>>(a, d);
   return (int)cudaGetLastError();
 }
 

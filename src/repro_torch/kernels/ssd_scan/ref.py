@@ -12,6 +12,9 @@ with a_t = exp(A * dt_t) in (0, 1] the scalar per-step decay.
 chunked matmul form of one sequence, and `ssd_chunked` the batched chunked
 form with head groups: the plain version of the CUDA kernel
 (`csrc/ssd_scan.cu`), which the wrapper runs for CPU tensors.
+`ssd_chunked_backward` is its gradient in explicit chunked formulas: the
+plain version of the backward kernel in the same source.  Both compute in
+float32, or in float64 for float64 operands.
 """
 
 from __future__ import annotations
@@ -82,29 +85,17 @@ def ssd_chunked(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     if h % g:
         raise ValueError(f"{g} groups do not divide {h} heads")
     r = h // g
-    pad = (-l) % chunk
-    if pad:
-        x, loga, b, c = (torch.nn.functional.pad(
-            t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, loga, b, c))
-    n = (l + pad) // chunk
-    xs = x.float().reshape(bsz, n, chunk, g, r, p)
-    ls = loga.float().reshape(bsz, n, chunk, g, r)
-    bs = b.float().reshape(bsz, n, chunk, g, s_dim)
-    cs = c.float().reshape(bsz, n, chunk, g, s_dim)
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=x.device))[None, :, :, None, None]
-    s = (torch.zeros((bsz, g, r, s_dim, p), dtype=torch.float32,
-                     device=x.device) if state0 is None
-         else state0.float().reshape(bsz, g, r, s_dim, p))
+    xs, ls, bs, cs = _chunks(chunk, g, x, loga, b, c)
+    n = xs.shape[1]
+    dt = xs.dtype
+    s = (torch.zeros((bsz, g, r, s_dim, p), dtype=dt, device=x.device)
+         if state0 is None else state0.to(dt).reshape(bsz, g, r, s_dim, p))
     ys = []
     for i in range(n):
         xq, lq, bq, cq = xs[:, i], ls[:, i], bs[:, i], cs[:, i]
         lcum = torch.cumsum(lq, dim=1)                     # (B, Q, G, R)
         ltot = lcum[:, -1]                                 # (B, G, R)
-        # exp(l_i - l_j) on the causal triangle; -inf elsewhere gives 0
-        # without forming the overflowing exp(l_i - l_j), j > i
-        dmat = torch.exp((lcum[:, :, None] - lcum[:, None, :])
-                         .masked_fill(~mask, float("-inf")))
+        dmat = _decay(lcum)
         att = torch.einsum("bigs,bjgs->bijg", cq, bq)[..., None] * dmat
         y = torch.einsum("bijgr,bjgrp->bigrp", att, xq)
         y = y + torch.exp(lcum)[..., None] * torch.einsum(
@@ -114,5 +105,122 @@ def ssd_chunked(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
         s = (torch.exp(ltot)[..., None, None] * s
              + torch.einsum("bjgrs,bjgrp->bgrsp", bw, xq))
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(bsz, l + pad, h, p)[:, :l]
+    y = torch.stack(ys, dim=1).reshape(bsz, n * chunk, h, p)[:, :l]
     return y, s.reshape(bsz, h, s_dim, p)
+
+
+def _chunks(chunk: int, g: int, *ts):
+    """x, loga, b, c (and dy) padded with identity steps to a chunk
+    multiple and cut into chunks: (B, N, Q, G, R[, P]) for the per-head
+    operands, (B, N, Q, G, S) for b and c, in float32 (float64 operands
+    stay float64)."""
+    bsz, l, h = ts[0].shape[:3]
+    pad = (-l) % chunk
+    n = (l + pad) // chunk
+    dt = torch.promote_types(ts[0].dtype, torch.float32)
+    out = []
+    for t in ts:
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+        out.append(t.to(dt))
+    xs = out[0].reshape(bsz, n, chunk, g, h // g, -1)
+    ls = out[1].reshape(bsz, n, chunk, g, h // g)
+    bs = out[2].reshape(bsz, n, chunk, g, -1)
+    cs = out[3].reshape(bsz, n, chunk, g, -1)
+    rest = [t.reshape(bsz, n, chunk, g, h // g, -1) for t in out[4:]]
+    return (xs, ls, bs, cs, *rest)
+
+
+def _decay(lcum: torch.Tensor) -> torch.Tensor:
+    """exp(l_i - l_j) (B, Q, Q, G, R) on the causal triangle j <= i and 0
+    above it: the difference is masked with -inf before the exp, so the
+    overflowing exp(l_i - l_j), j > i, is never formed."""
+    q = lcum.shape[1]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=lcum.device))[None, :, :, None, None]
+    return torch.exp((lcum[:, :, None] - lcum[:, None, :])
+                     .masked_fill(~mask, float("-inf")))
+
+
+
+def ssd_chunked_backward(x: torch.Tensor, loga: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                         dstate: torch.Tensor | None, chunk: int,
+                         state0: torch.Tensor | None = None):
+    """Gradients (dx, dloga, db, dc) of `ssd_chunked`'s (y, state) with
+    cotangents dy (B, L, H, P) and dstate (B, H, S, P) (None: zero), in
+    explicit chunked formulas (what the backward kernel computes).
+
+    Per (batch, head) and chunk, with l the inclusive prefix sums of log a,
+    S_in the chunk's incoming state, G = dL/dS_out (the last chunk's G is
+    dstate, chunk c - 1's is dS_in of chunk c), w_j = exp(l_Q - l_j) and
+    decay_ij = exp(l_i - l_j) for j <= i, else 0:
+
+        M = (C B^T) . decay,  D = (dY X^T) . decay,  A = M . (dY X^T)
+        dX = M^T dY + diag(w) B G
+        dB = D^T C + diag(w) X G^T
+        dC = D B + diag(exp l) dY S_in^T
+        dS_in = exp(l_Q) G + C^T diag(exp l) dY
+        dl_i = sum_j A_ij - sum_i' A_i'i + exp(l_i) <dY_i, (C S_in)_i>
+               - w_i b_i^T G x_i
+        dl_Q += sum_j w_j b_j^T G x_j + exp(l_Q) <S_in, G>
+
+    and d loga is the reverse cumulative sum of dl within each chunk.  db
+    and dc of a group sum over the group's heads.  A ragged tail is padded
+    with identity steps, as in the forward, and its gradients dropped."""
+    bsz, l, h, p = x.shape
+    g, s_dim = b.shape[2], b.shape[3]
+    if h % g:
+        raise ValueError(f"{g} groups do not divide {h} heads")
+    r = h // g
+    xs, ls, bs, cs, dys = _chunks(chunk, g, x, loga, b, c, dy)
+    n = xs.shape[1]
+    dt = xs.dtype
+    s = (torch.zeros((bsz, g, r, s_dim, p), dtype=dt, device=x.device)
+         if state0 is None else state0.to(dt).reshape(bsz, g, r, s_dim, p))
+    # the forward's prefix sums and incoming states, chunk by chunk
+    lcums, s_ins = [], []
+    for i in range(n):
+        lcum = torch.cumsum(ls[:, i], dim=1)               # (B, Q, G, R)
+        ltot = lcum[:, -1]
+        w = torch.exp(ltot[:, None] - lcum)
+        lcums.append(lcum)
+        s_ins.append(s)
+        s = (torch.exp(ltot)[..., None, None] * s
+             + torch.einsum("bjgs,bjgr,bjgrp->bgrsp", bs[:, i], w, xs[:, i]))
+    gst = (torch.zeros_like(s) if dstate is None
+           else dstate.to(dt).reshape(bsz, g, r, s_dim, p))
+    dxs, dls, dbs, dcs = [], [], [], []
+    for i in reversed(range(n)):
+        xq, bq, cq, dyq = xs[:, i], bs[:, i], cs[:, i], dys[:, i]
+        lcum, s_in = lcums[i], s_ins[i]
+        ltot = lcum[:, -1]                                 # (B, G, R)
+        dec = _decay(lcum)                                 # (B, Q, Q, G, R)
+        cbt = torch.einsum("bigs,bjgs->bijg", cq, bq)[..., None]
+        dyx = torch.einsum("bigrp,bjgrp->bijgr", dyq, xq)
+        m, d = cbt * dec, dyx * dec
+        a = m * dyx
+        w = torch.exp(ltot[:, None] - lcum)                # (B, Q, G, R)
+        el = torch.exp(lcum)
+        bg = torch.einsum("bjgs,bgrsp->bjgrp", bq, gst)
+        dxs.append(torch.einsum("bijgr,bigrp->bjgrp", m, dyq)
+                   + w[..., None] * bg)
+        dbs.append((torch.einsum("bijgr,bigs->bjgs", d, cq)
+                    + torch.einsum("bjgr,bjgrp,bgrsp->bjgs", w, xq, gst)))
+        dcs.append((torch.einsum("bijgr,bjgs->bigs", d, bq)
+                    + torch.einsum("bigr,bigrp,bgrsp->bigs", el, dyq, s_in)))
+        carry = w * (bg * xq).sum(-1)                      # w_j b_j^T G x_j
+        inter = el * (dyq * torch.einsum("bigs,bgrsp->bigrp", cq, s_in)
+                      ).sum(-1)
+        dl = a.sum(2) - a.sum(1) + inter - carry           # (B, Q, G, R)
+        last = carry.sum(1) + torch.exp(ltot) * (s_in * gst).sum((-2, -1))
+        dl = torch.cat([dl[:, :-1], dl[:, -1:] + last[:, None]], dim=1)
+        dls.append(torch.flip(torch.cumsum(torch.flip(dl, (1,)), 1), (1,)))
+        gst = (torch.exp(ltot)[..., None, None] * gst
+               + torch.einsum("bigs,bigr,bigrp->bgrsp", cq, el, dyq))
+    lp = n * chunk
+
+    def whole(parts, *shape):
+        return torch.stack(parts[::-1], dim=1).reshape(bsz, lp, *shape)[:, :l]
+    return (whole(dxs, h, p), whole(dls, h), whole(dbs, g, s_dim),
+            whole(dcs, g, s_dim))

@@ -60,6 +60,8 @@ def family(name: str) -> str:
     if any(k in n for k in ("fused_kernel", "flush_splits", "weightop>",
                             "x_operand", "w_operand")):
         return "rosa_fused kernel"
+    if "ssd_bwd_" in n:
+        return "ssd_scan backward kernel"
     if any(k in n for k in ("ssd_chunk_state", "ssd_state_pass",
                             "ssd_chunk_out")):
         return "ssd_scan kernel"
@@ -73,6 +75,45 @@ def family(name: str) -> str:
 
 
 OUT = pathlib.Path("chiprun_out")
+
+
+def device_table(prof, header: str, wall_ms: float, plain_wall_ms: float,
+                 out_name: str) -> str:
+    """The profiled run's device time by kernel family and its busy share
+    (summed kernel time over wall time: kernels on one stream do not
+    overlap), then the top 15 kernels; printed, written to
+    `chiprun_out/<out_name>` and returned."""
+    by_family: dict[str, float] = {}
+    kernels = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us <= 0 or evt.device_type.name != "CUDA":
+            continue
+        fam = family(evt.key)
+        by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
+        kernels.append((dev_us / 1e3, evt.count, evt.key))
+    busy_ms = sum(by_family.values())
+    lines = [header,
+             f"wall {wall_ms:.1f} ms under the profiler; device busy "
+             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
+             f"{100 * (1 - busy_ms / wall_ms):.1f} %",
+             f"wall {plain_wall_ms:.1f} ms without the profiler (the run "
+             f"before); against it the same device time is "
+             f"{100 * busy_ms / plain_wall_ms:.1f} % busy"]
+    if busy_ms == 0:
+        lines.append("the profiler recorded no device time: not measured")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {fam:24s} {ms:9.2f} ms  {100 * ms / busy_ms:5.1f} %"
+                     " of device time")
+    lines.append("top kernels (device ms, launches, name):")
+    for ms, count, key in sorted(kernels, reverse=True)[:15]:
+        lines.append(f"  {ms:9.2f} {count:6d}  {key[:100]}")
+    text = "\n".join(lines)
+    print(text)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / out_name).write_text(text + "\n")
+    return text
 
 
 def main(argv=None) -> None:
@@ -106,40 +147,12 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    by_family: dict[str, float] = {}
-    kernels = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        if dev_us <= 0 or evt.device_type.name != "CUDA":
-            continue
-        fam = family(evt.key)
-        by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
-        kernels.append((dev_us / 1e3, evt.count, evt.key))
-    busy_ms = sum(by_family.values())
-    lines = [f"card {torch.cuda.get_device_name(0)}; {arch}, "
-             f"{cfg.n_layers} layers, fused backend, {len(reqs)} requests: "
-             f"{rep.total_tokens} tokens, "
-             f"{rep.ticks} ticks, {rep.decode_steps} decode steps, "
-             f"{rep.prefill_chunks} prefill chunks",
-             f"wall {wall_ms:.1f} ms under the profiler; device busy "
-             f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
-             f"{100 * (1 - busy_ms / wall_ms):.1f} %",
-             f"wall {plain_wall_ms:.1f} ms without the profiler (the run "
-             f"before); against it the same device time is "
-             f"{100 * busy_ms / plain_wall_ms:.1f} % busy"]
-    if busy_ms == 0:
-        lines.append("the profiler recorded no device time: not measured")
-    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        lines.append(f"  {fam:24s} {ms:9.2f} ms  {100 * ms / busy_ms:5.1f} %"
-                     " of device time")
-    lines.append("top kernels (device ms, launches, name):")
-    for ms, count, key in sorted(kernels, reverse=True)[:15]:
-        lines.append(f"  {ms:9.2f} {count:6d}  {key[:100]}")
-    text = "\n".join(lines)
-    print(text)
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / f"profile_serve_{arch}.txt").write_text(text + "\n")
+    device_table(prof, f"card {torch.cuda.get_device_name(0)}; {arch}, "
+                 f"{cfg.n_layers} layers, fused backend, {len(reqs)} "
+                 f"requests: {rep.total_tokens} tokens, {rep.ticks} ticks, "
+                 f"{rep.decode_steps} decode steps, {rep.prefill_chunks} "
+                 f"prefill chunks", wall_ms, plain_wall_ms,
+                 f"profile_serve_{arch}.txt")
 
 
 if __name__ == "__main__":

@@ -12,8 +12,16 @@
 
   python -m repro_torch.launch.train --arch qwen3-32b --n-layers 4 \\
       --steps 10 --batch 8 --seq 256 --warmup 2 --ckpt-every 100
+  python -m repro_torch.launch.train --arch mamba2-1.3b --steps 10 \\
+      --batch 8 --seq 256 --warmup 2 --ckpt-every 100
+  python -m repro_torch.launch.train --arch zamba2-1.2b --steps 10 \\
+      --batch 8 --seq 256 --warmup 2 --ckpt-every 100
   python -m repro_torch.launch.train --arch qwen3-32b --smoke \\
       --device cpu --batch 2 --seq 32 --steps 6 --ckpt-every 5
+
+The ssm and hybrid families train at full width and depth on the card:
+each scan runs the `ssd_scan` kernel forward (twice a step under remat
+"full") and its backward kernel once.
 
 Runs on CUDA unless `--device cpu`.  One device only: `--data-axis`
 above 1 (data-parallel sharding) exits.

@@ -10,6 +10,8 @@ S x head dim P):
 
 The whole-sequence scan goes through `kernels.ssd_scan.ops.ssd_scan`: the
 CUDA kernel for CUDA tensors, its plain chunked version for CPU tensors.
+When its operands need gradients (training on the card) the kernel runs
+inside an autograd Function whose backward is the scan's backward kernel.
 B/C are shared across the heads of `n_groups` groups and are passed to the
 scan per group, not repeated to heads.  A causal depthwise conv (width 4)
 precedes the scan on x/B/C; the output gate is RMSNorm(y * silu(z)), then

@@ -365,7 +365,10 @@ def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     encoder's layers) under `_remat`.  The layer index is the optical
     noise `step`, as the reference's scanned `meta["idx"]`: 0 for
     deepseek-v2's `layer0`, 1..n-1 for the layers after it, 0 for every
-    encdec layer (its stack passes no index)."""
+    encdec layer (its stack passes no index).  Under a recomputing remat
+    policy an ssm layer's scan runs twice a train step (the forward and
+    the recomputation; zamba2's `tail` layers, outside the recomputed
+    groups, once) and its backward once."""
     check_family(cfg)
     x, positions = _embed_in(params, cfg, batch)
     if cfg.family == "hybrid":

@@ -197,6 +197,10 @@ def test_mrr_lane_layouts_of_expand_lanes():
      "ssd_scan kernel"),
     ("(anonymous namespace)::ssd_chunk_out(float const*, float const*)",
      "ssd_scan kernel"),
+    ("(anonymous namespace)::ssd_bwd_chunk((anonymous namespace)::BwdPtrs, "
+     "(anonymous namespace)::Dims)", "ssd_scan backward kernel"),
+    ("void (anonymous namespace)::ssd_bwd_state<4>((anonymous namespace)::"
+     "BwdPtrs, (anonymous namespace)::Dims)", "ssd_scan backward kernel"),
     ("void (anonymous namespace)::transfer_kernel_tiles<true, 1, 4>(float "
      "const*)", "mrr_transfer kernel"),
     ("void (anonymous namespace)::transfer_kernel_flat<false, 4>(float "

@@ -25,6 +25,11 @@ reference's parameters (`params_from_reference`).  Bounds:
     (loss 1e-5 relative, the gradient tree within 1e-3 of its norm);
   * the remat policies "none" / "full" / "dots": gradients equal bit for
     bit, also through a keyed noisy engine (recomputation draws again);
+  * mamba2-smoke and zamba2-smoke with every scan through the
+    `ssd_scan` autograd Function (its launches replaced by the plain
+    forward and backward): loss and |g| at 1e-5 relative, each gradient
+    leaf within 1e-5 of its max or 4x the reference's distance from the
+    port's float64 gradients, against the reference's `jax.grad`;
   * AdamW (5 steps; clipped and not, each schedule, with error feedback)
     and the schedules: 1e-6 relative on every leaf;
   * TokenPipeline, checkpoints across the packages and the resumed CLI:
@@ -60,6 +65,7 @@ from repro_torch.models.model import (SMOKE_SHAPES, build_model,
                                       opt_state_from_reference,
                                       params_from_reference)
 from repro_torch.models.module import leaves, map_tree, unflatten
+from repro_torch.models.transformer import hybrid_depth
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule, global_norm, linear_warmup)
 from repro_torch.rosa.backends import RosaConfig
@@ -366,21 +372,99 @@ def test_recomputation_sees_the_forward_engine_in_another_thread(
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_ssd_scan_refuses_grads_off_the_cpu(monkeypatch):
-    """The CUDA scan has no backward: a non-CPU call that would need one
-    raises instead of cutting the graph; under no_grad it launches."""
+def test_ssd_scan_routes_grads_through_the_function_off_the_cpu(
+        monkeypatch):
+    """A non-CPU call that needs gradients goes through the autograd
+    Function, whose backward reaches the backward kernel's launch; under
+    no_grad, or on detached operands, the forward launches alone."""
     def meta(*shape, grad=False):
         return torch.empty(shape, device="meta", requires_grad=grad)
     args = (meta(1, 8, 2, 4, grad=True), meta(1, 8, 2), meta(1, 8, 1, 4),
             meta(1, 8, 1, 4))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd_ops.ssd_scan(*args, chunk=4)
+    seen = []
+
+    def fwd(x, loga, b, c, chunk):
+        seen.append("fwd")
+        return (torch.empty_like(x), x.new_empty((1, 2, 4, 4)),
+                x.new_empty(16))
+
+    def bwd(x, b, c, dy, dstate, ws, chunk):
+        seen.append(("bwd", dstate))
+        return (torch.empty_like(x), x.new_empty(x.shape[:3]),
+                torch.empty_like(b), torch.empty_like(c))
+
+    monkeypatch.setattr(ssd_ops, "_launch", fwd)
+    monkeypatch.setattr(ssd_ops, "launch_backward", bwd)
+    y, state = ssd_ops.ssd_scan(*args, chunk=4)
+    assert y.grad_fn is not None and seen == ["fwd"]
+    (g,) = torch.autograd.grad(y, args[0], torch.empty_like(y))
+    assert g.shape == args[0].shape and seen == ["fwd", ("bwd", None)]
     launched = []
     monkeypatch.setattr(ssd_ops, "launch", lambda *a: launched.append(a))
     with torch.no_grad():
         ssd_ops.ssd_scan(*args, chunk=4)
     ssd_ops.ssd_scan(*(a.detach() for a in args), chunk=4)
-    assert len(launched) == 2
+    assert len(launched) == 2 and len(seen) == 2
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_ssm_train_step_through_the_function_matches_reference(
+        R, monkeypatch, arch):
+    """A train step of the smoke model with every scan routed through the
+    autograd Function (the kernels' launches replaced by the plain
+    forward and backward): the loss and |g| within the bound of
+    `test_train_step_loop_matches_reference` (1e-5 relative), each
+    gradient leaf within 1e-5 of its max or 4x the reference's own
+    distance from the port's float64 gradients where that floor is
+    higher (`test_forward_and_train_loss_match_reference`'s rule; the
+    float64 step runs the scan's CPU path, autograd of
+    `ref.ssd_chunked`, not the Function under test), and the launches
+    phase 19 of
+    chip_smoke.py counts: under remat "full" each recomputed layer's scan
+    runs twice (zamba2's tail, outside the recomputed groups, once), and
+    the backward once a layer."""
+    from repro_torch.models import ssm as SSM
+    calls = {"fwd": 0, "bwd": 0}
+
+    def fwd(x, loga, b, c, chunk):
+        calls["fwd"] += 1
+        return (*ssd_ops.plain(x, loga, b, c, chunk), loga)
+
+    def bwd(x, b, c, dy, dstate, ws, chunk):
+        calls["bwd"] += 1
+        return ssd_ops.plain_backward(x, ws, b, c, dy, dstate, chunk)
+
+    cfg, jcfg = get_smoke(arch), R.configs.get_smoke(arch)
+    jax = R.jax
+    jp = R.model.build_model(jcfg).init(jax.random.PRNGKey(0))
+    batch, jbatch = _batch(R, cfg, seed=4)
+    lj, gj = jax.jit(jax.value_and_grad(
+        lambda q: R.model.build_model(jcfg).train_loss(q, jbatch)))(jp)
+    gj = _tree_np(gj)
+    bundle, p = build_model(cfg), params_from_reference(jp)
+    g64 = _tree_np(ST.loss_and_grads(bundle, map_tree(torch.Tensor.double,
+                                                      p), batch)[1])
+    monkeypatch.setattr(ssd_ops, "_launch", fwd)
+    monkeypatch.setattr(ssd_ops, "launch_backward", bwd)
+    monkeypatch.setattr(SSM, "ssd_scan", lambda x, loga, b, c, chunk:
+                        ssd_ops._Scan.apply(x, loga, b, c, chunk))
+    loss, g = ST.loss_and_grads(bundle, p, batch)
+    g = _tree_np(g)
+    np.testing.assert_allclose(float(loss), float(lj), rtol=1e-5)
+    assert list(g) == list(gj)
+    for k in gj:
+        assert rel_err(g[k], gj[k]) <= max(1e-5, 4 * rel_err(g64[k], gj[k])), k
+    np.testing.assert_allclose(
+        np.sqrt(sum(np.sum(v.astype(np.float64) ** 2) for v in g.values())),
+        np.sqrt(sum(np.sum(v.astype(np.float64) ** 2) for v in gj.values())),
+        rtol=1e-5)
+    if cfg.family == "hybrid":
+        n_groups, tail = hybrid_depth(cfg)
+        recomputed = n_groups * cfg.shared_every
+    else:
+        recomputed, tail = cfg.n_layers, 0
+    assert calls == {"fwd": 2 * recomputed + tail,
+                     "bwd": recomputed + tail}
 
 
 # ---------------------------------------------------------------------------
