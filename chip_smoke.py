@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --kernels  # build, phases 2, 6, 8, 12(a), 19(a)
                                      # (no result line)
+    python3 chip_smoke.py --kernels 19a   # build, then those phases alone
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -249,8 +250,19 @@ Phases (any failure raises, so the exit code is non-zero):
      dstate: each gradient within 4x the float32 plain backward's
      distance from float64 (plus 1e-6 of its max) and within 1e-4 of its
      max, finite, two launches equal bit for bit, a None dstate giving a
-     zero one's bits; times as phase 6, the bound from the chunked
-     formulas' float32 operations; (b) `python -m
+     zero one's bits; L 1 again on 16 seeds of its own, finite, equal
+     twice and within 1e-4 of max, with each gradient's most against
+     its float32 floor and the seeds outside the 4x gate printed, not
+     gated (there dc's float32 floor is at times far below the distance
+     of any kernel that orders its sums otherwise); times as
+     phase 6 against the bound of the route
+     the kernel takes (its matrix products in 3xTF32 at the dense TF32
+     rate, the rest at the float32 rate; the summary's `bound_ms`) and,
+     beside it, the bound of the chunked formulas' operations all at the
+     float32 rate (`f32_bound_ms`); and each of its four
+     launches' kernel-only time alone (`ops.backward_stages`, after a
+     whole backward filled the workspace), printed on a line of its own;
+     (b) `python -m
      repro_torch.launch.train --arch mamba2-1.3b --steps 4 --batch 8
      --seq 256` in-process (48 layers, 1.34e9 params): losses and |g|
      finite, peak under 70 GiB, ssd_scan exactly 2 x 48 x 4 launches
@@ -290,6 +302,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
 M_ROWS = (4, 8)               # decode batch (4 slots) and a prefill chunk
 PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
 # deepseek-v2's dense layer 0 (d_ff 12288): its MLP projections are the
@@ -3658,6 +3671,7 @@ SSD_BWD_CASES = [(8, 256, 64, 64, 1, 128, 128), (8, 256, 64, 64, 1, 64, 128),
                  (2, 700, 64, 64, 2, 128, 128),
                  (1, 256, 64, 64, 64, 128, 128)]
 SSD_BWD_SERVED = (8, 256, 1, 128)          # (B, L, G, S) of the train step
+SSD_BWD_L1_SEEDS = 16                      # 19(a): L 1's further inputs
 SSM_TRAIN = (("mamba2-1.3b", MAMBA_PARAMS), ("zamba2-1.2b", ZAMBA_PARAMS))
 SSM_TRAIN_CLI = ["--steps", "4", "--batch", "8", "--seq", "256",
                  "--warmup", "2", "--ckpt-every", "100", "--log-every", "1"]
@@ -3665,15 +3679,16 @@ SSM_CPU = ("mamba2-1.3b", 1)               # 19(d): arch, layers
 SSM_CPU_BATCH = (1, 64)
 
 
-def ssd_bwd_bound(bsz, l, h, p, g, s, q) -> tuple[float, str]:
-    """Least time of one scan's backward given the forward's saved l, C
-    B^T and incoming states: the bytes of x, b, c, dy, dstate, l, C B^T
-    on each chunk's causal triangle and the incoming states in, dx,
-    dloga, db, dc out, against the float32 operations the chunked
-    formulas need on these inputs (ref.ssd_chunked_backward), term by
-    term below: the triangle's products once per head, the state's from
-    the second chunk on (the first state is zero, and the first chunk's
-    dS_in is no output); per group the heads' dB and dC summed."""
+def ssd_bwd_work(bsz, l, h, p, g, s, q) -> tuple[int, int, int]:
+    """(bytes, product operations, other operations) of one scan's
+    backward given the forward's saved l, C B^T and incoming states: the
+    bytes of x, b, c, dy, dstate, l, C B^T on each chunk's causal triangle
+    and the incoming states in, dx, dloga, db, dc out; the float32
+    operations the chunked formulas need on these inputs
+    (ref.ssd_chunked_backward), term by term below, the matrix products
+    apart: the triangle's products once per head, the state's from the
+    second chunk on (the first state is zero, and the first chunk's dS_in
+    is no output); per group the heads' dB and dC summed."""
     r = h // g
     nc = -(-l // q)
     tri_all = sum(n * (n + 1) // 2 for n in (min(q, l - lo)
@@ -3682,26 +3697,47 @@ def ssd_bwd_bound(bsz, l, h, p, g, s, q) -> tuple[float, str]:
                   + bsz * h * s * p + bsz * h * nc * q + bsz * g * tri_all
                   + bsz * h * nc * s * p
                   + bsz * l * h * p + bsz * l * h + 2 * bsz * l * g * s)
-    flops = 0
+    prods = others = 0
     for lo in range(0, l, q):
         n = min(q, l - lo)
         tri = n * (n + 1) // 2
-        per_head = (2 * tri              # the decay: a difference, an exp
-                    + 2 * tri * p        # dY X^T
-                    + 5 * tri            # D, M, A; A's row and column sums
-                    + 2 * tri * p        # M^T dY
-                    + 4 * tri * s        # D^T C, D B
-                    + 4 * n * s * p      # B G, X G^T
-                    + 2 * n * p + 2 * n * s   # the carry scaled, added
-                    + 3 * n * p          # the carry's dot products
-                    + 3 * n)             # dl's terms, the reverse cumsum
+        prod = (2 * tri * p              # dY X^T
+                + 2 * tri * p            # M^T dY
+                + 4 * tri * s            # D^T C, D B
+                + 4 * n * s * p)         # B G, X G^T
+        other = (2 * tri                 # the decay: a difference, an exp
+                 + 5 * tri               # D, M, A; A's row and column sums
+                 + 2 * n * p + 2 * n * s     # the carry scaled, added
+                 + 3 * n * p             # the carry's dot products
+                 + 3 * n)                # dl's terms, the reverse cumsum
         if lo:                           # an incoming state
-            per_head += (2 * n * s * p + 2 * n * s   # dY S_in^T into dC
-                         + 3 * n * s     # its dot products with C
-                         + 2 * n * s * p + n * s     # C^T diag(exp l) dY
-                         + 4 * s * p)    # G's decay, <S_in, G>
-        flops += bsz * h * per_head + bsz * g * (r - 1) * 2 * n * s
-    return bound_ms(nbytes, flops)
+            prod += (2 * n * s * p       # dY S_in^T into dC
+                     + 2 * n * s * p)    # C^T diag(exp l) dY
+            other += (2 * n * s          # dY S_in^T scaled, added
+                      + 3 * n * s        # its dot products with C
+                      + n * s            # C . exp l
+                      + 4 * s * p)       # G's decay, <S_in, G>
+        prods += bsz * h * prod
+        others += bsz * h * other + bsz * g * (r - 1) * 2 * n * s
+    return nbytes, prods, others
+
+
+def ssd_bwd_bound(bsz, l, h, p, g, s, q) -> tuple[float, str]:
+    """Least time of one scan's backward on the CUDA cores: its bytes
+    (`ssd_bwd_work`) against all its operations at the float32 rate."""
+    nbytes, prods, others = ssd_bwd_work(bsz, l, h, p, g, s, q)
+    return bound_ms(nbytes, prods + others)
+
+
+def ssd_bwd_tc_bound(bsz, l, h, p, g, s, q) -> tuple[float, str]:
+    """Least time of the same work on the route the kernel takes: the
+    matrix products in 3xTF32 (three TF32 products each) at the dense
+    TF32 rate plus the other operations at the float32 rate, against the
+    bytes."""
+    nbytes, prods, others = ssd_bwd_work(bsz, l, h, p, g, s, q)
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = 3 * prods / TF32_FLOPS + others / F32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
 def ssd_bwd_phase(report: dict) -> dict:
@@ -3711,7 +3747,14 @@ def ssd_bwd_phase(report: dict) -> dict:
     its max: at L 1 d loga is exactly 0 on every path) and within 1e-4 of
     its max; every value finite and two launches equal bit for bit.  The
     cotangents are N(0, 1) with a non-zero dstate; at the train shape a
-    None dstate must give the zero dstate's bits.  Times as phase 6."""
+    None dstate must give the zero dstate's bits; L 1 again on
+    `SSD_BWD_L1_SEEDS` seeds, the 4x gate read there, not applied.
+    Times as phase 6, the
+    bound of the kernel's route (`ssd_bwd_tc_bound`, 3xTF32) as
+    `bound_ms` and the float32 one (`ssd_bwd_bound`) as `f32_bound_ms`,
+    and each of the four launches' kernel-only time
+    alone (`ops.backward_stages`) on the workspace a whole backward
+    filled."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
 
@@ -3733,30 +3776,13 @@ def ssd_bwd_phase(report: dict) -> dict:
 
         def run(dstate=ds):
             return ops.launch_backward(x, b, c, dy, dstate, ws, q)
-        got, again = run(), run()
-        want = ops.plain_backward(*(t.double() for t in (x, loga, b, c, dy,
-                                                         ds)), q)
-        p32 = ops.plain_backward(x, loga, b, c, dy, ds, q)
-        torch.cuda.synchronize()
         what = f"ssd_scan_bwd B{bsz} L{l} H{h} P{p} G{g} S{s} Q{q}"
         row = {"case": what, "B": bsz, "L": l, "H": h, "P": p, "G": g,
                "S": s, "Q": q}
         e = 0.0
-        for name, a, a2, w, f in zip(("dx", "dloga", "db", "dc"), got,
-                                     again, want, p32):
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"{what}: non-finite {name}")
-            if not torch.equal(a, a2):
-                raise AssertionError(f"{what}: two launches differ in "
-                                     f"{name}")
-            scale = float(w.abs().max())
-            dev = float((a.double() - w).abs().max())
-            floor = float((f.double() - w).abs().max())
+        for name, dev, floor, _ in ssd_bwd_check(
+                what, run, (x, loga, b, c, dy, ds), q):
             row[f"err_{name}"], row[f"floor_{name}"] = dev, floor
-            if dev > 4 * floor + 1e-6 * scale or dev > 1e-4 * scale:
-                raise AssertionError(
-                    f"{what}: {name} deviates by {dev:.3e} from float64 "
-                    f"(float32 floor {floor:.3e}, max {scale:.3e})")
             e = max(e, dev)
         if (bsz, l, g, s) == SSD_BWD_SERVED:
             zero = run(torch.zeros_like(ds))
@@ -3770,9 +3796,19 @@ def ssd_bwd_phase(report: dict) -> dict:
         row["kernel_ms"] = kernel_only_ms(run)
         row["plain_ms"] = median_ms(
             lambda: ops.plain_backward(x, loga, b, c, dy, ds, q), reps=5)
-        row["bound_ms"], row["bound_by"] = ssd_bwd_bound(bsz, l, h, p, g, s,
-                                                         q)
+        # the bound of the route the kernel takes (3xTF32 products), and
+        # the float32 one beside it
+        row["bound_ms"], row["bound_by"] = ssd_bwd_tc_bound(
+            bsz, l, h, p, g, s, q)
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["f32_bound_ms"], row["f32_bound_by"] = ssd_bwd_bound(
+            bsz, l, h, p, g, s, q)
+        row["f32_bound_share"] = row["f32_bound_ms"] / row["kernel_ms"]
+        stage, _ = ops.backward_stages(x, b, c, dy, ds, ws, q)
+        stage(None)
+        row["launch_ms"] = {n: kernel_only_ms(lambda i=i: stage(i))
+                            for i, n in enumerate(ops.BWD_NAMES)}
+        del stage
         if (bsz, l, g) == SSD_BWD_SERVED[:3]:    # a train step's forward
             row["fwd_kernel_ms"] = kernel_only_ms(
                 lambda: ops.launch(x, loga, b, c, q))
@@ -3782,11 +3818,68 @@ def ssd_bwd_phase(report: dict) -> dict:
         print(f"  {what}: err / float32 floor " + ", ".join(
             f"{n} {row['err_' + n]:.2e} / {row['floor_' + n]:.2e}"
             for n in ("dx", "dloga", "db", "dc"))
-            + ", two launches equal" + timing_text(row))
-        del x, loga, b, c, dy, ds, ws, got, again, want, p32
+            + ", two launches equal" + timing_text(row).replace(
+                "  bound", "  3xTF32 bound")
+            + f"; float32 bound {row['f32_bound_ms']:.4f} ms "
+            f"({row['f32_bound_by']}, {100 * row['f32_bound_share']:.1f} %)")
+        print("    kernel-only by launch: " + ", ".join(
+            f"{n} {t:.4f} ms" for n, t in row["launch_ms"].items()))
+        del x, loga, b, c, dy, ds, ws
         torch.cuda.empty_cache()
     report["ssd_scan_bwd_cases"] = rows
+    # L 1 on more seeds, reported: there dc's float32 floor is at times far
+    # below the kernel's distance from float64 (and below the CUDA-core
+    # backward's before it), so the 4x gate is read, not applied; the
+    # rest gates
+    worst, outside = {}, []
+    for seed in range(SSD_BWD_L1_SEEDS):
+        gen = torch.Generator(DEVICE).manual_seed(seed)
+        x, loga, b, c = ssd_inputs(1, 1, 64, 64, 1, 128, gen)
+        dy = torch.randn(1, 1, 64, 64, device=DEVICE, generator=gen)
+        ds = torch.randn(1, 64, 128, 64, device=DEVICE, generator=gen)
+        _, _, ws = ops._launch(x, loga, b, c, 128)
+        for name, dev, floor, share in ssd_bwd_check(
+                f"ssd_scan_bwd L1 seed {seed}",
+                lambda: ops.launch_backward(x, b, c, dy, ds, ws, 128),
+                (x, loga, b, c, dy, ds), 128, gate4=False):
+            w = worst.setdefault(name, {"ratio": 0.0, "share": 0.0})
+            w["ratio"] = max(w["ratio"], dev / floor if floor else 0.0)
+            w["share"] = max(w["share"], share)
+            if share > 1:
+                outside.append((seed, name))
+    report["ssd_scan_bwd_l1_seeds"] = {"seeds": SSD_BWD_L1_SEEDS,
+                                       "worst": worst, "outside": outside}
+    print(f"  L 1 on {SSD_BWD_L1_SEEDS} seeds, the most: " + ", ".join(
+        f"{n} {w['ratio']:.2f}x the float32 floor ({100 * w['share']:.0f} % "
+        "of the 4x gate)" for n, w in worst.items())
+        + f"; outside it {outside or 'nowhere'}")
     return dict(served, max_abs_err=err)
+
+
+def ssd_bwd_check(what, run, inputs, q, gate4=True):
+    """19(a)'s gates on one case: `run()` launched twice against the float64
+    and float32 plain backwards of `inputs` (x, loga, b, c, dy, dstate);
+    yields (name, distance from float64, the float32 floor, the share of
+    the 4x gate) a gradient.  With `gate4` False that gate is only read."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    got, again = run(), run()
+    want = ops.plain_backward(*(t.double() for t in inputs), q)
+    p32 = ops.plain_backward(*inputs, q)
+    for name, a, a2, w, f in zip(("dx", "dloga", "db", "dc"), got, again,
+                                 want, p32):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"{what}: two launches differ in {name}")
+        scale = float(w.abs().max())
+        dev = float((a.double() - w).abs().max())
+        floor = float((f.double() - w).abs().max())
+        if (gate4 and dev > 4 * floor + 1e-6 * scale) or dev > 1e-4 * scale:
+            raise AssertionError(
+                f"{what}: {name} deviates by {dev:.3e} from float64 "
+                f"(float32 floor {floor:.3e}, max {scale:.3e})")
+        yield name, dev, floor, dev / (4 * floor + 1e-6 * scale or 1.0)
 
 
 def ssm_train_cli(arch: str, n_params: int) -> dict:
@@ -3937,6 +4030,21 @@ def ssm_train_phase(report: dict) -> tuple[dict, dict]:
     return row, launches
 
 
+# `--kernels`: the kernel phases, by name: (title, [(tag, phase)])
+KERNEL_PHASES = {
+    "2": ("2: kernel parity against the plain versions",
+          [("2 rosa_fused", fused_phase), ("2 osa_matmul", osa_phase)]),
+    "6": ("6: ssd_scan parity against the plain version",
+          [("6", ssd_phase)]),
+    "8": ("8: mrr_transfer parity against the plain version",
+          [("8", mrr_phase)]),
+    "12a": ("12(a): the mrr_transfer backward against its plain derivative",
+            [("12a", mrr_bwd_phase)]),
+    "19a": ("19(a): the ssd_scan backward against its plain version",
+            [("19a", ssd_bwd_phase)]),
+}
+
+
 def write_report(report: dict, t_start: float) -> int:
     report["wall_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
@@ -3949,10 +4057,12 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "CUDA card (all phases by default).")
-    ap.add_argument("--kernels", action="store_true",
+    ap.add_argument("--kernels", nargs="*", metavar="PHASE",
+                    choices=KERNEL_PHASES,
                     help="build and run the kernel phases 2, 6, 8, "
-                    "12(a) and 19(a) only (parity and times of all six "
-                    "kernels); prints no summary and no result line")
+                    "12a and 19a only (parity and times of all six "
+                    "kernels), or those named; prints no summary and no "
+                    "result line")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -3985,6 +4095,26 @@ def main(argv=None) -> int:
         shutil.rmtree(plan_cache, ignore_errors=True)
 
 
+def kernel_spills(log: str) -> dict[str, int]:
+    """The kernels of an nvcc `-Xptxas -v` log that spill: {name (the
+    last component of the mangled name, the template's argument after a
+    colon): bytes of spill stores}."""
+    out = {}
+    for part in re.split(r"Compiling entry function '", log)[1:]:
+        mangled = part.split("'", 1)[0]
+        m = re.search(r"(\d+) bytes spill stores", part)
+        if not m or not int(m.group(1)):
+            continue
+        i, name = mangled.find("_Z") + 2 + (mangled[2:3] == "N"), mangled
+        while i < len(mangled) and mangled[i].isdigit():
+            n = re.match(r"\d+", mangled[i:]).group(0)
+            i += len(n)
+            name, i = mangled[i:i + int(n)], i + int(n)
+        arg = re.match(r"ILi(\d+)E", mangled[i:])
+        out[name + (f":{arg.group(1)}" if arg else "")] = int(m.group(1))
+    return out
+
+
 def run_phases(opts) -> int:
     import torch
     from repro_torch import kernels
@@ -4000,10 +4130,10 @@ def run_phases(opts) -> int:
     for name in sorted(libs):
         log = kernels.build_log(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(int(b) for b in
-                     re.findall(r"(\d+) bytes spill stores", log))
+        spilled = kernel_spills(log)
         print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)}"
-              f" registers a thread, {spills} bytes of spill stores")
+              f" registers a thread, {sum(spilled.values())} bytes of spill "
+              "stores" + "".join(f"; {k} {n}" for k, n in spilled.items()))
 
     report: dict = {"card": card, "phase_s": {}}
 
@@ -4014,20 +4144,16 @@ def run_phases(opts) -> int:
         print(f"  ({name}: {report['phase_s'][name]:.1f} s)", flush=True)
         return out
 
+    if opts.kernels is not None:
+        for name in opts.kernels or KERNEL_PHASES:
+            title, fns = KERNEL_PHASES[name]
+            print(f"phase {title}")
+            for tag, fn in fns:
+                phase(tag, fn)
+        return write_report(report, t_start)
     print("phase 2: kernel parity against the plain versions")
     fused = phase("2 rosa_fused", fused_phase)
     osa = phase("2 osa_matmul", osa_phase)
-    if opts.kernels:
-        print("phase 6: ssd_scan parity against the plain version")
-        phase("6", ssd_phase)
-        print("phase 8: mrr_transfer parity against the plain version")
-        phase("8", mrr_phase)
-        print("phase 12(a): the mrr_transfer backward against its plain "
-              "derivative")
-        phase("12a", mrr_bwd_phase)
-        print("phase 19(a): the ssd_scan backward against its plain version")
-        phase("19a", ssd_bwd_phase)
-        return write_report(report, t_start)
     print("phases 3-5: serving")
     launches = phase("3-5", serve_phase)
     print("phase 6: ssd_scan parity against the plain version")
@@ -4104,7 +4230,8 @@ def run_phases(opts) -> int:
          "launches": ssm_n["ssd_scan_bwd"],
          "max_abs_err": ssd_bwd["max_abs_err"], "ms": ssd_bwd["ms"],
          "plain_ms": ssd_bwd["plain_ms"], "bound_ms": ssd_bwd["bound_ms"],
-         "bound_by": ssd_bwd["bound_by"], "library_ms": None},
+         "bound_by": ssd_bwd["bound_by"],
+         "f32_bound_ms": ssd_bwd["f32_bound_ms"], "library_ms": None},
     ]}
     report["summary"] = summary
     write_report(report, t_start)

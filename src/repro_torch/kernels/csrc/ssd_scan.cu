@@ -56,7 +56,7 @@
 // 8 x 4 thread tiles, 128 x 64 block tiles, deeper rings, 64-deep strips
 // and a third resident block all measured slower or equal, so the two
 // contractions run at about a third of the float32 peak.  Tensor cores
-// (3xTF32) are later work.
+// (3xTF32) are later work: the backward's tc_mma is the routine to adopt.
 
 #include <cuda_runtime.h>
 
@@ -550,9 +550,10 @@ ssd_chunk_out(const float* __restrict__ x, const float* __restrict__ cm,
 //
 //   1. ssd_bwd_chunk    per (b, h, chunk) and 64 x 64 tile of S x P,
 //                       dS_c = (C . exp l)^T dY; and in the other blocks,
-//                       per 32 x 32 tile of the causal triangle, D (into
-//                       the workspace) and the tile's row and column sums
-//                       of A;
+//                       per 64 x 64 tile of the causal triangle, T = dY
+//                       X^T, D = T . decay (into the workspace, zero above
+//                       the diagonal) and the row and column sums of A on
+//                       each of its 32 x 32 quarters;
 //   2. ssd_bwd_state    G in reverse chunk order, in place over dS_c,
 //                       keeping fmaf(exp(l_Q), G, dS_c);
 //   3. ssd_bwd_grads    dX, and each head's dB and dC, on 64-row tiles
@@ -565,13 +566,64 @@ ssd_chunk_out(const float* __restrict__ x, const float* __restrict__ cm,
 //
 // It replaces no TPU kernel: the reference trains through jax.grad of
 // its jnp chunking (src/repro/models/ssm.py, ssd_chunked).  No float
-// atomics anywhere: every sum has one order, so two runs give equal
-// bits.  The products share the forward's strips, ring and 4 x 4 thread
-// tiles; operands read transposed (G^T and S_in^T) are staged with plain
-// loads.  What bounds it is the forward's story: float32 on the CUDA
-// cores, 1.3e10 operations at mamba2-1.3b's train shape (B 8, L 256, H
-// 64, P 64, S 128) against 0.11 GB moved; on an H100 it runs at about a
-// sixth of that bound (chip_smoke.py phase 19(a)).
+// atomics anywhere: every sum has one order, so two runs give equal bits.
+//
+// Where the time went (chip_smoke.py phase 19(a) times each launch
+// alone; NVIDIA H100 80GB HBM3, 700 W): at mamba2-1.3b's train shape (B
+// 8, L 256, H 64, P 64, S 128) launches 3 and 1 took 0.726 and 0.280 of
+// 1.108 ms when they ran the forward's 4 x 4 CUDA-core thread tiles,
+// about 12 TFLOP/s against 1.3e10 float32 operations, 98 % of them
+// matrix products.  Their products now run on the tensor cores in
+// 3xTF32: each float32 operand value a is split into hi =
+// cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi) (a - hi is exact; hi +
+// lo is a to 2^-22 relative, 22 of its 24 bits), and each 8-deep step
+// adds lo.hi, hi.lo and hi.hi, small terms first, to float32
+// accumulators (lo.lo, about 2^-22 of the product, is dropped).  Each
+// product then stays within (2^-20 + 3 ceil(K/8) 2^-24) sum |a||b|
+// (ref.matmul_3xtf32 models it), but where its terms cancel its error can
+// exceed 4x the float32 FMA chain's (a causal triangle's, on a quarter
+// of the inputs).  Phase 19(a) holds every gradient, whose sums mix many
+// products, to 4x the float32 plain backward's distance from float64 plus
+// 1e-6 of its max.  At L 1 dc is one product a head summed over the heads,
+// and on an input where the float32 plain's own error is small it can
+// fall outside that gate, as the CUDA-core backward before it did (phase
+// 19(a) reads L 1 on 16 more inputs).
+//
+// The route is mma.sync m16n8k8, not wgmma: wgmma takes TF32 operands
+// only K-major (the transpose is allowed for 16-bit types alone), and
+// half of these products read an operand transposed (M^T dY, D^T C, X
+// G^T, (C exp l)^T dY, C B^T read as M^T).  With mma.sync each lane
+// loads its own fragment values, so every operand is copied by cp.async
+// as it lies in memory (rows padded to 36 or 72 floats: the fragment
+// loads are free of bank conflicts in either orientation) into the
+// forward's ring of three strips, and read transposed where it must be.
+// The split happens as a lane loads a value, not once when a strip is
+// staged: a version that split each strip once into hi / lo buffers in
+// fragment order moved 144 KB of shared memory a strip against 48 KB
+// read raw, and came out slower on the card.  A block keeps 256 threads
+// and a 64 x 64 output tile; each warp takes a 32 x 32 quarter over half
+// of each strip's four 8-deep steps (16 values loaded and split for 24
+// mma, against 12 for 12 with 16 x 32 warp tiles, which came out slower
+// on the card), and the two halves are summed in a fixed order into a
+// tile in shared memory, from which the epilogues write rows with
+// 16-byte stores.  The decay of M^T is formed
+// in place in kind 0's strips, once per element of the block (P 64: once
+// per element and head); writing M from launch 1 beside D instead would
+// add B H NC Q^2 floats (67 MB at the train shape) written and read
+// again.  D is written with zeros above the diagonal, so kinds 1 and 2
+// read it unmasked; warps skip the 8-deep steps the causal triangle
+// zeroes for all their rows.  d loga's row and column sums of A stay
+// float32 on the CUDA cores in the order they had (2 x 2 a thread, a
+// butterfly over the half warp, 16 row partials in order, on 32 x 32
+// quarters), as does launch 4.  What bounds it now: launch 3 takes two
+// thirds of the time (phase 19(a) times each launch), and builds of it
+// with its mma.sync steps, or its strips' copies, or both left out showed
+// the three parts (products, copies, the blocks' barriers and epilogues)
+// adding up to nearly the whole: they overlap little at two resident
+// blocks an SM.  That launch bound caps ssd_bwd_grads at 128 registers,
+// and it spills 20 bytes a thread (the CUDA-core version 16); at one
+// block an SM it takes 185 and spills none, with half the warps.  The
+// whole backward runs at about a tenth of its 3xTF32 bound.
 
 struct BwdPtrs {
   const float *x, *b, *c, *dy, *dstate;   // operands (dstate may be null)
@@ -584,19 +636,7 @@ struct BwdPtrs {
   float *g, *d, *prow, *pcol, *pint, *pcar, *pdb, *pdc;
 };
 
-// A KR x COLS tile into dst (leading dimension LD), read transposed:
-// element (k, c) from src[c * stride + k] for k < nk and c < nc, zero
-// elsewhere; plain loads (consecutive threads read consecutive k).
-template <int KR, int COLS, int LD>
-__device__ __forceinline__ void load_tile_t(float* dst, const float* src,
-                                            int stride, int nk, int nc) {
-  for (int e = threadIdx.x; e < KR * COLS; e += MT) {
-    const int c = e / KR, k = e % KR;
-    dst[k * LD + c] = (k < nk && c < nc) ? src[c * stride + k] : 0.f;
-  }
-}
-
-// sum of v over the 16 lanes of a half warp (one row of a 4 x 4 thread
+// sum of v over the 16 lanes of a half warp (one row of a 2 x 2 thread
 // tile), in a fixed butterfly order; every lane gets the sum
 __device__ __forceinline__ float row_sum16(float v) {
 #pragma unroll
@@ -604,12 +644,135 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// 1b. D and A's partial sums of one (b, h, chunk) on one 32 x 32 tile of
-// the causal triangle, t counting (chunk, head) and then the tiles row by
-// row: T = dY X^T over P on the tile; D_ij = T_ij exp(l_i - l_j) for
-// j <= i < nv, else 0 (a select), into d (the whole tile); A_ij = D_ij
-// (C B^T)_ij; prow[tj][i] = sum over the tile's columns j of A_ij,
-// pcol[ti][j] = sum over its rows i.
+// ---- 3xTF32 tensor-core tiles ----------------------------------------------
+// A raw strip of an operand: 64 rows of KS (leading dimension RLD_R) or KS
+// rows of 64 (RLD_K); both take RAW_STRIP floats.  The pads make every
+// fragment load below free of bank conflicts in either orientation.
+constexpr int RLD_R = KS + 4;            // rows of k: bank 4 g + t
+constexpr int RLD_K = BT + 8;            // rows of m or n: bank 8 t + g
+constexpr int RAW_STRIP = BT * RLD_R;
+static_assert(KS * RLD_K == RAW_STRIP, "both orientations take one size");
+constexpr int TC_RAW = 2 * RAW_STRIP;    // a ring slot: an A and a B strip
+// dynamic shared memory of the two contraction launches: the forward's
+// STAGES ring slots, a staged BT x (BT + 8) tile (tc_stage), l (or exp l)
+constexpr int TC_SMEM = 4 * (STAGES * TC_RAW + BT * (BT + 8) + QMAX);
+
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+// hi = tf32(a), lo = tf32(a - hi): a - hi is exact in float32
+__device__ __forceinline__ void split_tf32(float a, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8, TF32 operands, float32 accumulators
+__device__ __forceinline__ void mma_tf32(float d[4], const uint4& a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// element (m, k) of a raw strip whose rows are k (KM) or m
+template <bool KM>
+__device__ __forceinline__ float raw_at(const float* r, int m, int k) {
+  return KM ? r[k * RLD_K + m] : r[m * RLD_R + k];
+}
+
+// acc += the warp's 32 x 32 quarter of A B over its half of a ring slot's
+// 8-deep steps (A (64 x KS), then B (KS x 64)): warp w takes rows (w & 2)
+// * 16 and columns (w & 1) * 32, and steps 2 (w >> 2) and 2 (w >> 2) + 1
+// of the strip where they lie in [k0, k1).  Each lane loads its own
+// fragments (A's rows are k when A_KM, B's rows are k when B_KN, so an
+// operand read transposed is used as it was copied) and splits each value
+// into TF32 hi and lo once; per step lo.hi, hi.lo, hi.hi.  acc[i][j][q]:
+// row (w & 2) * 16 + 16 i + g + 8 (q >> 1), column (w & 1) * 32 + 8 j + 2
+// t + (q & 1), with g = lane / 4, t = lane % 4.
+template <bool A_KM, bool B_KN>
+__device__ __forceinline__ void tc_mma(const float* slot,
+                                       float acc[2][4][4], int k0 = 0,
+                                       int k1 = KS / 8) {
+  const float* ra = slot;
+  const float* rb = slot + RAW_STRIP;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int m = (w & 2) * 16 + (lane >> 2), n = (w & 1) * 32 + (lane >> 2);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int ks = (w >> 2) * 2 + kk;
+    if (ks < k0 || ks >= k1) continue;
+    const int k = ks * 8 + (lane & 3);
+    uint4 ah[2], al[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = m + 16 * i;
+      split_tf32(raw_at<A_KM>(ra, r, k), ah[i].x, al[i].x);
+      split_tf32(raw_at<A_KM>(ra, r + 8, k), ah[i].y, al[i].y);
+      split_tf32(raw_at<A_KM>(ra, r, k + 4), ah[i].z, al[i].z);
+      split_tf32(raw_at<A_KM>(ra, r + 8, k + 4), ah[i].w, al[i].w);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      unsigned bh0, bl0, bh1, bl1;
+      split_tf32(raw_at<B_KN>(rb, n + 8 * j, k), bh0, bl0);
+      split_tf32(raw_at<B_KN>(rb, n + 8 * j, k + 4), bh1, bl1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_tf32(acc[i][j], al[i], bh0, bh1);
+        mma_tf32(acc[i][j], ah[i], bl0, bl1);
+        mma_tf32(acc[i][j], ah[i], bh0, bh1);
+      }
+    }
+  }
+}
+
+// The block's 64 x 64 product into tile[r * LTT + c]: the first half of
+// the steps' sums, then plus the second's (a fixed order); acc is zeroed.
+// Barriers before (tile is free) and after (tile is whole).
+constexpr int LTT = BT + 8;   // a staged tile's row: float2 stores without
+                              // bank conflicts
+__device__ __forceinline__ void tc_stage(float acc[2][4][4], float* tile) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = (w & 2) * 16 + (lane >> 2);
+  const int c = (w & 1) * 32 + 2 * (lane & 3);
+  for (int half = 0; half < 2; ++half) {
+    __syncthreads();
+    if ((w >> 2) == half)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float2* p = reinterpret_cast<float2*>(
+                tile + (r + 16 * i + 8 * hr) * LTT + c + 8 * j);
+            float2 v = make_float2(acc[i][j][2 * hr], acc[i][j][2 * hr + 1]);
+            if (half) {
+              const float2 u = *p;
+              v = make_float2(u.x + v.x, u.y + v.y);
+            }
+            *p = v;
+            acc[i][j][2 * hr] = acc[i][j][2 * hr + 1] = 0.f;
+          }
+  }
+  __syncthreads();
+}
+
+// 1b. D and A's sums of one (b, h, chunk) on one 64 x 64 tile of the
+// causal triangle (t counting (chunk, head), then the triangle's tiles
+// row by row): T = dY X^T over P on the tensor cores, staged in shared
+// memory; then on each 32 x 32 quarter that holds a valid row, D_ij =
+// T_ij exp(l_i - l_j) for j <= i < nv, else 0 (a select), into d;
+// A_ij = D_ij (C B^T)_ij; prow[tj][i] = sum over the quarter's columns j
+// of A_ij, pcol[ti][j] = sum over its rows i (tj, ti the quarter's
+// 32-tile indices).  A quarter above the diagonal writes zeros to d and
+// no sums (launch 4 reads none).
 __device__ __forceinline__ void dyx_tile(const BwdPtrs& a, int t,
                                          const Dims& d, float* smem) {
   int tile = t % d.tri;
@@ -618,59 +781,90 @@ __device__ __forceinline__ void dyx_tile(const BwdPtrs& a, int t,
   int ti = 0;
   while (tile > ti) tile -= ++ti;
   const int tj = tile;
-  const int i0 = ti * CT, j0 = tj * CT;
+  const int i0 = ti * BT, j0 = tj * BT;
   const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
   if (i0 >= nv) return;
   const int g = h / (d.H / d.G);
   const int xrow = d.H * d.P;
   const long long bh = (long long)b * d.H + h;
   const long long base = ((long long)b * d.L + t0) * xrow + (long long)h * d.P;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  float* l = smem + STAGES * 2 * CT * LDK;
+  const int tid = threadIdx.x;
+  float* l = smem + STAGES * TC_RAW + BT * LTT;
   const float* lb = a.lc + (bh * d.NC + ch) * d.Q;
   for (int i = tid; i < QMAX; i += MT) l[i] = lb[min(i, d.Q - 1)];
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  rowdot_tile(a.dy + base + (long long)i0 * xrow,
-              a.x + base + (long long)j0 * xrow, xrow, min(CT, nv - i0),
-              min(CT, nv - j0), d.P, d.vec_x, smem, acc);
+  const float* yb = a.dy + base + (long long)i0 * xrow;
+  const float* xb = a.x + base + (long long)j0 * xrow;
+  const int strips = (d.P + KS - 1) / KS;
+  auto load = [&](int s, int slot) {   // dY [i][p] as A, X [j][p] as B
+    const int k0 = s * KS;
+    float* r = smem + slot * TC_RAW;
+    load_tile<BT, KS, RLD_R>(r, yb + k0, xrow, min(BT, nv - i0), d.P - k0,
+                             d.vec_x);
+    load_tile<BT, KS, RLD_R>(r + RAW_STRIP, xb + k0, xrow, min(BT, nv - j0),
+                             d.P - k0, d.vec_x);
+  };
+  float acc[2][4][4] = {};
+  ring_fill(strips, load);
+  ring_run(strips, load, [&](int, int slot) {
+    tc_mma<false, false>(smem + slot * TC_RAW, acc);
+  });
+  // T staged in shared memory past the ring, the column partials'
+  // [16][CT] over the ring
+  float* tt = smem + STAGES * TC_RAW;
+  float* red = smem;
+  tc_stage(acc, tt);
   const float* cb = a.cbt + (((long long)b * d.G + g) * d.NC + ch) * d.Q * d.Q;
   float* dout = a.d + (bh * d.NC + ch) * d.Q * d.Q;
-  float rs[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
-  for (int r = 0; r < 2; ++r) {
-    const int i = i0 + ty * 2 + r;
-    for (int c = 0; c < 2; ++c) {
-      const int j = j0 + tx * 2 + c;
-      const bool on = j <= i && i < nv;
-      const float dv = on ? acc[r][c] * expf(l[i] - l[j]) : 0.f;
-      const float av = on ? dv * cb[i * d.Q + j] : 0.f;
-      if (i < d.Q && j < d.Q) dout[i * d.Q + j] = dv;
-      rs[r] += av;
-      cs[c] += av;
-    }
-  }
-  // rows: over the half warp; columns: over the 16 rows of threads
-  float* red = smem;   // the ring is done: [16][CT] column partials
-  __syncthreads();
-  for (int c = 0; c < 2; ++c) red[ty * CT + tx * 2 + c] = cs[c];
-  for (int r = 0; r < 2; ++r) rs[r] = row_sum16(rs[r]);
   const long long pb = (bh * d.NC + ch) * d.tq;
-  if (tx == 0)
-    for (int r = 0; r < 2; ++r) {
-      const int i = i0 + ty * 2 + r;
-      if (i < d.Q) a.prow[(pb + tj) * d.Q + i] = rs[r];
+  const int ty = tid >> 4, tx = tid & 15;
+  for (int qi = 0; qi < 2; ++qi)
+    for (int qj = 0; qj < 2; ++qj) {
+      const int qi0 = i0 + qi * CT, qj0 = j0 + qj * CT;
+      if (qi0 >= nv || qj0 >= d.Q) continue;
+      if (qi0 < qj0) {   // above the diagonal: D is zero
+        for (int e = tid; e < CT * CT; e += MT) {
+          const int i = qi0 + e / CT, j = qj0 + e % CT;
+          if (i < d.Q && j < d.Q) dout[i * d.Q + j] = 0.f;
+        }
+        continue;
+      }
+      float rs[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
+      for (int r = 0; r < 2; ++r) {
+        const int i = qi0 + ty * 2 + r;
+        for (int c = 0; c < 2; ++c) {
+          const int j = qj0 + tx * 2 + c;
+          const float tv = tt[(i - i0) * LTT + j - j0];
+          const bool on = j <= i && i < nv;
+          const float dv = on ? tv * expf(l[i] - l[j]) : 0.f;
+          const float av = on ? dv * cb[i * d.Q + j] : 0.f;
+          if (i < d.Q && j < d.Q) dout[i * d.Q + j] = dv;
+          rs[r] += av;
+          cs[c] += av;
+        }
+      }
+      // rows: over the half warp; columns: over the 16 rows of threads
+      __syncthreads();
+      for (int c = 0; c < 2; ++c) red[ty * CT + tx * 2 + c] = cs[c];
+      for (int r = 0; r < 2; ++r) rs[r] = row_sum16(rs[r]);
+      if (tx == 0)
+        for (int r = 0; r < 2; ++r) {
+          const int i = qi0 + ty * 2 + r;
+          if (i < d.Q) a.prow[(pb + qj0 / CT) * d.Q + i] = rs[r];
+        }
+      __syncthreads();
+      if (tid < CT && qj0 + tid < d.Q) {
+        float sum = 0.f;
+        for (int y = 0; y < 16; ++y) sum += red[y * CT + tid];
+        a.pcol[(pb + qi0 / CT) * d.Q + qj0 + tid] = sum;
+      }
     }
-  __syncthreads();
-  if (tid < CT && j0 + tid < d.Q) {
-    float sum = 0.f;
-    for (int y = 0; y < 16; ++y) sum += red[y * CT + tid];
-    a.pcol[(pb + ti) * d.Q + j0 + tid] = sum;
-  }
 }
 
 // 1. One launch, two kinds of block.  The last tri * NC * H blocks each
-// take a tile of D (dyx_tile).  The others each take one (b, h, chunk)
-// and a 64 x 64 tile of S x P: dS_c = (C . exp l)^T dY into g (B, H, NC,
-// S, P), the state pass's input.
+// take a 64 x 64 tile of D (dyx_tile).  The others each take one (b, h,
+// chunk) and a 64 x 64 tile of S x P: dS_c = (C . exp l)^T dY into g (B,
+// H, NC, S, P), the state pass's input, C . exp l formed in place in
+// each strip.
 __global__ void __launch_bounds__(MT, MT_BLOCKS)
 ssd_bwd_chunk(BwdPtrs a, Dims d) {
   extern __shared__ __align__(16) float smem[];
@@ -679,7 +873,7 @@ ssd_bwd_chunk(BwdPtrs a, Dims d) {
     dyx_tile(a, blockIdx.x - n_state, d, smem);
     return;
   }
-  float* el = smem + STAGES * STATE_SLOT;
+  float* el = smem + STAGES * TC_RAW + BT * LTT;
   int t = blockIdx.x;
   const int tile = t % (d.ns * d.np);
   t /= d.ns * d.np;
@@ -693,37 +887,44 @@ ssd_bwd_chunk(BwdPtrs a, Dims d) {
       a.c + ((long long)b * d.L + t0) * crow + (long long)g * d.S + s0;
   const float* yb =
       a.dy + ((long long)b * d.L + t0) * xrow + (long long)h * d.P + p0;
-  const int tid = threadIdx.x, ty = tid / (BT / TN), tx = tid % (BT / TN);
-  const int strips = (nv + KS - 1) / KS;
-  auto load = [&](int s, int slot) {
-    const int i0 = s * KS;
-    float* p = smem + slot * STATE_SLOT;
-    load_tile<KS, BT, LDT>(p, cb + i0 * crow, crow, nv - i0, d.S - s0,
-                           d.vec_bc);
-    load_tile<KS, BT, LDT>(p + KS * LDT, yb + i0 * xrow, xrow, nv - i0,
-                           d.P - p0, d.vec_x);
-  };
-  ring_fill(strips, load);
   const float* lb = a.lc + (bh * d.NC + ch) * d.Q;
-  for (int i = tid; i < QMAX; i += MT) el[i] = expf(lb[min(i, d.Q - 1)]);
-  float acc[TM][TN] = {};
+  for (int i = threadIdx.x; i < QMAX; i += MT)
+    el[i] = expf(lb[min(i, d.Q - 1)]);
+  const int strips = (nv + KS - 1) / KS;
+  auto load = [&](int s, int slot) {   // C [i][s] as A^T, dY [i][p] as B
+    const int i0 = s * KS;
+    float* r = smem + slot * TC_RAW;
+    load_tile<KS, BT, RLD_K>(r, cb + i0 * crow, crow, nv - i0, d.S - s0,
+                             d.vec_bc);
+    load_tile<KS, BT, RLD_K>(r + RAW_STRIP, yb + i0 * xrow, xrow, nv - i0,
+                             d.P - p0, d.vec_x);
+  };
+  float acc[2][4][4] = {};
+  ring_fill(strips, load);
   ring_run(strips, load, [&](int s, int slot) {
-    float* p = smem + slot * STATE_SLOT;
+    float* r = smem + slot * TC_RAW;
     // C . exp l in place: row i of the strip times exp(l_i)
-    for (int e = tid; e < KS * BT; e += MT) {
+    for (int e = threadIdx.x; e < KS * BT; e += MT) {
       const int i = e / BT, k = e % BT;
-      p[i * LDT + k] *= el[s * KS + i];
+      r[i * RLD_K + k] *= el[s * KS + i];
     }
     __syncthreads();
-    strip_mma<true>(p, p + KS * LDT, acc, ty, tx);
+    tc_mma<true, true>(r, acc);
   });
+  float* tt = smem;
+  tc_stage(acc, tt);
   float* out = a.g + ((bh * d.NC + ch) * d.S) * d.P;
-  for (int r = 0; r < TM; ++r) {
-    const int sr = s0 + tile_row(ty, r);
+  const int c4 = (threadIdx.x & 15) * 4;
+  for (int u = 0; u < 4; ++u) {
+    const int i = (threadIdx.x >> 4) + 16 * u, sr = s0 + i, p = p0 + c4;
     if (sr >= d.S) continue;
-    for (int c = 0; c < TN; ++c) {
-      const int p = p0 + tile_col(tx, c);
-      if (p < d.P) out[sr * d.P + p] = acc[r][c];
+    const float4 v = *reinterpret_cast<const float4*>(tt + i * LTT + c4);
+    if (d.vec_ws && p + 3 < d.P) {
+      *reinterpret_cast<float4*>(out + sr * d.P + p) = v;
+    } else {
+      const float f[4] = {v.x, v.y, v.z, v.w};
+      for (int q = 0; q < 4; ++q)
+        if (p + q < d.P) out[sr * d.P + p + q] = f[q];
     }
   }
 }
@@ -769,22 +970,26 @@ ssd_bwd_state(BwdPtrs a, Dims d) {
 
 // 3. One launch, three kinds of block, each one (b, h, chunk) and 64
 // rows of the chunk, t counting (chunk, head) and then the tiles:
-//   kind 0, dX on 64 columns of P: strips of M^T [i][j] (C B^T read
-//     transposed, times the decay, a select above the diagonal) against
-//     dY [i][p] for i >= j, then of B [j][s] against G [s][p]; dX =
-//     M^T dY + w . (B G); pcar[np][j] = w_j <x_j, (B G)_j> over the tile;
-//   kind 1, the head's dB on 64 columns of S: strips of D^T [i][j]
+//   kind 0, dX on 64 columns of P: strips of M^T [j][i] (C B^T read
+//     transposed, times the decay in place, a select above the
+//     diagonal) against dY [i][p] for i >= j, then of B [j][s] against G
+//     [s][p]; dX = M^T dY + w . (B G); pcar[np][j] = w_j <x_j, (B G)_j>
+//     over the tile;
+//   kind 1, the head's dB on 64 columns of S: strips of D^T [j][i]
 //     against C [i][s] for i >= j, then of X [j][p] against G^T [p][s];
 //     dB = D^T C + w . (X G^T);
 //   kind 2, the head's dC on 64 columns of S: strips of D [i][j] against
 //     B [j][s] for j <= i, then (from the second chunk on) of dY [i][p]
 //     against S_in^T [p][s]; dC = D B + exp(l) . (dY S_in^T);
 //     pint[ns][i] = <C_i, exp(l_i) (dY S_in^T)_i> over the tile.
-// dB and dC go to db / dc when a group has one head, else to pdb / pdc.
+// Operands read transposed are copied as they lie and read transposed
+// by the tile routine.  The intra-chunk sum is staged after its last
+// strip, the other after the ring.  dB and dC go to db / dc when a group
+// has one head, else to pdb / pdc.
 __global__ void __launch_bounds__(MT, MT_BLOCKS)
 ssd_bwd_grads(BwdPtrs a, Dims d) {
   extern __shared__ __align__(16) float smem[];
-  float* l = smem + STAGES * OUT_SLOT;
+  float* l = smem + STAGES * TC_RAW + BT * LTT;
   const int n_dx = d.np * d.nm * d.NC * d.H;
   const int n_s = d.ns * d.nm * d.NC * d.H;
   int t = blockIdx.x, kind = 0;
@@ -802,7 +1007,7 @@ ssd_bwd_grads(BwdPtrs a, Dims d) {
   const int g = h / (d.H / d.G);
   const int t0 = ch * d.Q, nv = min(d.Q, d.L - t0);
   if (r0 >= nv) return;
-  const int tid = threadIdx.x, ty = tid / (BT / TN), tx = tid % (BT / TN);
+  const int tid = threadIdx.x, w = tid >> 5;
   const int xrow = d.H * d.P, brow = d.G * d.S;
   const long long bh = (long long)b * d.H + h;
   const long long xoff = ((long long)b * d.L + t0) * xrow + (long long)h * d.P;
@@ -821,75 +1026,86 @@ ssd_bwd_grads(BwdPtrs a, Dims d) {
                        : kind == 1 ? (d.P + KS - 1) / KS
                        : ch > 0 ? (d.P + KS - 1) / KS : 0;
   auto load = [&](int s, int slot) {
-    float* p = smem + slot * OUT_SLOT;
-    float* q = p + BT * LDK;
+    float* r = smem + slot * TC_RAW;
+    float* q = r + RAW_STRIP;
     if (s < n_intra) {
       const int k0 = kbeg + s * KS;
       if (kind == 0) {
-        load_tile<KS, BT, LDT>(p, cbt + (long long)k0 * d.Q + r0, d.Q,
-                               nv - k0, d.Q - r0, d.vec_q);
-        load_tile<KS, BT, LDT>(q, a.dy + xoff + (long long)k0 * xrow + c0,
-                               xrow, nv - k0, d.P - c0, d.vec_x);
+        load_tile<KS, BT, RLD_K>(r, cbt + (long long)k0 * d.Q + r0, d.Q,
+                                 nv - k0, d.Q - r0, d.vec_q);
+        load_tile<KS, BT, RLD_K>(q, a.dy + xoff + (long long)k0 * xrow + c0,
+                                 xrow, nv - k0, d.P - c0, d.vec_x);
       } else if (kind == 1) {
-        load_tile<KS, BT, LDT>(p, dm + (long long)k0 * d.Q + r0, d.Q,
-                               nv - k0, d.Q - r0, d.vec_q);
-        load_tile<KS, BT, LDT>(q, a.c + boff + (long long)k0 * brow + c0,
-                               brow, nv - k0, d.S - c0, d.vec_bc);
+        load_tile<KS, BT, RLD_K>(r, dm + (long long)k0 * d.Q + r0, d.Q,
+                                 nv - k0, d.Q - r0, d.vec_q);
+        load_tile<KS, BT, RLD_K>(q, a.c + boff + (long long)k0 * brow + c0,
+                                 brow, nv - k0, d.S - c0, d.vec_bc);
       } else {
-        load_tile<BT, KS, LDK>(p, dm + (long long)r0 * d.Q + k0, d.Q, nr,
-                               kend - k0, d.vec_q);
-        load_tile<KS, BT, LDT>(q, a.b + boff + (long long)k0 * brow + c0,
-                               brow, kend - k0, d.S - c0, d.vec_bc);
+        load_tile<BT, KS, RLD_R>(r, dm + (long long)r0 * d.Q + k0, d.Q, nr,
+                                 kend - k0, d.vec_q);
+        load_tile<KS, BT, RLD_K>(q, a.b + boff + (long long)k0 * brow + c0,
+                                 brow, kend - k0, d.S - c0, d.vec_bc);
       }
     } else {
       const int k0 = (s - n_intra) * KS;
       if (kind == 0) {
-        load_tile<BT, KS, LDK>(p, a.b + boff + (long long)r0 * brow + k0,
-                               brow, nr, d.S - k0, d.vec_bc);
-        load_tile<KS, BT, LDT>(q, gs + (long long)k0 * d.P + c0, d.P,
-                               d.S - k0, d.P - c0, d.vec_ws);
+        load_tile<BT, KS, RLD_R>(r, a.b + boff + (long long)r0 * brow + k0,
+                                 brow, nr, d.S - k0, d.vec_bc);
+        load_tile<KS, BT, RLD_K>(q, gs + (long long)k0 * d.P + c0, d.P,
+                                 d.S - k0, d.P - c0, d.vec_ws);
       } else {
         const float* src = kind == 1 ? a.x : a.dy;
-        load_tile<BT, KS, LDK>(p, src + xoff + (long long)r0 * xrow + k0,
-                               xrow, nr, d.P - k0, d.vec_x);
-        load_tile_t<KS, BT, LDT>(q, (kind == 1 ? gs : sin) +
+        load_tile<BT, KS, RLD_R>(r, src + xoff + (long long)r0 * xrow + k0,
+                                 xrow, nr, d.P - k0, d.vec_x);
+        load_tile<BT, KS, RLD_R>(q, (kind == 1 ? gs : sin) +
                                         (long long)c0 * d.P + k0,
-                                 d.P, d.P - k0, d.S - c0);
+                                 d.P, d.S - c0, d.P - k0, d.vec_ws);
       }
     }
   };
   ring_fill(n_intra + n_second, load);
   const float* lb = a.lc + (bh * d.NC + ch) * d.Q;
   for (int i = tid; i < QMAX; i += MT) l[i] = lb[min(i, d.Q - 1)];
-  float ya[TM][TN] = {}, yb[TM][TN] = {};
+  // one accumulator: the intra-chunk products, staged into ya's tile
+  // after their last strip, then the second products (yb)
+  float acc[2][4][4] = {};
+  float* ya = smem + STAGES * TC_RAW;
+  // the warp's rows: the 8-deep steps that the causal triangle zeroes
+  // for all of them add nothing and are skipped
+  const int wr0 = r0 + (w & 2) * 16;
   ring_run(n_intra + n_second, load, [&](int s, int slot) {
-    float* p = smem + slot * OUT_SLOT;
-    if (s < n_intra) {
-      const int k0 = kbeg + s * KS;
-      if (kind == 2) {   // D [i][j], j <= i
-        for (int e = tid; e < BT * KS; e += MT) {
-          const int r = e / KS, k = e % KS;
-          float* v = p + r * LDK + k;
-          *v = (k0 + k <= r0 + r) ? *v : 0.f;
-        }
-        __syncthreads();
-        const int last = r0 + (tid / 32) * WROWS + WROWS - 1;
-        const int kq = min(KS, (max(last - k0 + 1, 0) + 3) & ~3);
-        strip_mma<false>(p, p + BT * LDK, ya, ty, tx, kq);
-      } else {           // M^T or D^T [k = i][r = j], i >= j
-        for (int e = tid; e < KS * BT; e += MT) {
-          const int k = e / BT, r = e % BT;
-          const int i = k0 + k, j = r0 + r;
-          float* v = p + k * LDT + r;
-          *v = i >= j ? (kind == 0 ? *v * expf(l[i] - l[j]) : *v) : 0.f;
-        }
-        __syncthreads();
-        strip_mma<true>(p, p + BT * LDK, ya, ty, tx);
-      }
-    } else {
-      strip_mma<false>(p, p + BT * LDK, yb, ty, tx);
+    float* r = smem + slot * TC_RAW;
+    if (s >= n_intra) {   // B [j][s] . G; X [j][p] . G^T; dY [i][p] . S_in^T
+      if (kind == 0)
+        tc_mma<false, true>(r, acc);
+      else
+        tc_mma<false, false>(r, acc);
+      return;
     }
+    const int k0 = kbeg + s * KS;
+    if (kind == 2) {   // D [i][j]: j > i is zero past the warp's rows
+      const int top = wr0 + 31 - k0;
+      tc_mma<false, true>(r, acc, 0, top < 0 ? 0 : min(KS / 8, top / 8 + 1));
+    } else {
+      if (kind == 0) {   // M^T [j][i] in place from C B^T [i][j], i >= j
+        for (int e = tid; e < KS * BT; e += MT) {
+          const int k = e / BT, m = e % BT;
+          const int i = k0 + k, j = r0 + m;
+          float* v = r + k * RLD_K + m;
+          // a select, not a multiply: exp(l_i - l_j) overflows for j > i
+          *v = i >= j ? *v * expf(l[i] - l[j]) : 0.f;
+        }
+        __syncthreads();
+      }
+      // M^T or D^T [j][i] (D is zero above the diagonal as launch 1 wrote
+      // it): i < j is zero before the warp's rows
+      const int lo = wr0 - k0;
+      tc_mma<true, true>(r, acc, lo > 0 ? lo / 8 : 0);
+    }
+    if (s == n_intra - 1) tc_stage(acc, ya);
   });
+  float* yb = smem;   // over the ring, now done
+  tc_stage(acc, yb);
 
   const float lq = l[QMAX - 1];
   const int rowlen = kind == 0 ? d.P : d.S;
@@ -906,27 +1122,47 @@ ssd_bwd_grads(BwdPtrs a, Dims d) {
           (((long long)b * d.L + t0) * d.H + h) * d.S;
     orow = (long long)d.H * d.S;
   }
-  for (int r = 0; r < TM; ++r) {
-    const int i = tile_row(ty, r);
-    const int row = r0 + i;
+  // 16 lanes a row, 4 columns each: 16-byte accesses where rows and
+  // pointers allow; the dot products over the row's lanes in a fixed
+  // butterfly
+  const bool vec = kind == 0 ? d.vec_x : d.vec_bc;
+  const float* dsrc = kind == 0 ? a.x + xoff : a.c + boff;
+  const int drow = kind == 0 ? xrow : brow;
+  const int c4 = (tid & 15) * 4, col = c0 + c4;
+  const long long pb = (bh * d.NC + ch) * ncol + c0 / BT;
+  for (int u = 0; u < 4; ++u) {
+    const int i = (tid >> 4) + 16 * u, row = r0 + i;
     const float sc = kind == 2 ? expf(l[row]) : expf(lq - l[row]);
     float dot = 0.f;
-    for (int c = 0; c < TN; ++c) {
-      const int col = c0 + tile_col(tx, c);
-      if (i < nr && col < rowlen) {
-        out[row * orow + col] = fmaf(sc, yb[r][c], ya[r][c]);
-        if (kind == 0)
-          dot = fmaf(a.x[xoff + row * xrow + col], yb[r][c], dot);
-        else if (kind == 2)
-          dot = fmaf(a.c[boff + row * brow + col], yb[r][c], dot);
+    if (i < nr) {
+      const float4 va = *reinterpret_cast<const float4*>(ya + i * LTT + c4);
+      const float4 vb = *reinterpret_cast<const float4*>(yb + i * LTT + c4);
+      const float fa[4] = {va.x, va.y, va.z, va.w};
+      const float fb[4] = {vb.x, vb.y, vb.z, vb.w};
+      float o[4];
+      for (int q = 0; q < 4; ++q) o[q] = fmaf(sc, fb[q], fa[q]);
+      float* op = out + row * orow + col;
+      const float* dv = dsrc + (long long)row * drow + col;
+      if (vec && col + 3 < rowlen) {
+        *reinterpret_cast<float4*>(op) = make_float4(o[0], o[1], o[2], o[3]);
+        if (kind != 1) {
+          const float4 x4 = *reinterpret_cast<const float4*>(dv);
+          const float fx[4] = {x4.x, x4.y, x4.z, x4.w};
+          for (int q = 0; q < 4; ++q) dot = fmaf(fx[q], fb[q], dot);
+        }
+      } else {
+        for (int q = 0; q < 4; ++q)
+          if (col + q < rowlen) {
+            op[q] = o[q];
+            if (kind != 1) dot = fmaf(dv[q], fb[q], dot);
+          }
       }
     }
     if (kind != 1) {
-      dot = row_sum16(dot);
-      if (tx == 0 && i < nr) {
-        const long long pb = (bh * d.NC + ch) * ncol + c0 / BT;
+      for (int o = 1; o < 16; o <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if ((tid & 15) == 0 && i < nr)
         (kind == 0 ? a.pcar : a.pint)[pb * d.Q + row] = sc * dot;
-      }
     }
   }
 }
@@ -1020,11 +1256,11 @@ cudaError_t allow_smem() {
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_chunk,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               STATE_SMEM);
+                               TC_SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(ssd_bwd_grads,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               OUT_SMEM);
+                               TC_SMEM);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
@@ -1092,7 +1328,7 @@ int ssd_scan_launch(const float* x, const float* loga, const float* b,
 
 // Shared memory of each backward launch's block (bytes), in launch order.
 long long ssd_scan_backward_smem_bytes(int which) {
-  return which == 0 ? STATE_SMEM : which == 2 ? OUT_SMEM : 0;
+  return which == 0 || which == 2 ? TC_SMEM : 0;
 }
 
 // Resident blocks per SM of backward launch `which` (0..3; the state pass
@@ -1116,23 +1352,28 @@ int ssd_scan_backward_occupancy(int which) {
 // (B, L, H, P) and dstate (B, H, S, P; null: zero) are the cotangents;
 // dx, dloga, db, dc the gradients, shaped as x, loga, b, c.  ws: the
 // backward's workspace, in BwdPtrs order from g (pdb and pdc null when
-// G == H).  plan: n_chunks, tri, ns, np, nm, tq, then the x extent of the
-// four grids, as repro_torch.kernels.ssd_scan.ops.plan_backward computes
+// G == H).  plan: n_chunks, tri (64 x 64 tiles of the causal triangle),
+// ns, np, nm, tq (its 32-row tiles), then the x extent of the four
+// grids, as repro_torch.kernels.ssd_scan.ops.plan_backward computes
 // them.  vec: bit 0 x and dy, bit 1 b and c, bit 2 a Q-row, bit 3 a state
-// row (P % 4 == 0) may take 16-byte copies.
+// row (P % 4 == 0) may take 16-byte copies.  stages: a mask of the four
+// launches to run (15: the backward; one bit: that launch alone, on a
+// workspace an earlier whole backward filled, to time it).
 int ssd_scan_backward_launch(const float* x, const float* b, const float* c,
                              const float* dy, const float* dstate,
                              const float* ws_l, const float* ws_cbt,
                              const float* ws_st, float* dx, float* dloga,
                              float* db, float* dc, float* const* ws, int B,
                              int L, int H, int P, int G, int S, int Q,
-                             const int* plan, int vec, void* stream) {
+                             const int* plan, int vec, int stages,
+                             void* stream) {
   if (B < 1 || B > 65535 || L < 0 || H < 1 || P < 1 || G < 1 || S < 1 ||
       H % G != 0 || Q < 1 || Q > QMAX ||
       (long long)H * P * QMAX > 0x7fffffffLL ||
       (long long)G * S * QMAX > 0x7fffffffLL ||
       (long long)H * S * P > 0x7fffffffLL ||
-      (G != H && (ws[6] == nullptr || ws[7] == nullptr)))
+      (G != H && (ws[6] == nullptr || ws[7] == nullptr)) || stages < 1 ||
+      stages > 15)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Dims d{L, H, P, G, S, Q, plan[0], plan[1], plan[2], plan[3], plan[4],
@@ -1143,13 +1384,16 @@ int ssd_scan_backward_launch(const float* x, const float* b, const float* c,
   BwdPtrs a{x,  b,     c,  dy, dstate, ws_l,  ws_cbt, ws_st, dx,    dloga, db,
             dc, ws[0], ws[1], ws[2], ws[3], ws[4], ws[5], ws[6], ws[7]};
   const unsigned by = (unsigned)B;
-  ssd_bwd_chunk<<<dim3(plan[6], by), MT, STATE_SMEM, st>>>(a, d);
-  if ((S * P) % 4 == 0)
+  if (stages & 1)
+    ssd_bwd_chunk<<<dim3(plan[6], by), MT, TC_SMEM, st>>>(a, d);
+  if ((stages & 2) && (S * P) % 4 == 0)
     ssd_bwd_state<4><<<dim3(plan[7], by), MT, 0, st>>>(a, d);
-  else
+  else if (stages & 2)
     ssd_bwd_state<1><<<dim3(plan[7], by), MT, 0, st>>>(a, d);
-  ssd_bwd_grads<<<dim3(plan[8], by), MT, OUT_SMEM, st>>>(a, d);
-  ssd_bwd_finish<<<dim3(plan[9], by), MT, 0, st>>>(a, d);
+  if (stages & 4)
+    ssd_bwd_grads<<<dim3(plan[8], by), MT, TC_SMEM, st>>>(a, d);
+  if (stages & 8)
+    ssd_bwd_finish<<<dim3(plan[9], by), MT, 0, st>>>(a, d);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,9 @@ chunk outputs): `launch` runs it and `preflight` reports it.
 The backward kernels (same source) take the forward's workspace (prefix
 sums, C B^T, every chunk's incoming state) and the cotangents:
 `plan_backward` is the arithmetic of their four launches, `launch_backward`
-runs them (counted by `LAUNCHES_BWD`) and `preflight_backward` reports
-them; `plain_backward` (`ref.ssd_chunked_backward`) is what they compute.
+runs them (counted by `LAUNCHES_BWD`), `backward_stages` runs one of
+them at a time (to time it) and `preflight_backward` reports them;
+`plain_backward` (`ref.ssd_chunked_backward`) is what they compute.
 
 On CPU tensors `ssd_scan` runs the plain version (`ref.ssd_chunked`),
 which autograd differentiates op by op.  On CUDA tensors it launches the
@@ -54,10 +55,16 @@ SMEM = {"ssd_chunk_state": 4 * (STAGES * 2 * KS * (BT + 4) + 2 * QMAX),
                               + QMAX)}
 BWD_NAMES = ("ssd_bwd_chunk", "ssd_bwd_state", "ssd_bwd_grads",
              "ssd_bwd_finish")
+ALL_STAGES = 15                 # the C launcher's mask of all four
+# the backward's contraction launches (3xTF32 tensor-core tiles): STAGES
+# ring slots of an A and a B strip (rows padded to KS + 4 or BT + 8: 64 x
+# (KS + 4) floats either way), a staged BT x (BT + 8) tile, l
+TC_RAW = 2 * BT * (KS + 4)
+TC_SMEM = 4 * (STAGES * TC_RAW + BT * (BT + 8) + QMAX)
 # dynamic shared memory of each backward launch's block, and the static
 # shared memory of the finishing one (dl, the carry's sums, a tree)
-SMEM_BWD = {"ssd_bwd_chunk": SMEM["ssd_chunk_state"], "ssd_bwd_state": 0,
-            "ssd_bwd_grads": SMEM["ssd_chunk_out"], "ssd_bwd_finish": 0}
+SMEM_BWD = {"ssd_bwd_chunk": TC_SMEM, "ssd_bwd_state": 0,
+            "ssd_bwd_grads": TC_SMEM, "ssd_bwd_finish": 0}
 SMEM_STATIC_BWD = {"ssd_bwd_finish": 4 * (2 * QMAX + MT)}
 LAUNCHES = kernels.LaunchCounter("ssd_scan")
 LAUNCHES_BWD = kernels.LaunchCounter("ssd_scan_bwd")
@@ -233,7 +240,7 @@ def _lib():
     lib.ssd_scan_occupancy.restype = i32
     lib.ssd_scan_backward_launch.argtypes = (
         [vp] * 12 + [ctypes.POINTER(vp)] + [i32] * 7
-        + [ctypes.POINTER(i32), i32, vp])
+        + [ctypes.POINTER(i32), i32, i32, vp])
     lib.ssd_scan_backward_launch.restype = i32
     lib.ssd_scan_backward_smem_bytes.argtypes = [i32]
     lib.ssd_scan_backward_smem_bytes.restype = ctypes.c_longlong
@@ -321,15 +328,19 @@ def plan_backward(bsz: int, l: int, h: int, p: int, g: int, s_dim: int,
     each, its dynamic shared memory, the resident blocks per SM it is
     guaranteed (at least), and the workspace in floats: G (B, H, NC, S,
     P), D (B, H, NC, Q, Q), A's row and column sums (B, H, NC, TQ, Q)
-    each, the dot products of the incoming state and of the carry (B, H,
-    NC, NS, Q) and (B, H, NC, NP, Q), and, when heads share a group, each
-    head's dB and dC (B, L, H, S).  A launch's `smem_bytes` counts its
-    static shared memory too.  Chunks, heads and tiles sit on grid x,
-    the batch on grid y.  Cached per shape: do not modify the dict."""
+    each (TQ: the chunk's 32-row tiles), the dot products of the incoming
+    state and of the carry (B, H, NC, NS, Q) and (B, H, NC, NP, Q), and,
+    when heads share a group, each head's dB and dC (B, L, H, S).  The
+    first launch's D blocks take BT x BT tiles of the causal triangle
+    (`tiles[0]` of them a chunk and head).  A launch's `smem_bytes`
+    counts its static shared memory too.  Chunks, heads and tiles sit on
+    grid x, the batch on grid y.  Cached per shape: do not modify the
+    dict."""
     nc = skinny.cdiv(l, chunk)
     tq = skinny.cdiv(chunk, CT)
-    tri, ns, n_p, nm = (tq * (tq + 1) // 2, skinny.cdiv(s_dim, BT),
-                        skinny.cdiv(p, BT), skinny.cdiv(chunk, BT))
+    nm = skinny.cdiv(chunk, BT)
+    tri, ns, n_p = (nm * (nm + 1) // 2, skinny.cdiv(s_dim, BT),
+                    skinny.cdiv(p, BT))
     per = 4 if s_dim * p % 4 == 0 else 1
     gx = {"ssd_bwd_chunk": (ns * n_p + tri) * nc * h,
           "ssd_bwd_state": skinny.cdiv(h * s_dim * p, MT * per),
@@ -398,6 +409,29 @@ def launch_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     (dx, dloga, db, dc) for cotangents dy (B, L, H, P) and dstate (B, H,
     S, P) or None (zero).  Raises on anything the kernels do not take or
     on a refused launch."""
+    run, grads = _backward_call(x, b, c, dy, dstate, ws, chunk)
+    run(ALL_STAGES)
+    LAUNCHES_BWD.add()
+    return grads
+
+
+def backward_stages(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    dy: torch.Tensor, dstate: torch.Tensor | None,
+                    ws: torch.Tensor, chunk: int = 128):
+    """A timing entry: `launch_backward`'s checks and buffers, returned as
+    `run(which)`, which launches the backward's launch `which` (0..3, in
+    `BWD_NAMES` order) alone on them, and the gradients it writes.  Call
+    `run(None)` (the four launches) first, so that each launch finds the
+    workspace its predecessors fill.  Not counted in `LAUNCHES_BWD`: a
+    launch alone is no backward."""
+    run, grads = _backward_call(x, b, c, dy, dstate, ws, chunk)
+    return (lambda which: run(ALL_STAGES if which is None else 1 << which),
+            grads)
+
+
+def _backward_call(x, b, c, dy, dstate, ws, chunk):
+    """`launch_backward`'s checks and allocations: (run(stages), (dx,
+    dloga, db, dc)), run launching the masked launches on them."""
     name = "ssd_scan_bwd"
     kernels.require_cuda(x, b, c, dy, ws, name=name)
     bsz, l, h, p = x.shape
@@ -444,8 +478,10 @@ def launch_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             w0 + 4 * o_cbt, w0 + 4 * o_st, dx.data_ptr(), dloga.data_ptr(),
             db.data_ptr(), dc.data_ptr(), wsp, bsz, l, h, p, g, s_dim, chunk,
             pb["c_args"], vec)
-    with torch.cuda.device(x.device):
-        rc = lib.ssd_scan_backward_launch(*args, kernels.stream_of(x))
-    kernels.check_launch(rc, name)
-    LAUNCHES_BWD.add()
-    return dx, dloga, db, dc
+
+    def run(stages, _held=(bws, dstate)):   # the buffers live with run
+        with torch.cuda.device(x.device):
+            rc = lib.ssd_scan_backward_launch(*args, stages,
+                                              kernels.stream_of(x))
+        kernels.check_launch(rc, name)
+    return run, (dx, dloga, db, dc)

@@ -14,7 +14,9 @@ form with head groups: the plain version of the CUDA kernel
 (`csrc/ssd_scan.cu`), which the wrapper runs for CPU tensors.
 `ssd_chunked_backward` is its gradient in explicit chunked formulas: the
 plain version of the backward kernel in the same source.  Both compute in
-float32, or in float64 for float64 operands.
+float32, or in float64 for float64 operands.  `split_tf32` and
+`matmul_3xtf32` model the backward kernel's tensor-core products (3xTF32)
+on the CPU.
 """
 
 from __future__ import annotations
@@ -224,3 +226,41 @@ def ssd_chunked_backward(x: torch.Tensor, loga: torch.Tensor,
         return torch.stack(parts[::-1], dim=1).reshape(bsz, lp, *shape)[:, :l]
     return (whole(dxs, h, p), whole(dls, h), whole(dbs, g, s_dim),
             whole(dcs, g, s_dim))
+
+
+def split_tf32(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 `a` as the backward kernel splits its operands
+    for the tensor cores: hi = cvt.rna.tf32.f32(a), lo = cvt.rna.tf32.f32(a
+    - hi), each rounded to TF32 (the 10 leading mantissa bits kept, the
+    low 13 zero) to nearest with ties away from zero, by bit arithmetic on
+    the sign-magnitude pattern (adding half the dropped unit carries into
+    the exponent where it must); infinities and NaNs pass as they are.
+    a - hi is exact in float32, and hi + lo is a to about 2^-22."""
+    if a.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, not {a.dtype}")
+
+    def rna(v):
+        u = v.contiguous().view(torch.int32)
+        r = ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isfinite(v), r, v)
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor,
+                  step: int = 8) -> torch.Tensor:
+    """a (M, K) @ b (K, N), float32, as the backward kernel's tensor-core
+    tiles compute it: both operands split once (`split_tf32`), and per
+    `step`-deep slice of K (one m16n8k8 instruction's depth) the three
+    products lo.hi, hi.lo, hi.hi, small terms first, each added to a
+    float32 accumulator (a TF32 product is exact in float32; each
+    instruction is modelled as one float32 rounding of its sum); lo.lo is
+    dropped."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], step):
+        ks = slice(k0, k0 + step)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = (acc.double() + x[:, ks].double() @ y[ks].double()).float()
+    return acc

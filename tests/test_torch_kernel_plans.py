@@ -132,6 +132,37 @@ def test_ssd_chunk_bounds_raise_before_any_launch():
 
 
 # ---------------------------------------------------------------------------
+# ssd_scan backward
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("s_dim", [128, 64])     # mamba2-1.3b, zamba2-1.2b
+def test_ssd_backward_grids_and_shared_memory_at_train_shape(s_dim):
+    pb = ssd_ops.plan_backward(8, 256, 64, 64, 1, s_dim, 128)
+    by = {ln["name"]: ln for ln in pb["launches"]}
+    ns = s_dim // 64
+    # D in 64 x 64 tiles: the 3 of a 2 x 2 triangle; its row and column
+    # sums on the 4 quarters of a chunk's 32-row tiles
+    assert pb["tiles"] == (3, ns, 1, 2, 4)
+    # launch 1: per (head, chunk) ns state tiles and 3 tiles of D
+    assert by["ssd_bwd_chunk"]["grid"] == ((ns + 3) * 2 * 64, 8, 1)
+    assert by["ssd_bwd_state"]["grid"] == (64 * s_dim * 64 // (256 * 4), 8,
+                                           1)
+    # launch 3: per (head, chunk, 64-row tile) dX on P and dB, dC on S
+    assert by["ssd_bwd_grads"]["grid"] == ((1 + 2 * ns) * 2 * 2 * 64, 8, 1)
+    assert by["ssd_bwd_finish"]["grid"] == (2 * 64 + 256 * s_dim // 256, 8,
+                                            1)
+    # three ring slots of an A and a B strip (64 x 36 floats each), a
+    # staged 64 x 72 tile, l
+    smem = 4 * (3 * 2 * 64 * 36 + 64 * 72 + 128)
+    assert by["ssd_bwd_chunk"]["smem_bytes"] == smem == 74240
+    assert by["ssd_bwd_grads"]["smem_bytes"] == smem
+    assert by["ssd_bwd_finish"]["smem_bytes"] == 4 * (2 * 128 + 256)
+    # three blocks' shared memory fit an SM (the runtime reserves 1 KB a
+    # block); the launch bounds guarantee two
+    assert 3 * (smem + 1024) <= 233472 < 4 * (smem + 1024)
+    assert all(ln["blocks_per_sm"] == 2 for ln in pb["launches"])
+
+
+# ---------------------------------------------------------------------------
 # mrr_transfer
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,grid", [

@@ -19,7 +19,18 @@ Inputs are made with numpy from a seed.  Bounds:
     `ref.ssd_scan_ref` within 1e-10 of its max (float64) and 1e-4
     (float32);
   * `torch.autograd.gradcheck` of the Function in float64, with the
-    kernels' launches replaced by the plain versions.
+    kernels' launches replaced by the plain versions;
+  * the CPU model of the kernel's tensor-core split (`ref.split_tf32`):
+    hi with the low 13 mantissa bits zero, hi + lo within 2^-22 of a
+    relative; its 3xTF32 products (`ref.matmul_3xtf32`) at the
+    backward's product shapes, over 16 seeds each: every element within
+    the split's a priori error bound (2^-20 + 3 ceil(K / 8) 2^-24) times
+    sum_k |a_ik| |b_kj| (the representation and the dropped lo.lo term,
+    then one float32 rounding per instruction), and the whole product
+    within phase 19(a)'s gate: 4x the float32 product's distance from
+    float64 plus 1e-6 of its max.  The bare 4x does not hold on every
+    seed of the causal triangle (`python tests/test_torch_ssd_backward.py
+    --survey-3xtf32` prints the ratios over 200 seeds).
 
 The kernels themselves run on the card only (phase 19 of chip_smoke.py).
 """
@@ -162,6 +173,68 @@ def test_reference_dloga_overflows_where_the_port_stays_finite(R):
         assert _rel(got, want) <= tol
 
 
+def _triangle(q, n, seed):
+    """A Q-step chunk's decayed causal triangle (C B^T . decay, zero above
+    the diagonal; S 128) and an (Q, n) operand, float32."""
+    r = np.random.default_rng(seed)
+    c, b = r.normal(size=(2, q, 128))
+    lcum = np.cumsum(-np.log1p(np.exp(r.normal(size=q))))
+    dec = np.where(np.tri(q, dtype=bool),
+                   np.exp(np.minimum(lcum[:, None] - lcum[None, :], 0)), 0)
+    return ((c @ b.T) * dec).astype(np.float32), \
+        r.normal(size=(q, n)).astype(np.float32)
+
+
+# the backward's products, small, made from a seed: (64 x 128)(128 x 64)
+# as B G / dY S_in^T (depth S or P), a Q 64 chunk's triangle transposed
+# against dY (M^T dY) and against B (D B, depth 64 into S 128)
+PRODUCTS = {"square": lambda seed: tuple(
+                np.random.default_rng(seed).normal(size=sh).astype(np.float32)
+                for sh in ((64, 128), (128, 64))),
+            "triangle^T": lambda seed: (lambda m, y: (m.T.copy(), y))(
+                *_triangle(64, 64, seed=seed)),
+            "triangle": lambda seed: _triangle(64, 128, seed=seed)}
+
+
+def _3xtf32_errors(product, seed):
+    """(a, b, the 3xTF32 product's error from float64 element by element,
+    the float32 product's max error, the exact product's max, the a
+    priori bound element by element)."""
+    a, b = map(torch.from_numpy, PRODUCTS[product](seed))
+    want = a.double() @ b.double()
+    err3 = (ref.matmul_3xtf32(a, b).double() - want).abs()
+    err32 = float(((a @ b).double() - want).abs().max())
+    steps = -(-a.shape[1] // 8)
+    bound = ((2.0**-20 + 3 * steps * 2.0**-24)
+             * (a.double().abs() @ b.double().abs()))
+    return a, b, err3, err32, float(want.abs().max()), bound
+
+
+@pytest.mark.parametrize("product", list(PRODUCTS))
+def test_split_tf32_and_3xtf32_products(product):
+    """The kernel's tensor-core arithmetic modelled on the CPU: each
+    operand split once into TF32 hi and lo (cvt.rna: to nearest, ties
+    away from zero), the product as lo.hi + hi.lo + hi.hi with lo.lo
+    dropped, over 16 seeds."""
+    # ties go away from zero, as cvt.rna rounds them
+    tie = torch.tensor([1 + 2**-11, -(1 + 2**-11)], dtype=torch.float32)
+    assert ref.split_tf32(tie)[0].tolist() == [1 + 2**-10, -(1 + 2**-10)]
+    for seed in range(16):
+        a, b, err3, err32, scale, bound = _3xtf32_errors(product, seed)
+        assert a.shape[1] >= 64
+        for t in (a, b):
+            hi, lo = ref.split_tf32(t)
+            for part in (hi, lo):
+                assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+            nz = t != 0
+            rel = ((hi.double() + lo.double() - t.double()).abs()[nz]
+                   / t.double().abs()[nz])
+            assert float(rel.max()) <= 2.0**-22
+        assert bool((err3 <= bound).all()), (product, seed)
+        assert 0 < err32 and float(err3.max()) <= 4 * err32 + 1e-6 * scale, (
+            product, seed, float(err3.max()), err32)
+
+
 # ---------------------------------------------------------------------------
 # The autograd Function and the wrapper's routing
 # ---------------------------------------------------------------------------
@@ -217,9 +290,12 @@ def test_preflight_backward_at_the_train_shapes(s_dim):
     assert rep["issues"] == [] and rep["kernel"] == "ssd_scan_bwd"
     assert [ln["name"] for ln in rep["launches"]] == list(ops.BWD_NAMES)
     assert rep["smem_bytes"] <= skinny.SMEM_LIMIT
+    # the contraction launches' ring (three slots of an A and a B strip)
+    # and a staged 64 x 72 tile
+    assert rep["smem_bytes"] == ops.TC_SMEM == 74240
     for ln in rep["launches"]:
         assert ln["smem_bytes"] <= skinny.SMEM_LIMIT
-        assert ln["blocks_per_sm"] >= 1 and ln["grid"][1] == 8
+        assert ln["blocks_per_sm"] == 2 and ln["grid"][1] == 8
     ws = rep["workspace_floats"]
     assert ws["g"] == 8 * 64 * 2 * s_dim * 64
     assert ws["pdb"] == ws["pdc"] == 8 * 256 * 64 * s_dim
@@ -239,3 +315,26 @@ def test_preflight_backward_reports_bad_shapes(kw, match):
     args = [kw.pop(k) for k in ("bsz", "l", "h", "p", "s_dim")]
     issues = ops.preflight_backward(*args, **kw)["issues"]
     assert any(match in i for i in issues), issues
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:] != ["--survey-3xtf32"]:
+        sys.exit("usage: PYTHONPATH=src python tests/test_torch_ssd_backward.py"
+                 " --survey-3xtf32")
+    # the 3xTF32 products over 200 seeds: their max error over the float32
+    # product's, its share of phase 19(a)'s gate and of the a priori bound
+    for product in PRODUCTS:
+        ratio, gate, prior, over = [], [], [], []
+        for seed in range(200):
+            _, _, err3, err32, scale, bound = _3xtf32_errors(product, seed)
+            e = float(err3.max())
+            ratio.append(e / err32)
+            gate.append(e / (4 * err32 + 1e-6 * scale))
+            prior.append(float((err3 / bound).max()))
+            if e > 4 * err32:
+                over.append(seed)
+        print(f"{product}: err / float32 err median {np.median(ratio):.2f}, "
+              f"max {max(ratio):.2f}; over 4x on {len(over)} of 200 seeds "
+              f"{over}; share of 19(a)'s gate max {max(gate):.3f}; of the "
+              f"a priori bound max {max(prior):.3f}")
