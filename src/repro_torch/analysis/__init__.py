@@ -23,7 +23,8 @@ Three surfaces:
 Check catalog (each module under `checks/` registers itself):
 
   prng       PRNG001 generator-state reuse / PRNG002 default generator in
-             a hot path
+             a hot path / PRNG003 generator seeded from a constant /
+             PRNG004 loop-invariant key
   donation   DON001 state rebuilt, not updated in place / DON002 hot-path
              step with no declared state
   recompile  REC002 float64 promotion

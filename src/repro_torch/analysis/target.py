@@ -18,11 +18,16 @@ A target bundles a callable with the arguments to run it on, plus the
 `run()` records ONE call of `fn(*example_args)` (cached) under a
 `TorchDispatchMode` recorder of the ATen ops it dispatches, and keeps what
 the checks read: host round trips, random draws with the generator state
-each consumed, the first float64 results, and which state tensors came
-back in a new storage.  The recorded call is the second: the first, not
-recorded, fills the process's one-time caches (`core.mrr.chain_constants`
-reads its float32 constants off host tensors once), as a served step runs
-warm; the reference traces, so its checks never see such work either.
+each consumed and the call path that drew, the first float64 results, and
+which state tensors came back in a new storage; where the arguments hold
+`torch.Generator`s (the target's keys), also every `manual_seed` the call
+makes.  The recorded call is the second: the first fills the process's
+one-time caches (`core.mrr.chain_constants` reads its float32 constants
+off host tensors once), as a served step runs warm, and only its draws are
+kept (a step with declared state has advanced by one between the two);
+the reference traces, so its checks never see such work either.
+`rekeyed_seeds()` makes one more call with every key replaced by a
+generator of another seed and returns its `manual_seed`s.
 The CUDA kernels are called through ctypes and are not seen; the tensors
 their wrappers allocate are.  The calls mutate the example arguments as
 the step would.
@@ -31,6 +36,7 @@ the step would.
 from __future__ import annotations
 
 import ast
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -97,17 +103,42 @@ def materialize(tree, device):
     return tree
 
 
-def call_site() -> str:
-    """`module path:function` of the innermost frame outside torch and
-    this module: where the model code issued the op.  No line number, so
-    a finding's fingerprint survives edits around it."""
-    f = sys._getframe(1)
-    while f is not None:
-        path = os.path.abspath(f.f_code.co_filename)
+def _outside(frame) -> list:
+    """The frames from `frame` outward that lie outside torch and this
+    module, up to the frame of this module that made the target's call:
+    the model code's."""
+    out = []
+    while frame is not None:
+        path = os.path.abspath(frame.f_code.co_filename)
+        if path == _THIS and out:
+            break
         if not path.startswith(_TORCH_DIR) and path != _THIS:
-            return f"{_module_path(path)}:{f.f_code.co_name}"
-        f = f.f_back
-    return "?"
+            out.append(frame)
+        frame = frame.f_back
+    return out
+
+
+def call_site(frame=None) -> str:
+    """`module path:function` of the innermost frame outside torch and
+    this module (from `frame` outward, else the caller's): where the model
+    code issued the op.  No line number, so a finding's fingerprint
+    survives edits around it."""
+    frames = _outside(frame if frame is not None else sys._getframe(1))
+    if not frames:
+        return "?"
+    f = frames[0]
+    return f"{_module_path(os.path.abspath(f.f_code.co_filename))}:" \
+        f"{f.f_code.co_name}"
+
+
+def call_path(frame=None) -> tuple:
+    """(code, instruction offset) of every frame of the model code inside
+    the target's call (`_outside`), innermost first: equal for two ops
+    issued by the same instruction of the same call chain — the
+    iterations of one loop, or two calls of a step — and different for two
+    calls on one line."""
+    return tuple((f.f_code, f.f_lasti) for f in _outside(
+        frame if frame is not None else sys._getframe(1)))
 
 
 def _module_path(path: str) -> str:
@@ -167,12 +198,68 @@ def generator_state(gen: torch.Generator) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class Draw:
     """One random op: where, which op, the generator state it consumed,
-    and whether it drew from the global default generator."""
+    whether it drew from the global default generator, and its call path
+    (`call_path`)."""
 
     site: str
     op: str
     state: tuple
     default: bool
+    path: tuple = dataclasses.field(repr=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class Seeding:
+    """One `Generator.manual_seed` (or `torch.manual_seed`): where, its
+    call path, and the seed."""
+
+    site: str
+    path: tuple = dataclasses.field(repr=False)
+    seed: int
+
+
+@contextlib.contextmanager
+def record_seedings(out: list):
+    """Append a `Seeding` to `out` for every `manual_seed` of a
+    `torch.Generator` made while open (a profile hook on the C method's
+    return, where the generator holds its new seed)."""
+    def hook(frame, event, arg):
+        if event == "c_return" and \
+                getattr(arg, "__name__", None) == "manual_seed" and \
+                isinstance(getattr(arg, "__self__", None), torch.Generator):
+            out.append(Seeding(call_site(frame), call_path(frame),
+                               arg.__self__.initial_seed()))
+
+    prev = sys.getprofile()
+    sys.setprofile(hook)
+    try:
+        yield out
+    finally:
+        sys.setprofile(prev)
+
+
+def generators(tree) -> list[torch.Generator]:
+    """The `torch.Generator`s among a tree of dicts, lists and tuples."""
+    if isinstance(tree, torch.Generator):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [g for t in tree for g in generators(t)]
+    return []
+
+
+def rekeyed(tree):
+    """`tree` with every `torch.Generator` replaced by a fresh one of
+    another seed on its device (tensors and other leaves kept)."""
+    if isinstance(tree, torch.Generator):
+        return torch.Generator(tree.device).manual_seed(
+            tree.initial_seed() ^ 0x5DEECE66D)
+    if isinstance(tree, dict):
+        return {k: rekeyed(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(rekeyed(t) for t in tree)
+    return tree
 
 
 @dataclasses.dataclass
@@ -185,6 +272,10 @@ class Run:
     # device tensor made from a host scalar)
     sync_warnings: list = dataclasses.field(default_factory=list)
     draws: list = dataclasses.field(default_factory=list)       # Draw
+    # the draws of the call before (the warm-up)
+    prior_draws: list = dataclasses.field(default_factory=list)
+    # manual_seeds of the call, when the arguments hold generators
+    seeds: list = dataclasses.field(default_factory=list)       # Seeding
     f64: list = dataclasses.field(default_factory=list)         # (op, site)
     # argnum -> paths of its tensors that came back in a new storage, or
     # None when the state did not come back in the result at all
@@ -208,7 +299,8 @@ class _Recorder(TorchDispatchMode):
                 gen = (torch.cuda.default_generators[dev.index or 0]
                        if dev.type == "cuda" else torch.default_generator)
             self.run.draws.append(Draw(call_site(), op,
-                                       generator_state(gen), default))
+                                       generator_state(gen), default,
+                                       call_path()))
         out = func(*args, **kwargs)
         if packet.__name__ in _HOST_READS or _device_to_host(
                 packet.__name__, args, kwargs):
@@ -250,8 +342,11 @@ class AnalysisTarget:
             return self._run
         if self.fn is None:
             raise ValueError(f"target {self.name!r} has no callable")
-        self.fn(*self.example_args)                 # warm-up, not recorded
-        run = Run()
+        warm = Run()
+        with _Recorder(warm):                       # warm-up: draws only
+            self.fn(*self.example_args)
+        run = Run(prior_draws=warm.draws)
+        keyed = bool(generators(self.example_args))
         before = {i: {p: t.untyped_storage().data_ptr()
                       for p, t in leaves(self.example_args[i])}
                   for i in self.state_argnums
@@ -271,7 +366,9 @@ class AnalysisTarget:
                 if on_cuda:
                     torch.cuda.set_sync_debug_mode("warn")
                 try:
-                    with _Recorder(run):
+                    with _Recorder(run), (record_seedings(run.seeds)
+                                          if keyed
+                                          else contextlib.nullcontext()):
                         out = self.fn(*self.example_args)
                 finally:
                     if on_cuda:
@@ -289,6 +386,16 @@ class AnalysisTarget:
         self._run = run
         return run
 
+    def rekeyed_seeds(self) -> list:
+        """The `manual_seed`s of one more call with every generator among
+        the arguments replaced (`rekeyed`): a seed equal to the recorded
+        call's at the same call path does not depend on the keys."""
+        self.run()
+        args, seeds = rekeyed(self.example_args), []
+        with record_seedings(seeds):
+            self.fn(*args)
+        return seeds
+
 
 def program_target(program, example_args: Sequence[Any], *,
                    name: str = "program",
@@ -297,12 +404,13 @@ def program_target(program, example_args: Sequence[Any], *,
     """Build the verification target for a `rosa.Program`.
 
     The program runs `apply_fn` under its frozen engine with a fresh
-    generator as its base key (so a noisy layer draws, as the reference's
-    abstract key makes its trace draw) on the example arguments, whose
-    `meta` tensors become zeros on `device` (None: CUDA).  Programs take
-    no declared state (`rosa.compile` has no `donate_argnums`)."""
+    generator as its base key, the target's first argument (so a noisy
+    layer draws, as the reference's abstract key makes its trace draw), on
+    the example arguments, whose `meta` tensors become zeros on `device`
+    (None: CUDA).  Programs take no declared state (`rosa.compile` has no
+    `donate_argnums`)."""
     device = torch.device(device if device is not None else "cuda")
     key = torch.Generator(device).manual_seed(0)
     return AnalysisTarget(
-        name=name, fn=lambda *args: program(*args, key=key),
-        example_args=materialize(tuple(example_args), device))
+        name=name, fn=lambda key, *args: program(*args, key=key),
+        example_args=(key,) + materialize(tuple(example_args), device))

@@ -1,2 +1,4 @@
-"""Distribution layer of the port: gradient compression only (the
-sharding rules and collectives wait for a multi-card slice)."""
+"""Distribution layer of the port: the logical sharding rules
+(`sharding`: specs, DTensor placements on a DeviceMesh) and gradient
+compression.  Sharded execution, with collectives across cards, comes
+after them."""

@@ -149,6 +149,14 @@ def check_launch(rc: int, name: str) -> None:
                            f"{rc}")
 
 
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper takes its plain version for `t`: on the CPU,
+    and on `meta`, where a trace (the dry run's) has no data to launch on.
+    A CUDA tensor always takes the kernel; any other device reaches the
+    kernel's checks and is refused."""
+    return t.device.type in ("cpu", "meta")
+
+
 def require_cuda(*tensors, name: str) -> None:
     """Device and dtype checks shared by the kernel wrappers: every operand
     a kernel reads is a float32 CUDA tensor."""

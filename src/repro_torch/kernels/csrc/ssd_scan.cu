@@ -585,9 +585,9 @@ ssd_chunk_out(const float* __restrict__ x, const float* __restrict__ cm,
 // of the inputs).  Phase 19(a) holds every gradient, whose sums mix many
 // products, to 4x the float32 plain backward's distance from float64 plus
 // 1e-6 of its max.  At L 1 dc is one product a head summed over the heads,
-// and on an input where the float32 plain's own error is small it can
-// fall outside that gate, as the CUDA-core backward before it did (phase
-// 19(a) reads L 1 on 16 more inputs).
+// and one order of that sum can leave the float32 plain far closer to
+// float64 than another: there phase 19(a) takes the largest distance over
+// four orders of the heads as the floor (on 16 more inputs).
 //
 // The route is mma.sync m16n8k8, not wgmma: wgmma takes TF32 operands
 // only K-major (the transpose is allowed for 16-bit types alone), and

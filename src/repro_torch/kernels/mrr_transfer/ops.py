@@ -13,13 +13,14 @@ cols) view with one (`plan`), and masks the ragged edges, so nothing is
 padded or copied here.  A chip's per-lane fields go to it as the lane
 vectors themselves, with the axis they run along.
 
-On CPU tensors `mrr_transfer` runs `plain` (`ref.mrr_transfer_ref`), which
-autograd differentiates op by op, as JAX differentiates the reference's
-chain; on CUDA tensors it launches the kernel or raises.  The CUDA path is
-a `torch.autograd.Function` whose backward launches the backward kernel
-(`launch_backward`, counted by `LAUNCHES_BWD`; its plain version is
-`plain_grad`, `ref.mrr_transfer_grad_ref`), or raises: there is no plain
-fallback on the card.
+On CPU and `meta` tensors `mrr_transfer` runs `plain`
+(`ref.mrr_transfer_ref`), which autograd differentiates op by op, as JAX
+differentiates the reference's chain; on CUDA tensors it launches the
+kernel or raises.  The CUDA path is a `torch.autograd.Function` whose
+backward launches the backward kernel (`launch_backward`, counted by
+`LAUNCHES_BWD`; its plain version is `plain_grad`,
+`ref.mrr_transfer_grad_ref`), or raises: there is no plain fallback on the
+card.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def mrr_transfer(w: torch.Tensor, key: torch.Generator | None = None,
                              "draws")
         eps = mrr.draw_eps(key, w.shape, w.device, w.dtype)
     e_dac, e_th = eps if eps is not None else (None, None)
-    if w.device.type == "cpu":
+    if kernels.runs_plain(w):
         return plain(w, e_dac, e_th, sigma_dac, sigma_th, p, var)
     return _Transfer.apply(w, e_dac, e_th, sigma_dac, sigma_th, p, var)
 

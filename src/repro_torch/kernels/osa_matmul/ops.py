@@ -13,8 +13,8 @@ reference kernel it extracts binary planes whatever `pam_bits` is; with
 pam_bits > 1 and the radix-2^k gain ladder that is not the PAM
 decomposition of `ref.py` (a reference behaviour this port keeps).
 
-On CPU tensors the wrapper runs `plain`; on CUDA tensors it launches
-`csrc/osa_matmul.cu` or raises.
+On CPU and `meta` tensors the wrapper runs `plain`; on CUDA tensors it
+launches `csrc/osa_matmul.cu` or raises.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def osa_matmul(x: torch.Tensor, w: torch.Tensor,
 def osa_matmul_int(q: torch.Tensor, w: torch.Tensor, gains: torch.Tensor,
                    *, n_planes: int, fused: bool = True) -> torch.Tensor:
     """Integer-activation entry point (the kernel's native contract)."""
-    if q.device.type == "cpu":
+    if kernels.runs_plain(q):
         return plain(q.float(), w.float(), gains.float(), n_planes=n_planes,
                      fused=fused)
     return launch(q, w, gains, n_planes=n_planes, fused=fused)

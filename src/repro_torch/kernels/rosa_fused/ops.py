@@ -15,11 +15,11 @@ composed `rosa.backends` chain fixes:
     (`mrr.expand_lanes`) and fold with the draws into the three additive
     chain offsets, as stride-0 views when there are no per-shot draws.
 
-`rosa_fused(...)` takes those operands.  On CPU tensors it runs `plain`,
-the same arithmetic in PyTorch ops; on CUDA tensors it launches the kernel
-of `csrc/rosa_fused.cu` or raises.  Static specialization (`realize_x` /
-`realize_w`) mirrors `_analog_operand`'s ideal shortcut: a side with ideal
-noise, no variation and no gate skips the chain.
+`rosa_fused(...)` takes those operands.  On CPU and `meta` tensors it runs
+`plain`, the same arithmetic in PyTorch ops; on CUDA tensors it launches
+the kernel of `csrc/rosa_fused.cu` or raises.  Static specialization
+(`realize_x` / `realize_w`) mirrors `_analog_operand`'s ideal shortcut: a
+side with ideal noise, no variation and no gate skips the chain.
 """
 
 from __future__ import annotations
@@ -178,14 +178,15 @@ def rosa_fused(x, w, gains, sx, gg, x_off=None, w_off=None, *,
                use_mgate: bool = False,
                p: mrr.MRRParams = mrr.DEFAULT_PARAMS) -> torch.Tensor:
     """The kernel's contract on prepared operands (see csrc/rosa_fused.cu):
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    the plain version for CPU and meta tensors, the CUDA kernel for CUDA
+    tensors."""
     if (x_off is not None) != realize_x or (w_off is not None) != realize_w:
         raise ValueError("offset operands must be present exactly for the "
                          "realized sides")
     kw = dict(analog=analog, n_planes=n_planes, radix_bits=radix_bits,
               qmax=qmax, realize_x=realize_x, realize_w=realize_w,
               use_gate=use_gate, use_mgate=use_mgate, p=p)
-    if x.device.type == "cpu":
+    if kernels.runs_plain(x):
         return plain(x, w, gains, sx, gg, x_off, w_off, **kw)
     return launch(x, w, gains, sx, gg, x_off, w_off, **kw)
 

@@ -17,13 +17,13 @@ runs them (counted by `LAUNCHES_BWD`), `backward_stages` runs one of
 them at a time (to time it) and `preflight_backward` reports them;
 `plain_backward` (`ref.ssd_chunked_backward`) is what they compute.
 
-On CPU tensors `ssd_scan` runs the plain version (`ref.ssd_chunked`),
-which autograd differentiates op by op.  On CUDA tensors it launches the
-kernels or raises: a call that needs gradients goes through `_Scan`, a
-`torch.autograd.Function` whose forward keeps the launch's workspace and
-whose backward launches the backward kernels; a call under `no_grad` (or
-on operands that need none) launches the forward alone and keeps nothing.
-There is no plain fallback on the card.
+On CPU and `meta` tensors `ssd_scan` runs the plain version
+(`ref.ssd_chunked`), which autograd differentiates op by op.  On CUDA
+tensors it launches the kernels or raises: a call that needs gradients goes
+through `_Scan`, a `torch.autograd.Function` whose forward keeps the
+launch's workspace and whose backward launches the backward kernels; a call
+under `no_grad` (or on operands that need none) launches the forward alone
+and keeps nothing.  There is no plain fallback on the card.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ def ssd_scan(x: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     (heads within a group share B/C, Mamba-2's GVA).
 
     Returns (y: (B, L, H, P), state: (B, H, S, P))."""
-    if x.device.type == "cpu":
+    if kernels.runs_plain(x):
         return plain(x, loga, b, c, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, loga, b, c)):

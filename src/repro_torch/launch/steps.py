@@ -1,11 +1,13 @@
-"""Step-function factories of the launchers (PyTorch port of
-`repro.launch.steps` on one device: no optimizer-state shardings)."""
+"""Step-function factories of the launchers and the dry run (PyTorch port
+of `repro.launch.steps`).  The steps run on one device; the dry run reads
+`opt_state_shardings` to lay the optimizer state out on a mesh."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.distributed import compress as C
+from repro_torch.distributed.sharding import replicated
 from repro_torch.models.model import ModelBundle
 from repro_torch.models.module import leaves, unflatten
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -79,4 +81,16 @@ def init_opt_state(params, grad_compress: bool = False) -> dict:
     st = {"adam": adamw_init(params)}
     if grad_compress:
         st["err"] = C.init_error_state(params)
+    return st
+
+
+def opt_state_shardings(param_sh, grad_compress: bool = False) -> dict:
+    """Moments (and `err`) shard like their params; the step counter is
+    replicated.  `param_sh` is a nested dict of
+    `distributed.sharding.NamedSharding` (`param_shardings`)."""
+    mesh = next(sh for _, sh in leaves(param_sh)).mesh
+    st = {"adam": {"mu": param_sh, "nu": param_sh,
+                   "step": replicated(mesh)}}
+    if grad_compress:
+        st["err"] = param_sh
     return st

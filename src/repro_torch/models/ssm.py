@@ -149,9 +149,12 @@ def ssm_cache_def(cfg: SSMConfig, batch: int, dtype=torch.float32,
 
 
 def _conv_step(cache: torch.Tensor, xt: torch.Tensor, w: torch.Tensor):
-    """cache: (B, K-1, ...) past inputs; xt: (B, ...) new -> (y, cache)."""
+    """cache: (B, K-1, ...) past inputs; xt: (B, ...) new -> (y, cache).
+    Mixed dtypes (a float32 cache, bfloat16 weights) promote, as jnp's
+    einsum does."""
     hist = torch.cat([cache, xt[:, None]], dim=1)             # (B, K, ...)
-    y = torch.einsum("bk...,k...->b...", hist, w)
+    dt = torch.promote_types(hist.dtype, w.dtype)
+    y = torch.einsum("bk...,k...->b...", hist.to(dt), w.to(dt))
     return F.silu(y), hist[:, 1:]
 
 

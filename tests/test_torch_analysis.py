@@ -189,7 +189,7 @@ def test_float64_promotion():
 
 
 # ---------------------------------------------------------------------------
-# prng: PRNG001 / PRNG002
+# prng: PRNG001 / PRNG002 (targets without a key argument)
 # ---------------------------------------------------------------------------
 def test_generator_state_reuse_and_default_draws():
     def reset(x):
@@ -218,6 +218,113 @@ def test_generator_state_reuse_and_default_draws():
     assert check("prng", two, (x,)) == []
     assert codes(check("prng", default, (x,), hot_path=True)) == ["PRNG002"]
     assert check("prng", default, (x,)) == []
+
+
+# ---------------------------------------------------------------------------
+# prng: the reference's cases (tests/test_analysis.py), with a generator as
+# the key argument and `fold_in` for jax.random.fold_in; PRNG003 / PRNG004
+# ---------------------------------------------------------------------------
+KEY_ARGS = (torch.Generator().manual_seed(11), torch.ones(4))
+
+
+def test_fold_in_same_const_is_reuse():
+    """Two textually separate folds of the same (key, constant) pair are
+    one stream."""
+    def f(key, x):
+        a = mrr.normal(mrr.fold_in(key, 7), x.shape)
+        b = torch.rand(x.shape, generator=mrr.fold_in(key, 7))
+        return x + a + b
+    assert codes(check("prng", f, KEY_ARGS)) == ["PRNG001"]
+
+
+def test_constant_baked_key_flagged():
+    """The key argument ignored, the draw from the process's global
+    generator: in a hot path that is PRNG002."""
+    def f(key, x):
+        return x + torch.randn(x.shape)
+    fs = check("prng", f, KEY_ARGS, hot_path=True)
+    assert codes(fs) == ["PRNG002"]
+    assert fs[0].severity == Severity.WARNING
+
+
+def test_loop_invariant_key_in_loop_flagged():
+    """One key folded with a constant on every iteration: each draws the
+    same noise."""
+    def f(key, x):
+        for _ in range(4):
+            x = x + mrr.normal(mrr.fold_in(key, 0), x.shape)
+        return x
+    fs = check("prng", f, KEY_ARGS)
+    assert codes(fs) == ["PRNG004"]
+    assert fs[0].severity == Severity.ERROR
+    assert fs[0].location == "repro_torch/core/mrr.py:normal aten.randn"
+
+
+def test_per_iteration_fold_in_loop_clean():
+    def f(key, x):
+        for i in range(4):
+            x = x + mrr.normal(mrr.fold_in(key, i), x.shape)
+        return x
+    assert check("prng", f, KEY_ARGS) == []
+
+
+def test_generator_seeded_from_a_constant_flagged():
+    """PRNG003: a seed the key argument does not move, by
+    `Generator.manual_seed` or `torch.manual_seed`; the warning names the
+    seeding's site."""
+    def made(key, x):
+        g = torch.Generator().manual_seed(1234)
+        return x + torch.randn(x.shape, generator=g) \
+            + mrr.normal(mrr.fold_in(key, 1), x.shape)
+
+    def global_seed(key, x):
+        torch.manual_seed(3)
+        return x + mrr.normal(mrr.fold_in(key, 1), x.shape)
+
+    state = torch.random.get_rng_state()
+    try:
+        for fn in (made, global_seed):
+            fs = check("prng", fn, KEY_ARGS)
+            assert codes(fs) == ["PRNG003"]
+            assert fs[0].severity == Severity.WARNING
+            assert fs[0].location == \
+                f"test_torch_analysis.py:{fn.__name__} manual_seed"
+    finally:
+        torch.random.set_rng_state(state)
+
+
+def test_fold_in_only_is_clean():
+    """`fold_in` seeds its child with `manual_seed` on purpose, from the
+    parent's seed: a derivation, never PRNG003 (nor the splits built on
+    it)."""
+    def f(key, x):
+        k1, k2 = mrr.split(key)
+        ks = mrr.split_keys(mrr.fold_in(k1, 3), 3)
+        return x + mrr.normal(k2, x.shape) + sum(
+            mrr.normal(k, x.shape) for k in ks)
+    assert check("prng", f, KEY_ARGS) == []
+
+
+def test_loop_invariant_key_across_steps_flagged():
+    """A step with declared state draws at the same generator state in two
+    steps (its warm-up call and the recorded one): PRNG004; folding the
+    step counter in is clean; without declared state the two calls are
+    not steps."""
+    def const(key, st, x):
+        st["step"] += 1
+        return x + mrr.normal(mrr.fold_in(key, 5), x.shape)
+
+    def folded(key, st, x):
+        st["step"] += 1
+        return x + mrr.normal(mrr.fold_in(key, int(st["step"])), x.shape)
+
+    def args():
+        return (KEY_ARGS[0], {"step": torch.zeros((), dtype=torch.int32)},
+                KEY_ARGS[1])
+    assert codes(check("prng", const, args(), state_argnums=(1,))) \
+        == ["PRNG004"]
+    assert check("prng", folded, args(), state_argnums=(1,)) == []
+    assert check("prng", const, args()) == []
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,7 @@ _REF_MODULES = {
     "layers": "repro.models.layers", "steps": "repro.launch.steps",
     "optim": "repro.optim", "optim_schedules": "repro.optim.schedules",
     "compress": "repro.distributed.compress", "tokens": "repro.data.tokens",
+    "sharding": "repro.distributed.sharding",
     "checkpoint": "repro.checkpoint",
     "obs": "repro.obs", "obs_cli": "repro.obs.cli",
     "analysis": "repro.analysis", "analysis_cli": "repro.analysis.cli",

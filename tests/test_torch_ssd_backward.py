@@ -30,7 +30,11 @@ Inputs are made with numpy from a seed.  Bounds:
     within phase 19(a)'s gate: 4x the float32 product's distance from
     float64 plus 1e-6 of its max.  The bare 4x does not hold on every
     seed of the causal triangle (`python tests/test_torch_ssd_backward.py
-    --survey-3xtf32` prints the ratios over 200 seeds).
+    --survey-3xtf32` prints the ratios over 200 seeds);
+  * phase 19(a)'s rule at L 1 on that model of the kernel's dc (each
+    head's (dY . X) B in 3xTF32, summed over the heads in head order):
+    within 4x the float32 plain backward's largest distance from float64
+    over 4 orders of the heads, plus 1e-6 of its max, over 16 seeds.
 
 The kernels themselves run on the card only (phase 19 of chip_smoke.py).
 """
@@ -233,6 +237,51 @@ def test_split_tf32_and_3xtf32_products(product):
         assert bool((err3 <= bound).all()), (product, seed)
         assert 0 < err32 and float(err3.max()) <= 4 * err32 + 1e-6 * scale, (
             product, seed, float(err3.max()), err32)
+
+
+def _head_order_floor(ins, orders, q):
+    """Phase 19(a)'s floor at L 1: the largest distance from float64 of
+    the float32 plain backward's db and dc over `orders` of the heads (x,
+    loga, dy and dstate permuted alike; a group's db and dc are sums over
+    its heads, which the order moves)."""
+    want = ops.plain_backward(*(t.double() for t in ins), q)
+    floor = [0.0, 0.0]
+    for perm in orders:
+        x, loga, b, c, dy, ds = ins
+        got = ops.plain_backward(x[:, :, perm], loga[:, :, perm], b, c,
+                                 dy[:, :, perm], ds[:, perm], q)
+        floor = [max(f, float((g.double() - w).abs().max()))
+                 for f, g, w in zip(floor, got[2:], want[2:])]
+    return want, floor
+
+
+def test_l1_dc_model_within_the_head_order_gate():
+    """Phase 19(a)'s rule at L 1 on the CPU model of the kernel's dc: one
+    step, H 64 heads in one group, so each head's dC is (dY . X) B, its
+    two products in 3xTF32 (`ref.matmul_3xtf32`), summed over the heads in
+    head order in float32 (the kernel's finishing launch).  Over 16
+    seeds it is within 4x the float32 plain backward's largest distance
+    from float64 over 4 orders of the heads (the identity and three
+    permutations from the seed) plus 1e-6 of its max.  With the identity
+    order alone seed 11 falls outside (1.74 of that gate)."""
+    h, p, s_dim = 64, 64, 128
+    for seed in range(16):
+        ins = tuple(map(torch.from_numpy,
+                        _inputs(1, 1, h, p, 1, s_dim, seed=seed,
+                                dtype=np.float32)))
+        x, _, b, _, dy, _ = ins
+        r = np.random.default_rng(seed)
+        orders = [torch.arange(h)] + [torch.from_numpy(r.permutation(h))
+                                      for _ in range(3)]
+        want, (_, floor) = _head_order_floor(ins, orders, 128)
+        dc = torch.zeros(1, s_dim)
+        for k in range(h):
+            d = ref.matmul_3xtf32(dy[0, 0, k][None], x[0, 0, k][:, None])
+            dc = dc + ref.matmul_3xtf32(d, b[0, 0])
+        dev = float((dc[0].double() - want[3][0, 0, 0]).abs().max())
+        scale = float(want[3].abs().max())
+        assert floor > 0 and dev <= 4 * floor + 1e-6 * scale, (
+            seed, dev, floor)
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import rosa
+from repro_torch import kernels, rosa
 from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     read_meta, restore, save)
 from repro_torch.configs import get_smoke
@@ -374,14 +374,18 @@ def test_recomputation_sees_the_forward_engine_in_another_thread(
 
 def test_ssd_scan_routes_grads_through_the_function_off_the_cpu(
         monkeypatch):
-    """A non-CPU call that needs gradients goes through the autograd
+    """A card-side call that needs gradients goes through the autograd
     Function, whose backward reaches the backward kernel's launch; under
-    no_grad, or on detached operands, the forward launches alone."""
+    no_grad, or on detached operands, the forward launches alone.  Meta
+    tensors stand in for CUDA ones, with the wrappers' plain route for
+    meta (the dry run's) switched off."""
     def meta(*shape, grad=False):
         return torch.empty(shape, device="meta", requires_grad=grad)
     args = (meta(1, 8, 2, 4, grad=True), meta(1, 8, 2), meta(1, 8, 1, 4),
             meta(1, 8, 1, 4))
     seen = []
+    monkeypatch.setattr(kernels, "runs_plain",
+                        lambda t: t.device.type == "cpu")
 
     def fwd(x, loga, b, c, chunk):
         seen.append("fwd")
