@@ -4,7 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --kernels  # build, phases 2, 6, 8, 12(a), 19(a)
                                      # (no result line)
-    python3 chip_smoke.py --kernels 19a   # build, then those phases alone
+    python3 chip_smoke.py --kernels 19a 21   # build, then those phases
+                                     # alone (21 runs phases 3-5 first)
+    python3 chip_smoke.py --cards    # phase 21 over nccl, one rank a card
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -291,6 +293,37 @@ Phases (any failure raises, so the exit code is non-zero):
      most 1 MiB a tensor above 1 MiB).  One process a cell (a spawned
      pool; the scan's plain version traces its chunks one by one, so
      mamba2's prefill takes the longest).  The phase's wall is printed.
+
+ 21. serving across ranks (`repro_torch.distributed.runtime.spawn`, the
+     kernels built here first; by default the ranks share card 0 over
+     gloo, with `--cards` one rank a card over nccl): (a) phase 3's
+     qwen3-32b stream
+     with its 4 slots over 2 ranks (`Scheduler(mesh=make_test_mesh(2, 1,
+     "cuda"))`): every completion's tokens equal phase 3's one-process
+     Scheduler's and `run_sequential`'s, each rank's `rosa_fused`
+     launches exactly 2 x layers x (its decode steps + prefill chunks),
+     peak < 70 GiB a card over the ranks and the parent; tok/s and the
+     card's busy share (a profiled second run) printed; (b) qwen3-32b at
+     full width and 2 layers, 4 slots, a 32768-position bfloat16 cache
+     from a seed, its sequence over 4 ranks (SERVE_RULES with no axis for
+     the KV heads: the port splits no heads), 8 teacher-forced decode
+     steps from ragged positions on both sides of slice boundaries:
+     `flash_decode` in every layer and step (counted), each rank 1/4 of
+     the cache's bytes, rank 0's logits within 4x the float-order floor
+     (the params' hidden and MLP dimensions permuted, 2 seeds) plus 1e-5
+     of the whole-cache steps' in the parent, argmax equal wherever the
+     top-two gap exceeds that bound, and `flash_decode` alone with a
+     4096-token window within 4x its floor (the keys permuted) plus 1e-6
+     of the whole cache's attention; (c) one MoE block of qwen3-moe-235b-
+     a22b and of deepseek-v2-236b (two shared experts: `_shared_tp`) at
+     full width, experts over 4 ranks (each draws only its own from
+     per-expert seeds), through `_ffn_apply` under a live context, a
+     decode batch (4 x 1) and a 64-token chunk: a2a False at capacity
+     1.25 equal to `moe_ep_local` as one rank in the parent, both
+     dispatch modes at a capacity that drops nothing equal to `moe_ref`,
+     each within 4x a floor (the experts' d_ff permuted) plus 1e-6; each
+     rank holds 1/4 of the expert bytes; dropped assignments printed.
+     Walls and peaks printed per sub-phase.
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -821,9 +854,9 @@ def float_order_floor(rebuild, prompt, lr, logits=prefill_logits) -> float:
     return floor
 
 
-def check_sequential(rep, cfg, scfg, params, reqs, what: str) -> None:
+def check_sequential(rep, cfg, scfg, params, reqs, what: str) -> dict:
     """Continuous batching must give each request the greedy tokens it
-    gets decoded alone (`run_sequential`)."""
+    gets decoded alone (`run_sequential`); returns those tokens."""
     from repro_torch.serve import run_sequential
     seq = run_sequential(cfg, scfg, params, reqs, device=DEVICE)
     same = sum(rep.completions[r].tokens == v["tokens"]
@@ -833,18 +866,27 @@ def check_sequential(rep, cfg, scfg, params, reqs, what: str) -> None:
     if same != len(reqs):
         raise AssertionError(f"{what}: continuous tokens differ from the "
                              "sequential oracle's")
+    return {r: v["tokens"] for r, v in seq.items()}
+
+
+def serve_setup():
+    """Phase 3's model, serving config and requests (phases 18 and 21
+    serve the same)."""
+    from repro_torch.serve import ServeConfig, poisson_requests
+    cfg = qwen_cfg()
+    scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
+                       rosa_backend="fused", variation_seed=7)
+    reqs = poisson_requests(6, 1.0, vocab=cfg.vocab, prompt_len=(4, 8),
+                            gen_len=(2, 40), seed=0)
+    return cfg, scfg, reqs
 
 
 def serve_phase(report: dict) -> dict:
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.constants import ROSA_OPTIMAL
-    from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
-                                   report_metrics)
+    from repro_torch.serve import Scheduler, poisson_requests, report_metrics
 
-    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=4)
-    scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
-                       rosa_backend="fused", variation_seed=7)
+    cfg, scfg, reqs = serve_setup()
     t0 = time.perf_counter()
     sched = Scheduler(cfg, scfg, init_seed=0, device=DEVICE)
     torch.cuda.synchronize()
@@ -855,8 +897,6 @@ def serve_phase(report: dict) -> dict:
     print(f"  plan {plan}")
     if plan != {"mlp/wi": "IS", "mlp/wo": "IS"}:
         raise AssertionError(f"unexpected plan {plan}")
-    reqs = poisson_requests(6, 1.0, vocab=cfg.vocab, prompt_len=(4, 8),
-                            gen_len=(2, 40), seed=0)
 
     # ---- the main path: counts from 0, read right after ------------------
     reset_launches()
@@ -880,7 +920,8 @@ def serve_phase(report: dict) -> dict:
             or n["mrr_transfer"]:
         raise AssertionError("the served path did not run every routed "
                              "projection through rosa_fused")
-    check_sequential(rep, cfg, scfg, sched.params, reqs, "qwen3-32b")
+    seq_tokens = check_sequential(rep, cfg, scfg, sched.params, reqs,
+                                  "qwen3-32b")
 
     # ---- phase 4: the osa_matmul path -------------------------------------
     pallas = Scheduler(cfg, dataclasses.replace(scfg, rosa_backend="pallas"),
@@ -932,6 +973,9 @@ def serve_phase(report: dict) -> dict:
         raise AssertionError("fused and ref logits disagree beyond the bound")
 
     report["serve"] = dict(metrics, energy_per_token_j=energy, plan=plan,
+                           tokens={r: c.tokens
+                                   for r, c in rep.completions.items()},
+                           sequential_tokens=seq_tokens,
                            rosa_fused_launches=n_fused, routed=routed,
                            osa_matmul_launches=n_osa2, setup_s=setup_s,
                            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -3565,16 +3609,11 @@ def obs_phase(report: dict) -> int:
     from repro_torch.analysis import cli as analysis_cli
     from repro_torch.core.constants import ROSA_OPTIMAL
     from repro_torch.models.model import build_model
-    from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
-                                   serving_model_config)
+    from repro_torch.serve import Scheduler, serving_model_config
     from repro_torch.serve.metrics import abstract_decode_batch
 
-    cfg = qwen_cfg()
-    scfg = ServeConfig(n_slots=4, max_len=56, prefill_chunk=8, rosa=True,
-                       rosa_backend="fused", variation_seed=7)
+    cfg, scfg, reqs = serve_setup()
     sched = Scheduler(cfg, scfg, init_seed=0, device=DEVICE)
-    reqs = poisson_requests(6, 1.0, vocab=cfg.vocab, prompt_len=(4, 8),
-                            gen_len=(2, 40), seed=0)
 
     # ---- the main path, untraced then traced: counts from 0 each ---------
     reset_launches()
@@ -4209,8 +4248,751 @@ def dryrun_phase(report: dict) -> None:
                   "allocated_bytes": grew, "unsplit_bound": slack}}
 
 
-# `--kernels`: the kernel phases, by name: (title, [(tag, phase)])
-KERNEL_PHASES = {
+# ---------------------------------------------------------------------------
+# Phase 21: serving across ranks
+# ---------------------------------------------------------------------------
+RANK_CARDS = False             # --cards: nccl, one rank a card
+RANK_TIMEOUT = 600.0           # seconds a group of ranks may take
+SLOT_RANKS = 2                 # 21(a): four replicas of 14 GB do not fit
+SEQ_RANKS = 4                  # 21(b), 21(c)
+SEQ_LEN = 32768                # 21(b)'s cache positions, over "model"
+SEQ_LAYERS = 2                 # four replicas of the params + rank 0's
+SEQ_STEPS = 8
+SEQ_POS = (24572, 16380, 8190, 30000)   # each slot's first position
+SEQ_WINDOW = 4096              # flash_decode alone with a window
+EP_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+EP_SLOTS, EP_CHUNK = 4, 64     # a decode batch, a prefill chunk
+
+
+def rank_backend() -> str:
+    return "nccl" if RANK_CARDS else "gloo"
+
+
+def rank_layout(n: int) -> str:
+    return (f"backend={rank_backend()} ranks={n} "
+            + ("one a card" if RANK_CARDS else "on 1 card"))
+
+
+def rank_setup(device):
+    """What every rank of phase 21 sets first: the parent's matmul
+    precision and the port on its path."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+
+def busy_ms(prof) -> float:
+    """Summed kernel time (ms) of a profiled run (one process's)."""
+    total = 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and evt.device_type.name == "CUDA":
+            total += dev_us / 1e3
+    return total
+
+
+def slot_run(sched, reqs) -> dict:
+    """One main-path run of a rank's Scheduler, the counts from 0."""
+    import torch
+    reset_launches()
+    rep = sched.run(reqs)
+    torch.cuda.synchronize()
+    return {"tokens": {r: c.tokens for r, c in rep.completions.items()},
+            "launches": launch_counts(), "decode_steps": rep.decode_steps,
+            "prefill_chunks": rep.prefill_chunks, "wall_s": rep.wall_s,
+            "tok_s": rep.tokens_per_s, "total_tokens": rep.total_tokens}
+
+
+def slot_rank(rank: int, world: int, device) -> dict:
+    """21(a) on one rank, on a (world, 1) mesh: phase 3's 4 slots over
+    the ranks (the main path's run, then the same requests under the
+    profiler for the card's busy share), and 4 slots a rank (phase 3's
+    decode width) on the same params.  Rank 0 also runs, alone, the
+    one-process Scheduler and the sequential oracle at its 2-row width."""
+    rank_setup(device)
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve import Scheduler, run_sequential
+
+    cfg, scfg, reqs = serve_setup()
+    mesh = make_test_mesh(world, 1, device.type)
+    t0 = time.perf_counter()
+    sched = Scheduler(cfg, scfg, init_seed=0, device=device, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    out = {"n_local": sched.n_local, "setup_s": setup_s,
+           "run": slot_run(sched, reqs),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "params_digest": params_digest(sched.params)}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = sched.run(reqs)
+        out["profiled_wall_s"] = time.perf_counter() - t0
+    out["busy_ms"] = busy_ms(prof)
+    out["profiled_tokens"] = {r: c.tokens
+                              for r, c in rep.completions.items()}
+    wide = dataclasses.replace(scfg, n_slots=scfg.n_slots * world)
+    out["wide"] = slot_run(Scheduler(cfg, wide, params=sched.params,
+                                     device=device, mesh=mesh), reqs)
+    if rank == 0:
+        # one process, no collective, at this rank's decode width
+        local = dataclasses.replace(scfg, n_slots=sched.n_local)
+        one = Scheduler(cfg, local, params=sched.params, device=device)
+        out["one_local"] = {r: c.tokens for r, c in
+                            one.run(reqs).completions.items()}
+        out["seq_local"] = {r: v["tokens"] for r, v in run_sequential(
+            cfg, local, sched.params, reqs, device=device).items()}
+    return out
+
+
+def params_digest(params) -> list:
+    """Sums of a few leaves: equal params on every rank and in the
+    parent (each inits from the same seed on its own).  Summed in the
+    leaves' float32: a float64 sum would cast a copy of each first."""
+    from repro_torch.models.module import leaves
+    return [float(t.sum()) for _, t in list(leaves(params))[:4]]
+
+
+def token_diff(got: dict, want: dict) -> dict:
+    """{rid: index of the first differing token} where they differ."""
+    return {r: next(i for i, (a, b) in enumerate(
+        zip(got[r] + [None], want[r] + [None])) if a != b)
+        for r in want if got[r] != want[r]}
+
+
+def slot_phase(report: dict) -> int:
+    """21(a): phase 3's qwen3-32b stream, slots over 2 ranks.  Gated:
+    with phase 3's 4 slots (2 a rank) every completion's tokens equal
+    the one-process Scheduler's and `run_sequential`'s at the rank's
+    2-row width on this card; with 4 slots a rank (8 in all, phase 3's
+    decode width) they equal phase 3's one-process Scheduler's and
+    `run_sequential`'s; each rank's `rosa_fused` launches equal 2 x
+    layers x (its decode steps + prefill chunks) in each run; the ranks'
+    peaks plus the parent's allocation < 70 GiB a card.  Printed: the
+    4-slot run against phase 3's tokens (the card's decode is not
+    batch-width invariant), tok/s, the card's busy share.  Returns the
+    ranks' `rosa_fused` launches."""
+    import torch
+    from repro_torch.distributed import runtime
+
+    cfg, scfg, reqs = serve_setup()
+    if "serve" not in report:         # phase 21 alone: phases 3-5 first
+        print("phases 3-5: serving (phase 21(a) reads phase 3's tokens)")
+        serve_phase(report)
+        torch.cuda.empty_cache()
+    one = report["serve"]["tokens"]
+    seq = report["serve"]["sequential_tokens"]
+    print(f"  21(a): {rank_layout(SLOT_RANKS)}; qwen3-32b full width, "
+          f"{cfg.n_layers} layers, phase 3's 6 requests; {scfg.n_slots} "
+          f"slots over the ranks, then {scfg.n_slots} a rank")
+    parent = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    outs = runtime.spawn(slot_rank, SLOT_RANKS, device_type=DEVICE,
+                         backend=rank_backend(), timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    routed = 2 * cfg.n_layers
+    fused = 0
+    for r, o in enumerate(outs):
+        for name in ("run", "wide"):
+            run = o[name]
+            n = run["launches"]
+            want = routed * (run["decode_steps"] + run["prefill_chunks"])
+            fused += n["rosa_fused"]
+            print(f"  rank {r}, {o['n_local'] if name == 'run' else scfg.n_slots}"
+                  f" slots: {run['total_tokens']} tokens in "
+                  f"{run['wall_s']:.2f} s ({run['tok_s']:.2f} tok/s), "
+                  f"{run['decode_steps']} decode steps, "
+                  f"{run['prefill_chunks']} prefill chunks, rosa_fused "
+                  f"launches {n['rosa_fused']} (2 x {cfg.n_layers} x "
+                  f"(steps + chunks) = {want})")
+            if n["rosa_fused"] != want or any(
+                    v for k, v in n.items() if k != "rosa_fused"):
+                raise AssertionError(f"21(a) rank {r} {name}: launches {n},"
+                                     f" wanted rosa_fused {want} and "
+                                     "nothing else")
+            if run["tokens"] != outs[0][name]["tokens"]:
+                raise AssertionError(f"21(a) rank {r} {name}: the ranks' "
+                                     "tokens differ")
+        print(f"  rank {r}: set-up {o['setup_s']:.1f} s, peak "
+              f"{o['peak_bytes'] / 2**30:.2f} GiB")
+        if o["profiled_tokens"] != o["run"]["tokens"]:
+            raise AssertionError(f"21(a) rank {r}: the profiled run's "
+                                 "tokens differ")
+        if o["params_digest"] != outs[0]["params_digest"]:
+            raise AssertionError("21(a): the ranks' params differ")
+    got, wide = outs[0]["run"]["tokens"], outs[0]["wide"]["tokens"]
+    n_local = outs[0]["n_local"]
+    checks = ((f"{scfg.n_slots} slots over the ranks", got,
+               f"the one-process Scheduler at {n_local} slots",
+               outs[0]["one_local"], True),
+              (f"{scfg.n_slots} slots over the ranks", got,
+               f"run_sequential at {n_local} rows", outs[0]["seq_local"],
+               True),
+              (f"{scfg.n_slots} a rank", wide,
+               f"phase 3's one-process Scheduler ({scfg.n_slots} slots)",
+               one, True),
+              (f"{scfg.n_slots} a rank", wide,
+               f"run_sequential at {scfg.n_slots} rows", seq, True),
+              (f"{scfg.n_slots} slots over the ranks", got,
+               f"phase 3's one-process Scheduler ({scfg.n_slots} slots)",
+               one, False))
+    for what, tokens, name, want, gated in checks:
+        diff = token_diff(tokens, want)
+        print(f"  {what} vs {name}: {len(want) - len(diff)} of "
+              f"{len(want)} requests give identical tokens"
+              + (f"; first differing token by request {diff}" if diff
+                 else "") + ("" if gated else " (not gated: the widths "
+                             "differ)"))
+        if gated and diff:
+            raise AssertionError(f"21(a): {what}: tokens differ from "
+                                 f"{name}'s")
+    peak = (max(o["peak_bytes"] for o in outs) if RANK_CARDS else
+            sum(o["peak_bytes"] for o in outs)) + parent
+    busy = sum(o["busy_ms"] for o in outs)
+    pwall = max(o["profiled_wall_s"] for o in outs) * 1e3
+    share = busy / pwall / (SLOT_RANKS if RANK_CARDS else 1)
+    print(f"  21(a): peak {peak / 2**30:.2f} GiB a card (ranks + parent "
+          f"{parent / 2**30:.2f}); busy {busy:.1f} ms of kernels over "
+          f"{pwall:.1f} ms profiled ({100 * share:.1f} % of the card"
+          + (" each" if RANK_CARDS else "") + f"); wall {wall:.1f} s")
+    if peak >= PEAK_GIB * 2**30:
+        raise AssertionError(f"21(a): peak {peak / 2**30:.1f} GiB")
+    report["ranks_slots"] = {
+        "backend": rank_backend(), "ranks": SLOT_RANKS,
+        "one_card": not RANK_CARDS, "wall_s": wall,
+        "peak_gib": peak / 2**30, "busy_share": share,
+        "vs_phase3_differ": token_diff(got, one),
+        "rosa_fused_launches": [[o[k]["launches"]["rosa_fused"]
+                                 for k in ("run", "wide")] for o in outs],
+        "tok_s": [[o[k]["tok_s"] for k in ("run", "wide")] for o in outs],
+        "setup_s": [o["setup_s"] for o in outs]}
+    return fused
+
+
+# ---- 21(b): the KV cache's sequence over ranks -----------------------------
+def seq_model(device):
+    """21(b)'s qwen3-32b (full width, SEQ_LAYERS layers) and its params
+    from seed 0."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=SEQ_LAYERS)
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device).manual_seed(0),
+                         device=device)
+    return cfg, bundle, params
+
+
+def seq_cache(cfg, device, part: tuple[int, int] | None = None) -> dict:
+    """21(b)'s decode cache: 4 slots x SEQ_LEN positions of K / V filled
+    from seed 11, leaf by leaf, in bfloat16; with `part` (first, count)
+    only those positions (a rank's slice).  pos = SEQ_POS."""
+    import torch
+    g = torch.Generator(device).manual_seed(11)
+    b, kv, hd = len(SEQ_POS), cfg.n_kv_heads, cfg.head_dim
+    lo, n = part or (0, SEQ_LEN)
+    kvs = []
+    for _ in range(2):
+        leaf = torch.empty((cfg.n_layers, b, n, kv, hd),
+                           dtype=cfg.cache_dtype, device=device)
+        for i in range(cfg.n_layers):
+            full = torch.randn((b, SEQ_LEN, kv, hd), generator=g,
+                               device=device)
+            leaf[i].copy_(full[:, lo:lo + n])
+            del full
+        kvs.append(leaf)
+    return {"layers": tuple(kvs),
+            "pos": torch.tensor(SEQ_POS, dtype=torch.int32, device=device)}
+
+
+def seq_tokens(cfg):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(21)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (len(SEQ_POS),
+                                                        SEQ_STEPS))
+                            .astype(np.int32))
+
+
+def seq_decode(bundle, params, cache, tokens) -> "torch.Tensor":
+    """SEQ_STEPS decode steps teacher-forced with `tokens` (B, steps):
+    the logits (steps, B, V) on the host."""
+    import torch
+    out = []
+    with torch.inference_mode():
+        for i in range(SEQ_STEPS):
+            lg, stepped = bundle.decode_step(params, {
+                "token": tokens[:, i].to(cache["pos"].device),
+                "pos": cache["pos"], "cache": cache})
+            cache["pos"].copy_(stepped["pos"])
+            out.append(lg.float().cpu())
+    return torch.stack(out)
+
+
+def window_case(cfg, device):
+    """flash_decode alone with a window: q from seed 12, layer 0's K / V
+    of `seq_cache`."""
+    import torch
+    g = torch.Generator(device).manual_seed(12)
+    return torch.randn((len(SEQ_POS), 1, cfg.n_heads, cfg.head_dim),
+                       generator=g, device=device)
+
+
+def seq_refs(cfg, bundle, params) -> dict:
+    """21(b)'s one-process side: the decode steps over the whole cache,
+    their float-order floor (the same steps with the hidden and MLP
+    dimensions of the params permuted, seeds 1 and 2: a reordering of
+    every sum but the attention's), and the windowed attention over the
+    whole cache with its floor (the key axis permuted)."""
+    import torch
+    from repro_torch.models import layers as L
+    tokens = seq_tokens(cfg)
+    lr = seq_decode(bundle, params, seq_cache(cfg, DEVICE), tokens)
+    scale = lr.abs().amax(dim=(1, 2))
+    floor = torch.zeros(SEQ_STEPS)
+    holder = types.SimpleNamespace(bundle=bundle, params=params)
+    for seed in (1, 2):
+        pp, _ = permuted_params(holder, {"embed": cfg.d_model,
+                                         "mlp": cfg.d_ff}, seed)
+        lp = seq_decode(bundle, pp, seq_cache(cfg, DEVICE), tokens)
+        floor = torch.maximum(floor,
+                              (lp - lr).abs().amax(dim=(1, 2)) / scale)
+        del pp
+        torch.cuda.empty_cache()
+    # flash_decode alone, windowed: the whole cache's attention
+    cache = seq_cache(cfg, DEVICE)
+    q = window_case(cfg, DEVICE)
+    kc, vc = cache["layers"][0][0], cache["layers"][1][0]
+    pos = cache["pos"]
+    k_pos = torch.arange(SEQ_LEN, device=DEVICE)[None].expand(len(pos), -1)
+    bias = L._mask_bias(pos[:, None], k_pos, True, SEQ_WINDOW,
+                        k_len_valid=(pos + 1)[:, None])
+
+    def attend(perm):
+        return L.attention_core(q, L._repeat_kv(kc[:, perm], cfg.n_heads),
+                                L._repeat_kv(vc[:, perm], cfg.n_heads),
+                                bias[..., perm]).cpu()
+
+    ident = torch.arange(SEQ_LEN, device=DEVICE)
+    ow = attend(ident)
+    gp = torch.Generator().manual_seed(3)
+    op = attend(torch.randperm(SEQ_LEN, generator=gp).to(DEVICE))
+    wfloor = float((op - ow).abs().max() / ow.abs().max())
+    del cache, kc, vc
+    torch.cuda.empty_cache()
+    return {"tokens": tokens, "logits": lr, "floor": floor, "window": ow,
+            "window_floor": wfloor}
+
+
+def seq_rank(rank: int, world: int, device, mesh) -> dict:
+    """21(b) on one rank: the decode steps on its quarter of the cache
+    under a live context (flash_decode counted), and flash_decode alone
+    with a window."""
+    import torch
+    from repro_torch.distributed.sharding import SERVE_RULES, use_sharding
+    from repro_torch.distributed.runtime import axis_index
+    from repro_torch.models import layers as L
+
+    cfg, bundle, params = seq_model(device)
+    # the port splits no heads: the sequence takes "model" (under
+    # SERVE_RULES qwen3-32b's 8 KV heads would claim it first)
+    rules = dict(SERVE_RULES, kv_heads=())
+    s_loc = SEQ_LEN // world
+    axes = ("data", "model")
+    lo = axis_index(axes, mesh) * s_loc
+    cache = seq_cache(cfg, device, (lo, s_loc))
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in cache["layers"])
+    q = window_case(cfg, device)
+    with use_sharding(mesh, rules, {"cache_seq": SEQ_LEN}):
+        calls = L.FLASH_DECODES["calls"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = seq_decode(bundle, params, cache, seq_tokens(cfg))
+        step_s = (time.perf_counter() - t0) / SEQ_STEPS
+        calls = L.FLASH_DECODES["calls"] - calls
+        spec = L.seq_shard(cache["layers"][0][0])
+        fresh = seq_cache(cfg, device, (lo, s_loc))
+        ow = L.flash_decode(q, fresh["layers"][0][0], fresh["layers"][1][0],
+                            fresh["pos"], SEQ_WINDOW, cfg.n_heads)
+    # host values only: the ranks exit right after handing them over
+    return {"logits": logits.numpy() if rank == 0 else None,
+            "calls": calls, "cache_bytes": cache_bytes, "slice": (lo, s_loc),
+            "seq_axes": spec[0], "window": ow.cpu().numpy(),
+            "step_s": step_s,
+            "params_digest": params_digest(params),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def seq_check(refs: dict, outs: list, whole_bytes: int,
+              report: dict) -> None:
+    """21(b)'s gates on the ranks' results."""
+    import torch
+    lr, floor = refs["logits"], refs["floor"]
+    bound = 4 * floor + 1e-5
+    for r, o in enumerate(outs):
+        if o["calls"] != SEQ_LAYERS * SEQ_STEPS:
+            raise AssertionError(f"21(b) rank {r}: flash_decode ran "
+                                 f"{o['calls']} times, wanted "
+                                 f"{SEQ_LAYERS} x {SEQ_STEPS}")
+        if o["cache_bytes"] * SEQ_RANKS != whole_bytes:
+            raise AssertionError(f"21(b) rank {r}: {o['cache_bytes']} B of "
+                                 f"cache, not 1/{SEQ_RANKS} of {whole_bytes}")
+    lg = torch.from_numpy(outs[0]["logits"])
+    if lg.shape != lr.shape or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"21(b): logits {tuple(lg.shape)} not finite "
+                             "or of the wrong shape")
+    scale = lr.abs().amax(dim=(1, 2))
+    rel = (lg - lr).abs().amax(dim=(1, 2)) / scale
+    top2 = lr.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]) / scale[:, None]
+    clear = gap > bound[:, None]
+    same = lg.argmax(-1) == lr.argmax(-1)
+    for i in range(SEQ_STEPS):
+        print(f"  step {i}: sharded vs whole-cache logits max rel dev "
+              f"{float(rel[i]):.3e}, floor {float(floor[i]):.3e}, bound "
+              f"{float(bound[i]):.3e}; argmax equal "
+              f"{int(same[i].sum())} of {len(SEQ_POS)} "
+              f"({int(clear[i].sum())} past the bound)")
+    if bool((rel > bound).any()) or bool((clear & ~same).any()):
+        raise AssertionError("21(b): the sharded decode's logits leave the "
+                             "bound of the whole cache's")
+    ow, wf = refs["window"], refs["window_floor"]
+    wbound = 4 * wf + 1e-6
+    for r, o in enumerate(outs):
+        wrel = float((torch.from_numpy(o["window"]) - ow).abs().max()
+                     / ow.abs().max())
+        if wrel > wbound:
+            raise AssertionError(f"21(b) rank {r}: windowed flash_decode "
+                                 f"{wrel:.3e} from the whole cache's "
+                                 f"(bound {wbound:.3e})")
+    print(f"  window {SEQ_WINDOW}: flash_decode vs the whole cache's "
+          f"attention max rel dev {wrel:.3e} (floor {wf:.3e}, bound "
+          f"{wbound:.3e}); each rank's cache {outs[0]['cache_bytes']} B of "
+          f"{whole_bytes}, slices {[o['slice'][0] for o in outs]}, over "
+          f"{outs[0]['seq_axes']}; {1e3 * outs[0]['step_s']:.1f} ms a "
+          "sharded decode step")
+    report["ranks_seq"] = {
+        "rel": rel.tolist(), "floor": floor.tolist(),
+        "window_rel": wrel, "window_floor": wf,
+        "cache_bytes": outs[0]["cache_bytes"], "whole_bytes": whole_bytes,
+        "step_ms": [1e3 * o["step_s"] for o in outs]}
+
+
+# ---- 21(c): experts over ranks ---------------------------------------------
+def ep_block(arch: str, device, experts=None) -> dict:
+    """One MoE block of `arch` at full width, from seeds: the router and
+    the shared experts from seed 5, expert e's wi / wo from seeds 1000 + e
+    / 5000 + e, so a rank draws only its own experts (`experts`, default
+    all)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    m = get_config(arch).moe
+    defs = MOE.moe_def(m)
+    g = torch.Generator(device).manual_seed(5)
+    p = {k: torch.randn(d.shape, generator=g, device=device) * d.std
+         for k, d in sorted(defs.items()) if k not in ("wi", "wo")}
+    experts = range(m.n_experts) if experts is None else experts
+    for k, base in (("wi", 1000), ("wo", 5000)):
+        d = defs[k]
+        t = torch.empty((len(experts), *d.shape[1:]), device=device)
+        for j, e in enumerate(experts):
+            ge = torch.Generator(device).manual_seed(base + e)
+            t[j] = torch.randn(d.shape[1:], generator=ge,
+                               device=device) * d.std
+        p[k] = t
+    return p
+
+
+def ep_inputs(arch: str, device) -> dict:
+    """21(c)'s traffic: a decode batch (EP_SLOTS x 1) and a prefill chunk
+    (1 x EP_CHUNK) of hidden states from seed 9."""
+    import torch
+    from repro_torch.configs import get_config
+    d = get_config(arch).moe.d_model
+    g = torch.Generator(device).manual_seed(9)
+    return {"decode": torch.randn((EP_SLOTS, 1, d), generator=g,
+                                  device=device),
+            "chunk": torch.randn((1, EP_CHUNK, d), generator=g,
+                                 device=device)}
+
+
+def no_drop(m):
+    """The MoE config with a capacity that drops nothing (every token
+    fits every expert)."""
+    return dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k)
+
+
+def ep_refs(arch: str) -> dict:
+    """21(c)'s one-process side: `moe_ep_local` as one rank (capacity
+    1.25) and `moe_ref`, with float-order floors from the experts' d_ff
+    permuted (a reordering of the second product's sum that leaves the
+    routing alone), and the dropped assignments."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import moe as MOE
+    m = get_config(arch).moe
+    one = MeshShape(("data", "model"), (1, 1))
+    p = ep_block(arch, DEVICE)
+    xs = ep_inputs(arch, DEVICE)
+    g = torch.Generator().manual_seed(4)
+    perm = torch.randperm(m.d_ff, generator=g).to(DEVICE)
+    pp = dict(p, wi=p["wi"][..., perm], wo=p["wo"][:, perm])
+    if m.n_shared:
+        sp = torch.randperm(m.n_shared * m.d_ff, generator=g).to(DEVICE)
+        pp["shared_wi"] = p["shared_wi"][..., sp]
+        pp["shared_wo"] = p["shared_wo"][sp]
+    out = {"whole_bytes": sum(p[k].numel() * p[k].element_size()
+                              for k in ("wi", "wo"))}
+    with torch.inference_mode():
+        for kind, x in xs.items():
+            def ep(params):
+                return MOE.moe_ep_local(params, m, x, fsdp_axes=(),
+                                        mesh=one)
+            y1, y1p = ep(p), ep(pp)
+            yr, yrp = MOE.moe_ref(p, no_drop(m), x), \
+                MOE.moe_ref(pp, no_drop(m), x)
+            x2 = x.reshape(-1, m.d_model)
+            ids = MOE._route(p, m, x2)[1]
+            out[kind] = {
+                "one": y1.cpu(), "ref": yr.cpu(),
+                "one_floor": float((y1p - y1).abs().max() / y1.abs().max()),
+                "ref_floor": float((yrp - yr).abs().max() / yr.abs().max()),
+                "dropped": MOE.dropped_assignments(
+                    ids, m.n_experts, MOE.capacity_of(x2.shape[0], m)),
+                "assignments": ids.numel()}
+    del p, pp
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank(rank: int, world: int, device, mesh) -> dict:
+    """21(c) on one rank, each model after the other: its quarter of the
+    experts, then `_ffn_apply` under a live context for each traffic
+    kind: a2a False at capacity 1.25, both modes at a capacity that drops
+    nothing, a2a True at 1.25 (its drops printed)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.runtime import axis_index
+    from repro_torch.distributed.sharding import (SERVE_RULES,
+                                                  ep_param_specs,
+                                                  shard_local, use_sharding)
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    zero3 = dict(SERVE_RULES, batch=("pod", "data", "model"))
+    chosen = []
+    real = MOE.moe_ep_local
+
+    def spy(*a, **kw):
+        chosen.append(kw["a2a"])
+        return real(*a, **kw)
+
+    MOE.moe_ep_local = spy
+    out = {}
+    try:
+        for arch in EP_ARCHS:
+            cfg = get_config(arch)
+            m = cfg.moe
+            e_local = m.n_experts // world
+            first = axis_index("model", mesh) * e_local
+            whole = ep_block(arch, device, experts=range(0))
+            p = ep_block(arch, device, range(first, first + e_local))
+            specs = ep_param_specs(whole, ("data",))
+            for k in ("shared_wi", "shared_wo"):
+                if k in whole:
+                    p[k] = shard_local(whole[k], specs[k],
+                                       mesh).contiguous()
+            xs = ep_inputs(arch, device)
+            res = {"expert_bytes": sum(p[k].numel() * p[k].element_size()
+                                       for k in ("wi", "wo"))}
+            for kind, x in xs.items():
+                # a2a: the tokens over "model" (the chunk's 64 tokens as
+                # a batch: the FFN is position-wise)
+                xt = x.reshape(-1, 1, m.d_model)
+                lo = axis_index(("data", "model"), mesh) * (
+                    xt.shape[0] // world)
+                xl = xt[lo:lo + xt.shape[0] // world]
+                runs = {}
+                for name, mm, a2a in (("cap", m, False),
+                                      ("nodrop", no_drop(m), False),
+                                      ("nodrop_a2a", no_drop(m), True),
+                                      ("cap_a2a", m, True)):
+                    c = dataclasses.replace(cfg, moe=mm)
+                    rules, sizes, xin = ((zero3, {"batch": xt.shape[0]}, xl)
+                                         if a2a else (SERVE_RULES, {}, x))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with torch.inference_mode(), \
+                            use_sharding(mesh, rules, sizes):
+                        y = T._ffn_apply(p, c, xin)
+                    torch.cuda.synchronize()
+                    runs[name] = {"y": y.cpu().numpy(), "a2a": chosen[-1],
+                                  "ms": 1e3 * (time.perf_counter() - t0)}
+                x2 = xl.reshape(-1, m.d_model)
+                ids = MOE._route(p, m, x2)[1]
+                runs["cap_a2a"]["dropped"] = MOE.dropped_assignments(
+                    ids, m.n_experts, MOE.capacity_of(x2.shape[0], m))
+                res[kind] = runs
+            out[arch] = res
+            del p, whole
+            torch.cuda.empty_cache()
+    finally:
+        MOE.moe_ep_local = real
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def ep_check(arch: str, refs: dict, outs: list, report: dict) -> None:
+    """21(c)'s gates for one model."""
+    import torch
+    rows = {}
+    for r, o in enumerate(outs):
+        if o[arch]["expert_bytes"] * SEQ_RANKS != refs["whole_bytes"]:
+            raise AssertionError(f"21(c) {arch} rank {r}: "
+                                 f"{o[arch]['expert_bytes']} B of experts, "
+                                 f"not 1/{SEQ_RANKS} of "
+                                 f"{refs['whole_bytes']}")
+    for kind in ("decode", "chunk"):
+        ref = refs[kind]
+        runs = [{n: dict(v, y=torch.from_numpy(v["y"]))
+                 for n, v in o[arch][kind].items()} for o in outs]
+        for name in ("cap", "nodrop", "nodrop_a2a", "cap_a2a"):
+            a2a = name.endswith("a2a")
+            if any(rn[name]["a2a"] != a2a for rn in runs):
+                raise AssertionError(f"21(c) {arch} {kind} {name}: "
+                                     "_ffn_apply took the other dispatch")
+        # a2a False: every rank holds the whole output; a2a: its rows
+        shape = ref["one"].shape
+        got = {n: (torch.cat([rn[n]["y"] for rn in runs]).reshape(shape)
+                   if n.endswith("a2a") else runs[0][n]["y"])
+               for n in ("cap", "nodrop", "nodrop_a2a", "cap_a2a")}
+        for n in ("cap", "nodrop"):
+            for rn in runs[1:]:
+                if not torch.equal(rn[n]["y"], runs[0][n]["y"]):
+                    raise AssertionError(f"21(c) {arch} {kind} {n}: the "
+                                         "ranks' outputs differ")
+        checks = (("cap", "one", "one_floor"), ("nodrop", "ref", "ref_floor"),
+                  ("nodrop_a2a", "ref", "ref_floor"))
+        line = []
+        for n, want, fl in checks:
+            w = ref[want]
+            rel = float((got[n] - w).abs().max() / w.abs().max())
+            bound = 4 * ref[fl] + 1e-6
+            rows[f"{kind}_{n}"] = {"rel": rel, "floor": ref[fl]}
+            line.append(f"{n} vs {want} {rel:.3e} (bound {bound:.3e})")
+            if rel > bound or not bool(torch.isfinite(got[n]).all()):
+                raise AssertionError(f"21(c) {arch} {kind}: {n} {rel:.3e} "
+                                     f"from {want} (bound {bound:.3e})")
+        drops = sum(rn["cap_a2a"]["dropped"] for rn in runs)
+        ms = {n: max(rn[n]["ms"] for rn in runs)
+              for n in ("cap", "nodrop", "nodrop_a2a", "cap_a2a")}
+        rows[f"{kind}_dropped"] = {"one": ref["dropped"], "a2a": drops,
+                                   "assignments": ref["assignments"]}
+        rows[f"{kind}_ms"] = ms
+        print(f"  {arch} {kind} {tuple(shape)}: " + "; ".join(line)
+              + f"; dropped at 1.25: {ref['dropped']} of "
+              f"{ref['assignments']} assignments (a2a: {drops}); ms "
+              + ", ".join(f"{n} {v:.1f}" for n, v in ms.items()))
+    report.setdefault("ranks_ep", {})[arch] = rows
+
+
+def seq_ep_rank(rank: int, world: int, device) -> dict:
+    """21(b) then 21(c) on one rank of SEQ_RANKS (one group: each rank
+    reaches the card once)."""
+    rank_setup(device)
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(1, world, device.type)
+    t0 = time.perf_counter()
+    seq = seq_rank(rank, world, device, mesh)
+    torch.cuda.synchronize()
+    seq["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ep = ep_rank(rank, world, device, mesh)
+    ep["wall_s"] = time.perf_counter() - t0
+    return {"seq": seq, "ep": ep}
+
+
+def ranks_phase(report: dict) -> int:
+    """21: serving across ranks.  Returns 21(a)'s rosa_fused launches."""
+    import torch
+    from repro_torch.distributed import runtime
+
+    t_phase = time.perf_counter()
+    fused = slot_phase(report)
+    torch.cuda.empty_cache()
+
+    # 21(b) and (c): the one-process sides here, then one group of ranks
+    t0 = time.perf_counter()
+    cfg, bundle, params = seq_model(DEVICE)
+    digest = params_digest(params)
+    refs = seq_refs(cfg, bundle, params)
+    whole_bytes = 2 * cfg.n_layers * len(SEQ_POS) * SEQ_LEN \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    del params, bundle
+    torch.cuda.empty_cache()
+    ep = {arch: ep_refs(arch) for arch in EP_ARCHS}
+    refs_s = time.perf_counter() - t0
+    parent = torch.cuda.memory_allocated()
+    print(f"  21(b, c): {rank_layout(SEQ_RANKS)}; one-process sides "
+          f"{refs_s:.1f} s")
+    t0 = time.perf_counter()
+    outs = runtime.spawn(seq_ep_rank, SEQ_RANKS, device_type=DEVICE,
+                         backend=rank_backend(), timeout=RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    seqs = [o["seq"] for o in outs]
+    if any(s["params_digest"] != digest for s in seqs):
+        raise AssertionError("21(b): a rank's params differ from the "
+                             "parent's")
+    print(f"  21(b): qwen3-32b full width, {SEQ_LAYERS} layers, "
+          f"{len(SEQ_POS)} slots, a {SEQ_LEN}-position cache over "
+          f"{SEQ_RANKS} ranks, {SEQ_STEPS} decode steps from positions "
+          f"{SEQ_POS}")
+    seq_check(refs, seqs, whole_bytes, report)
+    print(f"  21(c): one MoE block at full width, experts over "
+          f"{SEQ_RANKS} ranks, through _ffn_apply")
+    for arch in EP_ARCHS:
+        ep_check(arch, ep[arch], [o["ep"] for o in outs], report)
+    peak_b = (max(s["peak_bytes"] for s in seqs) if RANK_CARDS else
+              sum(s["peak_bytes"] for s in seqs)) + parent
+    peak_c = (max(o["ep"]["peak_bytes"] for o in outs) if RANK_CARDS else
+              sum(o["ep"]["peak_bytes"] for o in outs)) + parent
+    walls = (max(s["wall_s"] for s in seqs),
+             max(o["ep"]["wall_s"] for o in outs))
+    print(f"  21(b) on the ranks {walls[0]:.1f} s, peak {peak_b / 2**30:.2f}"
+          f" GiB a card (ranks "
+          + ", ".join(f"{s['peak_bytes'] / 2**30:.2f}" for s in seqs)
+          + f"); 21(c) {walls[1]:.1f} s, peak {peak_c / 2**30:.2f} GiB a "
+          "card (ranks "
+          + ", ".join(f"{o['ep']['peak_bytes'] / 2**30:.2f}" for o in outs)
+          + f"); the parent {parent / 2**30:.2f} GiB; the group "
+          f"{wall:.1f} s")
+    if max(peak_b, peak_c) >= PEAK_GIB * 2**30:
+        raise AssertionError(f"21(b, c): peak {max(peak_b, peak_c) / 2**30:.1f}"
+                             " GiB")
+    report["ranks_seq_ep"] = {
+        "backend": rank_backend(), "ranks": SEQ_RANKS,
+        "one_card": not RANK_CARDS, "refs_s": refs_s, "group_s": wall,
+        "seq_s": walls[0], "ep_s": walls[1], "peak_gib_b": peak_b / 2**30,
+        "peak_gib_c": peak_c / 2**30,
+        "phase_s": time.perf_counter() - t_phase}
+    return fused
+
+
+# `--kernels`: the phases it runs alone, by name: (title, [(tag, phase)])
+PHASES = {
     "2": ("2: kernel parity against the plain versions",
           [("2 rosa_fused", fused_phase), ("2 osa_matmul", osa_phase)]),
     "6": ("6: ssd_scan parity against the plain version",
@@ -4221,7 +5003,9 @@ KERNEL_PHASES = {
             [("12a", mrr_bwd_phase)]),
     "19a": ("19(a): the ssd_scan backward against its plain version",
             [("19a", ssd_bwd_phase)]),
+    "21": ("21: serving across ranks", [("21", ranks_phase)]),
 }
+KERNEL_PHASES = ("2", "6", "8", "12a", "19a")   # `--kernels` alone
 
 
 def write_report(report: dict, t_start: float) -> int:
@@ -4236,13 +5020,20 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "CUDA card (all phases by default).")
+    ap.add_argument("--cards", action="store_true",
+                    help="phase 21 over nccl, one rank a card (the host "
+                    "must have 4 cards); default: gloo, the ranks sharing "
+                    "card 0")
     ap.add_argument("--kernels", nargs="*", metavar="PHASE",
-                    choices=KERNEL_PHASES,
+                    choices=PHASES,
                     help="build and run the kernel phases 2, 6, 8, "
                     "12a and 19a only (parity and times of all six "
-                    "kernels), or those named; prints no summary and no "
-                    "result line")
+                    "kernels), or those named (21 too, which runs "
+                    "phases 3-5 first for their tokens); prints no "
+                    "summary and no result line")
     opts = ap.parse_args(argv)
+    global RANK_CARDS
+    RANK_CARDS = opts.cards
     try:
         import torch
     except ImportError:
@@ -4325,7 +5116,7 @@ def run_phases(opts) -> int:
 
     if opts.kernels is not None:
         for name in opts.kernels or KERNEL_PHASES:
-            title, fns = KERNEL_PHASES[name]
+            title, fns = PHASES[name]
             print(f"phase {title}")
             for tag, fn in fns:
                 phase(tag, fn)
@@ -4369,6 +5160,9 @@ def run_phases(opts) -> int:
     print("phase 20: the dry run, one arch per family on the production "
           "meshes")
     phase("20", dryrun_phase)
+    print("phase 21: serving across ranks (slots, the KV cache's sequence, "
+          "experts)")
+    launches["rosa_fused"] += phase("21", ranks_phase)
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

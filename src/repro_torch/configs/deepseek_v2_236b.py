@@ -25,6 +25,7 @@ CONFIG = ModelConfig(
     moe=MoEConfig(n_experts=160, top_k=6, d_model=5120, d_ff=1536,
                   n_shared=2, capacity_factor=1.25),
     first_dense_ff=12288,
+    moe_ep=True,
 )
 
 SMOKE = ModelConfig(
@@ -41,4 +42,5 @@ SMOKE = ModelConfig(
     moe=MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=32, n_shared=1,
                   capacity_factor=2.0),
     first_dense_ff=128,
+    moe_ep=False,
 )

@@ -23,6 +23,7 @@ CONFIG = ModelConfig(
     rope_theta=1e6,
     moe=MoEConfig(n_experts=128, top_k=8, d_model=4096, d_ff=1536,
                   capacity_factor=1.25),
+    moe_ep=True,
 )
 
 SMOKE = ModelConfig(
@@ -37,4 +38,5 @@ SMOKE = ModelConfig(
     qk_norm=True,
     moe=MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=32,
                   capacity_factor=2.0),
+    moe_ep=False,
 )

@@ -1,4 +1,4 @@
 """Distribution layer of the port: the logical sharding rules
-(`sharding`: specs, DTensor placements on a DeviceMesh) and gradient
-compression.  Sharded execution, with collectives across cards, comes
-after them."""
+(`sharding`: specs, DTensor placements on a DeviceMesh, local shards
+under a live mesh), the ranks and their collectives over named mesh
+axes (`runtime`), and gradient compression."""

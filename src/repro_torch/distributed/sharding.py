@@ -26,7 +26,18 @@ a (mesh, spec) pair with those placements.
 The active (mesh, rules) pair is installed with `use_sharding(...)`;
 `shard_act` is a no-op outside any context, and inside one redistributes a
 DTensor to its resolved placements and returns a plain tensor as it is.
-No model call site uses it yet: sharded execution comes after the rules.
+
+Sharded execution works on LOCAL tensors, each rank's shard as a plain
+tensor (never a DTensor on the way into a kernel wrapper).  A context is
+live when its mesh is a `DeviceMesh` over a real process group
+(`live_mesh`); there `use_sharding(mesh, rules, sizes=)` names the global
+size of every logical dim the caller laid out sharded (`{"cache_seq":
+32768}`), and `local_spec` resolves a local tensor's spec on the global
+shape those sizes give, sharding only the declared dims: a local shape
+alone cannot tell a shard from a whole tensor.  `shard_local` cuts this
+rank's shard of a global tensor by a spec.  The expert-parallel MoE
+(`models.moe.moe_ep_local` from `transformer._ffn_apply`) and
+`models.layers.flash_decode` read it.
 
 The reference's `shard_map_compat` (a shim over the renames of jax's
 `shard_map`) has no counterpart.
@@ -110,6 +121,8 @@ _PRIORITY = ("cache_batch", "batch", "kv_heads", "heads", "experts",
 class ShardingCtx:
     mesh: Any
     rules: dict[str, tuple[str, ...]]
+    # global sizes of the logical dims laid out sharded on a live mesh
+    sizes: dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 _STACK: list[ShardingCtx] = []
@@ -120,12 +133,47 @@ def current_ctx() -> ShardingCtx | None:
 
 
 @contextlib.contextmanager
-def use_sharding(mesh, rules: dict[str, tuple[str, ...]]):
-    _STACK.append(ShardingCtx(mesh, rules))
+def use_sharding(mesh, rules: dict[str, tuple[str, ...]],
+                 sizes: dict[str, int] | None = None):
+    _STACK.append(ShardingCtx(mesh, rules, dict(sizes or {})))
     try:
         yield _STACK[-1]
     finally:
         _STACK.pop()
+
+
+def live_mesh(ctx: ShardingCtx | None = None):
+    """The active context's mesh when sharded execution can run on it: a
+    `DeviceMesh` over an open process group other than a "fake" one (the
+    dry run's); None otherwise (no context, a `MeshShape`, a fake
+    group)."""
+    ctx = current_ctx() if ctx is None else ctx
+    if ctx is None or getattr(ctx.mesh, "mesh_dim_names", None) is None:
+        return None
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_backend() == "fake":
+        return None
+    return ctx.mesh
+
+
+def local_spec(ctx: ShardingCtx, shape: tuple[int, ...],
+               axes: tuple[str | None, ...]) -> PartitionSpec:
+    """The spec of a LOCAL tensor under a live context: resolved on the
+    global shape (each dim named in `ctx.sizes` at its global size), with
+    only those dims sharded; every other dim is whole on every rank."""
+    glob = tuple(ctx.sizes.get(a, n) if a else n
+                 for n, a in zip(shape, axes))
+    spec = resolve_spec(glob, axes, ctx.rules, ctx.mesh)
+    parts = [p if i < len(axes) and axes[i] in ctx.sizes else None
+             for i, p in enumerate(spec)]
+    for i, p in enumerate(parts):
+        n = math.prod(mesh_axes(ctx.mesh)[a] for a in _group(p))
+        if shape[i] * n != glob[i]:
+            raise ValueError(f"local dim {i} ({axes[i]}) is {shape[i]}, "
+                             f"not {glob[i]} over {n} devices")
+    while parts and parts[-1] is None:
+        parts.pop()
+    return P(*parts)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +255,26 @@ def local_shape(shape: tuple[int, ...], spec: PartitionSpec,
                              f"over {part} ({n} devices)")
         out[i] //= n
     return tuple(out)
+
+
+def shard_local(t: torch.Tensor, spec: PartitionSpec,
+                mesh) -> torch.Tensor:
+    """This rank's shard of the global tensor `t` laid out by `spec` on the
+    live `mesh` (a view; `.contiguous()` it to hold only the shard): each
+    sharded dim cut to the block of the rank's index over its group."""
+    from repro_torch.distributed.runtime import axis_index
+    out = t
+    for i, part in enumerate(spec):
+        group = _group(part)
+        if not group:
+            continue
+        n = math.prod(mesh_axes(mesh)[a] for a in group)
+        if out.shape[i] % n:
+            raise ValueError(f"dim {i} of {tuple(t.shape)} does not divide "
+                             f"over {part} ({n} devices)")
+        size = out.shape[i] // n
+        out = out.narrow(i, axis_index(group, mesh) * size, size)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,10 @@ Multi-pod :  (2, 16, 16)   axes ("pod", "data", "model")  = 512 devices;
 (`distributed.sharding.resolve_spec`); `make_production_mesh` lays it over
 the default process group as a `DeviceMesh`, whose world size must be the
 mesh's device count: 256 or 512 processes, or one process of a "fake"
-group of that size (`launch.dryrun` opens one).
+group of that size (`launch.dryrun` opens one).  `make_test_mesh` lays a
+(data, model) mesh over a live group of `distributed.runtime` ranks, on
+"cpu" (gloo) or "cuda" (nccl, one card a rank, or gloo, the ranks sharing
+one card).
 """
 
 from __future__ import annotations

@@ -33,8 +33,16 @@
 `--smoke` takes the reduced CPU-sized config; `--n-layers` cuts the depth
 of the full-width config.  `--trace PATH` saves a Chrome trace of a
 stream policy's run (construction included), which `python -m
-repro_torch.obs summarize PATH` reads.  Runs on CUDA unless `--device
-cpu`.
+repro_torch.obs summarize PATH` reads (with `--devices N`, rank 0's).
+Runs on CUDA unless `--device cpu`.
+
+`--devices N` (stream policies) shards the slots over N ranks, one
+process each (`distributed.runtime.spawn`), on a (N, 1) mesh: with
+`--device cuda` over nccl, one card a rank (refused when fewer than N
+cards are visible), with `--device cpu` over gloo.  Every rank serves
+the same requests; rank 0 prints.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --devices 2
 """
 
 from __future__ import annotations
@@ -165,18 +173,60 @@ def run_batch(args) -> dict:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.policy == "batch":
+        if args.devices > 1:
+            raise SystemExit("--policy batch runs on one device; --devices "
+                             "> 1 shards the stream policies' slots")
         run_batch(args)
         return
     if args.devices > 1:
-        raise SystemExit("--devices > 1: slot-sharded serving is not ported "
-                         "to repro_torch yet (one device only)")
+        run_ranks(args)
+        return
+    run_stream(args)
+
+
+def run_ranks(args) -> None:
+    """`--devices N`: the stream policy on N ranks, slots sharded."""
+    from repro_torch.distributed import runtime
+    from repro_torch.launch import serve as this      # importable by name
+
+    device = cli_device(args.device)
+    device_type = torch.device(device).type
+    backend = "nccl" if device_type == "cuda" else "gloo"
+    if device_type == "cuda":
+        n = torch.cuda.device_count()
+        if n < args.devices:
+            raise SystemExit(f"--devices {args.devices} over nccl needs "
+                             f"{args.devices} cards, one a rank; {n} "
+                             "visible")
+        if args.rosa:
+            # every kernel built once, here, before any rank loads one
+            from repro_torch import kernels
+            kernels.build_all()
+    runtime.spawn(this.serve_rank, args.devices, device_type=device_type,
+                  backend=backend, args=(args,), timeout=3600.0)
+
+
+def serve_rank(rank: int, world: int, device, args) -> None:
+    """One rank of `--devices N`: the stream on a (N, 1) mesh."""
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(world, 1, device.type)
+    run_stream(args, device=str(device), mesh=mesh, rank=rank)
+
+
+def run_stream(args, device: str | None = None, mesh=None,
+               rank: int = 0) -> None:
+    """A stream policy (continuous or oneshot) on `device` (default
+    `--device`), slots sharded over `mesh` when given; rank 0 prints and
+    traces."""
     from repro_torch.core.constants import ROSA_OPTIMAL
     from repro_torch.serve import (Scheduler, ServeConfig, poisson_requests,
                                    report_metrics)
 
+    device = args.device if device is None else device
+    say = print if rank == 0 else (lambda *a, **k: None)
     tracer = None
     ctx = contextlib.nullcontext()
-    if args.trace:
+    if args.trace and rank == 0:
         from repro_torch import obs
         obs.install_kernel_hooks()
         tracer = obs.Tracer()
@@ -191,16 +241,19 @@ def main(argv=None) -> None:
                        rosa=args.rosa, rosa_backend=args.rosa_backend,
                        variation_seed=args.variation_seed)
     with ctx:
-        sched = Scheduler(cfg, scfg, init_seed=args.seed, device=args.device)
-        print(f"arch={cfg.name} layers={cfg.n_layers} "
-              f"params={sched.bundle.n_params:,} slots={scfg.n_slots} "
-              f"max_len={scfg.max_len} chunk={scfg.prefill_chunk} "
-              f"policy={args.policy} device={args.device}"
-              + (f" rosa backend={args.rosa_backend}" if args.rosa else ""))
+        sched = Scheduler(cfg, scfg, init_seed=args.seed, device=device,
+                          mesh=mesh)
+        say(f"arch={cfg.name} layers={cfg.n_layers} "
+            f"params={sched.bundle.n_params:,} slots={scfg.n_slots} "
+            f"max_len={scfg.max_len} chunk={scfg.prefill_chunk} "
+            f"policy={args.policy} device={device}"
+            + (f" ranks={args.devices} x {sched.n_local} slots"
+               if mesh is not None else "")
+            + (f" rosa backend={args.rosa_backend}" if args.rosa else ""))
         if sched.program is not None:
             plan = {n: m.name for n, m in sched.program.plan.mapping_plan()
                     .items()}
-            print(f"  plan {plan}")
+            say(f"  plan {plan}")
         reqs = poisson_requests(args.requests, args.rate, vocab=cfg.vocab,
                                 prompt_len=tuple(args.prompt_range),
                                 gen_len=tuple(args.gen_range),
@@ -209,19 +262,20 @@ def main(argv=None) -> None:
 
     if tracer is not None:
         tracer.save(args.trace)
-        print(f"trace: {len(tracer)} events -> {args.trace} "
-              f"(load in https://ui.perfetto.dev, or summarize with "
-              f"`python -m repro_torch.obs summarize {args.trace}`)")
+        say(f"trace: {len(tracer)} events -> {args.trace} "
+            f"(load in https://ui.perfetto.dev, or summarize with "
+            f"`python -m repro_torch.obs summarize {args.trace}`)")
+    # computed on every rank (each served every request), printed by 0
     for m in report_metrics(rep):
         v = f"{m.value:.4g}" if isinstance(m.value, float) else m.value
-        print(f"  {m.name:24s} {v} {m.unit}")
-    print(f"  {'ticks':24s} {rep.ticks} ticks")
+        say(f"  {m.name:24s} {v} {m.unit}")
+    say(f"  {'ticks':24s} {rep.ticks} ticks")
     if sched.engine is not None and sched.engine.ledger is not None:
         e = sched.engine.ledger.per_token(ROSA_OPTIMAL, batch=scfg.n_slots)
-        print(f"  {'energy_per_token':24s} {e:.4g} J (ledger)")
+        say(f"  {'energy_per_token':24s} {e:.4g} J (ledger)")
     for c in sorted(rep.completions.values(), key=lambda c: c.rid)[:3]:
-        print(f"  rid={c.rid} prompt={c.prompt_len} "
-              f"tokens={c.tokens[:8]}{'...' if len(c.tokens) > 8 else ''}")
+        say(f"  rid={c.rid} prompt={c.prompt_len} "
+            f"tokens={c.tokens[:8]}{'...' if len(c.tokens) > 8 else ''}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Shared transformer building blocks (PyTorch port of
-`repro.models.layers` without `flash_decode`).
+`repro.models.layers`).
 
 Every block is a pair: `<block>_def(cfg)` gives the ParamDef skeleton,
 `<block>_apply(params, ...)` the activations.  Layouts are the reference's:
@@ -10,8 +10,12 @@ an encoder memory, no RoPE, masked by the memory's positions only).
 
 Caches are updated in place (the reference donates them to its jitted
 steps); writes past the cache's end are dropped, as the reference's
-scatter drops them.  `flash_decode` (the sequence-sharded decode) waits
-for a later slice: decode attention here is the plain single-device path.
+scatter drops them.  Under a live sharding context whose cache sequence is
+sharded (`distributed.sharding.use_sharding(mesh, rules, sizes=
+{"cache_seq": S})`), each rank holds its slice of the KV cache: a decode
+step writes a position only on the rank whose slice holds it, and
+`flash_decode` combines the ranks' partial softmax statistics over the
+sequence axes (`FLASH_DECODES` counts its calls).
 """
 
 from __future__ import annotations
@@ -134,23 +138,27 @@ def attn_def(cfg: AttnConfig) -> dict:
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
-                uniform: bool = False) -> torch.Tensor:
+                uniform: bool = False, offset: int = 0) -> torch.Tensor:
     """Write `new` (B, C, ...) into `cache` (B, S, ...) at pos[b] + [0, C),
-    in place; tokens at positions >= S are dropped.  Returns `cache`.
+    in place; tokens at positions outside [offset, offset + S) are
+    dropped.  Returns `cache`.  `offset` is the first global position of a
+    rank's slice of a sequence-sharded cache (0 for a whole cache).
 
     One token column at a time: each step writes one position per row,
     clamped into range and re-writing the old value where the position is
     out of range, so no step has duplicate indices and nothing syncs with
-    the host.  (`uniform`, the reference's all-rows-equal fast path for a
-    sequence-sharded cache, needs no path of its own here.)"""
+    the host.  The lower bound matters on a slice: a negative column
+    would wrap to the slice's end.  (`uniform`, the reference's
+    all-rows-equal fast path for a sequence-sharded cache, needs no path
+    of its own here.)"""
     b, c = new.shape[:2]
     s = cache.shape[1]
     new = new.to(cache.dtype)
     rows = torch.arange(b, device=cache.device)
     for j in range(c):
-        col = pos + j
-        ok = (col < s).reshape(b, *([1] * (cache.ndim - 2)))
-        colc = torch.clamp(col, max=s - 1)
+        col = pos + (j - offset)
+        ok = ((col >= 0) & (col < s)).reshape(b, *([1] * (cache.ndim - 2)))
+        colc = torch.clamp(col, 0, s - 1)
         cache[rows, colc] = torch.where(ok, new[:, j], cache[rows, colc])
     return cache
 
@@ -233,6 +241,69 @@ def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
 
 
+KV_AXES = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+FLASH_DECODES = {"calls": 0}     # flash_decode's sharded decodes, counted
+
+
+def seq_shard(kc: torch.Tensor):
+    """(sequence mesh axes, first global position of this rank's slice) of
+    a local KV cache (B, S_local, KV, D) under a live context whose
+    `cache_seq` is sharded; None for a whole cache (no live context, or
+    the sequence resolves to no mesh axis)."""
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import (current_ctx, live_mesh,
+                                                  local_spec)
+    ctx = current_ctx()
+    if live_mesh(ctx) is None:
+        return None
+    spec = local_spec(ctx, tuple(kc.shape), KV_AXES)
+    part = spec[1] if len(spec) > 1 else None
+    if part is None:
+        return None
+    axes = (part,) if isinstance(part, str) else tuple(part)
+    return axes, runtime.axis_index(axes, ctx.mesh) * kc.shape[1]
+
+
+def flash_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 pos: torch.Tensor, window, n_heads: int):
+    """Decode attention over a sequence-sharded KV cache (the reference's
+    `flash_decode`, its `shard_map` body on this rank's tensors).
+
+    Each rank takes its slice's partial max, sum of exponentials and
+    value sum, at the slice's global key positions; `pmax` / `psum` over
+    the sequence axes combine them, moving only (B, H) statistics and the
+    (B, 1, H, D) partial output.  q: (B, 1, H, D), whole on every rank;
+    kc / vc: (B, S_local, KV, D), this rank's slice; pos: (B,).  Returns
+    None without a live context or when the cache's sequence is not
+    sharded (the caller then attends over its whole cache)."""
+    from repro_torch.distributed import runtime
+    shard = seq_shard(kc)
+    if shard is None:
+        return None
+    axes, start = shard
+    FLASH_DECODES["calls"] += 1
+    b, s_loc = kc.shape[:2]
+    k_pos = (start + torch.arange(s_loc, device=kc.device))[None, :] \
+        .expand(b, s_loc)
+    bias = _mask_bias(pos[:, None], k_pos, True, window,
+                      k_len_valid=(pos + 1)[:, None])
+    # each KV head serves its group of query heads in place: the grouped
+    # products are _repeat_kv's, without an (S, H, D) copy of the slice
+    kv, d = kc.shape[2:]
+    qg = q.reshape(b, 1, kv, n_heads // kv, d)
+    scale = d ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.to(q.dtype)).reshape(
+        b, n_heads, 1, s_loc).float() * scale + bias[:, None]
+    m = runtime.pmax(torch.amax(s, dim=-1), axes)            # (B, H, 1)
+    p_ = torch.exp(s - m[..., None])
+    denom = runtime.psum(torch.sum(p_, -1), axes)
+    o = torch.einsum("bkgqs,bskd->bqkgd",
+                     p_.to(q.dtype).reshape(b, kv, n_heads // kv, 1, s_loc),
+                     vc.to(q.dtype)).reshape(b, 1, n_heads, d)
+    o = runtime.psum(o, axes)
+    return o / denom.transpose(1, 2)[..., None].to(o.dtype)
+
+
 def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,
                 pos: torch.Tensor, *, window=0, theta=None,
                 memory_pos: torch.Tensor | None = None):
@@ -260,6 +331,18 @@ def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,
         k_new = rmsnorm(p["k_norm"], k_new)
     k_new = rope(k_new, q_pos, theta)
     kc, vc = cache
+    shard = seq_shard(kc)
+    if shard is not None:
+        # this rank's slice of a sequence-sharded cache: write only the
+        # positions it holds, then combine the ranks' attention
+        if c != 1:
+            raise NotImplementedError(
+                "a prefill chunk on a sequence-sharded KV cache: "
+                "flash_decode covers the one-token decode step")
+        cache_write(kc, k_new, pos, cfg.uniform_decode, offset=shard[1])
+        cache_write(vc, v_new, pos, cfg.uniform_decode, offset=shard[1])
+        o = flash_decode(q, kc, vc, pos, window, cfg.n_heads)
+        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (kc, vc)
     kc = cache_write(kc, k_new, pos, cfg.uniform_decode)
     vc = cache_write(vc, v_new, pos, cfg.uniform_decode)
     s = kc.shape[1]

@@ -1,6 +1,6 @@
 """Model stacks of the dense, moe, mla_moe, ssm, hybrid and encdec
-families (PyTorch port of `repro.models.transformer` without its sharding
-hooks and expert-parallel path).
+families (PyTorch port of `repro.models.transformer`; of its sharding
+hooks, the expert-parallel MoE under a live mesh).
 
 Parameters keep the reference's stacked layout (a leading `layers` axis on
 every block leaf); the reference's `scan` over layers becomes a Python loop
@@ -9,7 +9,10 @@ that passes the layer index as `step`.  deepseek-v2's dense first layer
 the reference: its FFN is dense (width `first_dense_ff`, through the
 optical engine under `rosa_mlp`) and its noise key folds step 0, while the
 stacked layers keep their indices 1..n-1.  MoE FFNs are plain: like the
-reference, the moe block ignores `rosa_mlp`.
+reference, the moe block ignores `rosa_mlp`.  With `moe_ep` and a live
+sharding context (`distributed.sharding.live_mesh`) the MoE FFN runs the
+expert-parallel `moe.moe_ep_local` on the rank's local shards, with the
+reference's choice of dispatch and FSDP axes; otherwise `moe_ref`.
 
 zamba2 (`hybrid`) stacks its Mamba-2 layers as `groups` (n_groups,
 shared_every, ...) plus an unstacked remainder `tail`, and applies ONE
@@ -81,6 +84,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     remat: str = "full"          # full | dots | none: what the train-time
     #                              backward recomputes (memory, not numbers)
+    moe_ep: bool = False         # expert-parallel MoE under a live mesh
     rosa_mlp: bool = False       # route MLP projections through the ROSA MAC
     cache_dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
@@ -156,9 +160,34 @@ def _ffn_def(cfg: ModelConfig) -> dict:
     return L.mlp_def(cfg.d_model, cfg.d_ff)
 
 
+def ep_choice(cfg: ModelConfig, ctx, x_shape: tuple[int, ...]
+              ) -> tuple[tuple[str, ...], bool]:
+    """The reference's (fsdp_axes, a2a) of the expert-parallel FFN under
+    `ctx`: FSDP over the mesh axes of the "embed" rule, dropped where they
+    do not divide d_model; all-to-all dispatch when the tokens' batch
+    resolves over "model" (a ZeRO-3-style layout).  `x_shape` is the
+    local activation's; its batch's global size comes from `ctx.sizes`."""
+    import math
+    from repro_torch.distributed.sharding import local_spec, mesh_axes
+    sizes = mesh_axes(ctx.mesh)
+    x_spec = local_spec(ctx, x_shape, ("batch", None, None))
+    fsdp = tuple(a for a in (ctx.rules.get("embed") or ()) if a in sizes)
+    if fsdp and cfg.moe.d_model % math.prod(sizes[a] for a in fsdp):
+        fsdp = ()
+    bp = x_spec[0] if len(x_spec) else None
+    return fsdp, "model" in (bp if isinstance(bp, tuple) else (bp,))
+
+
 def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                step: int = 0) -> torch.Tensor:
     if cfg.moe is not None:
+        from repro_torch.distributed.sharding import current_ctx, live_mesh
+        ctx = current_ctx()
+        if cfg.moe_ep and live_mesh(ctx) is not None:
+            # the rank's local shards, laid out by `ep_param_specs`
+            fsdp, a2a = ep_choice(cfg, ctx, tuple(x.shape))
+            return MOE.moe_ep_local(p, cfg.moe, x, model_axis="model",
+                                    fsdp_axes=fsdp, a2a=a2a)
         return MOE.moe_ref(p, cfg.moe, x)
     if cfg.rosa_mlp:
         # the installed engine (a compiled rosa.Program installs its own)

@@ -1,5 +1,5 @@
 """Serving steps: continuous-batch decode + chunked prefill (PyTorch port of
-`repro.serve.decode`, single device).
+`repro.serve.decode`).
 
 The decode state (slot cache + per-slot bookkeeping) lives on the device
 and every step updates it in place, where the reference donates it to its
@@ -12,6 +12,15 @@ Sampling is scheduling-invariant: a request's i-th token is drawn with a
 generator seeded from (seed, request id, i), so continuous batching,
 one-shot batching and the sequential oracle draw identical samples.  At
 temperature 0 the token is the argmax.  The draws are not the reference's.
+
+Slots over ranks (`make_serve_step(mesh=)`, the reference's slot-sharded
+`shard_map`): each rank of the mesh holds n_slots / d slots of the state,
+slot `offset + i` its local row i (`slot_layout`), with the params whole
+on every rank.  Every rank is handed the same admit payload and turns it
+into a local write or a no-op; the step's outputs are all-gathered along
+the slot axis, so every rank's host loop sees the whole batch.  A local
+row draws with its request's (seed, rid, tidx) generator, the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -41,9 +50,11 @@ class DecodeState:
     seed: int               # base sampling seed
 
 
-def init_state(cfg: T.ModelConfig, scfg: ServeConfig,
-               device=None) -> DecodeState:
-    s = scfg.n_slots
+def init_state(cfg: T.ModelConfig, scfg: ServeConfig, device=None,
+               n_slots: int | None = None) -> DecodeState:
+    """The empty state of `n_slots` slots (default: all of scfg's; a rank
+    of a slot-sharded step holds its local ones)."""
+    s = scfg.n_slots if n_slots is None else n_slots
     z = lambda dt=torch.int32: torch.zeros((s,), dtype=dt, device=device)
     return DecodeState(cache=T.init_cache(cfg, s, scfg.max_len, device),
                        tok=z(), rid=z(), tidx=z(), budget=z(),
@@ -99,11 +110,39 @@ def _sample_rows(seed: int, rid: torch.Tensor, tidx: torch.Tensor,
 # ---------------------------------------------------------------------------
 # The serving step
 # ---------------------------------------------------------------------------
+def slot_layout(scfg: ServeConfig, mesh=None) -> tuple[int, int, tuple]:
+    """(local slots, first global slot, mesh axes) of this rank when the
+    slots shard over every axis of `mesh` in order; (n_slots, 0, ()) with
+    no mesh.  Refuses a mesh whose device count does not divide
+    n_slots, as the reference does."""
+    if mesh is None:
+        return scfg.n_slots, 0, ()
+    import math
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import mesh_axes
+    sizes = mesh_axes(mesh)
+    d = math.prod(sizes.values())
+    if scfg.n_slots % d:
+        raise ValueError(f"n_slots={scfg.n_slots} not divisible by "
+                         f"mesh size {d}")
+    axes = tuple(sizes)
+    n_local = scfg.n_slots // d
+    return n_local, runtime.axis_index(axes, mesh) * n_local, axes
+
+
+def _local_slot(state: DecodeState, slot: int, offset: int) -> int | None:
+    """The local row of global slot `slot`, or None on another rank."""
+    s = slot - offset
+    return s if 0 <= s < state.tok.shape[0] else None
+
+
 def _apply_admission(cfg: T.ModelConfig, state: DecodeState,
-                     admit: dict) -> DecodeState:
-    """Refill one slot in place; a no-op when nothing is admitted."""
-    if admit["valid"]:
-        s = admit["slot"]
+                     admit: dict, slot_offset: int = 0) -> DecodeState:
+    """Refill one slot in place; a no-op when nothing is admitted or the
+    slot lives on another rank (`slot_offset` localizes its index)."""
+    s = _local_slot(state, admit["slot"], slot_offset) \
+        if admit["valid"] else None
+    if s is not None:
         write_slot(cfg, state.cache, admit["cache"], s)
         # fill_ takes the host scalar as a kernel argument; item
         # assignment would copy it from host memory and sync the stream
@@ -121,13 +160,15 @@ def _bind(program, fn):
 
 
 def _step_body(bundle: ModelBundle, scfg: ServeConfig, params,
-               state: DecodeState, admit: dict, temperature: float
-               ) -> tuple[DecodeState, dict]:
+               state: DecodeState, admit: dict, temperature: float,
+               slot_offset: int = 0) -> tuple[DecodeState, dict]:
     """One decode token for every slot (inactive rows compute masked
     garbage; their cache rows never influence active rows), with the
     admission riding in front.  The serving step and the drift step
-    (`serve.adaptive.make_drift_step`) both run it."""
-    state = _apply_admission(bundle.cfg, state, admit)
+    (`serve.adaptive.make_drift_step`) both run it; a rank of the
+    slot-sharded step runs it on its local slots, from global slot
+    `slot_offset`."""
+    state = _apply_admission(bundle.cfg, state, admit, slot_offset)
     cache = state.cache
     logits, stepped = bundle.decode_step(
         params, {"token": state.tok, "pos": cache["pos"], "cache": cache})
@@ -155,28 +196,65 @@ def _write_back(cache: dict, stepped: dict) -> dict:
     return cache
 
 
-def make_serve_step(bundle: ModelBundle, scfg: ServeConfig, program=None):
-    """-> step(params, state, admit, temperature) -> (state, out)."""
+def _gather_out(out: dict, axes: tuple, mesh) -> dict:
+    """A rank's step outputs all-gathered along the slot axis: the int
+    and bool vectors in one int32 collective, the logits in another."""
+    from repro_torch.distributed import runtime
+    keys = ("token", "emitted", "done", "pos")
+    packed = torch.stack([out[k].to(torch.int32) for k in keys], 1)
+    packed = runtime.all_gather(packed, axes, axis=0, tiled=True, mesh=mesh)
+    full = {k: packed[:, i].to(out[k].dtype) for i, k in enumerate(keys)}
+    if "logits" in out:
+        full["logits"] = runtime.all_gather(out["logits"], axes, axis=0,
+                                            tiled=True, mesh=mesh)
+    return full
 
-    def step(params, state: DecodeState, admit: dict, temperature: float):
-        return _step_body(bundle, scfg, params, state, admit, temperature)
 
-    return _bind(program, step)
+def make_serve_step(bundle: ModelBundle, scfg: ServeConfig, mesh=None,
+                    program=None):
+    """-> step(params, state, admit, temperature) -> (state, out).  With
+    `mesh` (a live `DeviceMesh` whose device count divides n_slots) each
+    rank steps its own n_slots / d slots (`slot_layout`) and `out` holds
+    every slot's row, gathered from the ranks."""
+    if mesh is None:
+        def step(params, state: DecodeState, admit: dict,
+                 temperature: float):
+            return _step_body(bundle, scfg, params, state, admit,
+                              temperature)
+
+        return _bind(program, step)
+
+    _, offset, axes = slot_layout(scfg, mesh)
+
+    def sharded(params, state: DecodeState, admit: dict, temperature: float):
+        state, out = _step_body(bundle, scfg, params, state, admit,
+                                temperature, offset)
+        return state, _gather_out(out, axes, mesh)
+
+    return _bind(program, sharded)
 
 
-def make_admit_step(bundle: ModelBundle, scfg: ServeConfig, program=None):
+def make_admit_step(bundle: ModelBundle, scfg: ServeConfig, program=None,
+                    mesh=None):
     """-> admit(state, payload) -> state: admission without a decode step
-    (the one-shot policy forms its batch with it)."""
+    (the one-shot policy forms its batch with it); on a rank of `mesh`,
+    a no-op unless the slot is local."""
+    offset = slot_layout(scfg, mesh)[1]
     return _bind(program, lambda state, payload: _apply_admission(
-        bundle.cfg, state, payload))
+        bundle.cfg, state, payload, offset))
 
 
-def make_evict(bundle: ModelBundle, scfg: ServeConfig, program=None):
-    """-> evict(state, slot) -> state with that slot's cache zeroed."""
+def make_evict(bundle: ModelBundle, scfg: ServeConfig, program=None,
+               mesh=None):
+    """-> evict(state, slot) -> state with that slot's cache zeroed (on a
+    rank of `mesh`, only where the slot is local)."""
+    offset = slot_layout(scfg, mesh)[1]
 
     def evict(state: DecodeState, slot: int) -> DecodeState:
-        evict_slot(bundle.cfg, state.cache, slot)
-        state.active[slot].fill_(False)
+        s = _local_slot(state, slot, offset)
+        if s is not None:
+            evict_slot(bundle.cfg, state.cache, s)
+            state.active[s].fill_(False)
         return state
 
     return _bind(program, evict)

@@ -17,6 +17,12 @@ path, each request decoded alone in a slot-wide batch, same sampling
 seeds) is the per-request oracle the scheduler is held against.  A
 `TickHook` extends the loop per tick (the drift-adaptive controller of
 `serve.adaptive` is one).
+
+With `mesh` (a live `DeviceMesh`, one process a rank) the decode state is
+slot-sharded (`decode.make_serve_step(mesh=)`): every rank runs this same
+host loop on the same requests, prefills every request itself on its
+whole params, and decides admission, eviction and completions from the
+step's gathered outputs, so every rank's report is the same.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from repro_torch.serve.decode import (PrefillTask, init_state, make_admit,
                                       make_admit_step, make_chunk_fn,
                                       make_evict, make_serve_step,
                                       make_whole_fn, null_admit,
-                                      sample_token)
+                                      sample_token, slot_layout)
 
 
 @dataclasses.dataclass
@@ -198,12 +204,13 @@ class Scheduler:
     energy ledger) and every step is built from it.  `chip` pins the given
     `{name: StaticVariation}` instead of sampling one from
     `scfg.variation_seed`; `engine` serves under a caller's engine, plan
-    as-is.  Everything runs on `device`."""
+    as-is.  Everything runs on `device`; with `mesh` the slots shard over
+    its ranks (each constructs its own Scheduler on its own device)."""
 
     def __init__(self, model_cfg, scfg: ServeConfig, params=None,
                  init_seed: int = 0, chip=None,
                  device: str | torch.device = "cuda", engine=None,
-                 plan_cache=None):
+                 plan_cache=None, mesh=None):
         self.device = torch.device(device)
         self.cfg = serving_model_config(model_cfg, rosa=scfg.rosa)
         self.scfg = scfg
@@ -220,13 +227,16 @@ class Scheduler:
             gen = torch.Generator(self.device).manual_seed(init_seed)
             params = self.bundle.init(gen, device=self.device)
         self.params = _to_device(params, self.device)
-        self.step = make_serve_step(self.bundle, scfg, program=self.program)
+        self.mesh = mesh
+        self.n_local = slot_layout(scfg, mesh)[0]
+        self.step = make_serve_step(self.bundle, scfg, mesh=mesh,
+                                    program=self.program)
         self.admit_step = make_admit_step(self.bundle, scfg,
-                                          program=self.program)
+                                          program=self.program, mesh=mesh)
         self.chunk_fn = make_chunk_fn(self.bundle, program=self.program)
         self.whole_fn = make_whole_fn(self.bundle, program=self.program)
-        self.evict = make_evict(self.bundle, scfg, program=self.program) \
-            if scfg.evict_on_done else None
+        self.evict = make_evict(self.bundle, scfg, program=self.program,
+                                mesh=mesh) if scfg.evict_on_done else None
 
     def _scope(self, tag: str):
         return _ledger_scope(self.engine, tag)
@@ -270,7 +280,7 @@ class Scheduler:
         heapq.heapify(free)
         slot_rid: list[int | None] = [None] * n_slots
         n_done = 0
-        state = init_state(self.cfg, scfg, self.device)
+        state = init_state(self.cfg, scfg, self.device, self.n_local)
         rep = ServeReport(policy=policy, completions=completions,
                           n_slots=n_slots)
         tick = 0

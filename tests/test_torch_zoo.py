@@ -28,8 +28,9 @@ from repro_torch.models.transformer import PORTED_FAMILIES
 from test_torch_ref import reference
 
 # ModelConfig fields of the reference that only steer XLA layout (the
-# port carries `remat`, its train-time recomputation policy)
-XLA_ONLY = {"parallelism", "moe_ep"}
+# port carries `remat`, its train-time recomputation policy, and
+# `moe_ep`, its expert-parallel MoE under a live mesh)
+XLA_ONLY = {"parallelism"}
 # metadata only until slice 11 (the dense configs and the vision frontend)
 NEW_ARCHS = ["deepseek-67b", "gemma3-12b", "mistral-large-123b",
              "phi-3-vision-4.2b"]
