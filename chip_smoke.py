@@ -6,7 +6,8 @@
                                      # (no result line)
     python3 chip_smoke.py --kernels 19a 21   # build, then those phases
                                      # alone (21 runs phases 3-5 first)
-    python3 chip_smoke.py --cards    # phase 21 over nccl, one rank a card
+    python3 chip_smoke.py --kernels 22   # build, phase 17(b), phase 22
+    python3 chip_smoke.py --cards    # phases 21-22 over nccl, one rank a card
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -182,7 +183,8 @@ Phases (any failure raises, so the exit code is non-zero):
      rosa_fused must launch exactly 2 x layers x (decode steps + prefill
      chunks) times and nothing else launch; continuous batching must give
      the sequential oracle's greedy tokens; the peak stays under 70 GiB.
-     (a) gemma3-12b at full depth (48 layers, 1.18e10 params), max_len
+     (a) gemma3-12b at 6 of 48 layers (5 local, 1 global; cut from
+     full depth to make room for phase 22; 2.4e9 params), max_len
      1200, 64-token prefill chunks, plus one 1100-token prompt past the
      1024-token window of its 40 local layers: lifting the window must
      move that prompt's prefill logits (a whole prefill each way, the
@@ -193,7 +195,9 @@ Phases (any failure raises, so the exit code is non-zero):
      of the ref's top; (b)
      deepseek-67b and mistral-large-123b cut to 4 layers (4.4e9 / 6.3e9
      params), phase 3's traffic, the same checks as (a); (c)
-     phi-3-vision-4.2b at full depth (32 layers, 3.8e9 params): first
+     phi-3-vision-4.2b at 16 of 32 layers (cut for phase 22; 2.0e9
+     params):
+     first
      through `--policy batch` (batch 4, 32 prompt tokens, 16 zero patch
      embeddings, 16 generated; greedy and at 0.7) launching no kernel,
      the self K/V 16 + 32 + 17 long after `pad_cache`, non-zero patches
@@ -203,15 +207,16 @@ Phases (any failure raises, so the exit code is non-zero):
      then served text-only through the Scheduler as (b).  tokens/s,
      ticks, peak GiB and set-up seconds are printed;
  17. the LM training path, qwen3-32b at full width, random weights from
-     seed 0: (a) `python -m repro_torch.launch.train --n-layers 4 --steps
+     seed 0 (2 of 64 layers, cut from 4 for phase 22; 22(a) reads
+     17(b)): (a) `python -m repro_torch.launch.train --n-layers 2 --steps
      10 --batch 8 --seq 256 --warmup 2` in-process (plain MLPs, as the
      reference's CLI configures it; no checkpoint written), each step's
      loss, |g| and wall, tokens/s after one warm-up step, peak GiB: every
      loss and |g| finite, peak under 70 GiB, no kernel launched; (b)
      `make_train_step` on the same model with `rosa_mlp` and the "fused"
      backend (IDEAL noise, WS, no chip) for 2 steps on the CLI's batches:
-     rosa_fused exactly 2 projections x (forward + remat recompute) x 4
-     layers x 2 steps = 32 times and nothing else; the same steps with
+     rosa_fused exactly 2 projections x (forward + remat recompute) x 2
+     layers x 2 steps = 16 times and nothing else; the same steps with
      the "ref" backend launch nothing, and the fused losses and the first
      step's gradients agree with them within 4x a float-order floor
      (phase 14's rule: each optical product's reduction axis permuted,
@@ -281,7 +286,9 @@ Phases (any failure raises, so the exit code is non-zero):
  20. the dry run (`repro_torch.launch.dryrun`, on the CPU beside the
      card): (a) `run_cell` of one arch per family on both production
      meshes — qwen3-32b and deepseek-v2-236b train_4k, mamba2-1.3b
-     prefill_32k, zamba2-1.2b long_500k, seamless-m4t-medium and
+     decode_32k (not prefill_32k: its trace took 92 s), zamba2-1.2b
+     long_500k,
+     seamless-m4t-medium and
      phi-3-vision-4.2b decode_32k — each over a "fake" process group of
      256 / 512 ranks, its arguments meta DTensors and its step traced on
      meta tensors: every record "ok" with FLOPs; (b) rank 0's local
@@ -324,6 +331,41 @@ Phases (any failure raises, so the exit code is non-zero):
      each within 4x a floor (the experts' d_ff permuted) plus 1e-6; each
      rank holds 1/4 of the expert bytes; dropped assignments printed.
      Walls and peaks printed per sub-phase.
+ 22. training across ranks (`launch.steps.train_layout` /
+     `make_train_step(layout=)`, `launch.train --devices`; the ranks
+     share card 0 in a gloo group, their CUDA collectives' data through
+     card buffers mapped across them with CUDA IPC, or with `--cards` one
+     a card over nccl): (a)
+     qwen3-32b at full width and 2 layers, batch 8 x 256, 2 ranks on
+     (data 2, model 1), the plain step and the optical one (`rosa_mlp`,
+     "fused", as 17(b)), 2 steps each from seed 0, against the
+     one-process steps (17(b)'s fused run, a plain run here): every
+     rank's losses and |g| and its shards of every leaf after the steps
+     within 4x the float-order floor (the params' hidden and MLP axes and
+     the batch rows permuted, two seeds; for the optical run at least
+     17(b)'s k-permuted floor) plus 1e-6, `rosa_fused` exactly 2 x 2 x
+     layers x steps a rank, a rank's param and moment bytes its
+     TRAIN_RULES shards' exactly, peak < 70 GiB over the card; the plain
+     run's params after the steps saved from the ranks (`checkpoint.save
+     (specs=)`: each leaf gathered whole, rank 0 writing; the 3.1 GB embed
+     and unembed among them) and restored onto them: the file holds the
+     one-process layout (every key, whole shapes) and the restored shards
+     equal the held ones bit for bit (so the file holds the one-process
+     params within the gate above); (b)
+     mamba2-1.3b at full width and depth, 4 ranks on (2, 2), 2 steps with
+     phase 19(b)'s schedule, the same gates (the floor: hidden and head
+     axes and rows permuted), `ssd_scan` 2 x 48 x 2 and its backward
+     48 x 2 a rank; (c) the elastic restart through the CLI, mistral-
+     large-123b-smoke at batch 4 x 32: one process to step 4, then
+     `--devices 4 --data-axis 2 --resume` to 6 in a subprocess: 'resumed
+     from step 4' printed once, its losses within 6e-5 (plus the CLI's
+     4-decimal rounding) of a one-process continuation; (d)
+     qwen3-moe-235b-a22b-smoke with `moe_ep_local` in the train step on 4
+     ranks (2, 2), the same group on the card and on the CPU from the
+     same params: losses, |g| and every leaf within 4x the card-vs-CPU
+     floor of the one-process steps plus 1e-6, dropped assignments
+     printed.  s a step, the card's kernel and copy shares of the last
+     step, walls and peaks printed per sub-phase.
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -2839,18 +2881,20 @@ def family_phase(report: dict) -> int:
 # ---------------------------------------------------------------------------
 # Phase 16: the four dense configs at full width
 # ---------------------------------------------------------------------------
-# (arch, layers served, params at that depth): gemma3-12b and
-# phi-3-vision-4.2b at full depth, the two large ones cut
-GEMMA3 = ("gemma3-12b", 48, 11_765_419_776)
+# (arch, layers served, params at that depth), each cut: gemma3-12b from
+# 48 layers and phi-3-vision-4.2b from 32 to make room for phase 22
+# (gemma3 keeps 5 local layers and 1 global)
+GEMMA3 = ("gemma3-12b", 6, 2_351_484_672)
 DENSE_CUT = (("deepseek-67b", 4, 4_446_035_968),
              ("mistral-large-123b", 4, 6_341_898_240))
-PHI3V = ("phi-3-vision-4.2b", 32, 3_821_079_552)
+PHI3V = ("phi-3-vision-4.2b", 16, 2_009_041_920)
 PHASE3_SERVE = dict(max_len=56, prefill_chunk=8)
 # gemma3: one prompt past the 1024-token window of its 40 local layers
 LONG_PROMPT = 1100
 GEMMA_SERVE = dict(max_len=1200, prefill_chunk=GEMMA_CHUNK)
-PHI3V_ARGS = ["--arch", "phi-3-vision-4.2b", "--policy", "batch",
-              "--batch", "4", "--prompt-len", "32", "--gen", "16"]
+PHI3V_ARGS = ["--arch", "phi-3-vision-4.2b", "--n-layers", "16",
+              "--policy", "batch", "--batch", "4", "--prompt-len", "32",
+              "--gen", "16"]
 PHI3V_PATCHES = 16                # the zero patches `--policy batch` feeds
 PHI3V_CPU_LAYERS = 8              # depth of the card-vs-CPU prefill check
 
@@ -2997,7 +3041,7 @@ def phi3v_batch(report: dict) -> None:
     bundle, params, batch = res["bundle"], res["params"], res["batch"]
     cfg = bundle.cfg
     if bundle.n_params != n_params or cfg.n_layers != layers:
-        raise AssertionError(f"not {arch} at full width and depth")
+        raise AssertionError(f"not {arch} at full width and {layers} layers")
     lg = res["logits"]
     if lg.shape != (4, cfg.vocab) or not bool(torch.isfinite(lg).all()):
         raise AssertionError(f"{arch}: prefill logits not finite / bad "
@@ -3119,8 +3163,8 @@ def dense_phase(report: dict) -> int:
 # ---------------------------------------------------------------------------
 # qwen3-32b at full width, depth cut to 4 of 64 layers: params, grads and
 # AdamW's two float32 moments are 4 x 14.0 GB
-TRAIN = ("qwen3-32b", 4, 3_506_223_104)
-TRAIN_CLI = ["--arch", "qwen3-32b", "--n-layers", "4", "--steps", "10",
+TRAIN = ("qwen3-32b", 2, 2_531_026_432)   # cut from 4 layers (phase 22)
+TRAIN_CLI = ["--arch", "qwen3-32b", "--n-layers", "2", "--steps", "10",
              "--batch", "8", "--seq", "256", "--warmup", "2",
              "--ckpt-every", "100", "--log-every", "1"]
 OPT_STEPS = 2                     # 17(b)'s optical train steps
@@ -3223,7 +3267,7 @@ def optical_train_phase(report: dict) -> int:
         return bundle.init(torch.Generator(DEVICE).manual_seed(0),
                            device=DEVICE)
 
-    def train(engine) -> list:
+    def train(engine, keep=None) -> list:
         params = init()
         opt = init_opt_state(params)
         step = make_train_step(bundle, train_opt_cfg())
@@ -3233,7 +3277,10 @@ def optical_train_phase(report: dict) -> int:
                 params, opt, m = step(params, opt, batch)
                 out.append((float(m["loss"]), float(m["grad_norm"])))
         torch.cuda.synchronize()
-        del params, opt
+        del opt
+        if keep is not None:
+            keep(params)
+        del params
         gc.collect()
         torch.cuda.empty_cache()
         return out
@@ -3242,7 +3289,9 @@ def optical_train_phase(report: dict) -> int:
     # ---- the main path: counts from 0, read right after ------------------
     reset_launches()
     t0 = time.perf_counter()
-    fused = train(engines["fused"])
+    # the params after the steps: 22(a)'s one-process optical side
+    fused = train(engines["fused"],
+                  keep=lambda p: RT_SIDE.update(optical=rt_share(p)))
     wall = time.perf_counter() - t0
     n = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3262,14 +3311,32 @@ def optical_train_phase(report: dict) -> int:
     if peak >= PEAK_GIB:
         raise AssertionError(f"17(b): peak {peak:.1f} GiB")
     reset_launches()
-    ref = train(engines["ref"])
+    kept: dict = {}
+    ref = train(engines["ref"], keep=lambda p: kept.update(ref=p))
     if any(launch_counts().values()):
         raise AssertionError("17(b): the ref backend launched a kernel")
     # ---- fused vs ref: 4x the float order floor (phase 14's rule) --------
     # Both backends quantize alike and differ only in the order of the
     # optical products' sums, so the floor permutes only their reduction
     # axes ("ref" again with each product's K permuted).
-    perm = [train(k_permuted_engine(engines["ref"], ps)) for ps in perm_sets]
+    # and each run's params after the steps against the ref's: 22(a)'s
+    # floors per leaf
+    param_floor: dict = {}
+
+    def floor_of(p):
+        for k, d in leaf_rel(p, kept["ref"]).items():
+            param_floor[k] = max(param_floor.get(k, 0.0), d)
+    perm = [train(k_permuted_engine(engines["ref"], ps), keep=floor_of)
+            for ps in perm_sets]
+    del kept["ref"]
+    torch.cuda.empty_cache()
+    RT_SIDE["floor"] = {
+        "loss": [max(abs(p[i][0] - ref[i][0]) / abs(ref[i][0])
+                     for p in perm) for i in range(OPT_STEPS)],
+        "gn": [max(abs(p[i][1] - ref[i][1]) / abs(ref[i][1])
+                   for p in perm) for i in range(OPT_STEPS)],
+        "params": param_floor}
+    RT_SIDE["optical_hist"] = fused
     loss_dev, loss_floor = [], []
     for i in range(OPT_STEPS):
         lr_ = ref[i][0]
@@ -4147,7 +4214,9 @@ def ssm_train_phase(report: dict) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 # one arch per family at one of its assigned shapes, on both meshes
 DRYRUN_CELLS = [("qwen3-32b", "train_4k"), ("deepseek-v2-236b", "train_4k"),
-                ("mamba2-1.3b", "prefill_32k"), ("zamba2-1.2b", "long_500k"),
+                # decode_32k, not prefill_32k: that trace of the plain
+                # scan's chunks took 92 s of the phase
+                ("mamba2-1.3b", "decode_32k"), ("zamba2-1.2b", "long_500k"),
                 ("seamless-m4t-medium", "decode_32k"),
                 ("phi-3-vision-4.2b", "decode_32k")]
 DRYRUN_ALLOC = ("deepseek-v2-236b", "train_4k", "single")   # the largest
@@ -4991,6 +5060,823 @@ def ranks_phase(report: dict) -> int:
     return fused
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: training across ranks
+# ---------------------------------------------------------------------------
+RT_STEPS = 2                   # each sharded run's train steps
+RT_QWEN = ("qwen3-32b", 2, (2, 1))          # 22(a): arch, layers, mesh
+RT_MAMBA = ("mamba2-1.3b", 0, (2, 2))       # 22(b): full depth
+RT_BATCH = (8, 256)
+RT_QWEN_OPT = (3e-4, 2, 10)    # 22(a): phase 17's (train_opt_cfg)
+RT_MAMBA_OPT = (3e-4, 2, 4)    # 22(b): phase 19(b)'s
+ELASTIC_CLI = ["--arch", "mistral-large-123b", "--smoke", "--batch", "4",
+               "--seq", "32", "--log-every", "1"]
+ELASTIC_STEPS = (4, 6)         # 22(c): one process to 4, 4 ranks to 6
+ELASTIC_ATOL = 6e-5            # the CPU tests' bound on resumed losses
+RT_MOE = ("qwen3-moe-235b-a22b", (2, 2))    # 22(d): smoke, moe_ep
+
+
+# 17(b) leaves 22(a)'s one-process optical side here: its params after
+# the steps ("optical") and the k-permuted floors ("floor")
+RT_SIDE: dict = {}
+
+
+def host_register(t) -> None:
+    """Page-lock a host tensor's memory for the card's copies (4-8 GB/s
+    pageable, 12-25 pinned on the H100's host); raises if CUDA refuses."""
+    import torch
+    err = torch.cuda.cudart().cudaHostRegister(
+        t.data_ptr(), t.numel() * t.element_size(), 0)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister failed ({err})")
+
+
+def host_unregister(t) -> None:
+    import torch
+    torch.cuda.cudart().cudaHostUnregister(t.data_ptr())
+
+
+def rt_share(params) -> dict:
+    """The params in one shared-memory block (page-locked while the card
+    writes it) that the ranks attach by name: {"params": {path: host
+    view}, "block": its descriptor (pickles as the block's name and the
+    leaves' places), "amax": {path: max |leaf|}}."""
+    import torch
+    from multiprocessing import shared_memory
+    from repro_torch.models.module import leaves
+    places, off = {}, 0
+    for p, t in leaves(params):
+        places["/".join(p)] = (off, tuple(t.shape), str(t.dtype))
+        off += -(-t.numel() * t.element_size() // 64) * 64
+    blk = shared_memory.SharedMemory(create=True, size=max(off, 64))
+    desc = {"shm": blk, "leaves": places}
+    host = host_views(desc)
+    whole = torch.frombuffer(blk.buf, dtype=torch.uint8, count=max(off, 64))
+    pin = torch.cuda.is_available() and DEVICE == "cuda"
+    if pin:
+        host_register(whole)
+    amax = {}
+    for p, t in leaves(params):
+        k = "/".join(p)
+        amax[k] = float(t.abs().max())
+        host[k].copy_(t)
+    if pin:
+        host_unregister(whole)
+    del whole
+    return {"params": host, "block": desc, "amax": amax}
+
+
+def host_views(desc: dict) -> dict:
+    """{path: tensor} views of a `rt_share` block (in any process)."""
+    import torch
+    out = {}
+    for k, (off, shape, dt) in desc["leaves"].items():
+        dtype = getattr(torch, dt.split(".")[-1])
+        n = math.prod(shape)
+        out[k] = torch.frombuffer(desc["shm"].buf, dtype=dtype, count=n,
+                                  offset=off).view(shape)
+    return out
+
+
+def host_free(side: dict) -> None:
+    """Drop a `rt_share` block (the views first)."""
+    side.pop("params", None)
+    blk = side.pop("block")["shm"]
+    import gc
+    gc.collect()
+    try:
+        blk.close()
+    except BufferError:             # a view is still held: left mapped
+        pass
+    blk.unlink()
+
+
+def rt_cfg(arch: str, layers: int, smoke: bool = False, **kw):
+    from repro_torch.configs import get_config, get_smoke
+    cfg = (get_smoke if smoke else get_config)(arch)
+    if layers:
+        kw["n_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
+
+
+def rt_opt(spec):
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    return AdamWConfig(lr=cosine_schedule(*spec))
+
+
+def rt_batches(cfg, device) -> list:
+    """The CLI's batches of the first RT_STEPS steps (seed 0)."""
+    from repro_torch.data import TokenPipeline
+    b, s = RT_BATCH
+    pipe = TokenPipeline(cfg.vocab, s, b, seed=0)
+    return [pipe.batch(i, device) for i in range(RT_STEPS)]
+
+
+def rt_engine(optical: bool):
+    import contextlib
+    from repro_torch import rosa
+    from repro_torch.rosa.backends import RosaConfig
+    if not optical:
+        return contextlib.nullcontext()
+    return rosa.engine_context(rosa.Engine.from_config(
+        RosaConfig(backend="fused")))
+
+
+def rt_one_process(cfg, opt, optical: bool, device=None, start=None,
+                   rows=None):
+    """A one-process run of RT_STEPS steps from seed 0 (or from `start`)
+    on `device` (default: the card), the batch rows permuted by `rows`
+    when given: (history, params, launches); the moments freed."""
+    import gc
+    import torch
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models.model import build_model
+    device = device or DEVICE
+    bundle = build_model(cfg)
+    params = start if start is not None else bundle.init(
+        torch.Generator(device).manual_seed(0), device=device)
+    state = init_opt_state(params)
+    step = make_train_step(bundle, opt)
+    hist = []
+    reset_launches()
+    with rt_engine(optical):
+        for batch in rt_batches(cfg, device):
+            if rows is not None:
+                batch = {k: v[rows.to(v.device)] for k, v in batch.items()}
+            params, state, m = step(params, state, batch)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+    n = launch_counts()
+    del state
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return hist, params, n
+
+
+def rt_floor(cfg, opt, optical: bool, side: dict, sizes: dict) -> dict:
+    """The float-order floor of a one-process side (`side`: its history
+    and its params after the steps on the host): the largest distance from
+    it over 2 runs of the same function with both reductions a
+    data-parallel split reorders permuted, the params' logical axes
+    `sizes` (phase 17(c)'s rule: every sum over them in another order) and
+    the batch rows (the sums over rows); per step for the loss and |g|,
+    per leaf for the params after the steps (permuted back)."""
+    import gc
+    import types as _types
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import leaves, map_tree
+    hist = side["hist"]
+    floor = {"loss": [0.0] * RT_STEPS, "gn": [0.0] * RT_STEPS,
+             "params": {k: 0.0 for k in side["params"]}}
+    bundle = build_model(cfg)
+    axes = dict(leaves(map_tree(lambda d: d.axes, bundle.skeleton)))
+    for seed in (1, 2):
+        init = bundle.init(torch.Generator(DEVICE).manual_seed(0),
+                           device=DEVICE)
+        start, perm = permuted_params(
+            _types.SimpleNamespace(bundle=bundle, params=init), sizes, seed)
+        del init
+        rows = torch.randperm(RT_BATCH[0],
+                              generator=torch.Generator().manual_seed(seed))
+        ph, pp, _ = rt_one_process(cfg, opt, optical, start=start,
+                                   rows=rows)
+        del start
+        for i in range(RT_STEPS):
+            for key, j in (("loss", 0), ("gn", 1)):
+                floor[key][i] = max(floor[key][i], abs(ph[i][j] - hist[i][j])
+                                    / abs(hist[i][j]))
+        for p, got in leaves(pp):
+            # the base's leaf permuted as this run's
+            t = side["params"]["/".join(p)].to(DEVICE)
+            for ax, name in enumerate(axes[p]):
+                if name in perm:
+                    t = t.index_select(ax, perm[name])
+            k = "/".join(p)
+            floor["params"][k] = max(floor["params"][k], max_rel(got, t))
+            del t
+        del pp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return floor
+
+
+def rt_reference(what: str, cfg, opt, optical: bool, sizes: dict,
+                 side: dict | None = None) -> dict:
+    """A one-process side of a sharded run (RT_STEPS steps from seed 0;
+    `side` when a phase already ran it): its history, its params after
+    the steps in shared host memory with each leaf's max |.|, and its
+    float-order floor (`rt_floor`)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    if side is None:
+        hist, params, _ = rt_one_process(cfg, opt, optical)
+        side = dict(rt_share(params), hist=hist)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    floor = rt_floor(cfg, opt, optical, side, sizes)
+    hist = side["hist"]
+    print(f"  {what}, one process: losses "
+          f"{[round(l, 6) for l, _ in hist]}, |g| "
+          f"{[round(x, 4) for _, x in hist]}; floor ({', '.join(sizes)} "
+          f"and the batch rows permuted, 2 seeds): loss "
+          f"{[f'{f:.2e}' for f in floor['loss']]}, |g| "
+          f"{[f'{f:.2e}' for f in floor['gn']]}, params up to "
+          f"{max(floor['params'].values()):.2e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(side, floor_loss=floor["loss"], floor_gn=floor["gn"],
+                floor_params=floor["params"])
+
+
+def rt_rank(rank: int, world: int, device, job: dict) -> dict:
+    """One rank of a 22 group: each of `job["runs"]` (its config, schedule
+    and whether optical) on this rank's shards and rows, from seed 0,
+    against `want`, whole params after the same steps in shared host
+    memory (each rank reads its shards); with a `sink` (shared whole
+    tensors) the rank writes its final shards there.  Hands back host
+    values only."""
+    import gc
+    import torch
+    rank_setup(device)
+    from repro_torch.distributed.sharding import shard_local
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (init_opt_state, init_sharded,
+                                          make_train_step, train_layout)
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import leaves
+    mesh = make_test_mesh(*job["mesh"], device.type)
+    rank_device = device
+    out = {}
+    for run in job["runs"]:
+        # a run may name the CPU: the same ranks and mesh, host tensors
+        device = torch.device(run.get("device") or rank_device)
+        threads = torch.get_num_threads()
+        if device.type == "cpu":
+            torch.set_num_threads(2)
+        cfg = run["cfg"]
+        bundle = build_model(cfg)
+        layout = train_layout(bundle, mesh, RT_BATCH[0])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        if run.get("start") is not None:
+            from repro_torch.distributed.sharding import shard_tree
+            from repro_torch.models.module import unflatten
+            params = shard_tree(unflatten(
+                (tuple(k.split("/")), v)
+                for k, v in host_views(run["start"]).items()),
+                layout.specs, mesh, device=device)
+        else:
+            params = init_sharded(bundle, torch.Generator(device)
+                                  .manual_seed(0), layout, device=device)
+        state = init_opt_state(params)
+        held = sum(t.numel() * t.element_size()
+                   for _, t in leaves({"params": params, "opt": state}))
+        want_bytes = 3 * layout.shard_bytes(bundle.skeleton) + 4
+        step = make_train_step(bundle, rt_opt(run["opt"]), layout=layout)
+        batches = [layout.local_batch(b) for b in
+                   rt_batches(cfg, device)]
+        drops = [0]
+        real_pack = MOE._pack_local
+
+        def counting_pack(x2, w, ids, first, count, cap):
+            res = real_pack(x2, w, ids, first, count, cap)
+            local = ((ids >= first) & (ids < first + count)).sum()
+            drops[0] += int(local) - int(res[2].sum())
+            return res
+        MOE._pack_local = counting_pack
+        set_up = time.perf_counter() - t0
+        hist, walls, busy = [], [], None
+        # ---- the main path: counts from 0, read right after --------------
+        reset_launches()
+        try:
+            with rt_engine(run["optical"]):
+                for i, batch in enumerate(batches):
+                    ts = time.perf_counter()
+                    if i == len(batches) - 1 and device.type == "cuda":
+                        from torch.profiler import (ProfilerActivity,
+                                                    profile)
+                        with profile(activities=[ProfilerActivity.CUDA]) \
+                                as prof:
+                            params, state, m = step(params, state, batch)
+                            loss = float(m["loss"])
+                        busy = rt_busy(prof)
+                    else:
+                        params, state, m = step(params, state, batch)
+                        loss = float(m["loss"])
+                    hist.append((loss, float(m["grad_norm"])))
+                    walls.append(time.perf_counter() - ts)
+        finally:
+            MOE._pack_local = real_pack
+        n = launch_counts()
+        ckpt = rt_ckpt(run["ckpt"], params, layout, mesh) \
+            if run.get("ckpt") else None
+        # the rank's shards against `want` after the same steps
+        spec_of = dict(leaves(layout.specs))
+        dev = {}
+        sink = host_views(run["sink"]) if run.get("sink") else None
+        wants = host_views(run["want"]) if run.get("want") else None
+        for p, t in leaves(params):
+            k = "/".join(p)
+            if sink is not None:
+                shard_local(sink[k], spec_of[p], mesh).copy_(t)
+            if wants is not None:
+                want = shard_local(wants[k], spec_of[p], mesh).to(device)
+                dev[k] = float((t.float() - want.float()).abs().max())
+                del want
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else 0)
+        out[run["name"]] = {
+            "hist": hist, "walls": walls, "busy_ms": busy, "set_up_s": set_up,
+            "launches": n, "held": held, "want_bytes": want_bytes,
+            "dev": dev, "peak_bytes": peak, "drops": drops[0],
+            "rows": layout.rows(), "ckpt": ckpt}
+        del params, state, step, sink, wants
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        torch.set_num_threads(threads)
+    return out
+
+
+def rt_ckpt(root: str, params, layout, mesh) -> dict:
+    """22(a)'s checkpoint on a rank: its param shards saved from the
+    ranks (each leaf gathered whole, rank 0 writes the one-process file)
+    and restored onto them (to the host: the card holds no second copy);
+    the restored shards against the held ones, bit for bit."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.models.module import leaves
+    tree, specs = {"params": params}, {"params": layout.specs}
+    t0 = time.perf_counter()
+    CK.save(root, RT_STEPS, tree, {"phase": "22(a)"}, specs=specs,
+            mesh=mesh)
+    t1 = time.perf_counter()
+    back = CK.restore(root, RT_STEPS, tree, "cpu", specs=specs, mesh=mesh)
+    t2 = time.perf_counter()
+    equal = all(torch.equal(a, b.cpu()) for (_, a), (_, b)
+                in zip(leaves(back), leaves(tree), strict=True))
+    return {"save_s": t1 - t0, "restore_s": t2 - t1, "equal": equal}
+
+
+def rt_ckpt_check(root, outs: list, side: dict) -> dict:
+    """22(a)'s checkpoint, checked here: the one-process layout (every key
+    of the params, whole shapes) and every rank's restored shards equal to
+    its held ones, which `rt_check` holds to the one-process params (so
+    the file holds them within the same bound)."""
+    import os
+    from repro_torch.checkpoint import checkpoint as CK
+    meta = CK.read_meta(root, RT_STEPS)
+    want = {f"params/{k}": v for k, v in side["params"].items()}
+    bad = []
+    if sorted(meta["keys"]) != sorted(want) or any(
+            meta["shapes"][k] != list(v.shape) for k, v in want.items()):
+        bad.append("the file's keys or shapes are not the one-process "
+                   "layout")
+    size = os.path.getsize(os.path.join(root, f"step_{RT_STEPS:08d}",
+                                        "arrays.npz"))
+    cks = [o["plain"]["ckpt"] for o in outs]
+    if not all(c["equal"] for c in cks):
+        bad.append("a rank's restored shards differ from its held ones")
+    res = {"bytes": size, "save_s": max(c["save_s"] for c in cks),
+           "restore_s": max(c["restore_s"] for c in cks)}
+    print(f"  22(a) checkpoint: {size / 2**30:.2f} GiB of params saved from "
+          f"the ranks in {res['save_s']:.1f} s (the one-process layout), "
+          f"restored onto them in {res['restore_s']:.1f} s, equal to the "
+          "held shards bit for bit")
+    if bad:
+        raise AssertionError("22(a) checkpoint: " + "; ".join(bad))
+    return res
+
+
+def rt_check(what: str, ref: dict, outs: list, want_launches: dict,
+             key: str) -> dict:
+    """A sharded run's gates: every rank's losses and |g| within 4x the
+    one-process floor of the one-process run's (plus 1e-6 relative), its
+    shards of every leaf within 4x that leaf's floor (plus 1e-6 of its
+    max), its bytes its TRAIN_RULES shards', its launches exactly
+    `want_launches`."""
+    rel = {}
+    for r, o in enumerate(outs):
+        res = o[key]
+        if res["held"] != res["want_bytes"]:
+            raise AssertionError(f"{what}: rank {r} holds {res['held']} "
+                                 f"bytes of params and moments, its "
+                                 f"TRAIN_RULES shards {res['want_bytes']}")
+        for i, ((l, gn), (wl, wg)) in enumerate(zip(res["hist"],
+                                                     ref["hist"])):
+            for name, got, want, fl in (("loss", l, wl, ref["floor_loss"][i]),
+                                        ("|g|", gn, wg, ref["floor_gn"][i])):
+                d = abs(got - want) / abs(want)
+                if d > 4 * fl + 1e-6:
+                    raise AssertionError(
+                        f"{what}: rank {r} step {i} {name} {got} vs one "
+                        f"process {want} (rel {d:.2e}, floor {fl:.2e})")
+        for k, d in res["dev"].items():
+            rel[k] = max(rel.get(k, 0.0), d / ref["amax"][k])
+        others = {n: v for n, v in res["launches"].items()
+                  if v and n not in want_launches}
+        if any(res["launches"][n] != v for n, v in want_launches.items()) \
+                or others:
+            raise AssertionError(f"{what}: rank {r} launched "
+                                 f"{res['launches']}, want {want_launches}")
+    bad = [k for k, d in rel.items()
+           if d > 4 * ref["floor_params"][k] + 1e-6]
+    worst = max(rel, key=lambda k: rel[k] / (4 * ref["floor_params"][k]
+                                             + 1e-6))
+    print(f"  {what}: losses {[round(l, 6) for l, _ in outs[0][key]['hist']]}"
+          f", |g| {[round(g, 4) for _, g in outs[0][key]['hist']]}; the "
+          f"leaf nearest its bound {worst} at {rel[worst]:.2e} (floor "
+          f"{ref['floor_params'][worst]:.2e}); launches a rank "
+          f"{ {n: v for n, v in outs[0][key]['launches'].items() if v} }; "
+          f"bytes a rank {outs[0][key]['held'] / 2**30:.3f} GiB = its "
+          "TRAIN_RULES shards")
+    if bad:
+        raise AssertionError(f"{what}: params beyond 4x their floor: {bad}")
+    return rel
+
+
+def rt_busy(prof) -> tuple[float, float]:
+    """(kernels, copies) ms of a profiled run's device time: the copies
+    are the collectives' host staging."""
+    kern = copy = 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us <= 0 or evt.device_type.name != "CUDA":
+            continue
+        if evt.key.startswith(("Memcpy", "Memset")):
+            copy += dev_us / 1e3
+        else:
+            kern += dev_us / 1e3
+    return kern, copy
+
+
+def rt_summary(what: str, outs: list, key: str, parent: int) -> dict:
+    """Walls, s a step, the card's busy share (every rank's kernel time in
+    the profiled last step over its wall; the copies' beside it) and the
+    peaks."""
+    runs = [o[key] for o in outs]
+    step_s = max(r["walls"][-1] for r in runs)
+    kern = sum((r["busy_ms"] or (0.0, 0.0))[0] for r in runs) / 1e3
+    copy = sum((r["busy_ms"] or (0.0, 0.0))[1] for r in runs) / 1e3
+    share = kern / step_s if step_s > 0 else 0.0
+    copy_share = copy / step_s if step_s > 0 else 0.0
+    peak = (max(r["peak_bytes"] for r in runs) if RANK_CARDS else
+            sum(r["peak_bytes"] for r in runs)) + parent
+    print(f"  {what}: {step_s:.3f} s a step (the last, profiled; first "
+          f"{max(r['walls'][0] for r in runs):.3f} s), set-up "
+          f"{max(r['set_up_s'] for r in runs):.1f} s, the card's kernels "
+          f"{100 * share:.1f} % of it (host copies {100 * copy_share:.1f} "
+          f"%), peak {peak / 2**30:.2f} GiB a card "
+          "(ranks " + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}"
+                                for r in runs) + ")")
+    if peak >= PEAK_GIB * 2**30:
+        raise AssertionError(f"{what}: peak {peak / 2**30:.1f} GiB")
+    return {"step_s": step_s, "first_step_s": max(r["walls"][0]
+                                                  for r in runs),
+            "busy_share": share, "copy_share": copy_share,
+            "peak_gib": peak / 2**30,
+            "rank_peak_gib": [r["peak_bytes"] / 2**30 for r in runs],
+            "hist": runs[0]["hist"], "drops": [r["drops"] for r in runs]}
+
+
+def rt_group(mesh: tuple, runs: list, device_type: str = None) -> tuple:
+    import torch
+    from repro_torch.distributed import runtime
+    t0 = time.perf_counter()
+    device_type = device_type or DEVICE
+    outs = runtime.spawn(rt_rank, mesh[0] * mesh[1], device_type=device_type,
+                         backend=rank_backend(),
+                         args=({"mesh": mesh, "runs": runs},),
+                         timeout=RANK_TIMEOUT)
+    return outs, time.perf_counter() - t0
+
+
+def rt_qwen(report: dict) -> int:
+    """22(a); returns its rosa_fused launches (every rank's).  The
+    one-process sides: a plain run here and phase 17(b)'s fused run (the
+    same model, schedule and batches); the floors: `rt_floor`'s (the
+    hidden and MLP axes and the batch rows permuted) and, for the optical
+    run, at least 17(b)'s k-permuted ones (its "ref" runs with each
+    optical product's reduction axis permuted, two seeds)."""
+    import shutil
+    import torch
+    arch, layers, mesh = RT_QWEN
+    n = mesh[0] * mesh[1]
+    t_phase = time.perf_counter()
+    if layers != TRAIN[1] or RT_STEPS != OPT_STEPS or "optical" not in RT_SIDE:
+        raise AssertionError("22(a) reads phase 17(b)'s run at its depth "
+                             "and steps")
+    cfg = rt_cfg(arch, layers)
+    sizes = {"embed": cfg.d_model, "mlp": cfg.d_ff}
+    sides = {"plain": rt_reference("22(a) plain", cfg, rt_opt(RT_QWEN_OPT),
+                                   False, sizes)}
+    opt_side = rt_reference(
+        "22(a) optical", rt_cfg(arch, layers, rosa_mlp=True),
+        rt_opt(RT_QWEN_OPT), True, sizes,
+        side=dict(RT_SIDE["optical"], hist=RT_SIDE["optical_hist"]))
+    k = RT_SIDE["floor"]
+    print("  22(a) optical: 17(b)'s k-permuted floor: loss "
+          f"{[f'{f:.2e}' for f in k['loss']]}, |g| "
+          f"{[f'{f:.2e}' for f in k['gn']]}, params up to "
+          f"{max(k['params'].values()):.2e}")
+    opt_side["floor_loss"] = [max(a, b) for a, b in
+                              zip(opt_side["floor_loss"], k["loss"])]
+    opt_side["floor_gn"] = [max(a, b) for a, b in
+                            zip(opt_side["floor_gn"], k["gn"])]
+    opt_side["floor_params"] = {
+        p: max(v, k["params"].get(p, 0.0))
+        for p, v in opt_side["floor_params"].items()}
+    sides["optical"] = opt_side
+    ckpt = ROOT / "build" / "ckpt-22a"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = [{"name": name, "cfg": rt_cfg(arch, layers, rosa_mlp=optical),
+             "opt": RT_QWEN_OPT, "optical": optical,
+             "want": sides[name]["block"]}
+            for name, optical in (("plain", False), ("optical", True))]
+    runs[0]["ckpt"] = str(ckpt)
+    parent = torch.cuda.memory_allocated()
+    print(f"  22(a): {rank_layout(n)}, mesh (data, model) {mesh}; "
+          f"{arch} full width, {layers} layers, batch {RT_BATCH}")
+    outs, wall = rt_group(mesh, runs)
+    launches = 0
+    res = {"group_s": wall}
+    fails = []
+    for r in runs:
+        ref = sides[r["name"]]
+        res[r["name"]] = dict(rt_summary(f"22(a) {r['name']}", outs,
+                                         r["name"], parent),
+                              one_process=ref["hist"])
+        # 2 projections x (forward + remat recompute) x layers x steps
+        want = ({"rosa_fused": 2 * 2 * layers * RT_STEPS} if r["optical"]
+                else {})
+        try:
+            rel = rt_check(f"22(a) {r['name']}", ref, outs, want, r["name"])
+            res[r["name"]]["worst_leaf_rel"] = max(rel.values())
+        except AssertionError as e:
+            fails.append(str(e))
+        if r["optical"]:
+            launches = sum(o[r["name"]]["launches"]["rosa_fused"]
+                           for o in outs)
+    try:
+        res["ckpt"] = rt_ckpt_check(str(ckpt), outs, sides["plain"])
+    except AssertionError as e:
+        fails.append(str(e))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"  22(a): the group {wall:.1f} s, the sub-phase "
+          f"{res['phase_s']:.1f} s")
+    report["train_ranks_a"] = res
+    for r in runs:
+        r.pop("want")
+    RT_SIDE.clear()
+    for side in sides.values():
+        host_free(side)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return launches
+
+
+def rt_mamba(report: dict) -> dict:
+    """22(b), and 22(d) in the same group of ranks (its runs after 22(b)'s:
+    the CPU one, then the card one); returns 22(b)'s ssd_scan launches
+    (every rank's)."""
+    import torch
+    arch, layers, mesh = RT_MAMBA
+    n = mesh[0] * mesh[1]
+    t_phase = time.perf_counter()
+    cfg = rt_cfg(arch, layers)
+    ref = rt_reference("22(b)", cfg, rt_opt(RT_MAMBA_OPT), False,
+                       {"embed": cfg.d_model, "heads": cfg.ssm.n_heads})
+    cli = report.get(f"ssm_train_{arch}", {}).get("history")
+    if cli is not None:
+        same = all(abs(h["loss"] - l) == 0 and abs(h["grad_norm"] - g) == 0
+                   for h, (l, g) in zip(cli, ref["hist"]))
+        print(f"  22(b): phase 19(b)'s first {RT_STEPS} steps "
+              + ("equal" if same else "differ from")
+              + " this one-process side bit for bit")
+    moe = rt_moe_sides()
+    assert RT_MOE[1] == mesh, "22(d) runs in 22(b)'s group"
+    runs = [{"name": "mamba", "cfg": cfg, "opt": RT_MAMBA_OPT,
+             "optical": False, "want": ref["block"]}] + moe["runs"]
+    parent = torch.cuda.memory_allocated()
+    print(f"  22(b): {rank_layout(n)}, mesh (data, model) {mesh}; {arch} "
+          f"full width and depth, batch {RT_BATCH}; then 22(d)'s runs")
+    outs, wall = rt_group(mesh, runs)
+    # phase 19's formula at a rank's rows: one launch a layer whatever
+    # the rows, the forward twice under remat "full"
+    want = {"ssd_scan": 2 * cfg.n_layers * RT_STEPS,
+            "ssd_scan_bwd": cfg.n_layers * RT_STEPS}
+    res = dict(rt_summary("22(b)", outs, "mamba", parent), group_s=wall,
+               one_process=ref["hist"], floor_loss=ref["floor_loss"],
+               floor_gn=ref["floor_gn"])
+    report["train_ranks_b"] = res
+    for r in runs:
+        r.pop("want", None)
+    host_free(ref)
+    fails = []
+    try:
+        rel = rt_check("22(b)", ref, outs, want, "mamba")
+        res["worst_leaf_rel"] = max(rel.values())
+    except AssertionError as e:
+        fails.append(str(e))
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"  22(b) and (d): the group {wall:.1f} s, the sub-phases "
+          f"{res['phase_s']:.1f} s")
+    try:
+        rt_moe_check(report, moe, outs)
+    except AssertionError as e:
+        fails.append(str(e))
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {k: sum(o["mamba"]["launches"][k] for o in outs) for k in want}
+
+
+def rt_elastic_start() -> dict:
+    """22(c), started: one process writes step 4 and a one-process
+    continuation runs to step 6, in this process; then `--devices 4
+    --data-axis 2 --resume` from the same checkpoint starts in a
+    subprocess (its ranks on the card) and runs beside 22(a) and (b): its
+    processes spend their time starting up, the card's work is small."""
+    import os
+    import shutil
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    d = ROOT / "build" / "ckpt-22c"
+    shutil.rmtree(d, ignore_errors=True)
+    first, last = ELASTIC_STEPS
+    base = ELASTIC_CLI + ["--device", DEVICE, "--ckpt-dir", str(d),
+                          "--steps", str(last)]
+    train.run(train.build_parser().parse_args(
+        base[:-1] + [str(first), "--ckpt-every", str(first)]))
+    one = train.run(train.build_parser().parse_args(
+        base + ["--resume", "--ckpt-every", "100"]))["history"]
+    out = open(d / "ranks.out", "w")
+    err = open(d / "ranks.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *base,
+         "--resume", "--ckpt-every", "100", "--devices", "4",
+         "--data-axis", "2"] + (["--cards"] if RANK_CARDS else []),
+        stdout=out, stderr=err, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    return {"proc": proc, "files": (out, err), "dir": d, "one": one,
+            "t0": t0, "own_s": time.perf_counter() - t0}
+
+
+def rt_elastic_finish(job: dict, report: dict) -> None:
+    """22(c), checked: 'resumed from step 4' printed once by the 4-rank
+    resume, its losses within 6e-5 (plus the CLI's 4-decimal rounding) of
+    the one-process continuation."""
+    import shutil
+    first, last = ELASTIC_STEPS
+    rc = job["proc"].wait(timeout=RANK_TIMEOUT)
+    for f in job["files"]:
+        f.close()
+    stdout = (job["dir"] / "ranks.out").read_text()
+    if rc != 0:
+        raise AssertionError(f"22(c): the 4-rank resume exited {rc}:\n"
+                             f"{stdout[-3000:]}\n"
+                             f"{(job['dir'] / 'ranks.err').read_text()[-3000:]}")
+    lines = stdout.splitlines()
+    if sum(f"resumed from step {first}" in ln for ln in lines) != 1:
+        raise AssertionError(f"22(c): 'resumed from step {first}' not "
+                             f"printed once:\n{stdout[-2000:]}")
+    got = [float(ln.split("loss")[1].split()[0]) for ln in lines
+           if ln.startswith("step")]
+    want = [h["loss"] for h in job["one"]]
+    dev = [abs(g - w) for g, w in zip(got, want)]
+    wall = time.perf_counter() - job["t0"]
+    print(f"  22(c): 1 process to step {first}, then --devices 4 "
+          f"--data-axis 2 --resume: 'resumed from step {first}' once; "
+          f"losses {got} vs the one-process continuation "
+          f"{[round(w, 6) for w in want]} (|dev| {[f'{x:.1e}' for x in dev]}"
+          f"); its own {job['own_s']:.1f} s in this process, done "
+          f"{wall:.1f} s after its start")
+    if len(got) != last - first or any(x > ELASTIC_ATOL + 5e-5
+                                       for x in dev):
+        raise AssertionError(f"22(c): resumed losses {got} vs {want}")
+    report["train_ranks_c"] = {"losses": got, "one_process": want,
+                               "own_s": job["own_s"], "wall_s": wall}
+    shutil.rmtree(job["dir"], ignore_errors=True)
+
+
+def rt_moe_sides() -> dict:
+    """22(d)'s one-process sides and runs: qwen3-moe-235b-a22b-smoke with
+    `moe_ep_local` in the train step, the same ranks on the CPU (writing
+    their params after the steps into a shared block) and then on the
+    card, both from the card's draws (a CPU generator draws others); the
+    floor: the card-vs-CPU distance of the same config's one-process
+    steps (`moe_ref`)."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import leaves, map_tree
+    arch, _ = RT_MOE
+    cfg = rt_cfg(arch, 0, smoke=True, moe_ep=True)
+    opt = (3e-4, 2, RT_STEPS)
+    init = build_model(cfg).init(torch.Generator(DEVICE).manual_seed(0),
+                                 device=DEVICE)
+    start = rt_share(init)
+    hc, pc, _ = rt_one_process(cfg, rt_opt(opt), False,
+                               start=map_tree(torch.clone, init))
+    hh, ph, _ = rt_one_process(cfg, rt_opt(opt), False, "cpu",
+                               start=map_tree(lambda t: t.cpu(), init))
+    floor = {"loss": [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(hc, hh)],
+             "gn": [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(hc, hh)],
+             "params": {"/".join(p): max_rel(a.cpu(), b) for (p, a), (_, b)
+                        in zip(leaves(pc), leaves(ph), strict=True)}}
+    sink = rt_share(ph)                 # the CPU run's params land here
+    base = {"cfg": cfg, "opt": opt, "optical": False,
+            "start": start["block"]}
+    return {"floor": floor, "start": start, "sink": sink,
+            "runs": [dict(base, name="moe_cpu", device="cpu",
+                          sink=sink["block"]),
+                     dict(base, name="moe", want=sink["block"])]}
+
+
+def rt_moe_check(report: dict, moe: dict, outs: list) -> None:
+    """22(d)'s gates: the card run's losses and |g| against the CPU run's,
+    and its shards of every leaf against the CPU run's params, within 4x
+    the card-vs-CPU floor plus 1e-6; the dropped assignments printed."""
+    arch, mesh = RT_MOE
+    floor = moe["floor"]
+    a, b = outs[0]["moe"], outs[0]["moe_cpu"]
+    fails = []
+    for i, ((l, g), (wl, wg)) in enumerate(zip(a["hist"], b["hist"])):
+        for name, x, y, fl in (("loss", l, wl, floor["loss"][i]),
+                               ("|g|", g, wg, floor["gn"][i])):
+            if abs(x - y) / abs(y) > 4 * fl + 1e-6:
+                fails.append(f"step {i} {name} card {x} vs CPU {y} "
+                             f"(floor {fl:.2e})")
+    views = moe["sink"]["params"]
+    rel = {k: max(o["moe"]["dev"][k] for o in outs)
+           / float(views[k].abs().max()) for k in a["dev"]}
+    del views
+    for r in moe["runs"]:
+        for k in ("start", "sink", "want"):
+            r.pop(k, None)
+    host_free(moe["sink"])
+    host_free(moe["start"])
+    bad = [k for k, d in rel.items() if d > 4 * floor["params"][k] + 1e-6]
+    worst = max(rel, key=lambda k: rel[k] / (4 * floor["params"][k] + 1e-6))
+    drops = [o["moe"]["drops"] for o in outs]
+    drops_cpu = [o["moe_cpu"]["drops"] for o in outs]
+    walls = [max(sum(o[k]["walls"]) for o in outs) for k in ("moe", "moe_cpu")]
+    print(f"  22(d): {arch}-smoke, moe_ep_local in the train step, 4 ranks "
+          f"{mesh}: card losses {[round(l, 6) for l, _ in a['hist']]}, "
+          f"CPU {[round(l, 6) for l, _ in b['hist']]} (floor "
+          f"{[f'{f:.1e}' for f in floor['loss']]}); the leaf nearest its "
+          f"bound {worst} at {rel[worst]:.2e} (floor "
+          f"{floor['params'][worst]:.2e}); dropped assignments a rank over "
+          f"the forward passes and recomputations: card {drops}, CPU "
+          f"{drops_cpu}; steps {walls[0]:.1f} s on the card, "
+          f"{walls[1]:.1f} s on the CPU")
+    report["train_ranks_d"] = {"card": a["hist"], "cpu": b["hist"],
+                               "drops": drops, "drops_cpu": drops_cpu,
+                               "worst_leaf_rel": rel[worst],
+                               "steps_s": walls}
+    if bad:
+        fails.append(f"leaves beyond 4x the floor: {bad}")
+    if fails:
+        raise AssertionError("22(d): " + "; ".join(fails))
+
+
+def train_ranks_phase(report: dict) -> dict:
+    """22: training across ranks; returns the main paths' launches
+    (22(a)'s rosa_fused, 22(b)'s ssd_scan and its backward, every
+    rank's)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    print("phase 22(c): the elastic restart through the CLI, started")
+    elastic = rt_elastic_start()
+    try:
+        print("phase 22(a): qwen3-32b across 2 ranks, plain and optical")
+        n = {"rosa_fused": rt_qwen(report)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("phase 22(b): mamba2-1.3b across 4 ranks, full width and "
+              "depth; 22(d): qwen3-moe-235b-a22b-smoke, experts over ranks "
+              "in the train step, card vs CPU, in the same group")
+        n.update(rt_mamba(report))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("phase 22(c): the elastic restart, checked")
+        rt_elastic_finish(elastic, report)
+    finally:
+        if elastic["proc"].poll() is None:
+            elastic["proc"].kill()
+            elastic["proc"].wait()
+    report["train_ranks_s"] = time.perf_counter() - t0
+    return n
+
+
 # `--kernels`: the phases it runs alone, by name: (title, [(tag, phase)])
 PHASES = {
     "2": ("2: kernel parity against the plain versions",
@@ -5004,6 +5890,8 @@ PHASES = {
     "19a": ("19(a): the ssd_scan backward against its plain version",
             [("19a", ssd_bwd_phase)]),
     "21": ("21: serving across ranks", [("21", ranks_phase)]),
+    "22": ("22: training across ranks (17(b) first: 22(a) reads it)",
+           [("17b", optical_train_phase), ("22", train_ranks_phase)]),
 }
 KERNEL_PHASES = ("2", "6", "8", "12a", "19a")   # `--kernels` alone
 
@@ -5021,16 +5909,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "CUDA card (all phases by default).")
     ap.add_argument("--cards", action="store_true",
-                    help="phase 21 over nccl, one rank a card (the host "
-                    "must have 4 cards); default: gloo, the ranks sharing "
-                    "card 0")
+                    help="phases 21-22 over nccl, one rank a card (the "
+                    "host must have 4 cards); default: the ranks share "
+                    "card 0 in a gloo group, the CUDA collectives through "
+                    "card buffers)")
     ap.add_argument("--kernels", nargs="*", metavar="PHASE",
                     choices=PHASES,
                     help="build and run the kernel phases 2, 6, 8, "
                     "12a and 19a only (parity and times of all six "
                     "kernels), or those named (21 too, which runs "
-                    "phases 3-5 first for their tokens); prints no "
-                    "summary and no result line")
+                    "phases 3-5 first for their tokens; 22, which runs "
+                    "17(b) first); prints no summary and no result line")
     opts = ap.parse_args(argv)
     global RANK_CARDS
     RANK_CARDS = opts.cards
@@ -5163,6 +6052,13 @@ def run_phases(opts) -> int:
     print("phase 21: serving across ranks (slots, the KV cache's sequence, "
           "experts)")
     launches["rosa_fused"] += phase("21", ranks_phase)
+    print("phase 22: training across ranks (params and moments sharded, "
+          "the gathers' transposes, experts in the train step, the elastic "
+          "restart)")
+    rt_n = phase("22", train_ranks_phase)
+    launches["rosa_fused"] += rt_n["rosa_fused"]
+    launches["ssd_scan"] += rt_n["ssd_scan"]
+    ssm_n["ssd_scan_bwd"] += rt_n["ssd_scan_bwd"]
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

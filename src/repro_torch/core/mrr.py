@@ -236,6 +236,32 @@ def draw_eps(key: torch.Generator, shape, device=None, dtype=torch.float32):
                                                        dtype)
 
 
+def draw_act_eps(key: torch.Generator, shape, device=None,
+                 dtype=torch.float32):
+    """`draw_eps` for an activation whose dim 0 holds a batch's rows.
+    Under a live train context whose rows are split over ranks
+    (`distributed.sharding.train_batch_axes`) the draws are made at the
+    global batch's rows and this rank keeps its own, so the ranks draw
+    the one-process step's offsets (the layer's key is the same on every
+    rank: drawn at the local shape, every data rank would repeat the same
+    offsets)."""
+    from repro_torch.distributed.sharding import train_batch_axes
+    axes = train_batch_axes()
+    if not axes:
+        return draw_eps(key, shape, device, dtype)
+    from repro_torch.distributed import runtime as rt
+    from repro_torch.distributed.sharding import (current_ctx, live_mesh,
+                                                  mesh_axes)
+    sizes = mesh_axes(live_mesh(current_ctx()))
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    rows = shape[0]
+    lo = rt.axis_index(axes) * rows
+    d, th = draw_eps(key, (rows * n, *shape[1:]), device, dtype)
+    return d[lo:lo + rows], th[lo:lo + rows]
+
+
 # --------------------------------------------------------------------------
 # The realization chain in folded form
 # --------------------------------------------------------------------------

@@ -73,7 +73,8 @@ def osa_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     decompose into signed-digit (or PAM) slots, one wavelength-parallel
     product per slot, shift-and-add with the slot gains, rescale.  With an
     ideal OSAConfig this equals fake-quant(x) @ w to float precision."""
-    q, scale = Q.quantize(x, quant, per_vector=per_vector)
+    # x is the activation side: its full-scale spans a train step's ranks
+    q, scale = Q.quantize(x, quant, per_vector=per_vector, act=True)
     if cfg.pam_bits == 1:
         digits = Q.decompose_planes(q, quant)          # (T, M, K)
     else:

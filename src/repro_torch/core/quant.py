@@ -41,11 +41,32 @@ def absmax_scale(x: torch.Tensor, per_vector: bool = False) -> torch.Tensor:
     return torch.clamp_min(x.abs().amax(), 1e-8)
 
 
+def act_absmax_scale(x: torch.Tensor,
+                     per_vector: bool = False) -> torch.Tensor:
+    """`absmax_scale` of an activation.  A per-tensor full-scale spans the
+    global batch: under a live train context whose rows are split over
+    ranks (`distributed.sharding.train_batch_axes`) the max is taken over
+    every rank's rows, as `jnp.max` over a sharded batch is, its gradient
+    (if any) shared as `jnp.max`'s (`distributed.runtime.amax`).  A
+    per-row full-scale needs no other rank."""
+    if per_vector and x.ndim >= 2:
+        return absmax_scale(x, True)
+    from repro_torch.distributed.sharding import train_batch_axes
+    axes = train_batch_axes()
+    if not axes:
+        return absmax_scale(x)
+    from repro_torch.distributed import runtime as rt
+    return torch.clamp_min(rt.amax(x.abs(), axes), 1e-8)
+
+
 def quantize(x: torch.Tensor, cfg: QuantConfig = Q8,
-             scale: torch.Tensor | None = None, per_vector: bool = False):
-    """Symmetric uniform quantization -> (integer-valued floats, scale)."""
+             scale: torch.Tensor | None = None, per_vector: bool = False,
+             act: bool = False):
+    """Symmetric uniform quantization -> (integer-valued floats, scale);
+    `act` marks an activation, whose full-scale `act_absmax_scale`
+    takes."""
     if scale is None:
-        scale = absmax_scale(x, per_vector)
+        scale = (act_absmax_scale if act else absmax_scale)(x, per_vector)
     q = torch.clamp(torch.round(x / scale * cfg.qmax), -cfg.qmax, cfg.qmax)
     return q, scale
 
@@ -55,10 +76,11 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, cfg: QuantConfig = Q8):
 
 
 def fake_quant(x: torch.Tensor, cfg: QuantConfig = Q8,
-               per_vector: bool = False) -> torch.Tensor:
+               per_vector: bool = False, act: bool = False) -> torch.Tensor:
     """Quantize-dequantize with a straight-through gradient.  The value is
-    `x + (xq - x)`, evaluated as written, as the reference evaluates it."""
-    q, scale = quantize(x, cfg, per_vector=per_vector)
+    `x + (xq - x)`, evaluated as written, as the reference evaluates it
+    (`act`: an activation, see `quantize`)."""
+    q, scale = quantize(x, cfg, per_vector=per_vector, act=act)
     xq = dequantize(q, scale, cfg)
     return x + (xq - x).detach()
 

@@ -46,7 +46,12 @@ class TokenPipeline:
 
     def shard_batch(self, step: int, shard: int, n_shards: int,
                     device=None) -> dict:
-        """One data-parallel shard's slice of the step's batch."""
+        """One data-parallel shard's slice of the step's batch (a rank's
+        rows of the global batch); a batch that does not divide over the
+        shards is refused."""
+        if self.global_batch % n_shards:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"divide over {n_shards} shards")
         full = self.batch(step)
         per = self.global_batch // n_shards
         return {k: v[shard * per:(shard + 1) * per].to(device)

@@ -39,6 +39,26 @@ rank's shard of a global tensor by a spec.  The expert-parallel MoE
 (`models.moe.moe_ep_local` from `transformer._ffn_apply`) and
 `models.layers.flash_decode` read it.
 
+Training across ranks (`launch.steps.make_train_step(mesh=)`) stores the
+reference's layout: every param leaf and AdamW moment as this rank's
+shard of its `param_shardings(skel, mesh, TRAIN_RULES)` spec
+(`shard_tree` cuts them, one leaf at a time, from whole tensors or numpy
+arrays), so a rank holds exactly the `local_shape` bytes of its shards.
+A live train context also names the spec tree of the params the model is
+handed (`ShardingCtx.params`) and the mesh axes its batch rows are split
+over (`ShardingCtx.batch_axes`).  The model then gathers a layer's leaves
+whole (`gather_tree`, a differentiable tiled all_gather per sharded dim)
+where it uses them, inside the recomputed block for a stacked layer (the
+spec of a layer slice is the stacked spec without its leading dims,
+`drop_dims`), so autograd never keeps a layer's gathered weights; the
+gathers' backward, `psum_scatter`, hands each rank the summed gradient of
+its own shard.  Why compute splits only where an explicit collective
+covers it (the experts' `moe_ep_local`), and heads, MLP and vocab are
+whole on every rank: each of GSPMD's tensor-parallel splits is a
+collective of its own to write and to transpose; the gathers cover every
+layout with one rule, at the cost of the redundant work ROADMAP.md's
+Queue 2 prices.
+
 The reference's `shard_map_compat` (a shim over the renames of jax's
 `shard_map`) has no counterpart.
 """
@@ -123,6 +143,10 @@ class ShardingCtx:
     rules: dict[str, tuple[str, ...]]
     # global sizes of the logical dims laid out sharded on a live mesh
     sizes: dict[str, int] = dataclasses.field(default_factory=dict)
+    # a train step's: the spec tree of the (local) params the model is
+    # handed, and the mesh axes its batch rows are split over
+    params: Any = None
+    batch_axes: tuple[str, ...] = ()
 
 
 _STACK: list[ShardingCtx] = []
@@ -134,8 +158,10 @@ def current_ctx() -> ShardingCtx | None:
 
 @contextlib.contextmanager
 def use_sharding(mesh, rules: dict[str, tuple[str, ...]],
-                 sizes: dict[str, int] | None = None):
-    _STACK.append(ShardingCtx(mesh, rules, dict(sizes or {})))
+                 sizes: dict[str, int] | None = None, *, params=None,
+                 batch_axes: tuple[str, ...] = ()):
+    _STACK.append(ShardingCtx(mesh, rules, dict(sizes or {}), params,
+                              tuple(batch_axes)))
     try:
         yield _STACK[-1]
     finally:
@@ -275,6 +301,82 @@ def shard_local(t: torch.Tensor, spec: PartitionSpec,
         size = out.shape[i] // n
         out = out.narrow(i, axis_index(group, mesh) * size, size)
     return out
+
+
+def spec_axes(spec: PartitionSpec) -> tuple[str, ...]:
+    """The mesh axes a spec shards over, in the spec's order."""
+    return tuple(a for part in spec for a in _group(part))
+
+
+def drop_dims(specs, n: int = 1):
+    """The spec tree of a slice of stacked leaves: each spec without its
+    first `n` dims (a stacked leaf's leading layer dims are whole)."""
+    from repro_torch.models.module import map_tree
+
+    def drop(spec):
+        if any(_group(p) for p in spec[:n]):
+            raise ValueError(f"{spec}: a sliced leading dim is sharded")
+        return P(*spec[n:])
+    return map_tree(drop, specs)
+
+
+def gather(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """The whole tensor of this rank's shard `t` laid out by `spec`: a
+    tiled all_gather along every sharded dim (differentiable: the backward
+    is `psum_scatter`, each rank's summed gradient of its own shard)."""
+    from repro_torch.distributed import runtime as rt
+    for i, part in enumerate(spec):
+        if _group(part):
+            t = rt.all_gather(t, _group(part), axis=i, tiled=True,
+                              mesh=mesh)
+    return t
+
+
+def gather_tree(tree, specs, mesh, skip=None):
+    """`gather` at every leaf of a nested dict of local shards, batched:
+    one collective a mesh axis for the whole tree
+    (`runtime.gather_many`); a leaf whose path `skip(path)` holds is left
+    as it is."""
+    from repro_torch.distributed import runtime as rt
+    from repro_torch.models.module import leaves, unflatten
+    spec_of = dict(leaves(specs))
+    pairs = [(path, t) for path, t in leaves(tree)]
+    plan = [() if skip is not None and skip(path) else
+            tuple((i, _group(part)) for i, part in enumerate(spec_of[path])
+                  if _group(part))
+            for path, _ in pairs]
+    got = rt.gather_many([t for _, t in pairs], plan, mesh)
+    return unflatten((path, t) for (path, _), t in zip(pairs, got))
+
+
+def shard_tree(tree, specs, mesh, device=None):
+    """The tree of this rank's shards of whole tensors (or numpy arrays),
+    one leaf at a time: each cut by its spec (`shard_local`) into a fresh
+    tensor on `device` (default: the leaf's own), so the rank holds only
+    its shards' bytes."""
+    import numpy as np
+    from repro_torch.models.module import leaves, unflatten
+    spec_of = dict(leaves(specs))
+    out = []
+    for path, t in leaves(tree):
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t)
+        local = shard_local(t, spec_of[path], mesh)
+        # a fresh tensor: a view would keep the whole leaf's storage alive
+        out.append((path, torch.empty(
+            local.shape, dtype=local.dtype,
+            device=device or local.device).copy_(local)))
+    return unflatten(out)
+
+
+def train_batch_axes() -> tuple[str, ...]:
+    """The mesh axes a live train context splits its batch rows over (an
+    activation's per-tensor full-scale and a masked loss reduce over
+    them); () outside one."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.batch_axes or live_mesh(ctx) is None:
+        return ()
+    return ctx.batch_axes
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,7 +41,8 @@ def osa_matmul(x: torch.Tensor, w: torch.Tensor,
     """Float activations -> quantize -> OSA contraction -> dequantize.
     x (M, K), w (K, N); returns (M, N) float32."""
     cfg = Q.QuantConfig(bits=quant_bits)
-    q, scale = Q.quantize(x.float(), cfg, per_vector=per_vector)
+    # x is the activation side: its full-scale spans a train step's ranks
+    q, scale = Q.quantize(x.float(), cfg, per_vector=per_vector, act=True)
     n_planes = -(-cfg.n_planes // pam_bits)
     if gains is None:
         gains = Q.pam_plane_weights(pam_bits, cfg, device=x.device)

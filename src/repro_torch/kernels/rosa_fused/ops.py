@@ -47,17 +47,19 @@ LAUNCHES = kernels.LaunchCounter("rosa_fused")
 
 
 def _offsets(t: torch.Tensor, key, noise: mrr.NoiseModel,
-             var: mrr.StaticVariation | None):
+             var: mrr.StaticVariation | None, act: bool = False):
     """The three additive chain offsets (v_off, t_off, l_off) of one side,
     broadcast to its shape: per-shot draws (as `weight_of_voltage` splits
-    `key`) plus static variation."""
+    `key`; an activation's, `act`, over a train step's global batch) plus
+    static variation."""
     z = torch.zeros((), dtype=t.dtype, device=t.device)
     if noise.is_ideal:
         e_dac = e_th = z
     else:
         if key is None:
             raise ValueError("noisy realization requires a key")
-        d, th = mrr.draw_eps(key, t.shape, t.device, t.dtype)
+        d, th = (mrr.draw_act_eps if act else mrr.draw_eps)(
+            key, t.shape, t.device, t.dtype)
         e_dac, e_th = noise.sigma_dac * d, noise.sigma_th * th
     dv, ddt, dlam = ((var.dv, var.ddt, var.dlam) if var is not None
                      else (z, z, z))
@@ -127,20 +129,22 @@ def operands(x: torch.Tensor, w: torch.Tensor, key=None,
                               w_active=w_active)
 
     # -- scales --
+    # the activations' per-tensor full-scales span a train step's global
+    # batch (Q.act_absmax_scale); weights arrive whole
     sw = Q.absmax_scale(w)
     if analog:
-        sxd = sxa = s2 = Q.absmax_scale(x)
+        sxd = sxa = s2 = Q.act_absmax_scale(x)
     else:
-        sxd = Q.absmax_scale(x, act_per_vector)
+        sxd = Q.act_absmax_scale(x, act_per_vector)
         sxa = Q.absmax_scale(x, True)
         x_eff_pre = ref.condition_x(
             x, k_x, x_active=realize_x, use_mgate=use_mgate, mgate=mgate,
             gate=gate, var=var, qcfg=qcfg, p=p,
             noise=noise if realize_x else mrr.IDEAL,
             act_per_vector=act_per_vector)
-        s2 = Q.absmax_scale(x_eff_pre, act_per_vector)
+        s2 = Q.act_absmax_scale(x_eff_pre, act_per_vector)
 
-    x_off = _offsets(x, k_x, noise, var) if realize_x else None
+    x_off = _offsets(x, k_x, noise, var, act=True) if realize_x else None
     w_off = (_offsets(w, k_w, noise, mrr.expand_lanes(var, w))
              if realize_w else None)
 

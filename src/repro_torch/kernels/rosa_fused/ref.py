@@ -28,14 +28,19 @@ def analog_operand(t: torch.Tensor, key, *, qcfg: Q.QuantConfig,
                    p: mrr.MRRParams, noise: mrr.NoiseModel,
                    var: mrr.StaticVariation | None, gate,
                    clean_per_vector: bool,
-                   noisy_per_vector: bool) -> torch.Tensor:
-    """rosa.backends._analog_operand with the per-vector flags explicit."""
-    clean = Q.fake_quant(t, qcfg, per_vector=clean_per_vector)
+                   noisy_per_vector: bool, act: bool = False) -> torch.Tensor:
+    """rosa.backends._analog_operand with the per-vector flags explicit
+    (`act`: an activation's full-scales, `Q.act_absmax_scale`)."""
+    clean = Q.fake_quant(t, qcfg, per_vector=clean_per_vector, act=act)
     if noise.is_ideal and var is None and gate is None:
         return clean
-    scale = Q.absmax_scale(t, noisy_per_vector)
-    q = Q.fake_quant(t / scale, qcfg)
-    noisy = mrr.realize_weights(q, key, p, noise, var) * scale
+    scale = (Q.act_absmax_scale if act else Q.absmax_scale)(
+        t, noisy_per_vector)
+    q = Q.fake_quant(t / scale, qcfg, act=act)
+    # an activation's per-shot draws span a train step's global batch
+    eps = (mrr.draw_act_eps(key, q.shape, q.device, q.dtype)
+           if act and not noise.is_ideal and key is not None else None)
+    noisy = mrr.realize_weights(q, key, p, noise, var, eps) * scale
     if gate is None:
         return noisy
     return clean + gate * (noisy - clean)
@@ -47,16 +52,16 @@ def condition_x(x: torch.Tensor, key, *, x_active: bool, use_mgate: bool,
                 noise: mrr.NoiseModel,
                 act_per_vector: bool) -> torch.Tensor:
     """The MIXED-mode activation operand exactly as `_forward` builds it."""
-    x_dig = Q.fake_quant(x, qcfg, per_vector=act_per_vector)
+    x_dig = Q.fake_quant(x, qcfg, per_vector=act_per_vector, act=True)
     if use_mgate:
         x_is = analog_operand(x, key, qcfg=qcfg, p=p, noise=noise, var=var,
                               gate=gate, clean_per_vector=act_per_vector,
-                              noisy_per_vector=True)
+                              noisy_per_vector=True, act=True)
         return (1.0 - mgate) * x_dig + mgate * x_is
     if x_active:
         return analog_operand(x, key, qcfg=qcfg, p=p, noise=noise, var=var,
                               gate=gate, clean_per_vector=act_per_vector,
-                              noisy_per_vector=True)
+                              noisy_per_vector=True, act=True)
     return x_dig
 
 

@@ -1,15 +1,36 @@
 """Step-function factories of the launchers and the dry run (PyTorch port
-of `repro.launch.steps`).  The steps run on one device; the dry run reads
-`opt_state_shardings` to lay the optimizer state out on a mesh."""
+of `repro.launch.steps`).  The dry run reads `opt_state_shardings` to lay
+the optimizer state out on a mesh.
+
+The train step runs on one device, or across the ranks of a live mesh
+(`make_train_step(..., layout=train_layout(bundle, mesh, global_batch))`),
+where the reference jits its step under `TRAIN_RULES` shardings and GSPMD
+partitions it.  There each rank holds its shards of the params and the
+AdamW moments (`init_sharded`, `init_opt_state`), and its rows of the
+global batch (`TrainLayout.local_batch`).  The model gathers the weights
+where it uses them (`models.transformer`), and the gradient follows one
+convention (`distributed.runtime`): a rank's loss contribution is the
+mean over its rows times its rows over the global rows, over the number
+of ranks that hold the same rows (the product of the mesh axes the batch
+does not use), so the global loss is the `psum` of the contributions; a
+leaf replicated over an axis has its gradient `psum`-med over it.
+"""
 
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
 
 import torch
 
 from repro_torch.distributed import compress as C
-from repro_torch.distributed.sharding import replicated
+from repro_torch.distributed.sharding import (TRAIN_RULES, mesh_axes,
+                                              param_shardings, replicated,
+                                              resolve_spec, spec_axes,
+                                              use_sharding)
 from repro_torch.models.model import ModelBundle
-from repro_torch.models.module import leaves, unflatten
+from repro_torch.models.module import init_leaves, leaves, map_tree, unflatten
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -53,24 +74,170 @@ def loss_and_grads(bundle: ModelBundle, params, batch):
         [(path, g) for (path, _), g in zip(pairs, grads, strict=True)])
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """A train step's layout on a live mesh: the params' spec tree under
+    `rules`, the mesh axes the global batch's rows split over, and the
+    global batch size."""
+    mesh: Any
+    rules: dict
+    specs: dict
+    batch_axes: tuple[str, ...]
+    global_batch: int
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return tuple(mesh_axes(self.mesh))
+
+    @property
+    def n_row_shards(self) -> int:
+        sizes = mesh_axes(self.mesh)
+        return math.prod(sizes[a] for a in self.batch_axes)
+
+    @property
+    def n_copies(self) -> int:
+        """Ranks that hold the same rows (the mesh axes the batch does
+        not use)."""
+        sizes = mesh_axes(self.mesh)
+        return math.prod(n for a, n in sizes.items()
+                         if a not in self.batch_axes)
+
+    def rows(self) -> tuple[int, int]:
+        """This rank's rows [start, stop) of the global batch."""
+        from repro_torch.distributed.runtime import axis_index
+        per = self.global_batch // self.n_row_shards
+        i = axis_index(self.batch_axes, self.mesh) if self.batch_axes else 0
+        return i * per, (i + 1) * per
+
+    def local_batch(self, batch: dict, device=None) -> dict:
+        """This rank's rows of a global batch (every leaf's dim 0)."""
+        lo, hi = self.rows()
+        return {k: v[lo:hi].contiguous().to(device or v.device)
+                for k, v in batch.items()}
+
+    def shard_bytes(self, skel, itemsize: int = 4) -> int:
+        """Bytes of one rank's shards of a tree of `skel`'s shapes."""
+        from repro_torch.distributed.sharding import local_shape
+        spec_of = dict(leaves(self.specs))
+        return sum(math.prod(local_shape(d.shape, spec_of[p], self.mesh))
+                   * itemsize for p, d in leaves(skel))
+
+
+def train_layout(bundle: ModelBundle, mesh, global_batch: int,
+                 rules: dict = TRAIN_RULES) -> TrainLayout:
+    """The reference's layout of a train step on `mesh` (`param_shardings`
+    of the skeleton, the "batch" rule on the global batch).  A global
+    batch that does not divide over the batch rule's mesh axes is refused,
+    and so is an expert-parallel MoE whose experts do not split over
+    "model" as `moe_ep_local` takes them."""
+    sizes = mesh_axes(mesh)
+    want = tuple(a for a in rules.get("batch", ()) if a in sizes
+                 and sizes[a] > 1)
+    spec = resolve_spec((global_batch,), ("batch",), rules, mesh)
+    got = spec_axes(spec)
+    if got != want:
+        n = math.prod(sizes[a] for a in want)
+        raise ValueError(f"global batch {global_batch} does not divide over "
+                         f"the {n} ranks of {want}")
+    specs = map_tree(lambda sh: sh.spec,
+                     param_shardings(bundle.skeleton, mesh, rules))
+    cfg = bundle.cfg
+    if cfg.moe is not None and cfg.moe_ep and "layers" in specs:
+        _check_ep_specs(cfg, specs["layers"]["ffn"], mesh, rules)
+    return TrainLayout(mesh, rules, specs, got, global_batch)
+
+
+def _check_ep_specs(cfg, ffn_specs: dict, mesh, rules) -> None:
+    """The stacked expert weights' specs must be the ones `moe_ep_local`
+    takes (`ep_param_specs` with `ep_choice`'s FSDP axes)."""
+    from repro_torch.distributed.sharding import P, drop_dims, ep_param_specs
+    from repro_torch.models.transformer import EP_LOCAL
+    sizes = mesh_axes(mesh)
+    fsdp = tuple(a for a in (rules.get("embed") or ()) if a in sizes)
+    if fsdp and cfg.moe.d_model % math.prod(sizes[a] for a in fsdp):
+        fsdp = ()
+    want = ep_param_specs(ffn_specs, fsdp)
+    got = drop_dims(ffn_specs, 1)
+
+    def norm(spec):
+        # an axis of size 1 splits nothing
+        parts = [tuple(a for a in ((p,) if isinstance(p, str) else p or ())
+                       if sizes[a] > 1) or None for p in spec]
+        while parts and parts[-1] is None:
+            parts.pop()
+        return P(*parts)
+    for k in EP_LOCAL:
+        if k in got and norm(got[k]) != norm(want[k]):
+            raise ValueError(f"moe_ep: {k} is laid out {got[k]} under the "
+                             f"rules, but moe_ep_local takes {want[k]} (the "
+                             f"experts or d_ff do not split over the mesh)")
+
+
+def init_sharded(bundle: ModelBundle, generator: torch.Generator,
+                 layout: TrainLayout, dtype=torch.float32,
+                 device=None) -> dict:
+    """This rank's shards of `bundle.init(generator)`: the same draws, one
+    whole leaf at a time, each cut to its shard."""
+    from repro_torch.distributed.sharding import shard_local
+    spec_of = dict(leaves(layout.specs))
+    return unflatten(
+        (path, shard_local(t, spec_of[path], layout.mesh).clone())
+        for path, t in init_leaves(bundle.skeleton, generator, dtype,
+                                   device))
+
+
+def sharded_loss_and_grads(bundle: ModelBundle, params, batch,
+                           layout: TrainLayout):
+    """(global loss, this rank's gradient shards) of `bundle.train_loss`
+    on this rank's param shards and rows (see the module's docstring)."""
+    from repro_torch.distributed import runtime as rt
+    mesh = layout.mesh
+    pairs = [(path, t.detach().requires_grad_())
+             for path, t in leaves(params)]
+    weight = 1.0 / (layout.n_row_shards * layout.n_copies)
+    with use_sharding(mesh, layout.rules, {"batch": layout.global_batch},
+                      params=layout.specs, batch_axes=layout.batch_axes), \
+            torch.enable_grad():
+        part = bundle.train_loss(unflatten(pairs), batch) * weight
+        grads = torch.autograd.grad(part, [t for _, t in pairs],
+                                    allow_unused=True, materialize_grads=True)
+    spec_of = dict(leaves(layout.specs))
+    reps = [tuple(a for a in layout.axes
+                  if a not in spec_axes(spec_of[path])) for path, _ in pairs]
+    grads = rt.psum_many(list(grads), reps, mesh)
+    return (rt.psum(part.detach(), layout.axes, mesh),
+            unflatten((path, g) for (path, _), g in zip(pairs, grads,
+                                                        strict=True)))
+
+
 def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig,
-                    grad_compress: bool = False):
+                    grad_compress: bool = False,
+                    layout: TrainLayout | None = None):
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {loss, grad_norm, lr}).
 
     With grad_compress the gradient goes through bfloat16 with float32
     error feedback (`opt_state["err"]`) before the update, as the
     reference casts it ahead of its data-parallel all-reduce.  params and
-    the moments are updated in place (the reference donates them)."""
+    the moments are updated in place (the reference donates them).  With
+    a `layout` the step runs on this rank's shards and rows (see the
+    module's docstring): `--compress-grads` compresses this rank's shard
+    of the global gradient against its shard of `err`."""
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(bundle, params, batch)
+        if layout is None:
+            loss, grads = loss_and_grads(bundle, params, batch)
+        else:
+            loss, grads = sharded_loss_and_grads(bundle, params, batch,
+                                                 layout)
         if grad_compress:
             g16, err = C.compress(grads, opt_state["err"])
             grads = C.decompress(g16)
             opt_state = dict(opt_state, err=err)
-        params, inner, metrics = adamw_update(params, grads,
-                                              opt_state["adam"], opt_cfg)
+        params, inner, metrics = adamw_update(
+            params, grads, opt_state["adam"], opt_cfg,
+            specs=None if layout is None else layout.specs,
+            mesh=None if layout is None else layout.mesh)
         metrics["loss"] = loss
         return params, dict(opt_state, adam=inner), metrics
 
@@ -78,6 +245,8 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig,
 
 
 def init_opt_state(params, grad_compress: bool = False) -> dict:
+    """AdamW's moments (and `err`) shaped like `params`: on a rank, like
+    its shards, so they follow `opt_state_shardings`."""
     st = {"adam": adamw_init(params)}
     if grad_compress:
         st["err"] = C.init_error_state(params)

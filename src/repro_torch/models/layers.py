@@ -414,7 +414,9 @@ def unembed_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross entropy in float32; logits (B, S, V), labels
-    (B, S).  With a mask, the masked mean over max(sum(mask), 1)."""
+    (B, S).  With a mask, the masked mean over max(sum(mask), 1); under
+    a live train context whose rows are split over ranks both sums are
+    `psum`-med over them (every rank's value is the global batch's)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -422,4 +424,11 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     if mask is None:
         return torch.mean(nll)
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    num, den = torch.sum(nll * mask), torch.sum(mask)
+    from repro_torch.distributed.sharding import train_batch_axes
+    axes = train_batch_axes()
+    if axes:
+        # rows split over ranks: the masked mean of the global batch
+        from repro_torch.distributed import runtime as rt
+        num, den = rt.psum(num, axes), rt.psum(den, axes)
+    return num / torch.clamp(den, min=1.0)

@@ -75,7 +75,13 @@ def init_params(skel, generator: torch.Generator, dtype=torch.float32,
     """Real parameters: zeros/ones, or N(0, std^2) drawn from `generator`
     leaf after leaf in sorted-key order.  The generator must live on
     `device` (or on the CPU when `device` is None)."""
-    out = []
+    return unflatten(init_leaves(skel, generator, dtype, device))
+
+
+def init_leaves(skel, generator: torch.Generator, dtype=torch.float32,
+                device=None) -> Iterator[tuple[tuple, torch.Tensor]]:
+    """`init_params`' (path, tensor) pairs, one leaf made at a time (a
+    caller that keeps a shard of each holds one whole leaf at most)."""
     for path, d in leaves(skel):
         if d.init == "zeros":
             t = torch.zeros(d.shape, dtype=dtype, device=device)
@@ -84,8 +90,7 @@ def init_params(skel, generator: torch.Generator, dtype=torch.float32,
         else:
             t = torch.randn(d.shape, generator=generator, device=device)
             t = t.mul_(d.std).to(dtype)
-        out.append((path, t))
-    return unflatten(out)
+        yield path, t
 
 
 def abstract_params(skel, dtype=torch.bfloat16) -> dict:

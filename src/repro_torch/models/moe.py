@@ -20,6 +20,12 @@ Two paths with the same semantics:
     tokens against every expert and two `all_to_all`s carry them to the
     experts' owners and back.
 
+`moe_ep_local` trains as it serves: its collectives carry their
+transposes (`distributed.runtime`), so the FSDP gathers' gradients come
+back reduce-scattered, the `psum` over "model" hands every rank the whole
+cotangent of its partial output, and the all_to_alls send the cotangents
+back to the ranks the tokens came from.
+
 The expert projections are batched products against the stored weights
 viewed as (E, d, 2f) and (E, f, d): no layout of a weight is ever copied
 (at deepseek-v2's width `wi` is 6.4 GB a layer in float32).

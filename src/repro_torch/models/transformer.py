@@ -14,6 +14,16 @@ sharding context (`distributed.sharding.live_mesh`) the MoE FFN runs the
 expert-parallel `moe.moe_ep_local` on the rank's local shards, with the
 reference's choice of dispatch and FSDP axes; otherwise `moe_ref`.
 
+Under a live train context (`launch.steps.make_train_step(layout=)`) the
+params are the rank's shards of the `TRAIN_RULES` layout and the model
+gathers them where it uses them: the top-level leaves (embed, unembed,
+final norm, `layer0`, zamba2's `shared_attn`, the encoder's norm) on entry
+to `forward` / `train_loss`, and a stacked layer's (or zamba2 group's)
+leaves inside its recomputed body, on the local slice `layer_at` hands
+in, so the recomputation gathers again and autograd never keeps a
+layer's whole weights.  An expert-parallel MoE FFN's expert weights stay
+split over "model" (`moe_ep_local` gathers their FSDP dims itself).
+
 zamba2 (`hybrid`) stacks its Mamba-2 layers as `groups` (n_groups,
 shared_every, ...) plus an unstacked remainder `tail`, and applies ONE
 shared attention + MLP block (`shared_attn`) after every group, with a KV
@@ -120,6 +130,53 @@ def stack_defs(skel, n: int):
 def layer_at(tree, i: int):
     """One layer's params (views) out of a stacked tree."""
     return map_tree(lambda a: a[i], tree)
+
+
+# the params' stacked subtrees (a leading layer dim): gathered layer by
+# layer; every other leaf is a top-level one
+_STACKED = ("layers", "groups", "tail")
+# an expert-parallel MoE FFN's leaves that stay split (moe_ep_local)
+EP_LOCAL = ("wi", "wo", "shared_wi", "shared_wo")
+
+
+def _is_stacked(path: tuple) -> bool:
+    return path[0] in _STACKED or path[:2] == ("encoder", "layers")
+
+
+def _train_ctx():
+    """The live train context whose params are sharded, or None."""
+    from repro_torch.distributed.sharding import current_ctx, live_mesh
+    ctx = current_ctx()
+    if ctx is None or ctx.params is None or live_mesh(ctx) is None:
+        return None
+    return ctx
+
+
+def gather_top(params):
+    """Under a live train context the top-level leaves gathered whole
+    (the stacked subtrees left local); `params` itself otherwise."""
+    ctx = _train_ctx()
+    if ctx is None:
+        return params
+    from repro_torch.distributed.sharding import gather_tree
+    return gather_tree(params, ctx.params, ctx.mesh, skip=_is_stacked)
+
+
+def gather_layer(p, cfg: ModelConfig, *keys: str):
+    """Under a live train context, the slice `p` of the stacked subtree
+    `keys` (one layer, or one zamba2 group) gathered whole but for an
+    expert-parallel MoE FFN's expert weights; `p` itself otherwise."""
+    ctx = _train_ctx()
+    if ctx is None:
+        return p
+    from repro_torch.distributed.sharding import drop_dims, gather_tree
+    specs = ctx.params
+    for k in keys:
+        specs = specs[k]
+    ep = cfg.moe is not None and cfg.moe_ep
+    return gather_tree(p, drop_dims(specs, 1), ctx.mesh,
+                       skip=lambda path: ep and path[-2:-1] == ("ffn",)
+                       and path[-1] in EP_LOCAL)
 
 
 def layer_meta(cfg: ModelConfig, i: int) -> dict:
@@ -399,6 +456,11 @@ def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     the recomputation; zamba2's `tail` layers, outside the recomputed
     groups, once) and its backward once."""
     check_family(cfg)
+    return _forward(gather_top(params), cfg, batch)
+
+
+def _forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """`forward` on params whose top-level leaves are whole."""
     x, positions = _embed_in(params, cfg, batch)
     if cfg.family == "hybrid":
         x = _hybrid_fwd(params, cfg, x, positions)
@@ -407,7 +469,8 @@ def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         mem_pos = _positions(*mem.shape[:2], mem.device)
         meta = {"window": 0, "theta": cfg.rope_theta}
         body = _remat(cfg, lambda p, x: _block_fwd(
-            p, cfg, x, positions, meta, 0, mem, mem_pos))
+            gather_layer(p, cfg, "layers"), cfg, x, positions, meta, 0, mem,
+            mem_pos))
         for i in range(cfg.n_layers):
             x = body(layer_at(params["layers"], i), x)
     else:
@@ -417,7 +480,7 @@ def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
                            {"window": 0, "theta": cfg.rope_theta}, 0)
             off = 1
         body = _remat(cfg, lambda p, x, meta, step: _block_fwd(
-            p, cfg, x, positions, meta, step))
+            gather_layer(p, cfg, "layers"), cfg, x, positions, meta, step))
         for i in range(n_stacked(cfg)):
             x = body(layer_at(params["layers"], i), x,
                      layer_meta(cfg, i + off), i + off)
@@ -431,6 +494,7 @@ def _hybrid_fwd(params, cfg: ModelConfig, x, positions) -> torch.Tensor:
     shared = params["shared_attn"]
 
     def group(p_g, x):
+        p_g = gather_layer(p_g, cfg, "groups")
         for i in range(cfg.shared_every):
             x = _block_fwd(layer_at(p_g, i), cfg, x, positions, None, 0)
         h = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
@@ -443,16 +507,20 @@ def _hybrid_fwd(params, cfg: ModelConfig, x, positions) -> torch.Tensor:
         x = body(layer_at(params["groups"], g), x)
     if "tail" in params:
         for i in range(params["tail"]["ln1"].shape[0]):
-            x = _block_fwd(layer_at(params["tail"], i), cfg, x, positions,
-                           None, 0)
+            x = _block_fwd(gather_layer(layer_at(params["tail"], i), cfg,
+                                        "tail"), cfg, x, positions, None, 0)
     return x
 
 
 def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Mean next-token cross entropy of `forward` against
     batch["labels"] (masked by batch["mask"] if given); a vision model's
-    loss skips the patch positions."""
-    x = forward(params, cfg, batch)
+    loss skips the patch positions.  Under a live train context it is the
+    mean over this rank's rows (the step weighs it into the global
+    loss)."""
+    check_family(cfg)
+    params = gather_top(params)
+    x = _forward(params, cfg, batch)
     if cfg.frontend == "vision":
         x = x[:, batch["patch_embeds"].shape[1]:]
     return L.softmax_xent(logits_of(params, cfg, x), batch["labels"],
@@ -559,6 +627,7 @@ def _encode(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     acfg = dataclasses.replace(cfg.attn, causal=False)
 
     def layer(p, mem):
+        p = gather_layer(p, cfg, "encoder", "layers")
         h = L.rmsnorm(p["ln1"], mem, cfg.norm_eps)
         mem = mem + L.attn_apply(p["attn"], acfg, h, pos)
         h = L.rmsnorm(p["ln2"], mem, cfg.norm_eps)

@@ -11,7 +11,8 @@ qwen3-32b's width would cost one params-sized buffer each.  Here params,
 mu and nu are updated in place, leaf by leaf and in slices of `CHUNK`
 elements, so an update needs a few slices of scratch; elementwise work
 gives the same bits whatever the slicing.  Gradients are read, never
-written.
+written.  Across ranks the trees are shards and the same update runs on
+each (`global_norm` takes the layout).
 """
 
 from __future__ import annotations
@@ -46,13 +47,34 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the leaves
-    added one after another in sorted-key order."""
+    added one after another in sorted-key order.
+
+    Across ranks (`specs`, the tree's `PartitionSpec`s, on the live
+    `mesh`) each leaf is this rank's shard: the squares of the shards are
+    summed and `psum`-med over every mesh axis, a leaf replicated over an
+    axis counted on index 0 of that axis only, so each element counts
+    once and every rank gets the same norm (and clips with the same
+    scale)."""
+    if specs is not None:
+        from repro_torch.distributed import runtime as rt
+        from repro_torch.distributed.sharding import mesh_axes, spec_axes
+        axes = tuple(mesh_axes(mesh))
+        spec_of = dict(leaves(specs))
     total = None
-    for _, g in leaves(tree):
+    for path, g in leaves(tree):
+        if specs is not None:
+            used = spec_axes(spec_of[path])
+            if any(rt.axis_index(a, mesh) for a in axes if a not in used):
+                continue                   # another rank counts this copy
         s = torch.sum(torch.square(g.float()))
         total = s if total is None else total + s
+    if specs is not None:
+        if total is None:
+            device = next(t for _, t in leaves(tree)).device
+            total = torch.zeros((), device=device)
+        total = rt.psum(total, axes, mesh)
     return torch.sqrt(total)
 
 
@@ -67,13 +89,16 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
+                 specs=None, mesh=None):
     """One AdamW step.  Returns (params, state, metrics {grad_norm, lr}):
     params, mu and nu are the given tensors, updated in place; the state's
-    step counter is a new tensor."""
+    step counter is a new tensor.  Across ranks every tree holds this
+    rank's shards, laid out by `specs` on `mesh` (the norm is global; the
+    update is elementwise on the shards)."""
     step = state["step"] + 1
     lr = cfg.lr(step) if callable(cfg.lr) else cfg.lr
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip > 0 \
         else None
     b1, b2 = cfg.b1, cfg.b2

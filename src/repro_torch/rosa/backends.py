@@ -137,30 +137,37 @@ def _fused_backend(x, w, cfg: RosaConfig, *, key=None, var=None, gate=None,
 # Operand conditioning (noise placement)
 # ---------------------------------------------------------------------------
 def _noisy_realize(t, cfg: RosaConfig, key, var=None,
-                   per_vector: bool = False):
+                   per_vector: bool = False, act: bool = False):
     """Quantize `t` and realize it on the analog MRRs (per-tensor full-scale
-    for weights, per-row with `per_vector` for activations), through the
+    for weights, per-row with `per_vector` for activations; `act`: an
+    activation's, global over a train step's ranks), through the
     `mrr_transfer` kernel on CUDA and its plain chain on the CPU."""
-    scale = quant.absmax_scale(t, per_vector)
-    q = quant.fake_quant(t / scale, cfg.qcfg)
+    scale = (quant.act_absmax_scale if act else quant.absmax_scale)(
+        t, per_vector)
+    q = quant.fake_quant(t / scale, cfg.qcfg, act=act)
+    # an activation's per-shot draws span a train step's global batch
+    eps = (mrr.draw_act_eps(key, q.shape, q.device, q.dtype)
+           if act and not cfg.noise.is_ideal and key is not None else None)
     return mrr_transfer_ops.mrr_transfer(
         q, key, cfg.noise.sigma_dac, cfg.noise.sigma_th, cfg.mrr_params,
-        var) * scale
+        var, eps) * scale
 
 
-def _digital_path(t, cfg: RosaConfig, per_vector: bool = False):
-    """Exact digital EO encoding: quantization is the only error source."""
-    return quant.fake_quant(t, cfg.qcfg, per_vector=per_vector)
+def _digital_path(t, cfg: RosaConfig, per_vector: bool = False,
+                  act: bool = False):
+    """Exact digital EO encoding: quantization is the only error source
+    (`act`: `t` is an activation, see `quant.act_absmax_scale`)."""
+    return quant.fake_quant(t, cfg.qcfg, per_vector=per_vector, act=act)
 
 
 def _analog_operand(t, cfg: RosaConfig, key, var, gate,
-                    per_vector: bool = False):
+                    per_vector: bool = False, act: bool = False):
     """Noisy realization of the analog-side operand, optionally blended
     against the exact digital path by `gate` in [0, 1]."""
-    clean = _digital_path(t, cfg, per_vector and cfg.act_per_vector)
+    clean = _digital_path(t, cfg, per_vector and cfg.act_per_vector, act)
     if cfg.noise.is_ideal and var is None and gate is None:
         return clean
-    noisy = _noisy_realize(t, cfg, key, var, per_vector)
+    noisy = _noisy_realize(t, cfg, key, var, per_vector, act)
     if gate is None:
         return noisy
     return clean + gate * (noisy - clean)
@@ -205,7 +212,7 @@ def _forward(x, w, cfg: RosaConfig, key, var=None, gate=None, mgate=None):
                 and cfg.backend in ("auto", "dense") \
                 and var is None and gate is None and mgate is None:
             # ideal OSA over signed-digit planes == fake-quant matmul
-            return _digital_path(x, cfg, cfg.act_per_vector) \
+            return _digital_path(x, cfg, cfg.act_per_vector, act=True) \
                 @ _digital_path(w, cfg)
         bname, contract = resolve_backend(cfg.backend, device)
         if bname in _RAW_BACKENDS:
@@ -217,18 +224,21 @@ def _forward(x, w, cfg: RosaConfig, key, var=None, gate=None, mgate=None):
             k_w, k_x = mrr.split(key) if key is not None else (None, None)
             w_ws = _analog_operand(w, cfg, k_w, mrr.expand_lanes(var, w),
                                    gate)
-            x_is = _analog_operand(x, cfg, k_x, var, gate, per_vector=True)
+            x_is = _analog_operand(x, cfg, k_x, var, gate, per_vector=True,
+                                   act=True)
             w_eff = (1.0 - mgate) * w_ws + mgate * _digital_path(w, cfg)
             x_eff = (1.0 - mgate) * _digital_path(x, cfg,
-                                                  cfg.act_per_vector) \
+                                                  cfg.act_per_vector,
+                                                  act=True) \
                 + mgate * x_is
         elif cfg.mapping in (Mapping.WS, Mapping.GEMM):
             w_eff = _analog_operand(w, cfg, key, mrr.expand_lanes(var, w),
                                     gate)
-            x_eff = _digital_path(x, cfg, cfg.act_per_vector)
+            x_eff = _digital_path(x, cfg, cfg.act_per_vector, act=True)
         else:  # IS: inputs on the analog rings, weights exact digital
             w_eff = _digital_path(w, cfg)
-            x_eff = _analog_operand(x, cfg, key, var, gate, per_vector=True)
+            x_eff = _analog_operand(x, cfg, key, var, gate, per_vector=True,
+                                    act=True)
         return contract(x_eff, w_eff, cfg)
     if cfg.mode is ComputeMode.ANALOG:
         bname, contract = resolve_backend(cfg.backend, device)
@@ -237,10 +247,10 @@ def _forward(x, w, cfg: RosaConfig, key, var=None, gate=None, mgate=None):
                             mgate=None)
         k_w, k_x = mrr.split(key) if key is not None else (None, None)
         w_eff = _analog_operand(w, cfg, k_w, mrr.expand_lanes(var, w), gate)
-        x_eff = _analog_operand(x, cfg, k_x, var, gate)
+        x_eff = _analog_operand(x, cfg, k_x, var, gate, act=True)
         return x_eff @ w_eff                      # single-shot analog readout
     if cfg.mode is ComputeMode.DIGITAL:
-        return _digital_path(x, cfg) @ _digital_path(w, cfg)
+        return _digital_path(x, cfg, act=True) @ _digital_path(w, cfg)
     raise ValueError(cfg.mode)
 
 

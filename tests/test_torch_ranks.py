@@ -198,26 +198,31 @@ def ref(inputs, tmp_path_factory):
 # ---------------------------------------------------------------------------
 # The port's side: four gloo ranks on the CPU
 # ---------------------------------------------------------------------------
-def _collectives(mesh, rank: int) -> dict:
-    """Each collective on a (2, 2) mesh, values a function of the rank."""
-    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+def _collectives(mesh, rank: int, device="cpu") -> dict:
+    """Each collective on a (2, 2) mesh, values a function of the rank,
+    on tensors of `device`."""
+    def ar(n, *shape):
+        return torch.arange(n, dtype=torch.float32,
+                            device=device).reshape(*shape)
+
+    def host(t):
+        return t.cpu().numpy()
+    x = ar(6, 2, 3) + 10 * rank
     return {
         "axis_index": (runtime.axis_index("data", mesh),
                        runtime.axis_index("model", mesh),
                        runtime.axis_index(("data", "model"), mesh)),
-        "psum_model": runtime.psum(x, "model", mesh).numpy(),
-        "psum_all": runtime.psum(x, ("data", "model"), mesh).numpy(),
-        "pmax_data": runtime.pmax(x, "data", mesh).numpy(),
-        "gather_tiled": runtime.all_gather(x, ("data", "model"), axis=1,
-                                           tiled=True, mesh=mesh).numpy(),
-        "gather_stacked": runtime.all_gather(x, "model", axis=0,
-                                             mesh=mesh).numpy(),
-        "a2a": runtime.all_to_all(
-            torch.arange(8, dtype=torch.float32).reshape(4, 2) + 100 * rank,
-            "model", 0, 1, tiled=True, mesh=mesh).numpy(),
-        "a2a_untiled": runtime.all_to_all(
-            torch.arange(4, dtype=torch.float32).reshape(2, 2) + 100 * rank,
-            "data", 0, 1, mesh=mesh).numpy(),
+        "psum_model": host(runtime.psum(x, "model", mesh)),
+        "psum_all": host(runtime.psum(x, ("data", "model"), mesh)),
+        "pmax_data": host(runtime.pmax(x, "data", mesh)),
+        "gather_tiled": host(runtime.all_gather(x, ("data", "model"), axis=1,
+                                                tiled=True, mesh=mesh)),
+        "gather_stacked": host(runtime.all_gather(x, "model", axis=0,
+                                                  mesh=mesh)),
+        "a2a": host(runtime.all_to_all(ar(8, 4, 2) + 100 * rank, "model", 0,
+                                       1, tiled=True, mesh=mesh)),
+        "a2a_untiled": host(runtime.all_to_all(ar(4, 2, 2) + 100 * rank,
+                                               "data", 0, 1, mesh=mesh)),
     }
 
 

@@ -714,7 +714,8 @@ def test_train_cli_checkpoints_resumes_and_equals_reference_loop(
 
 
 def test_data_parallel_flag_exits():
-    with pytest.raises(SystemExit, match="one device only"):
+    # --data-axis 2 on the one device of --devices 1: 2 does not divide 1
+    with pytest.raises(SystemExit, match="does not divide --devices 1"):
         train_cli.main(["--smoke", "--device", "cpu", "--data-axis", "2"])
 
 
