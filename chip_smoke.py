@@ -77,7 +77,7 @@ Phases (any failure raises, so the exit code is non-zero):
      kernel-only times as in phase 2, the bound and its share;
   9. the paper's Table 4 pipeline over the four paper CNNs (alexnet,
      vgg16, resnet18, mobilenet_v3) at the reference's widths through
-     `launch.table4.run`, one model per main-path run: 400 QAT steps at
+     `launch.table4.run`, one model per main-path run: 200 QAT steps at
      batch 64 on 4096 synth-CIFAR images, the per-layer noise profile
      (n_mc 3), the hybrid plan, the five accuracies on the 512-image test
      split, and the EDP of WS, hybrid and DEAP-CNNs; then the paper's three
@@ -104,9 +104,9 @@ Phases (any failure raises, so the exit code is non-zero):
      draws, a chip per column, a full-shape chip field, no chip, and the
      (5120, 51200) sheet with a chip, with and without draws; times and
      bound as in phase 8 (bytes: w, g and dq, and the draws);
-     (b) variation-aware QAT: `train_cnn` of mobilenet_v3, 400 steps at
+     (b) variation-aware QAT: `train_cnn` of mobilenet_v3, 200 steps at
      batch 64 over an 8-chip antithetic wafer, every parameter finite and
-     the launches exactly 400 x 11 rosa_fused and 400 x 4 mrr_transfer
+     the launches exactly 200 x 11 rosa_fused and 200 x 4 mrr_transfer
      forward and backward (the clean evaluation after training launches
      nothing); then `evaluate_cnn_ensemble` of it and of phase 9's plainly
      trained mobilenet_v3 on a fresh 16-chip wafer at PAPER_NOISE, with
@@ -351,11 +351,25 @@ Phases (any failure raises, so the exit code is non-zero):
      and unembed among them) and restored onto them: the file holds the
      one-process layout (every key, whole shapes) and the restored shards
      equal the held ones bit for bit (so the file holds the one-process
-     params within the gate above); (b)
+     params within the gate above); (e) in the same group, the plain
+     run and an optical one with chip 7 pinned and the paper's per-shot
+     noise (WS) on (data 1, model 2): heads, MLP (`rosa_fused` at a
+     rank's wi columns, K 5120 x N 25600, and wo rows, K 12800 x N 5120)
+     and vocab split over the model ranks, the draws made at the whole
+     operands' shapes; against the plain one-process side and a
+     one-process run with the same noisy engine (its rosa_fused launches
+     counted, each with a draw pair at the whole weight's shape, every
+     rank's draws those shapes too),
+     with the floors of (a), the same launch counts, a rank's first-step
+     matmul FLOPs (`FlopCounterMode`) within 2 % of half of the
+     one-process step's, a rank's peak below 22(a)'s; (b)
      mamba2-1.3b at full width and depth, 4 ranks on (2, 2), 2 steps with
      phase 19(b)'s schedule, the same gates (the floor: hidden and head
-     axes and rows permuted), `ssd_scan` 2 x 48 x 2 and its backward
-     48 x 2 a rank; (c) the elastic restart through the CLI, mistral-
+     axes and rows permuted), `ssd_scan` 2 x 48 x 2 at 32 of 64 heads and
+     its backward 48 x 2 a rank, a rank's FLOPs within 3 % of a quarter
+     of the one-process step's; in (a), (b) and (e) the bytes a rank's
+     gathers hand back equal its non-"model" shards' from the specs
+     exactly; (c) the elastic restart through the CLI, mistral-
      large-123b-smoke at batch 4 x 32: one process to step 4, then
      `--devices 4 --data-axis 2 --resume` to 6 in a subprocess: 'resumed
      from step 4' printed once, its losses within 6e-5 (plus the CLI's
@@ -395,6 +409,9 @@ F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
 M_ROWS = (4, 8)               # decode batch (4 slots) and a prefill chunk
 PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
+# a rank's share of them over 2 model ranks (phase 22(e): wi's columns,
+# wo's rows)
+PROJ_SPLIT = {"mlp/wi": (5120, 25600), "mlp/wo": (12800, 5120)}
 # deepseek-v2's dense layer 0 (d_ff 12288): its MLP projections are the
 # optical ones of phase 14
 LAYER0_PROJ = {"mlp/wi": (5120, 24576), "mlp/wo": (12288, 5120)}
@@ -416,7 +433,8 @@ SSD_CASES = [(1, 1, 64, 64, 1, 128, 128), (1, 127, 64, 64, 1, 128, 128),
              (1, 128, 64, 64, 1, 128, 128), (1, 129, 64, 64, 1, 128, 128),
              (1, 512, 64, 64, 1, 128, 128), (1, 1000, 64, 64, 1, 128, 128),
              (2, 700, 64, 64, 2, 128, 128), (1, 512, 64, 64, 64, 128, 128),
-             (1, 128, 64, 64, 1, 64, 128), (1, 700, 64, 64, 1, 64, 128)]
+             (1, 128, 64, 64, 1, 64, 128), (1, 700, 64, 64, 1, 64, 128),
+             (4, 256, 32, 64, 1, 128, 128)]   # a (2, 2) rank's (22(b))
 SSD_SERVED_L = 512
 MAMBA_PARAMS = 1_343_532_032  # mamba2-1.3b at full width and depth
 
@@ -609,6 +627,10 @@ def fused_cases():
     cases += [(TRAIN_ROWS, k, n, f"WS ideal train {name}",
                dict(mapping=Mapping.WS, chip=False), "tall")
               for name, (k, n) in PROJ.items()]
+    # and a model rank's share of them in the split train step (22(e))
+    cases += [(TRAIN_ROWS, k, n, f"WS ideal train split {name}",
+               dict(mapping=Mapping.WS, chip=False), "tall")
+              for name, (k, n) in PROJ_SPLIT.items()]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
@@ -1388,7 +1410,9 @@ def mrr_phase(report: dict) -> dict:
 # ---------------------------------------------------------------------------
 CNNS = ("alexnet", "vgg16", "resnet18", "mobilenet_v3")
 CNN = "mobilenet_v3"                   # the golden file's network
-TABLE4 = dict(steps=400, n_mc=3)       # QAT at batch 64 on 4096 images
+# QAT at batch 64 on 4096 images (cut from 400 steps to fit the script's
+# time with phase 22(e))
+TABLE4 = dict(steps=200, n_mc=3)
 # EDP [J*s] of WS and of DEAP-CNNs on each network's full-size rows at
 # batch 128: the reference's floats (core.mapping.plan_edp and
 # core.energy.network_energy of src/repro), which
@@ -1848,7 +1872,7 @@ MRR_BWD_SASS = {                         # the wide sheets' kernels
 # (a division or square root counted as one), plus 4 for the draws and 3
 # for a chip's fields
 MRR_BWD_OPS = (73, 4, 3)
-ROBUST_QAT = dict(steps=400, batch=64, n_chips=8)
+ROBUST_QAT = dict(steps=200, batch=64, n_chips=8)   # cut from 400 steps
 ROBUST_EVAL_CHIPS = 16
 ROBUST_MODEL = "alexnet"
 ROBUST_RUNS = {"ensemble": dict(n_chips=64, n_probe=4, n_eval=512),
@@ -3790,7 +3814,8 @@ def obs_phase(report: dict) -> int:
 SSD_BWD_CASES = [(8, 256, 64, 64, 1, 128, 128), (8, 256, 64, 64, 1, 64, 128),
                  (1, 1, 64, 64, 1, 128, 128), (1, 129, 64, 64, 1, 128, 128),
                  (2, 700, 64, 64, 2, 128, 128),
-                 (1, 256, 64, 64, 64, 128, 128)]
+                 (1, 256, 64, 64, 64, 128, 128),
+                 (4, 256, 32, 64, 1, 128, 128)]   # a (2, 2) rank's (22(b))
 SSD_BWD_SERVED = (8, 256, 1, 128)          # (B, L, G, S) of the train step
 SSD_BWD_L1_SEEDS = 16                      # 19(a): L 1's further inputs
 SSD_BWD_L1_ORDERS = 4                      # and the head orders of its floor
@@ -5066,6 +5091,11 @@ def ranks_phase(report: dict) -> int:
 RT_STEPS = 2                   # each sharded run's train steps
 RT_QWEN = ("qwen3-32b", 2, (2, 1))          # 22(a): arch, layers, mesh
 RT_MAMBA = ("mamba2-1.3b", 0, (2, 2))       # 22(b): full depth
+RT_QWEN_SPLIT = (1, 2)         # 22(e): 22(a)'s runs over 2 model ranks
+RT_CHIP = 7                    # 22(e)'s optical run: this chip, per-shot noise
+# a rank's matmul FLOPs of a step against 1 / (data x model) of the
+# one-process step's: 22(b)'s and 22(e)'s tolerances
+RT_FLOPS_TOL = {"22(b)": 0.03, "22(e)": 0.02}
 RT_BATCH = (8, 256)
 RT_QWEN_OPT = (3e-4, 2, 10)    # 22(a): phase 17's (train_opt_cfg)
 RT_MAMBA_OPT = (3e-4, 2, 4)    # 22(b): phase 19(b)'s
@@ -5172,21 +5202,46 @@ def rt_batches(cfg, device) -> list:
     return [pipe.batch(i, device) for i in range(RT_STEPS)]
 
 
-def rt_engine(optical: bool):
+def rt_engine(optical, cfg=None):
+    """The engine of a run: none (`optical` False), phase 17(b)'s (True:
+    IDEAL, WS, no chip) or, for "chip", WS with the paper's per-shot
+    noise and chip RT_CHIP pinned over `cfg`'s MLP projections (22(e)'s
+    optical run), its draws keyed on the card."""
     import contextlib
+    import torch
     from repro_torch import rosa
     from repro_torch.rosa.backends import RosaConfig
     if not optical:
         return contextlib.nullcontext()
+    if optical != "chip":
+        return rosa.engine_context(rosa.Engine.from_config(
+            RosaConfig(backend="fused")))
+    from repro_torch.core import mrr
+    from repro_torch.core.constants import Mapping
+    from repro_torch.robust.variation import sample_chip
+    chip = sample_chip(torch.Generator().manual_seed(RT_CHIP),
+                       {"mlp/wi": cfg.d_model, "mlp/wo": cfg.d_ff},
+                       device=DEVICE)
     return rosa.engine_context(rosa.Engine.from_config(
-        RosaConfig(backend="fused")))
+        RosaConfig(noise=mrr.PAPER_NOISE, mapping=Mapping.WS,
+                   backend="fused"),
+        key=torch.Generator(DEVICE).manual_seed(3)).with_variation(chip))
 
 
-def rt_one_process(cfg, opt, optical: bool, device=None, start=None,
-                   rows=None):
+def step_flops(step, *args):
+    """(`step(*args)`, its matmul FLOPs under `FlopCounterMode`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        out = step(*args)
+    return out, counter.get_total_flops()
+
+
+def rt_one_process(cfg, opt, optical, device=None, start=None,
+                   rows=None, flops: bool = False):
     """A one-process run of RT_STEPS steps from seed 0 (or from `start`)
     on `device` (default: the card), the batch rows permuted by `rows`
-    when given: (history, params, launches); the moments freed."""
+    when given: (history, params, launches, the first step's matmul FLOPs
+    when `flops`, else None); the moments freed."""
     import gc
     import torch
     from repro_torch.launch.steps import init_opt_state, make_train_step
@@ -5197,20 +5252,24 @@ def rt_one_process(cfg, opt, optical: bool, device=None, start=None,
         torch.Generator(device).manual_seed(0), device=device)
     state = init_opt_state(params)
     step = make_train_step(bundle, opt)
-    hist = []
+    hist, f = [], None
     reset_launches()
-    with rt_engine(optical):
-        for batch in rt_batches(cfg, device):
+    with rt_engine(optical, cfg):
+        for i, batch in enumerate(rt_batches(cfg, device)):
             if rows is not None:
                 batch = {k: v[rows.to(v.device)] for k, v in batch.items()}
-            params, state, m = step(params, state, batch)
+            if flops and i == 0:
+                (params, state, m), f = step_flops(step, params, state,
+                                                   batch)
+            else:
+                params, state, m = step(params, state, batch)
             hist.append((float(m["loss"]), float(m["grad_norm"])))
     n = launch_counts()
     del state
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
-    return hist, params, n
+    return hist, params, n, f
 
 
 def rt_floor(cfg, opt, optical: bool, side: dict, sizes: dict) -> dict:
@@ -5239,8 +5298,8 @@ def rt_floor(cfg, opt, optical: bool, side: dict, sizes: dict) -> dict:
         del init
         rows = torch.randperm(RT_BATCH[0],
                               generator=torch.Generator().manual_seed(seed))
-        ph, pp, _ = rt_one_process(cfg, opt, optical, start=start,
-                                   rows=rows)
+        ph, pp, _, _ = rt_one_process(cfg, opt, optical, start=start,
+                                      rows=rows)
         del start
         for i in range(RT_STEPS):
             for key, j in (("loss", 0), ("gn", 1)):
@@ -5271,8 +5330,9 @@ def rt_reference(what: str, cfg, opt, optical: bool, sizes: dict,
     import torch
     t0 = time.perf_counter()
     if side is None:
-        hist, params, _ = rt_one_process(cfg, opt, optical)
-        side = dict(rt_share(params), hist=hist)
+        hist, params, _, flops = rt_one_process(cfg, opt, optical,
+                                                flops=True)
+        side = dict(rt_share(params), hist=hist, flops=flops)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5285,32 +5345,85 @@ def rt_reference(what: str, cfg, opt, optical: bool, sizes: dict,
           f"{[f'{f:.2e}' for f in floor['loss']]}, |g| "
           f"{[f'{f:.2e}' for f in floor['gn']]}, params up to "
           f"{max(floor['params'].values()):.2e}; "
-          f"{time.perf_counter() - t0:.1f} s")
+          + (f"the first step's matmul FLOPs {side['flops']:.4e}; "
+             if side.get("flops") else "")
+          + f"{time.perf_counter() - t0:.1f} s")
     return dict(side, floor_loss=floor["loss"], floor_gn=floor["gn"],
                 floor_params=floor["params"])
 
 
+def rt_gathered_want(bundle, layout, mesh) -> int:
+    """The bytes a rank's gathers hand back in one step, from the specs:
+    every leaf with a dim split over an axis other than the step's
+    tensor-parallel ones, at its shape whole but for its tensor-parallel
+    dims (`local_specs`: its non-"model" shard), once for a top-level
+    leaf and twice for a stacked one under remat (the forward and the
+    recompute).  Dense and ssm configs (no experts, no zamba2 tail)."""
+    from repro_torch.distributed.sharding import (local_shape, local_specs,
+                                                  spec_axes,
+                                                  train_model_axes,
+                                                  use_sharding)
+    from repro_torch.models.module import leaves
+    cfg = bundle.cfg
+    assert cfg.family in ("dense", "ssm") and cfg.moe is None
+    with use_sharding(mesh, layout.rules, params=layout.specs,
+                      batch_axes=layout.batch_axes):
+        keep = train_model_axes()
+    spec_of = dict(leaves(layout.specs))
+    local = dict(leaves(local_specs(layout.specs, lambda path: keep)))
+    total = 0
+    for p, d in leaves(bundle.skeleton):
+        if spec_axes(spec_of[p]) == spec_axes(local[p]):
+            continue                    # nothing of it is gathered
+        n = math.prod(local_shape(d.shape, local[p], mesh)) * 4
+        total += n * (2 if p[0] == "layers" and cfg.remat != "none" else 1)
+    return total
+
+
 def rt_rank(rank: int, world: int, device, job: dict) -> dict:
     """One rank of a 22 group: each of `job["runs"]` (its config, schedule
-    and whether optical) on this rank's shards and rows, from seed 0,
-    against `want`, whole params after the same steps in shared host
-    memory (each rank reads its shards); with a `sink` (shared whole
-    tensors) the rank writes its final shards there.  Hands back host
-    values only."""
+    and whether optical, on its `mesh` or the job's) on this rank's
+    shards and rows, from seed 0, against `want`, whole params after the
+    same steps in shared host memory (each rank reads its shards); with a
+    `sink` (shared whole tensors) the rank writes its final shards there.
+    It counts the first step's matmul FLOPs, the bytes its gathers hand
+    back (`sharding.GATHERED`) and the heads of its scans and the (K, N)
+    of its `rosa_fused` calls.  Hands back host values only."""
     import gc
     import torch
     rank_setup(device)
+    from repro_torch.distributed import sharding as SH
     from repro_torch.distributed.sharding import shard_local
+    from repro_torch.kernels.rosa_fused import ops as fused_ops
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import (init_opt_state, init_sharded,
                                           make_train_step, train_layout)
     from repro_torch.models import moe as MOE
+    from repro_torch.models import ssm as SSM
     from repro_torch.models.model import build_model
     from repro_torch.models.module import leaves
-    mesh = make_test_mesh(*job["mesh"], device.type)
+    meshes: dict = {}
     rank_device = device
     out = {}
+    # the operands the model hands the two kernels' wrappers
+    shapes: dict = {}
+    real_ssd, real_fused = SSM.ssd_scan, fused_ops.rosa_fused
+
+    def ssd_scan(x, *a, **k):
+        shapes.setdefault("ssd_scan_heads", set()).add(int(x.shape[2]))
+        return real_ssd(x, *a, **k)
+
+    def rosa_fused(x, w, *a, **k):
+        shapes.setdefault("rosa_fused_kn", set()).add(
+            (int(x.shape[1]), int(w.shape[1])))
+        return real_fused(x, w, *a, **k)
+    SSM.ssd_scan, fused_ops.rosa_fused = ssd_scan, rosa_fused
+    draws = rt_count_draws()
     for run in job["runs"]:
+        shape = tuple(run.get("mesh") or job["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_test_mesh(*shape, rank_device.type)
+        mesh = meshes[shape]
         # a run may name the CPU: the same ranks and mesh, host tensors
         device = torch.device(run.get("device") or rank_device)
         threads = torch.get_num_threads()
@@ -5352,11 +5465,14 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
             return res
         MOE._pack_local = counting_pack
         set_up = time.perf_counter() - t0
-        hist, walls, busy = [], [], None
+        hist, walls, busy, flops = [], [], None, None
         # ---- the main path: counts from 0, read right after --------------
         reset_launches()
+        SH.GATHERED["bytes"] = 0
+        shapes.clear()
+        draws.clear()
         try:
-            with rt_engine(run["optical"]):
+            with rt_engine(run["optical"], cfg):
                 for i, batch in enumerate(batches):
                     ts = time.perf_counter()
                     if i == len(batches) - 1 and device.type == "cuda":
@@ -5367,6 +5483,10 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
                             params, state, m = step(params, state, batch)
                             loss = float(m["loss"])
                         busy = rt_busy(prof)
+                    elif i == 0:
+                        (params, state, m), flops = step_flops(
+                            step, params, state, batch)
+                        loss = float(m["loss"])
                     else:
                         params, state, m = step(params, state, batch)
                         loss = float(m["loss"])
@@ -5375,6 +5495,9 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
         finally:
             MOE._pack_local = real_pack
         n = launch_counts()
+        gathered = SH.GATHERED["bytes"]
+        gathered_want = (rt_gathered_want(bundle, layout, mesh) * len(batches)
+                         if run.get("gathers") else None)
         ckpt = rt_ckpt(run["ckpt"], params, layout, mesh) \
             if run.get("ckpt") else None
         # the rank's shards against `want` after the same steps
@@ -5396,12 +5519,16 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
             "hist": hist, "walls": walls, "busy_ms": busy, "set_up_s": set_up,
             "launches": n, "held": held, "want_bytes": want_bytes,
             "dev": dev, "peak_bytes": peak, "drops": drops[0],
-            "rows": layout.rows(), "ckpt": ckpt}
+            "rows": layout.rows(), "ckpt": ckpt, "flops": flops,
+            "gathered": gathered, "gathered_want": gathered_want,
+            "shapes": {k: sorted(v) for k, v in shapes.items()},
+            "draws": dict(draws)}
         del params, state, step, sink, wants
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
         torch.set_num_threads(threads)
+    SSM.ssd_scan, fused_ops.rosa_fused = real_ssd, real_fused
     return out
 
 
@@ -5560,12 +5687,13 @@ def rt_group(mesh: tuple, runs: list, device_type: str = None) -> tuple:
 
 
 def rt_qwen(report: dict) -> int:
-    """22(a); returns its rosa_fused launches (every rank's).  The
+    """22(a) and (e); returns their rosa_fused launches (every rank's).  The
     one-process sides: a plain run here and phase 17(b)'s fused run (the
-    same model, schedule and batches); the floors: `rt_floor`'s (the
-    hidden and MLP axes and the batch rows permuted) and, for the optical
-    run, at least 17(b)'s k-permuted ones (its "ref" runs with each
-    optical product's reduction axis permuted, two seeds)."""
+    same model, schedule and batches), and for 22(e)'s optical run a
+    noisy one with chip RT_CHIP (`rt_chip_side`); the floors: `rt_floor`'s
+    (the hidden and MLP axes and the batch rows permuted) and, for the
+    optical runs, at least 17(b)'s k-permuted ones (its "ref" runs with
+    each optical product's reduction axis permuted, two seeds)."""
     import shutil
     import torch
     arch, layers, mesh = RT_QWEN
@@ -5595,43 +5723,85 @@ def rt_qwen(report: dict) -> int:
         p: max(v, k["params"].get(p, 0.0))
         for p, v in opt_side["floor_params"].items()}
     sides["optical"] = opt_side
+    sides["chip"] = rt_chip_side(rt_cfg(arch, layers, rosa_mlp=True),
+                                 opt_side)
     ckpt = ROOT / "build" / "ckpt-22a"
     shutil.rmtree(ckpt, ignore_errors=True)
     runs = [{"name": name, "cfg": rt_cfg(arch, layers, rosa_mlp=optical),
              "opt": RT_QWEN_OPT, "optical": optical,
-             "want": sides[name]["block"]}
+             "want": sides[name]["block"], "gathers": True}
             for name, optical in (("plain", False), ("optical", True))]
+    # 22(e): the same runs over 2 model ranks in the same group (its mesh
+    # a run's own), the optical one with chip RT_CHIP and per-shot noise,
+    # each held to its one-process side
+    runs += [dict(runs[0], name="plain_split", mesh=RT_QWEN_SPLIT),
+             dict(runs[1], name="chip_split", mesh=RT_QWEN_SPLIT,
+                  optical="chip", want=sides["chip"]["block"])]
     runs[0]["ckpt"] = str(ckpt)
     parent = torch.cuda.memory_allocated()
     print(f"  22(a): {rank_layout(n)}, mesh (data, model) {mesh}; "
-          f"{arch} full width, {layers} layers, batch {RT_BATCH}")
+          f"{arch} full width, {layers} layers, batch {RT_BATCH}; then "
+          f"22(e): the same on {RT_QWEN_SPLIT}, heads, MLP and vocab split")
     outs, wall = rt_group(mesh, runs)
     launches = 0
     res = {"group_s": wall}
     fails = []
     for r in runs:
-        ref = sides[r["name"]]
-        res[r["name"]] = dict(rt_summary(f"22(a) {r['name']}", outs,
+        base = r["name"].removesuffix("_split")
+        tag = "22(e)" if "mesh" in r else "22(a)"
+        ref = sides[base]
+        res[r["name"]] = dict(rt_summary(f"{tag} {base}", outs,
                                          r["name"], parent),
                               one_process=ref["hist"])
         # 2 projections x (forward + remat recompute) x layers x steps
         want = ({"rosa_fused": 2 * 2 * layers * RT_STEPS} if r["optical"]
                 else {})
         try:
-            rel = rt_check(f"22(a) {r['name']}", ref, outs, want, r["name"])
+            rel = rt_check(f"{tag} {base}", ref, outs, want, r["name"])
             res[r["name"]]["worst_leaf_rel"] = max(rel.values())
         except AssertionError as e:
             fails.append(str(e))
+        try:
+            res[r["name"]].update(rt_split_check(
+                tag, r, outs, ref.get("flops") if not r["optical"]
+                else sides["plain"]["flops"], r.get("mesh") or mesh,
+                gate_flops=tag == "22(e)" and not r["optical"]))
+        except AssertionError as e:
+            fails.append(str(e))
         if r["optical"]:
-            launches = sum(o[r["name"]]["launches"]["rosa_fused"]
-                           for o in outs)
+            launches += sum(o[r["name"]]["launches"]["rosa_fused"]
+                            for o in outs)
+    cfg = runs[0]["cfg"]
+    kn = {(cfg.d_model, cfg.d_ff), (cfg.d_ff // 2, cfg.d_model)}
+    for o in outs:
+        got = {tuple(x) for x in
+               o["chip_split"]["shapes"].get("rosa_fused_kn", [])}
+        if got != kn:
+            fails.append(f"22(e) chip: rosa_fused launched at (K, N) "
+                         f"{sorted(got)}, want {sorted(kn)}")
+    for base, name in (("plain", "plain_split"), ("optical", "chip_split")):
+        split = max(o[name]["peak_bytes"] for o in outs)
+        whole = min(o[base]["peak_bytes"] for o in outs)
+        print(f"  22(e) {name}: peak a rank {split / 2**30:.2f} GiB against "
+              f"22(a)'s {whole / 2**30:.2f}")
+        if split >= whole:
+            fails.append(f"22(e) {name}: a rank's peak {split} is not below "
+                         f"22(a)'s {whole}")
+    print(f"  22(e) chip: rosa_fused at (K, N) {sorted(kn)} on every rank")
+    for r, o in enumerate(outs):
+        if o["chip_split"]["draws"] != sides["chip"]["draws"]:
+            fails.append(f"22(e) chip: rank {r} drew pairs "
+                         f"{o['chip_split']['draws']}, one process "
+                         f"{sides['chip']['draws']}")
+    print("  22(e) chip: every rank's draw pairs at the whole weights' "
+          f"shapes, as one process's: {outs[0]['chip_split']['draws']}")
     try:
         res["ckpt"] = rt_ckpt_check(str(ckpt), outs, sides["plain"])
     except AssertionError as e:
         fails.append(str(e))
     shutil.rmtree(ckpt, ignore_errors=True)
     res["phase_s"] = time.perf_counter() - t_phase
-    print(f"  22(a): the group {wall:.1f} s, the sub-phase "
+    print(f"  22(a) and (e): the group {wall:.1f} s, the sub-phases "
           f"{res['phase_s']:.1f} s")
     report["train_ranks_a"] = res
     for r in runs:
@@ -5642,6 +5812,94 @@ def rt_qwen(report: dict) -> int:
     if fails:
         raise AssertionError("; ".join(fails))
     return launches
+
+
+def rt_count_draws() -> dict:
+    """Count the per-shot draw pairs the noisy chain makes from here on,
+    by shape ({shape: n}; `mrr._eps_pair` wrapped): a split rank's are
+    made at the whole operand's shape."""
+    from repro_torch.core import mrr
+    counts: dict = {}
+    real = mrr._eps_pair
+
+    def eps_pair(key, shape, *a, **k):
+        shape = tuple(int(n) for n in shape)
+        counts[shape] = counts.get(shape, 0) + 1
+        return real(key, shape, *a, **k)
+    mrr._eps_pair = eps_pair
+    return counts
+
+
+def rt_chip_side(cfg, ideal: dict) -> dict:
+    """22(e)'s optical side: one process, RT_STEPS steps of `cfg` with
+    chip RT_CHIP pinned and per-shot noise (`rt_engine("chip")`), shared
+    as `rt_share` does, with its draw pairs by shape (`rt_count_draws`);
+    its floors those of the same run without noise (`ideal`: the same
+    products summed in the same orders, the draws the same numbers on
+    every layout).  Gates: its rosa_fused launches, and a draw pair at
+    each MLP weight's whole shape for each of those launches."""
+    import gc
+    import torch
+    from repro_torch.core import mrr
+    t0 = time.perf_counter()
+    real = mrr._eps_pair
+    draws = rt_count_draws()
+    try:
+        hist, params, n, _ = rt_one_process(cfg, rt_opt(RT_QWEN_OPT),
+                                            "chip")
+    finally:
+        mrr._eps_pair = real
+    side = dict(rt_share(params), hist=hist, floor_loss=ideal["floor_loss"],
+                floor_gn=ideal["floor_gn"], floor_params=ideal["floor_params"],
+                draws=dict(draws))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = 2 * 2 * cfg.n_layers * RT_STEPS
+    whole = {(cfg.d_model, 2 * cfg.d_ff): want // 2,
+             (cfg.d_ff, cfg.d_model): want // 2}
+    print(f"  22(e) chip, one process: chip {RT_CHIP}, per-shot noise, WS; "
+          f"losses {[round(l, 6) for l, _ in hist]}, |g| "
+          f"{[round(x, 4) for _, x in hist]} (without noise "
+          f"{[round(l, 6) for l, _ in ideal['hist']]}, "
+          f"{[round(x, 4) for _, x in ideal['hist']]}); rosa_fused "
+          f"{n['rosa_fused']}; draw pairs by shape {side['draws']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n["rosa_fused"] != want or side["draws"] != whole:
+        raise AssertionError(f"22(e) chip, one process: rosa_fused "
+                             f"{n['rosa_fused']}, want {want}; draw pairs "
+                             f"{side['draws']}, want {whole}")
+    return side
+
+
+def rt_split_check(tag: str, run: dict, outs: list, one_flops, mesh,
+                   gate_flops: bool) -> dict:
+    """A run's split gates on every rank: the bytes its gathers handed
+    back equal its non-"model" shards' from the specs exactly, and (when
+    `gate_flops`) its first step's matmul FLOPs are 1 / (data x model) of
+    the one-process step's within `RT_FLOPS_TOL`; printed."""
+    key = run["name"]
+    share = 1.0 / (mesh[0] * mesh[1])
+    got = [o[key]["gathered"] for o in outs]
+    want = [o[key]["gathered_want"] for o in outs]
+    flops = [o[key]["flops"] for o in outs]
+    ratio = [f / one_flops for f in flops] if one_flops else None
+    print(f"  {tag} {key}: gathered {got[0] / 2**30:.3f} GiB a rank over "
+          f"{RT_STEPS} steps (its non-\"model\" shards from the specs: "
+          f"{want[0] / 2**30:.3f}); the first step's matmul FLOPs a rank "
+          f"{flops[0]:.4e}" + (f", {ratio[0]:.4f} of the one-process "
+                               f"step's (1/{mesh[0] * mesh[1]} = "
+                               f"{share:.4f})" if ratio else ""))
+    if got != want:
+        raise AssertionError(f"{tag} {key}: gathered bytes {got} a rank, "
+                             f"its non-model shards {want}")
+    if gate_flops and any(abs(r / share - 1.0) > RT_FLOPS_TOL[tag]
+                          for r in ratio):
+        raise AssertionError(f"{tag} {key}: a rank's FLOPs {ratio} of the "
+                             f"one-process step's, want {share:.4f} within "
+                             f"{100 * RT_FLOPS_TOL[tag]:.0f} %")
+    return {"gathered_bytes": got[0], "flops": flops[0],
+            "flops_share": ratio[0] if ratio else None}
 
 
 def rt_mamba(report: dict) -> dict:
@@ -5665,7 +5923,8 @@ def rt_mamba(report: dict) -> dict:
     moe = rt_moe_sides()
     assert RT_MOE[1] == mesh, "22(d) runs in 22(b)'s group"
     runs = [{"name": "mamba", "cfg": cfg, "opt": RT_MAMBA_OPT,
-             "optical": False, "want": ref["block"]}] + moe["runs"]
+             "optical": False, "want": ref["block"], "gathers": True}
+            ] + moe["runs"]
     parent = torch.cuda.memory_allocated()
     print(f"  22(b): {rank_layout(n)}, mesh (data, model) {mesh}; {arch} "
           f"full width and depth, batch {RT_BATCH}; then 22(d)'s runs")
@@ -5687,6 +5946,18 @@ def rt_mamba(report: dict) -> dict:
         res["worst_leaf_rel"] = max(rel.values())
     except AssertionError as e:
         fails.append(str(e))
+    try:
+        res.update(rt_split_check("22(b)", runs[0], outs, ref["flops"],
+                                  mesh, gate_flops=True))
+    except AssertionError as e:
+        fails.append(str(e))
+    heads = [o["mamba"]["shapes"].get("ssd_scan_heads") for o in outs]
+    print(f"  22(b): ssd_scan at {heads[0]} heads a rank of the model's "
+          f"{cfg.ssm.n_heads}")
+    if any(h != [cfg.ssm.n_heads // mesh[1]] for h in heads):
+        fails.append(f"22(b): ssd_scan launched at {heads} heads, want "
+                     f"{cfg.ssm.n_heads // mesh[1]} on every rank")
+    res["scan_heads"] = heads[0]
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"  22(b) and (d): the group {wall:.1f} s, the sub-phases "
           f"{res['phase_s']:.1f} s")
@@ -5783,10 +6054,10 @@ def rt_moe_sides() -> dict:
     init = build_model(cfg).init(torch.Generator(DEVICE).manual_seed(0),
                                  device=DEVICE)
     start = rt_share(init)
-    hc, pc, _ = rt_one_process(cfg, rt_opt(opt), False,
-                               start=map_tree(torch.clone, init))
-    hh, ph, _ = rt_one_process(cfg, rt_opt(opt), False, "cpu",
-                               start=map_tree(lambda t: t.cpu(), init))
+    hc, pc, _, _ = rt_one_process(cfg, rt_opt(opt), False,
+                                  start=map_tree(torch.clone, init))
+    hh, ph, _, _ = rt_one_process(cfg, rt_opt(opt), False, "cpu",
+                                  start=map_tree(lambda t: t.cpu(), init))
     floor = {"loss": [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(hc, hh)],
              "gn": [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(hc, hh)],
              "params": {"/".join(p): max_rel(a.cpu(), b) for (p, a), (_, b)
@@ -5849,15 +6120,17 @@ def rt_moe_check(report: dict, moe: dict, outs: list) -> None:
 
 def train_ranks_phase(report: dict) -> dict:
     """22: training across ranks; returns the main paths' launches
-    (22(a)'s rosa_fused, 22(b)'s ssd_scan and its backward, every
-    rank's)."""
+    (22(a)'s and 22(e)'s rosa_fused, 22(b)'s ssd_scan and its backward,
+    every rank's)."""
     import gc
     import torch
     t0 = time.perf_counter()
     print("phase 22(c): the elastic restart through the CLI, started")
     elastic = rt_elastic_start()
     try:
-        print("phase 22(a): qwen3-32b across 2 ranks, plain and optical")
+        print("phase 22(a): qwen3-32b across 2 data ranks, plain and "
+              "optical; 22(e): across 2 model ranks, plain and optical with "
+              "chip 7 and per-shot noise, in the same group")
         n = {"rosa_fused": rt_qwen(report)}
         gc.collect()
         torch.cuda.empty_cache()

@@ -228,38 +228,34 @@ def normal(key: torch.Generator, shape, device=None,
     return out.to(device) if device is not None else out
 
 
-def draw_eps(key: torch.Generator, shape, device=None, dtype=torch.float32):
-    """The (DAC, thermal) pair of N(0, 1) draws one noisy realization takes,
-    from the two halves of `key` as `weight_of_voltage` splits it."""
+def _eps_pair(key: torch.Generator, shape, device, dtype):
     k_dac, k_th = split(key)
     return normal(k_dac, shape, device, dtype), normal(k_th, shape, device,
                                                        dtype)
 
 
+def draw_eps(key: torch.Generator, shape, device=None, dtype=torch.float32):
+    """The (DAC, thermal) pair of N(0, 1) draws one noisy realization of a
+    weight takes, from the two halves of `key` as `weight_of_voltage`
+    splits it.  Under a tensor-parallel product the draws are made at the
+    whole weight's shape and the rank keeps its block
+    (`distributed.sharding.operand_draws`), so the ranks realize the
+    one-process weight's offsets."""
+    from repro_torch.distributed.sharding import operand_draws
+    return operand_draws(lambda s: _eps_pair(key, s, device, dtype), shape,
+                         "w")
+
+
 def draw_act_eps(key: torch.Generator, shape, device=None,
                  dtype=torch.float32):
-    """`draw_eps` for an activation whose dim 0 holds a batch's rows.
-    Under a live train context whose rows are split over ranks
-    (`distributed.sharding.train_batch_axes`) the draws are made at the
-    global batch's rows and this rank keeps its own, so the ranks draw
-    the one-process step's offsets (the layer's key is the same on every
-    rank: drawn at the local shape, every data rank would repeat the same
-    offsets)."""
-    from repro_torch.distributed.sharding import train_batch_axes
-    axes = train_batch_axes()
-    if not axes:
-        return draw_eps(key, shape, device, dtype)
-    from repro_torch.distributed import runtime as rt
-    from repro_torch.distributed.sharding import (current_ctx, live_mesh,
-                                                  mesh_axes)
-    sizes = mesh_axes(live_mesh(current_ctx()))
-    n = 1
-    for a in axes:
-        n *= sizes[a]
-    rows = shape[0]
-    lo = rt.axis_index(axes) * rows
-    d, th = draw_eps(key, (rows * n, *shape[1:]), device, dtype)
-    return d[lo:lo + rows], th[lo:lo + rows]
+    """`draw_eps` for an activation whose dim 0 holds a batch's rows: under
+    a live train context whose rows are split over ranks the draws span
+    the global batch's rows, and under a K-split product its whole
+    columns; the rank keeps its block (`distributed.sharding.
+    operand_draws`), so the ranks draw the one-process step's offsets."""
+    from repro_torch.distributed.sharding import operand_draws
+    return operand_draws(lambda s: _eps_pair(key, s, device, dtype), shape,
+                         "x")
 
 
 # --------------------------------------------------------------------------

@@ -47,16 +47,36 @@ def act_absmax_scale(x: torch.Tensor,
     global batch: under a live train context whose rows are split over
     ranks (`distributed.sharding.train_batch_axes`) the max is taken over
     every rank's rows, as `jnp.max` over a sharded batch is, its gradient
-    (if any) shared as `jnp.max`'s (`distributed.runtime.amax`).  A
-    per-row full-scale needs no other rank."""
-    if per_vector and x.ndim >= 2:
-        return absmax_scale(x, True)
-    from repro_torch.distributed.sharding import train_batch_axes
-    axes = train_batch_axes()
+    (if any) shared as `jnp.max`'s (`distributed.runtime.amax`).  Under a
+    tensor-parallel K split (`distributed.sharding.scale_axes`) the rank
+    holds some of every row's columns, so both the per-tensor and the
+    per-row full-scale take the max over the split's ranks too."""
+    from repro_torch.distributed.sharding import scale_axes
+    per_row = per_vector and x.ndim >= 2
+    axes = scale_axes("x", per_row)
+    if per_row:
+        s = absmax_scale(x, True)
+        if not axes:
+            return s
+        from repro_torch.distributed import runtime as rt
+        return rt.pmax(s, axes)
     if not axes:
         return absmax_scale(x)
     from repro_torch.distributed import runtime as rt
     return torch.clamp_min(rt.amax(x.abs(), axes), 1e-8)
+
+
+def weight_absmax_scale(w: torch.Tensor) -> torch.Tensor:
+    """`absmax_scale` of a weight: the whole weight's, so under a
+    tensor-parallel product (`distributed.sharding.scale_axes`) the max
+    over the ranks that split it."""
+    from repro_torch.distributed.sharding import scale_axes
+    s = absmax_scale(w)
+    axes = scale_axes("w")
+    if not axes:
+        return s
+    from repro_torch.distributed import runtime as rt
+    return rt.pmax(s, axes)
 
 
 def quantize(x: torch.Tensor, cfg: QuantConfig = Q8,
@@ -64,9 +84,14 @@ def quantize(x: torch.Tensor, cfg: QuantConfig = Q8,
              act: bool = False):
     """Symmetric uniform quantization -> (integer-valued floats, scale);
     `act` marks an activation, whose full-scale `act_absmax_scale`
-    takes."""
+    takes; a per-tensor weight's is `weight_absmax_scale`."""
     if scale is None:
-        scale = (act_absmax_scale if act else absmax_scale)(x, per_vector)
+        if act:
+            scale = act_absmax_scale(x, per_vector)
+        elif per_vector:
+            scale = absmax_scale(x, True)
+        else:
+            scale = weight_absmax_scale(x)
     q = torch.clamp(torch.round(x / scale * cfg.qmax), -cfg.qmax, cfg.qmax)
     return q, scale
 

@@ -810,49 +810,62 @@ def toy_grads(mesh, *, seed: int = 0, weigh_copies: bool = True,
     The step covers each rule: W1 (8, 6) sharded over "data" and gathered
     (replicated over "model": its gradient `psum`-med there), b (6,)
     replicated on every rank, a global activation full-scale `amax` over
-    the batch rows (its gradient reaches the rank that holds the max),
-    and W3 (6, 4) tensor-parallel over "model" (rows of W3, columns of the
-    activation) whose partial products `psum` over "model".  The batch
-    rows split over "data"; the "model" ranks compute the same rows, so
-    each rank's contribution is weighed by 1 / (data * model), unless
-    `weigh_copies` is False (every model rank's copy then counts whole,
-    the fault a test must catch).  The tensors lie on `device`."""
-    from repro_torch.distributed.sharding import mesh_axes
+    the batch rows (its gradient reaches the rank that holds the max), a
+    tensor-parallel pair over "model" (W2 (6, 6) split by its columns,
+    W3 (6, 4) by its rows, the partial products `psum`-med), and a
+    vocab-parallel cross entropy (W4 (4, 8) split by its vocab columns:
+    `models.layers.softmax_xent(vocab_axes=)`).  The batch rows split
+    over "data"; the "model" ranks compute the same rows, so each rank's
+    contribution is weighed by 1 / (data * model), unless `weigh_copies`
+    is False (every model rank's copy then counts whole, the fault a test
+    must catch).  The tensors lie on `device`."""
+    from repro_torch.distributed.sharding import mesh_axes, use_sharding
+    from repro_torch.models.layers import softmax_xent
     sizes = mesh_axes(mesh)
     nd, nm = sizes["data"], sizes["model"]
     g = torch.Generator().manual_seed(seed)
     whole = {"w1": torch.randn(8, 6, generator=g) * 0.5,
              "b": torch.randn(6, generator=g) * 0.1,
-             "w3": torch.randn(6, 4, generator=g) * 0.5}
+             "w2": torch.randn(6, 6, generator=g) * 0.5,
+             "w3": torch.randn(6, 4, generator=g) * 0.5,
+             "w4": torch.randn(4, 8, generator=g)}
     whole = {k: v.to(device) for k, v in whole.items()}
     x = torch.randn(4 * nd, 8, generator=g).to(device)
+    labels = torch.randint(0, 8, (4 * nd,), generator=g).to(device)
 
-    def loss_of(p, x, s_of, psum_model, cols):
+    def loss_of(p, x, labels, s_of, psum_model, vocab_axes):
         h = torch.tanh(x @ p["w1"] + p["b"])
         s = s_of(h.abs())
-        y = psum_model((h[:, cols] / s) @ p["w3"])
-        return torch.mean(y ** 2) + 0.1 * s
+        u = torch.tanh((h / s) @ p["w2"])
+        y = psum_model(u @ p["w3"])
+        nll = softmax_xent((y @ p["w4"])[:, None], labels[:, None],
+                           vocab_axes=vocab_axes)
+        return nll + 0.1 * s
 
     one = {k: v.clone().requires_grad_() for k, v in whole.items()}
-    torch.autograd.backward(loss_of(one, x, torch.amax, lambda t: t,
-                                    slice(None)))
+    torch.autograd.backward(loss_of(one, x, labels, torch.amax,
+                                    lambda t: t, ()))
     d, m = axis_index("data", mesh), axis_index("model", mesh)
-    rows, k = x.shape[0] // nd, 6 // nm
+    rows, k, v = x.shape[0] // nd, 6 // nm, 8 // nm
+    cols, vcols = slice(m * k, (m + 1) * k), slice(m * v, (m + 1) * v)
     local = {"w1": whole["w1"][d * (8 // nd):(d + 1) * (8 // nd)],
-             "b": whole["b"], "w3": whole["w3"][m * k:(m + 1) * k]}
+             "b": whole["b"], "w2": whole["w2"][:, cols],
+             "w3": whole["w3"][cols], "w4": whole["w4"][:, vcols]}
     local = {n: t.clone().requires_grad_() for n, t in local.items()}
-    p = {"w1": all_gather(local["w1"], "data", axis=0, tiled=True,
-                          mesh=mesh),
-         "b": local["b"], "w3": local["w3"]}
-    part = loss_of(p, x[d * rows:(d + 1) * rows],
-                   lambda t: amax(t, "data", mesh),
-                   lambda t: psum(t, "model", mesh),
-                   slice(m * k, (m + 1) * k))
+    p = dict(local, w1=all_gather(local["w1"], "data", axis=0, tiled=True,
+                                  mesh=mesh))
+    lo = d * rows
+    with use_sharding(mesh, {}):
+        part = loss_of(p, x[lo:lo + rows], labels[lo:lo + rows],
+                       lambda t: amax(t, "data", mesh),
+                       lambda t: psum(t, "model", mesh), ("model",))
     part = part / (nd * (nm if weigh_copies else 1))
     torch.autograd.backward(part)
     grads = {"w1": psum(local["w1"].grad, "model", mesh),
-             "b": psum(local["b"].grad, ("data", "model"), mesh),
-             "w3": psum(local["w3"].grad, "data", mesh)}
+             "b": psum(local["b"].grad, ("data", "model"), mesh)}
+    grads.update({n: psum(local[n].grad, "data", mesh)
+                  for n in ("w2", "w3", "w4")})
     want = {"w1": one["w1"].grad[d * (8 // nd):(d + 1) * (8 // nd)],
-            "b": one["b"].grad, "w3": one["w3"].grad[m * k:(m + 1) * k]}
+            "b": one["b"].grad, "w2": one["w2"].grad[:, cols],
+            "w3": one["w3"].grad[cols], "w4": one["w4"].grad[:, vcols]}
     return {n: (grads[n], want[n]) for n in grads}

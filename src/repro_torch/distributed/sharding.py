@@ -47,17 +47,22 @@ arrays), so a rank holds exactly the `local_shape` bytes of its shards.
 A live train context also names the spec tree of the params the model is
 handed (`ShardingCtx.params`) and the mesh axes its batch rows are split
 over (`ShardingCtx.batch_axes`).  The model then gathers a layer's leaves
-whole (`gather_tree`, a differentiable tiled all_gather per sharded dim)
-where it uses them, inside the recomputed block for a stacked layer (the
-spec of a layer slice is the stacked spec without its leading dims,
+(`gather_tree`, a differentiable tiled all_gather per sharded dim) where
+it uses them, inside the recomputed block for a stacked layer (the spec
+of a layer slice is the stacked spec without its leading dims,
 `drop_dims`), so autograd never keeps a layer's gathered weights; the
 gathers' backward, `psum_scatter`, hands each rank the summed gradient of
-its own shard.  Why compute splits only where an explicit collective
-covers it (the experts' `moe_ep_local`), and heads, MLP and vocab are
-whole on every rank: each of GSPMD's tensor-parallel splits is a
-collective of its own to write and to transpose; the gathers cover every
-layout with one rule, at the cost of the redundant work ROADMAP.md's
-Queue 2 prices.
+its own shard.  The gathers leave local the dims split over the
+context's tensor-parallel axes (`train_model_axes`: the axes the rules
+give heads, KV heads, MLP and vocab, unless the batch's rows take them,
+as under `ZERO3_TRAIN_RULES`), and hand the layer the spec tree of what
+stays split (`local_specs`): each rank computes its heads, MLP columns
+and vocab rows, with the reference's GSPMD collectives written out (a
+`psum` a projection pair, the vocab's softmax statistics).  An optical
+product on such shards (`ProductSplit`, installed by `use_product_split`
+around the engine's matmul) takes its full-scales over the ranks and its
+per-shot draws at the global operand's shape, the rank keeping its
+block, so the ranks compute the one-process product's numbers.
 
 The reference's `shard_map_compat` (a shim over the renames of jax's
 `shard_map`) has no counterpart.
@@ -332,20 +337,25 @@ def gather(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     return t
 
 
-def gather_tree(tree, specs, mesh, skip=None):
+def gather_tree(tree, specs, mesh, skip=None, keep=None):
     """`gather` at every leaf of a nested dict of local shards, batched:
     one collective a mesh axis for the whole tree
     (`runtime.gather_many`); a leaf whose path `skip(path)` holds is left
-    as it is."""
+    as it is, and so is every dim split over the axes `keep(path)` alone
+    (a tensor-parallel dim).  The gathered leaves' bytes add to
+    `GATHERED`."""
     from repro_torch.distributed import runtime as rt
     from repro_torch.models.module import leaves, unflatten
     spec_of = dict(leaves(specs))
+    keep = keep or (lambda path: ())
     pairs = [(path, t) for path, t in leaves(tree)]
     plan = [() if skip is not None and skip(path) else
             tuple((i, _group(part)) for i, part in enumerate(spec_of[path])
-                  if _group(part))
+                  if _group(part) and not _kept(part, keep(path)))
             for path, _ in pairs]
     got = rt.gather_many([t for _, t in pairs], plan, mesh)
+    GATHERED["bytes"] += sum(t.numel() * t.element_size()
+                             for t, pl in zip(got, plan) if pl)
     return unflatten((path, t) for (path, _), t in zip(pairs, got))
 
 
@@ -377,6 +387,204 @@ def train_batch_axes() -> tuple[str, ...]:
     if ctx is None or not ctx.batch_axes or live_mesh(ctx) is None:
         return ()
     return ctx.batch_axes
+
+
+# the logical dims a train step splits over "model" as tensor parallelism
+# (the experts' split is the expert-parallel MoE's own)
+TP_NAMES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def train_model_axes() -> tuple[str, ...]:
+    """The mesh axes a live train context splits its tensor-parallel dims
+    over (`TP_NAMES`' rules, axes of size > 1); () outside one, and for
+    axes the layout splits the batch's rows over (`ZERO3_TRAIN_RULES`:
+    there the ranks compute different rows and gather whole)."""
+    ctx = current_ctx()
+    if ctx is None or ctx.params is None or live_mesh(ctx) is None:
+        return ()
+    sizes = mesh_axes(ctx.mesh)
+    axes: list[str] = []
+    for name in TP_NAMES:
+        for a in ctx.rules.get(name) or ():
+            if sizes.get(a, 1) > 1 and a not in ctx.batch_axes \
+                    and a not in axes:
+                axes.append(a)
+    return tuple(axes)
+
+
+def _kept(part, keep: tuple[str, ...]) -> bool:
+    """A spec part whose group lies within the `keep` axes (a dim left
+    split by a tensor-parallel gather)."""
+    g = _group(part)
+    return bool(g) and set(g) <= set(keep)
+
+
+def local_specs(specs, keep):
+    """The spec tree of what a gather that leaves local the dims split
+    over the axes `keep(path)` gives a leaf (`gather_tree`) hands on: each
+    spec with only those dims' groups."""
+    from repro_torch.models.module import leaves, unflatten
+    return unflatten((path, P(*(p if _kept(p, keep(path)) else None
+                                for p in spec)))
+                     for path, spec in leaves(specs))
+
+
+def split_axes(spec) -> tuple[str, ...]:
+    """The mesh axes a local spec (`local_specs`) splits its leaf over;
+    () for a whole leaf (or no spec)."""
+    return () if spec is None else spec_axes(spec)
+
+
+GATHERED = {"bytes": 0}          # bytes `gather_tree` handed back, counted
+
+
+@dataclasses.dataclass(frozen=True)
+class OperandCut:
+    """A rank's block of one 2-D operand of a tensor-parallel product:
+    dim `dim`, viewed as `blocks` equal blocks (the MLP's gate | up
+    columns), each split `n` ways over the mesh `axes`; the rank keeps
+    part `index` of every block."""
+    axes: tuple[str, ...]
+    dim: int
+    n: int
+    index: int
+    blocks: int = 1
+
+    def whole(self, shape) -> tuple[int, ...]:
+        """The global shape of a local operand of `shape`."""
+        out = list(shape)
+        out[self.dim] *= self.n
+        return tuple(out)
+
+    def cut(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of `t`, global along `dim` (contiguous)."""
+        s = tuple(t.shape)
+        part = s[self.dim] // (self.blocks * self.n)
+        v = t.reshape(*s[:self.dim], self.blocks, s[self.dim] // self.blocks,
+                      *s[self.dim + 1:])
+        v = v.narrow(self.dim + 1, self.index * part, part)
+        return v.reshape(*s[:self.dim], self.blocks * part,
+                         *s[self.dim + 1:])
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductSplit:
+    """How the operands of a product x (M, K) @ w (K, N) a rank computes
+    are cut from the global ones: `w` by its columns (an MLP's `wi`, x
+    whole) or by its rows, with `x` by its columns (a K split, `wo`: the
+    partial products `psum` over the axes)."""
+    w: OperandCut
+    x: OperandCut | None = None
+
+    @classmethod
+    def columns(cls, axes, blocks: int = 1) -> "ProductSplit":
+        """`w`'s columns over `axes` (of the active context's mesh)."""
+        return cls(_cut(axes, 1, blocks))
+
+    @classmethod
+    def rows(cls, axes) -> "ProductSplit":
+        """`w`'s rows and `x`'s columns over `axes`."""
+        return cls(_cut(axes, 0, 1), _cut(axes, 1, 1))
+
+    def global_gemm(self, m: int, k: int, n: int) -> tuple[int, int, int]:
+        """The (m, k, n) of the global product a rank's (m, k, n) is a
+        block of (m as the rank has it)."""
+        if self.x is not None:
+            return m, k * self.x.n, n
+        return m, k, n * self.w.n
+
+    def cut_field(self, a: torch.Tensor, w_shape) -> torch.Tensor:
+        """This rank's block of a field over the whole weight that
+        broadcasts against it (a pinned chip's): a scalar as it is, the
+        lane vector (K,) cut with a K split, a field of the whole weight's
+        shape cut as the weight."""
+        whole = self.w.whole(w_shape)
+        if a.ndim == 0:
+            return a
+        if a.ndim == 1 and a.shape[0] == whole[0]:
+            return self.w.cut(a) if self.w.dim == 0 else a
+        if tuple(a.shape) == tuple(whole):
+            return self.w.cut(a)
+        raise ValueError(f"a field of shape {tuple(a.shape)} on a product "
+                         f"split from {tuple(whole)}")
+
+
+def _cut(axes, dim: int, blocks: int) -> OperandCut:
+    from repro_torch.distributed.runtime import axis_index
+    mesh = current_ctx().mesh
+    axes = tuple(axes)
+    n = math.prod(mesh_axes(mesh)[a] for a in axes)
+    return OperandCut(axes, dim, n, axis_index(axes, mesh), blocks)
+
+
+_PRODUCT: list[ProductSplit | None] = []
+
+
+@contextlib.contextmanager
+def use_product_split(split: ProductSplit | None):
+    """Install `split` as the split of the optical product run inside
+    (None: a whole product)."""
+    _PRODUCT.append(split)
+    try:
+        yield split
+    finally:
+        _PRODUCT.pop()
+
+
+def _operand_cut(operand: str) -> OperandCut | None:
+    split = _PRODUCT[-1] if _PRODUCT else None
+    if split is None:
+        return None
+    return split.w if operand == "w" else split.x
+
+
+def scale_axes(operand: str, per_row: bool = False) -> tuple[str, ...]:
+    """The mesh axes whose ranks hold the rest of the operand a full-scale
+    spans, beyond this rank's block: for a weight ("w", per tensor) the
+    ranks of the product's split; for an activation ("x") those that
+    split its columns (a K split) and, for a per-tensor full-scale, a
+    train step's row shards (`train_batch_axes`)."""
+    cut = _operand_cut(operand)
+    axes = cut.axes if cut is not None else ()
+    if operand == "x" and not per_row:
+        axes = train_batch_axes() + axes
+    return axes
+
+
+def operand_draws(draw, shape, operand: str) -> tuple[torch.Tensor, ...]:
+    """This rank's block of per-shot draws for an operand of local
+    `shape`: `draw(global_shape)` makes them at the global operand's
+    shape (an activation's rows, its dim 0, over a train step's row
+    shards; the dim the product's split cuts, over its ranks), and each
+    is cut to the rank's block, so the ranks realize the one-process
+    offsets (the layer's key is the same on every rank: drawn at the
+    local shape, ranks would repeat each other's)."""
+    cut = _operand_cut(operand)
+    whole = cut.whole(shape) if cut is not None else tuple(shape)
+    rows = train_batch_axes() if operand == "x" else ()
+    if rows:
+        from repro_torch.distributed.runtime import axis_index
+        sizes = mesh_axes(live_mesh(current_ctx()))
+        r = shape[0]
+        lo = axis_index(rows) * r
+        whole = (r * math.prod(sizes[a] for a in rows), *whole[1:])
+    out = tuple(draw(whole))
+    if rows:
+        out = tuple(t[lo:lo + r] for t in out)
+    if cut is not None:
+        out = tuple(cut.cut(t) for t in out)
+    return out
+
+
+def global_gemm(m: int, k: int, n: int,
+                split: ProductSplit | None = None) -> tuple[int, int, int]:
+    """The GEMM shape of the global product a rank computes a block of:
+    its rows over a train step's row shards, and the dim `split` cuts."""
+    axes = train_batch_axes()
+    if axes:
+        sizes = mesh_axes(current_ctx().mesh)
+        m *= math.prod(sizes[a] for a in axes)
+    return split.global_gemm(m, k, n) if split is not None else (m, k, n)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -129,14 +129,16 @@ def operands(x: torch.Tensor, w: torch.Tensor, key=None,
                               w_active=w_active)
 
     # -- scales --
-    # the activations' per-tensor full-scales span a train step's global
-    # batch (Q.act_absmax_scale); weights arrive whole
-    sw = Q.absmax_scale(w)
+    # the full-scales are the global operands': an activation's spans a
+    # train step's batch and, under a K-split product, its columns
+    # (Q.act_absmax_scale); a weight's the ranks that split it
+    # (Q.weight_absmax_scale)
+    sw = Q.weight_absmax_scale(w)
     if analog:
         sxd = sxa = s2 = Q.act_absmax_scale(x)
     else:
         sxd = Q.act_absmax_scale(x, act_per_vector)
-        sxa = Q.absmax_scale(x, True)
+        sxa = Q.act_absmax_scale(x, True)
         x_eff_pre = ref.condition_x(
             x, k_x, x_active=realize_x, use_mgate=use_mgate, mgate=mgate,
             gate=gate, var=var, qcfg=qcfg, p=p,

@@ -34,8 +34,8 @@ def analog_operand(t: torch.Tensor, key, *, qcfg: Q.QuantConfig,
     clean = Q.fake_quant(t, qcfg, per_vector=clean_per_vector, act=act)
     if noise.is_ideal and var is None and gate is None:
         return clean
-    scale = (Q.act_absmax_scale if act else Q.absmax_scale)(
-        t, noisy_per_vector)
+    scale = (Q.act_absmax_scale(t, noisy_per_vector) if act
+             else Q.weight_absmax_scale(t))
     q = Q.fake_quant(t / scale, qcfg, act=act)
     # an activation's per-shot draws span a train step's global batch
     eps = (mrr.draw_act_eps(key, q.shape, q.device, q.dtype)

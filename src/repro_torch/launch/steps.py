@@ -7,13 +7,17 @@ The train step runs on one device, or across the ranks of a live mesh
 where the reference jits its step under `TRAIN_RULES` shardings and GSPMD
 partitions it.  There each rank holds its shards of the params and the
 AdamW moments (`init_sharded`, `init_opt_state`), and its rows of the
-global batch (`TrainLayout.local_batch`).  The model gathers the weights
-where it uses them (`models.transformer`), and the gradient follows one
-convention (`distributed.runtime`): a rank's loss contribution is the
-mean over its rows times its rows over the global rows, over the number
-of ranks that hold the same rows (the product of the mesh axes the batch
-does not use), so the global loss is the `psum` of the contributions; a
-leaf replicated over an axis has its gradient `psum`-med over it.
+global batch (`TrainLayout.local_batch`).  The model gathers each
+layer's FSDP dims where it uses them and computes its share of the
+heads, MLP units and vocab over "model" (`models.transformer`: tensor
+parallel, as the reference's GSPMD partitions the step), and the
+gradient follows one convention (`distributed.runtime`): a rank's loss
+contribution is the mean over its rows times its rows over the global
+rows, over the number of ranks that hold the same rows (the product of
+the mesh axes the batch does not use), so the global loss is the `psum`
+of the contributions; a leaf replicated over an axis has its gradient
+`psum`-med over it, and a tensor-parallel leaf, "model" in its spec,
+none over "model" (each rank's block is its own).
 """
 
 from __future__ import annotations

@@ -28,7 +28,8 @@ each scan runs the `ssd_scan` kernel forward (twice a step under remat
 mesh, `--data-axis D` (0: D = N; an N that D does not divide is refused):
 params and AdamW moments sharded as `TRAIN_RULES` lays them out, each
 rank its rows of the global batch (`launch.steps.train_layout`; a batch
-that does not divide over the data ranks is refused).  Checkpoints are
+that does not divide over the data ranks is refused) and its share of
+the heads, MLP units and vocab over the N // D model ranks.  Checkpoints are
 the one-process files, so `--resume` moves a run between device counts.
 Rank 0 prints, and `run` returns its history.  The ranks form a gloo
 group: on the CPU its collectives carry the data; with `--device cuda`

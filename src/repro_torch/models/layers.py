@@ -38,22 +38,36 @@ def rmsnorm_def(dim: int, axis: str = "embed") -> ParamDef:
     return ParamDef((dim,), (axis,), "ones")
 
 
-def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+            axes=(), n: int | None = None) -> torch.Tensor:
     """RMSNorm with float32 statistics and the reference's hand-written
     backward (`_RMSNorm`): every (B, S, D) cotangent stays in the
     activation dtype, and only the (B, S, 1) reductions run in float32.
     Without a graph to record (serving, `no_grad`) the same forward runs
-    as plain ops."""
+    as plain ops.  Where the ranks over the mesh `axes` each hold a block
+    of a last dim of global size `n` (a tensor-parallel rank's heads),
+    the means over it, forward and backward, are the `psum` of the
+    blocks' sums over n, and `scale` is this rank's block."""
+    axes = tuple(axes)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        return _RMSNorm.apply(x, scale, eps)
-    return _rmsnorm_fwd(x, scale, eps)[0]
+        return _RMSNorm.apply(x, scale, eps, axes, n)
+    return _rmsnorm_fwd(x, scale, eps, axes, n)[0]
 
 
-def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float):
+def _row_mean(t: torch.Tensor, axes: tuple, n: int | None) -> torch.Tensor:
+    """The mean over the last dim, kept; over `axes`' blocks of a dim of
+    global size n where `axes` is not empty."""
+    if not axes:
+        return torch.mean(t, dim=-1, keepdim=True)
+    from repro_torch.distributed import runtime as rt
+    return rt.psum(torch.sum(t, dim=-1, keepdim=True), axes) / n
+
+
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                 axes: tuple = (), n: int | None = None):
     """(x * r * scale, r): r = rsqrt(mean(x^2) + eps) in float32, cast to
     the activation dtype."""
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    var = _row_mean(torch.square(x.float()), axes, n)
     r = torch.rsqrt(var + eps).to(x.dtype)
     return x * r * scale, r
 
@@ -61,13 +75,15 @@ def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float):
 class _RMSNorm(torch.autograd.Function):
     """The reference's `_rmsnorm_fwd2` / `_rmsnorm_bwd2`: d_scale summed in
     float32 over every leading axis, then cast to the scale's dtype; the
-    mean of (g * scale) * x_hat in float32, cast to the activation dtype;
-    dx = r * (g * scale - x_hat * m)."""
+    mean of (g * scale) * x_hat in float32 (over the whole dim where it
+    is split: every rank's block of x moves every rank's r), cast to the
+    activation dtype; dx = r * (g * scale - x_hat * m)."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps):
-        y, r = _rmsnorm_fwd(x, scale, eps)
+    def forward(ctx, x, scale, eps, axes, n):
+        y, r = _rmsnorm_fwd(x, scale, eps, axes, n)
         ctx.save_for_backward(x, r, scale)
+        ctx.axes, ctx.n = axes, n
         return y
 
     @staticmethod
@@ -77,10 +93,9 @@ class _RMSNorm(torch.autograd.Function):
         d_scale = torch.sum((g * xh).float(),
                             dim=tuple(range(g.ndim - 1))).to(scale.dtype)
         gsc = g * scale
-        m = torch.mean((gsc * xh).float(), dim=-1,
-                       keepdim=True).to(x.dtype)
+        m = _row_mean((gsc * xh).float(), ctx.axes, ctx.n).to(x.dtype)
         dx = r * (gsc - xh * m)
-        return dx, d_scale, None
+        return dx, d_scale, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +178,37 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     return cache
 
 
-def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, KV, D) -> (B, S, H, D) by repeating each kv head."""
+def _repeat_kv(k: torch.Tensor, n_heads: int,
+               heads: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, H, D) by repeating each kv head; with
+    `heads`, the global indices of the query heads a rank holds (its KV
+    heads whole: they do not split over its ranks), (B, S, len(heads), D),
+    each head's KV head of the global `n_heads` grouping."""
     n_kv = k.shape[-2]
+    if heads is not None:
+        return k.index_select(-2, heads // (n_heads // n_kv))
     if n_kv == n_heads:
         return k
     return torch.repeat_interleave(k, n_heads // n_kv, dim=-2)
+
+
+def _head_split(p: dict, tp, x: torch.Tensor):
+    """The model axes this rank's attention heads split over (from the
+    local specs `tp` of `p`), and the global indices of its query heads
+    when its KV heads are whole (None when both split or neither)."""
+    from repro_torch.distributed.sharding import split_axes
+    if not tp:
+        return (), None
+    hq, hkv = split_axes(tp.get("wq")), split_axes(tp.get("wk"))
+    if split_axes(tp.get("wo")) != hq or split_axes(tp.get("wv")) != hkv \
+            or (hkv and hkv != hq):
+        raise ValueError(f"attention leaves split unevenly: {tp}")
+    if not hq or hkv:
+        return hq, None
+    from repro_torch.distributed import runtime as rt
+    n = p["wq"].shape[-2]
+    first = rt.axis_index(hq) * n
+    return hq, torch.arange(first, first + n, device=x.device)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
@@ -199,11 +239,16 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attn_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
                positions: torch.Tensor, *, window=0, theta=None,
                memory: torch.Tensor | None = None,
-               memory_pos: torch.Tensor | None = None) -> torch.Tensor:
+               memory_pos: torch.Tensor | None = None,
+               tp: dict | None = None) -> torch.Tensor:
     """Full-sequence attention, no cache. x: (B, S, D).  A cross attention
     takes K/V from `memory` (B, Sm, D) without RoPE and masks by
-    `memory_pos` only."""
+    `memory_pos` only.  `tp`, the local specs of `p` on a
+    tensor-parallel rank (`distributed.sharding.local_specs`): its query
+    heads (and KV heads where they split too; else the KV heads its
+    heads read) and `wo`'s rows, the partial output `psum`-med."""
     theta = cfg.rope_theta if theta is None else theta
+    axes, heads = _head_split(p, tp, x)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     src = memory if cfg.cross else x
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
@@ -218,9 +263,10 @@ def attn_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
         k = rope(k, positions, theta)
         k_pos = positions
     bias = _mask_bias(positions, k_pos, cfg.causal and not cfg.cross, window)
-    o = attention_core(q, _repeat_kv(k, cfg.n_heads),
-                       _repeat_kv(v, cfg.n_heads), bias)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    n = cfg.n_heads if heads is not None else q.shape[-2]
+    o = attention_core(q, _repeat_kv(k, n, heads),
+                       _repeat_kv(v, n, heads), bias)
+    return _psum(torch.einsum("bshk,hkd->bsd", o, p["wo"]), axes)
 
 
 def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -367,26 +413,45 @@ def mlp_def(d_model: int, d_ff: int) -> dict:
 def mlp_apply(p: dict, x: torch.Tensor,
               engine: "rosa.Engine | None" = None,
               key: torch.Generator | None = None, *, name: str = "mlp",
-              step: int = 0) -> torch.Tensor:
+              step: int = 0, tp: dict | None = None) -> torch.Tensor:
     """SwiGLU MLP; with an optical `rosa.Engine` both projections run
     through the paper's optical MAC under the layer names `{name}/wi` and
     `{name}/wo`.  A layer stack passes its layer index as `step`, so layers
     draw independent noise while sharing the name's plan, chip variation
-    and ledger entry (the reference's scanned stack traces its body once)."""
+    and ledger entry (the reference's scanned stack traces its body once).
+    `tp`, the local specs of `p` on a tensor-parallel rank: `wi`'s
+    columns and `wo`'s rows of this rank's MLP units, the partial output
+    `psum`-med (an optical product cut as `ProductSplit` says)."""
+    from repro_torch.distributed.sharding import ProductSplit, split_axes
+    axes = split_axes(tp.get("wi")) if tp else ()
+    if tp and split_axes(tp.get("wo")) != axes:
+        raise ValueError(f"MLP leaves split unevenly: {tp}")
     if engine is not None and not engine.is_dense:
         if key is not None:
             engine = engine.with_key(key)
         b, s, d = x.shape
         f = p["wi"].shape[-1]
-        gu = engine.matmul(x.reshape(-1, d), p["wi"].reshape(d, 2 * f),
-                           name=f"{name}/wi", step=step).reshape(b, s, 2, f)
+        gu = engine.matmul(
+            x.reshape(-1, d), p["wi"].reshape(d, 2 * f), name=f"{name}/wi",
+            step=step, split=ProductSplit.columns(axes, blocks=2)
+            if axes else None).reshape(b, s, 2, f)
         h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
         y = engine.matmul(h.reshape(-1, f), p["wo"], name=f"{name}/wo",
-                          step=step)
-        return y.reshape(b, s, d).to(x.dtype)
+                          step=step,
+                          split=ProductSplit.rows(axes) if axes else None)
+        return _psum(y, axes).reshape(b, s, d).to(x.dtype)
     gu = torch.einsum("bsd,dcf->bscf", x, p["wi"])
     h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    return _psum(torch.einsum("bsf,fd->bsd", h, p["wo"]), axes)
+
+
+def _psum(t: torch.Tensor, axes) -> torch.Tensor:
+    """`t` summed over the mesh `axes` (a tensor-parallel rank's partial
+    output); `t` itself for no axes."""
+    if not axes:
+        return t
+    from repro_torch.distributed import runtime as rt
+    return rt.psum(t, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -396,8 +461,24 @@ def embed_def(vocab: int, d_model: int) -> ParamDef:
     return ParamDef((vocab, d_model), ("vocab", "embed"), "normal", 0.02)
 
 
-def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor,
+                axes: tuple[str, ...] = ()) -> torch.Tensor:
+    """The tokens' rows of `table`; with `axes`, the mesh axes a
+    tensor-parallel rank's vocab rows split over, the rank's rows looked
+    up (zero for a token another rank holds) and `psum`-med."""
+    if not axes:
+        return table[tokens]
+    first, n = _vocab_block(table.shape[0], axes)
+    local = tokens - first
+    own = (local >= 0) & (local < n)
+    rows = table[torch.where(own, local, 0)]
+    return _psum(rows * own[..., None].to(rows.dtype), axes)
+
+
+def _vocab_block(n: int, axes) -> tuple[int, int]:
+    """(first global vocab row, rows) of this rank's block of `n` rows."""
+    from repro_torch.distributed import runtime as rt
+    return rt.axis_index(axes) * n, n
 
 
 def unembed_def(d_model: int, vocab: int) -> ParamDef:
@@ -412,15 +493,21 @@ def unembed_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # Losses
 # ---------------------------------------------------------------------------
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor | None = None) -> torch.Tensor:
+                 mask: torch.Tensor | None = None,
+                 vocab_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """Mean next-token cross entropy in float32; logits (B, S, V), labels
     (B, S).  With a mask, the masked mean over max(sum(mask), 1); under
     a live train context whose rows are split over ranks both sums are
-    `psum`-med over them (every rank's value is the global batch's)."""
+    `psum`-med over them (every rank's value is the global batch's).
+    With `vocab_axes` the logits are a tensor-parallel rank's block of
+    the vocab (`_split_nll`)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    if vocab_axes:
+        nll = _split_nll(logits, labels, vocab_axes)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is None:
         return torch.mean(nll)
     mask = mask.float()
@@ -432,3 +519,23 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         from repro_torch.distributed import runtime as rt
         num, den = rt.psum(num, axes), rt.psum(den, axes)
     return num / torch.clamp(den, min=1.0)
+
+
+def _split_nll(logits: torch.Tensor, labels: torch.Tensor,
+               axes) -> torch.Tensor:
+    """-log softmax at the labels of logits whose vocab the ranks over
+    `axes` split (this rank's block (B, S, V/M)): the logsumexp from the
+    `pmax` of the blocks' maxima (a shift, held constant: the
+    logsumexp's gradient does not depend on it) and the `psum` of the
+    shifted exponential sums; the gold logit a `psum` of the pick the
+    label's owner makes."""
+    from repro_torch.distributed import runtime as rt
+    first, n = _vocab_block(logits.shape[-1], axes)
+    m = rt.pmax(logits.detach().amax(dim=-1), axes)
+    logz = m + torch.log(rt.psum(
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1), axes))
+    local = labels.long() - first
+    own = (local >= 0) & (local < n)
+    pick = torch.gather(logits, -1, torch.where(own, local, 0)[..., None])
+    gold = rt.psum(pick[..., 0] * own.to(logits.dtype), axes)
+    return logz - gold

@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import split_axes
 from repro_torch.models.layers import (_mask_bias, cache_write, rmsnorm,
                                        rmsnorm_def, rope)
 from repro_torch.models.module import ParamDef
@@ -81,11 +82,28 @@ def _compress_kv(p, cfg: MLAConfig, x, positions):
     return c_kv, k_rope
 
 
+_HEAD_LEAVES = ("w_uq", "w_uk", "w_uv", "wo")
+
+
 def mla_apply(p: dict, cfg: MLAConfig, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence MLA. x: (B, S, D)."""
+              positions: torch.Tensor, tp: dict | None = None
+              ) -> torch.Tensor:
+    """Full-sequence MLA. x: (B, S, D).  `tp`, the local specs of `p` on
+    a tensor-parallel rank: its heads' up-projections and `wo`'s rows
+    (the compressions and their norms whole), the partial output
+    `psum`-med."""
+    axes = ()
+    if tp:
+        got = {k: split_axes(tp.get(k)) for k in tp}
+        axes = got["wo"]
+        if any(got[k] != axes for k in _HEAD_LEAVES) or any(
+                got[k] for k in got if k not in _HEAD_LEAVES):
+            raise ValueError(f"MLA leaves split unevenly: {tp}")
     y, _ = mla_prefill(p, cfg, x, positions)
-    return y
+    if not axes:
+        return y
+    from repro_torch.distributed import runtime as rt
+    return rt.psum(y, axes)
 
 
 def mla_prefill(p: dict, cfg: MLAConfig, x: torch.Tensor,

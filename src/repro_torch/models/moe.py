@@ -92,9 +92,17 @@ def _expert_ffn(wi: torch.Tensor, wo: torch.Tensor,
     return torch.bmm(h, wo)
 
 
-def moe_ref(p: dict, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_ref(p: dict, cfg: MoEConfig, x: torch.Tensor,
+            tp: dict | None = None) -> torch.Tensor:
     """x: (B, S, d).  Every expert evaluated on every token, weighted by
-    the router's gates (zero off the top k)."""
+    the router's gates (zero off the top k).  `tp`, the local specs of
+    `p` on a tensor-parallel rank: the shared experts' d_ff split
+    (`_shared_tp`); the routed experts come whole."""
+    from repro_torch.distributed.sharding import split_axes
+    axes = split_axes(tp.get("shared_wi")) if tp else ()
+    if tp and (split_axes(tp.get("shared_wo")) != axes or any(
+            split_axes(tp.get(k)) for k in ("router", "wi", "wo"))):
+        raise ValueError(f"MoE leaves split unevenly: {tp}")
     b, s, d = x.shape
     x2 = x.reshape(-1, d)
     w, ids = _route(p, cfg, x2)                       # (T, k)
@@ -105,7 +113,8 @@ def moe_ref(p: dict, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
                         x2.expand(cfg.n_experts, *x2.shape))
     y = torch.einsum("te,etd->td", gates, y_all)
     if cfg.n_shared:
-        y = y + _shared(p, cfg, x2)
+        y = y + (_shared_tp(p["shared_wi"], p["shared_wo"], x2, axes)
+                 if axes else _shared(p, cfg, x2))
     return y.reshape(b, s, d)
 
 

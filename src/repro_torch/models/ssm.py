@@ -29,6 +29,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import split_axes
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: F401
 from repro_torch.models.layers import rmsnorm
@@ -102,19 +103,68 @@ def _decay(p: dict, dt_raw: torch.Tensor):
 
 
 def _gate_out(p: dict, y: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
-              dtype) -> torch.Tensor:
+              dtype, axes: tuple[str, ...] = (),
+              n: int | None = None) -> torch.Tensor:
     """D skip, silu(z) gate, RMSNorm over (H, P) and the out projection.
-    y, x, z: (..., H, P) -> (..., D)."""
+    y, x, z: (..., H, P) -> (..., D).  With `axes`, a tensor-parallel
+    rank's heads of the `n` (= H * P) the norm spans: its statistics
+    `psum`-med (`rmsnorm(axes=)`), the partial output too."""
     y = y + p["d_skip"][:, None] * x.float()
     y = y.to(dtype) * F.silu(z)
-    y = rmsnorm(p["gate_norm"].reshape(-1), y.reshape(*y.shape[:-2], -1)
-                ).reshape(y.shape)
-    return torch.einsum("...hp,hpd->...d", y, p["w_out"])
+    flat = y.reshape(*y.shape[:-2], -1)
+    scale = p["gate_norm"].reshape(-1)
+    y = rmsnorm(scale, flat, axes=axes, n=n).reshape(y.shape)
+    out = torch.einsum("...hp,hpd->...d", y, p["w_out"])
+    if not axes:
+        return out
+    from repro_torch.distributed import runtime as rt
+    return rt.psum(out, axes)
 
 
-def ssm_forward(p: dict, cfg: SSMConfig, u: torch.Tensor):
+_HEAD_LEAVES = ("w_x", "w_z", "w_dt", "dt_bias", "a_log", "d_skip",
+                "conv_x", "gate_norm", "w_out")
+
+
+def _head_axes(tp: dict | None) -> tuple[str, ...]:
+    """The mesh axes a tensor-parallel rank's heads split over, from the
+    local specs of the block's leaves (every per-head leaf alike; the
+    group leaves whole)."""
+    if not tp:
+        return ()
+    got = {k: split_axes(tp.get(k)) for k in tp}
+    axes = got["w_x"]
+    if any(got[k] != axes for k in _HEAD_LEAVES) or any(
+            got[k] for k in got if k not in _HEAD_LEAVES):
+        raise ValueError(f"ssm leaves split unevenly: {tp}")
+    return axes
+
+
+def _local_groups(b: torch.Tensor, cfg: SSMConfig, axes,
+                  h_local: int) -> torch.Tensor:
+    """The groups of b / c (B, L, G, S) a rank's `h_local` heads of the
+    global `cfg.n_heads` read, so that its heads keep their grouping."""
+    g = cfg.n_groups
+    if not axes or g == 1:
+        return b
+    from repro_torch.distributed import runtime as rt
+    per = cfg.n_heads // g                      # heads a group
+    first = rt.axis_index(axes) * h_local
+    if h_local % per == 0:
+        return b.narrow(2, first // per, h_local // per)
+    if per % h_local == 0:
+        return b.narrow(2, first // per, 1)
+    raise ValueError(f"{h_local} heads a rank straddle the groups of "
+                     f"{per} heads")
+
+
+def ssm_forward(p: dict, cfg: SSMConfig, u: torch.Tensor,
+                tp: dict | None = None):
     """Whole-sequence block u (B, L, D) -> (out (B, L, D), final state
-    (B, H, S, P), pre-conv (x, b, c) for the decode cache)."""
+    (B, H, S, P), pre-conv (x, b, c) for the decode cache).  `tp`, the
+    local specs of `p` on a tensor-parallel rank: its heads' leaves (the
+    scan over its H / M heads, with the groups they read), `w_out`'s rows
+    and the gate norm's statistics summed over the ranks."""
+    axes = _head_axes(tp)
     x_pre = torch.einsum("bld,dhp->blhp", u, p["w_x"])
     b_pre = torch.einsum("bld,dgs->blgs", u, p["w_b"])
     c_pre = torch.einsum("bld,dgs->blgs", u, p["w_c"])
@@ -123,15 +173,21 @@ def ssm_forward(p: dict, cfg: SSMConfig, u: torch.Tensor):
     c = _causal_conv(c_pre, p["conv_c"])
     z = torch.einsum("bld,dhp->blhp", u, p["w_z"])
     dt, loga = _decay(p, torch.einsum("bld,dh->blh", u, p["w_dt"]))
+    h_local = x.shape[2]
     y, state = ssd_scan((x.float() * dt[..., None]).contiguous(),
-                        loga.contiguous(), b.float().contiguous(),
-                        c.float().contiguous(), cfg.chunk)
-    return _gate_out(p, y, x, z, u.dtype), state, (x_pre, b_pre, c_pre)
+                        loga.contiguous(),
+                        _local_groups(b, cfg, axes, h_local).float()
+                        .contiguous(),
+                        _local_groups(c, cfg, axes, h_local).float()
+                        .contiguous(), cfg.chunk)
+    out = _gate_out(p, y, x, z, u.dtype, axes, cfg.d_inner)
+    return out, state, (x_pre, b_pre, c_pre)
 
 
-def ssm_apply(p: dict, cfg: SSMConfig, u: torch.Tensor) -> torch.Tensor:
+def ssm_apply(p: dict, cfg: SSMConfig, u: torch.Tensor,
+              tp: dict | None = None) -> torch.Tensor:
     """Full-sequence Mamba-2 block. u: (B, L, D) -> (B, L, D)."""
-    return ssm_forward(p, cfg, u)[0]
+    return ssm_forward(p, cfg, u, tp)[0]
 
 
 # ---------------------------------------------------------------------------

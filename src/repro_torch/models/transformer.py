@@ -21,8 +21,16 @@ final norm, `layer0`, zamba2's `shared_attn`, the encoder's norm) on entry
 to `forward` / `train_loss`, and a stacked layer's (or zamba2 group's)
 leaves inside its recomputed body, on the local slice `layer_at` hands
 in, so the recomputation gathers again and autograd never keeps a
-layer's whole weights.  An expert-parallel MoE FFN's expert weights stay
-split over "model" (`moe_ep_local` gathers their FSDP dims itself).
+layer's gathered weights.  The gathers leave the tensor-parallel dims
+local (`distributed.sharding.train_model_axes`: "model", unless the
+batch's rows take it) and hand each block the local specs of what stays
+split, so a rank computes its attention heads (and KV heads, or the KV
+heads its heads read), its MLP units (plain or optical), its SSM heads
+and its vocab rows, with a `psum` a projection pair and the vocab's
+softmax statistics summed, as the reference's GSPMD partitions its step.
+An expert-parallel MoE FFN's expert weights stay split over "model"
+(`moe_ep_local` gathers their FSDP dims itself); without `moe_ep` the
+routed experts are gathered whole and the shared experts split.
 
 zamba2 (`hybrid`) stacks its Mamba-2 layers as `groups` (n_groups,
 shared_every, ...) plus an unstacked remainder `tail`, and applies ONE
@@ -153,30 +161,68 @@ def _train_ctx():
 
 
 def gather_top(params):
-    """Under a live train context the top-level leaves gathered whole
-    (the stacked subtrees left local); `params` itself otherwise."""
+    """Under a live train context: the top-level leaves gathered but for
+    their tensor-parallel dims (the stacked subtrees left local), and the
+    local specs of what stays split (`sharding.local_specs`); otherwise
+    (params, None)."""
     ctx = _train_ctx()
     if ctx is None:
-        return params
-    from repro_torch.distributed.sharding import gather_tree
-    return gather_tree(params, ctx.params, ctx.mesh, skip=_is_stacked)
+        return params, None
+    from repro_torch.distributed.sharding import (gather_tree, local_specs,
+                                                  train_model_axes)
+    axes = train_model_axes()
+
+    def keep(path) -> tuple[str, ...]:
+        return axes
+    return (gather_tree(params, ctx.params, ctx.mesh, skip=_is_stacked,
+                        keep=keep), local_specs(ctx.params, keep))
 
 
 def gather_layer(p, cfg: ModelConfig, *keys: str):
-    """Under a live train context, the slice `p` of the stacked subtree
-    `keys` (one layer, or one zamba2 group) gathered whole but for an
-    expert-parallel MoE FFN's expert weights; `p` itself otherwise."""
+    """Under a live train context: the slice `p` of the stacked subtree
+    `keys` (one layer, or one zamba2 group) gathered but for its
+    tensor-parallel dims and an expert-parallel MoE FFN's expert weights
+    (which `moe_ep_local` takes as they are), with the local specs of
+    what stays split; otherwise (p, None).  A MoE FFN's routed experts
+    split over "model" by their experts dim, not a tensor-parallel one:
+    without `moe_ep` they are gathered whole."""
     ctx = _train_ctx()
     if ctx is None:
-        return p
-    from repro_torch.distributed.sharding import drop_dims, gather_tree
+        return p, None
+    from repro_torch.distributed.sharding import (drop_dims, gather_tree,
+                                                  local_specs,
+                                                  train_model_axes)
     specs = ctx.params
     for k in keys:
         specs = specs[k]
-    ep = cfg.moe is not None and cfg.moe_ep
-    return gather_tree(p, drop_dims(specs, 1), ctx.mesh,
-                       skip=lambda path: ep and path[-2:-1] == ("ffn",)
-                       and path[-1] in EP_LOCAL)
+    specs = drop_dims(specs, 1)
+    moe = cfg.moe is not None
+    ep = moe and cfg.moe_ep
+    axes = train_model_axes()
+
+    def ffn(path, names) -> bool:
+        return path[-2:-1] == ("ffn",) and path[-1] in names
+
+    def keep(path) -> tuple[str, ...]:
+        return () if moe and ffn(path, ("wi", "wo")) else axes
+    return (gather_tree(p, specs, ctx.mesh,
+                        skip=lambda path: ep and ffn(path, EP_LOCAL),
+                        keep=keep), local_specs(specs, keep))
+
+
+def _sub(tp, *keys):
+    """The local specs of a subtree (None without a train context)."""
+    for k in keys:
+        tp = None if tp is None else tp[k]
+    return tp
+
+
+def _vocab_axes(tp, cfg: ModelConfig) -> tuple[str, ...]:
+    """The mesh axes a tensor-parallel rank's vocab splits over (the
+    logits' table: the embedding when tied)."""
+    from repro_torch.distributed.sharding import split_axes
+    return split_axes(_sub(tp, "embed" if cfg.tie_embeddings
+                           else "unembed"))
 
 
 def layer_meta(cfg: ModelConfig, i: int) -> dict:
@@ -236,7 +282,7 @@ def ep_choice(cfg: ModelConfig, ctx, x_shape: tuple[int, ...]
 
 
 def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-               step: int = 0) -> torch.Tensor:
+               step: int = 0, tp: dict | None = None) -> torch.Tensor:
     if cfg.moe is not None:
         from repro_torch.distributed.sharding import current_ctx, live_mesh
         ctx = current_ctx()
@@ -245,15 +291,15 @@ def _ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
             fsdp, a2a = ep_choice(cfg, ctx, tuple(x.shape))
             return MOE.moe_ep_local(p, cfg.moe, x, model_axis="model",
                                     fsdp_axes=fsdp, a2a=a2a)
-        return MOE.moe_ref(p, cfg.moe, x)
+        return MOE.moe_ref(p, cfg.moe, x, tp)
     if cfg.rosa_mlp:
         # the installed engine (a compiled rosa.Program installs its own)
         # carries the serving plan, the pinned chip and the ledger
         engine = rosa.ambient_engine()
         if engine is None:
             engine = rosa.Engine.from_config()
-        return L.mlp_apply(p, x, engine=engine, step=step)
-    return L.mlp_apply(p, x)
+        return L.mlp_apply(p, x, engine=engine, step=step, tp=tp)
+    return L.mlp_apply(p, x, tp=tp)
 
 
 def _block_def(cfg: ModelConfig, cross: bool = False) -> dict:
@@ -344,24 +390,28 @@ def _ssm_prefill(p: dict, scfg: SSM.SSMConfig, u: torch.Tensor):
 
 
 def _block_fwd(p: dict, cfg: ModelConfig, x, positions, meta, step,
-               memory=None, memory_pos=None) -> torch.Tensor:
-    """Full-sequence block forward (the train path: no cache)."""
+               memory=None, memory_pos=None, tp=None) -> torch.Tensor:
+    """Full-sequence block forward (the train path: no cache); `tp`, the
+    local specs of `p` on a tensor-parallel rank."""
     if "ssm" in p:
         return x + SSM.ssm_apply(p["ssm"], cfg.ssm,
-                                 L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+                                 L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 _sub(tp, "ssm"))
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.family == "mla_moe":
-        a = MLA.mla_apply(p["attn"], cfg.mla, h, positions)
+        a = MLA.mla_apply(p["attn"], cfg.mla, h, positions, _sub(tp, "attn"))
     else:
         a = L.attn_apply(p["attn"], cfg.attn, h, positions,
-                         window=meta["window"], theta=meta["theta"])
+                         window=meta["window"], theta=meta["theta"],
+                         tp=_sub(tp, "attn"))
     x = x + a
     if "cross" in p:
         h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
         x = x + L.attn_apply(p["cross"], cross_cfg(cfg), h, positions,
-                             memory=memory, memory_pos=memory_pos)
+                             memory=memory, memory_pos=memory_pos,
+                             tp=_sub(tp, "cross"))
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + _ffn_apply(p["ffn"], cfg, h, step)
+    return x + _ffn_apply(p["ffn"], cfg, h, step, _sub(tp, "ffn"))
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -456,59 +506,73 @@ def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     the recomputation; zamba2's `tail` layers, outside the recomputed
     groups, once) and its backward once."""
     check_family(cfg)
-    return _forward(gather_top(params), cfg, batch)
+    return _forward(*gather_top(params), cfg, batch)
 
 
-def _forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """`forward` on params whose top-level leaves are whole."""
-    x, positions = _embed_in(params, cfg, batch)
+def _forward(params, tp, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """`forward` on params whose top-level leaves are gathered (`tp`:
+    their local specs on a tensor-parallel rank, else None)."""
+    x, positions = _embed_in(params, cfg, batch, tp)
     if cfg.family == "hybrid":
-        x = _hybrid_fwd(params, cfg, x, positions)
+        x = _hybrid_fwd(params, tp, cfg, x, positions)
     elif cfg.family == "encdec":
         mem = _encode(params, cfg, batch)
         mem_pos = _positions(*mem.shape[:2], mem.device)
         meta = {"window": 0, "theta": cfg.rope_theta}
-        body = _remat(cfg, lambda p, x: _block_fwd(
-            gather_layer(p, cfg, "layers"), cfg, x, positions, meta, 0, mem,
-            mem_pos))
+        body = _remat(cfg, _stacked_fwd(cfg, positions, mem, mem_pos))
         for i in range(cfg.n_layers):
-            x = body(layer_at(params["layers"], i), x)
+            x = body(layer_at(params["layers"], i), x, meta, 0)
     else:
         off = 0
         if cfg.first_dense_ff:
             x = _block_fwd(params["layer0"], dense0(cfg), x, positions,
-                           {"window": 0, "theta": cfg.rope_theta}, 0)
+                           {"window": 0, "theta": cfg.rope_theta}, 0,
+                           tp=_sub(tp, "layer0"))
             off = 1
-        body = _remat(cfg, lambda p, x, meta, step: _block_fwd(
-            gather_layer(p, cfg, "layers"), cfg, x, positions, meta, step))
+        body = _remat(cfg, _stacked_fwd(cfg, positions))
         for i in range(n_stacked(cfg)):
             x = body(layer_at(params["layers"], i), x,
                      layer_meta(cfg, i + off), i + off)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def _hybrid_fwd(params, cfg: ModelConfig, x, positions) -> torch.Tensor:
+def _stacked_fwd(cfg: ModelConfig, positions, memory=None,
+                 memory_pos=None):
+    """The body of a stacked layer: its slice gathered (`gather_layer`),
+    then the block; run under `_remat`, so the recompute gathers again."""
+    def run(p, x, meta, step):
+        p, tp = gather_layer(p, cfg, "layers")
+        return _block_fwd(p, cfg, x, positions, meta, step, memory,
+                          memory_pos, tp)
+    return run
+
+
+def _hybrid_fwd(params, tp, cfg: ModelConfig, x, positions) -> torch.Tensor:
     """zamba2: each group of `shared_every` ssm layers and the shared
     attention + MLP block after it as one recomputed unit, then the
     `tail` layers as they are."""
-    shared = params["shared_attn"]
+    from repro_torch.distributed.sharding import drop_dims
+    shared, tp_s = params["shared_attn"], _sub(tp, "shared_attn")
 
     def group(p_g, x):
-        p_g = gather_layer(p_g, cfg, "groups")
+        p_g, tp_g = gather_layer(p_g, cfg, "groups")
+        tp_l = None if tp_g is None else drop_dims(tp_g, 1)
         for i in range(cfg.shared_every):
-            x = _block_fwd(layer_at(p_g, i), cfg, x, positions, None, 0)
+            x = _block_fwd(layer_at(p_g, i), cfg, x, positions, None, 0,
+                           tp=tp_l)
         h = L.rmsnorm(shared["ln"], x, cfg.norm_eps)
-        x = x + L.attn_apply(shared["attn"], cfg.attn, h, positions)
+        x = x + L.attn_apply(shared["attn"], cfg.attn, h, positions,
+                             tp=_sub(tp_s, "attn"))
         h = L.rmsnorm(shared["ln2"], x, cfg.norm_eps)
-        return x + L.mlp_apply(shared["ffn"], h)
+        return x + L.mlp_apply(shared["ffn"], h, tp=_sub(tp_s, "ffn"))
 
     body = _remat(cfg, group)
     for g in range(hybrid_depth(cfg)[0]):
         x = body(layer_at(params["groups"], g), x)
     if "tail" in params:
         for i in range(params["tail"]["ln1"].shape[0]):
-            x = _block_fwd(gather_layer(layer_at(params["tail"], i), cfg,
-                                        "tail"), cfg, x, positions, None, 0)
+            p, tp_t = gather_layer(layer_at(params["tail"], i), cfg, "tail")
+            x = _block_fwd(p, cfg, x, positions, None, 0, tp=tp_t)
     return x
 
 
@@ -519,12 +583,13 @@ def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     mean over this rank's rows (the step weighs it into the global
     loss)."""
     check_family(cfg)
-    params = gather_top(params)
-    x = _forward(params, cfg, batch)
+    params, tp = gather_top(params)
+    x = _forward(params, tp, cfg, batch)
     if cfg.frontend == "vision":
         x = x[:, batch["patch_embeds"].shape[1]:]
+    # on a tensor-parallel rank the logits are its block of the vocab
     return L.softmax_xent(logits_of(params, cfg, x), batch["labels"],
-                          batch.get("mask"))
+                          batch.get("mask"), _vocab_axes(tp, cfg))
 
 
 def _stack(caches: list[dict]) -> dict:
@@ -541,11 +606,14 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def _embed_in(params, cfg: ModelConfig, batch: dict):
+def _embed_in(params, cfg: ModelConfig, batch: dict, tp=None):
     """Token embedding (with the vision frontend, the patch embeddings in
     the embedding dtype ahead of it) and positions (B, S) over the whole
-    sequence."""
-    x = L.embed_apply(params["embed"], batch["tokens"])
+    sequence; `tp`, the top-level local specs on a tensor-parallel rank
+    (its vocab rows)."""
+    from repro_torch.distributed.sharding import split_axes
+    x = L.embed_apply(params["embed"], batch["tokens"],
+                      split_axes(_sub(tp, "embed")))
     if cfg.frontend == "vision":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     return x, _positions(*x.shape[:2], x.device)
@@ -627,11 +695,12 @@ def _encode(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     acfg = dataclasses.replace(cfg.attn, causal=False)
 
     def layer(p, mem):
-        p = gather_layer(p, cfg, "encoder", "layers")
+        p, tp = gather_layer(p, cfg, "encoder", "layers")
         h = L.rmsnorm(p["ln1"], mem, cfg.norm_eps)
-        mem = mem + L.attn_apply(p["attn"], acfg, h, pos)
+        mem = mem + L.attn_apply(p["attn"], acfg, h, pos,
+                                 tp=_sub(tp, "attn"))
         h = L.rmsnorm(p["ln2"], mem, cfg.norm_eps)
-        return mem + L.mlp_apply(p["ffn"], h)
+        return mem + L.mlp_apply(p["ffn"], h, tp=_sub(tp, "ffn"))
 
     body = _remat(cfg, layer) if torch.is_grad_enabled() else layer
     for i in range(cfg.n_enc_layers):

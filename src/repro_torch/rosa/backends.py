@@ -142,8 +142,8 @@ def _noisy_realize(t, cfg: RosaConfig, key, var=None,
     for weights, per-row with `per_vector` for activations; `act`: an
     activation's, global over a train step's ranks), through the
     `mrr_transfer` kernel on CUDA and its plain chain on the CPU."""
-    scale = (quant.act_absmax_scale if act else quant.absmax_scale)(
-        t, per_vector)
+    scale = (quant.act_absmax_scale(t, per_vector) if act
+             else quant.weight_absmax_scale(t))
     q = quant.fake_quant(t / scale, cfg.qcfg, act=act)
     # an activation's per-shot draws span a train step's global batch
     eps = (mrr.draw_act_eps(key, q.shape, q.device, q.dtype)

@@ -178,10 +178,18 @@ class Engine:
 
     # -- the routed matmul --------------------------------------------------
     def matmul(self, x: torch.Tensor, w: torch.Tensor, *, name: str = "",
-               step: int = 0, key: torch.Generator | None = None
-               ) -> torch.Tensor:
+               step: int = 0, key: torch.Generator | None = None,
+               split=None) -> torch.Tensor:
         """y = x @ w through this layer's resolved config; x (..., K),
-        w (K, N).  Dense layers contract exactly in the caller's dtype."""
+        w (K, N).  Dense layers contract exactly in the caller's dtype.
+
+        `split` (a `distributed.sharding.ProductSplit`) says how this
+        rank's x and w are cut from the global product's (a rank of a
+        tensor-parallel train step): the full-scales and per-shot draws
+        are the global operands' (`use_product_split`), the pinned chip's
+        lanes are cut alike, and the ledger records the global shape, as
+        the reference's trace of its partitioned step does; a K split
+        returns this rank's partial product, which the caller sums."""
         cfg = self.plan.resolve(name)
         m = math.prod(x.shape[:-1])
         k, n = int(x.shape[-1]), int(w.shape[-1])
@@ -194,6 +202,8 @@ class Engine:
         if cfg is None:
             return torch.einsum("...k,kn->...n", x, w)
         if self.ledger is not None:
+            from repro_torch.distributed.sharding import global_gemm
+            m, k, n = global_gemm(m, k, n, split)
             self.ledger.record(name or f"unnamed_{m}x{k}x{n}",
                                m=m, k=k, n=n, cfg=cfg)
         if x.device.type == "meta":
@@ -201,9 +211,15 @@ class Engine:
                                dtype=torch.float32, device="meta")
         if key is None:
             key = self.key_for(name, step)
-        return rosa_matmul(x.float(), w.float(), cfg, key,
-                           self.variation_for(name), self.gate_for(name),
-                           self.mapping_gate_for(name))
+        var = self.variation_for(name)
+        if split is not None and var is not None:
+            var = mrr.StaticVariation(*(split.cut_field(a, tuple(w.shape))
+                                        for a in (var.dv, var.ddt, var.dlam)))
+        from repro_torch.distributed.sharding import use_product_split
+        with use_product_split(split):
+            return rosa_matmul(x.float(), w.float(), cfg, key, var,
+                               self.gate_for(name),
+                               self.mapping_gate_for(name))
 
     def effective_weight(self, w: torch.Tensor, *, name: str = "",
                          step: int = 0, key: torch.Generator | None = None
@@ -219,3 +235,4 @@ class Engine:
         return condition_weight(w, self.plan.resolve(name), key,
                                 self.variation_for(name),
                                 self.gate_for(name))
+

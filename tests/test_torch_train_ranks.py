@@ -1,8 +1,9 @@
 """Training across ranks (`launch.steps.train_layout` / `make_train_step(
 layout=)`, `launch.train --devices N`): params and AdamW moments sharded
 as `TRAIN_RULES` lays them out, the model's gathers with their
-transposes, experts over ranks in the train step, checkpoints between
-device counts.
+transposes, tensor-parallel compute over "model" (heads, MLP, SSM heads,
+vocab; the optical MLP's full-scales and draws the global operands'),
+experts over ranks in the train step, checkpoints between device counts.
 
 The reference's sharded steps come from ONE subprocess on four forced
 host devices with the `enable_x64` alias of `test_torch_ref.reference`.
@@ -12,10 +13,12 @@ with Auto axes (nothing of `src/repro/` changes).  It runs the
 reference's jitted `make_train_step` under `TRAIN_RULES` shardings, as
 `repro.launch.train` does, from the port's initial params carried across
 as numpy.  The port's side is one `runtime.spawn` group of four gloo
-ranks on the CPU per mesh, and one more on (2, 2) for the other
-families.
+ranks on the CPU per mesh, one more on (2, 2) for the other families
+(under `TRAIN_RULES` and `ZERO3_TRAIN_RULES`), and one of two ranks on
+(1, 2) for the split layers against their whole ones.
 """
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -31,7 +34,8 @@ from repro_torch.checkpoint import checkpoint as CK
 from repro_torch.configs import get_smoke
 from repro_torch.data import TokenPipeline
 from repro_torch.distributed import runtime
-from repro_torch.distributed.sharding import (P, TRAIN_RULES, gather,
+from repro_torch.distributed.sharding import (P, TRAIN_RULES,
+                                              ZERO3_TRAIN_RULES, gather,
                                               shard_tree, use_sharding)
 from repro_torch.launch import steps as ST
 from repro_torch.launch import train as train_cli
@@ -305,26 +309,55 @@ def _big_leaf() -> dict:
         1024, 512)}
 
 
-def _whole_layer(mesh) -> dict:
+def _model_shard(mesh) -> dict:
     """What a rank computes with under a live train context: a layer
-    slice gathered whole (no tensor-parallel split), the experts of an
-    expert-parallel MoE layer left split over "model"."""
+    slice and the top-level leaves as `gather_layer` / `gather_top` hand
+    them on (the FSDP dims gathered, the tensor-parallel ones local),
+    each against this rank's block of the whole leaf by the local specs;
+    the experts of an expert-parallel MoE layer left split over "model"
+    and FSDP-sharded (`moe_ep_local` gathers them)."""
+    from repro_torch.distributed.sharding import shard_local
     from repro_torch.models import transformer as T
-    bundle = build_model(_cfg("qwen3-moe-235b-a22b"))
+    out = {}
+    for arch in ("mistral-large-123b", "mamba2-1.3b", "qwen3-moe-235b-a22b"):
+        bundle = build_model(_cfg(arch))
+        layout = ST.train_layout(bundle, mesh, B)
+        full = bundle.init(torch.Generator().manual_seed(0))
+        local = shard_tree(full, layout.specs, mesh)
+        with use_sharding(mesh, TRAIN_RULES, {"batch": B},
+                          params=layout.specs, batch_axes=layout.batch_axes):
+            got, tp = T.gather_layer(T.layer_at(local["layers"], 0),
+                                     bundle.cfg, "layers")
+            top, tp_top = T.gather_top(local)
+        pairs = [(("layers",) + p, t, dict(leaves(tp))[p],
+                  dict(leaves(T.layer_at(full["layers"], 0)))[p])
+                 for p, t in leaves(got)]
+        pairs += [((k,), top[k], tp_top[k], full[k])
+                  for k in ("embed", "unembed") if k in top]
+        res = {}
+        for p, t, spec, whole in pairs:
+            mine = shard_local(whole, spec, mesh)
+            res["/".join(p)] = (tuple(t.shape), tuple(whole.shape),
+                                tuple(spec),
+                                t.shape == mine.shape
+                                and bool(torch.equal(t, mine)))
+        out[arch] = res
+    return out
+
+
+def _flops(mesh) -> dict:
+    """A rank's matmul FLOPs of one sharded loss-and-gradient of
+    mistral-smoke (`FlopCounterMode`) and the one-process step's."""
+    from torch.utils.flop_counter import FlopCounterMode
+    bundle, params, batch = _family_inputs("mistral-large-123b")
     layout = ST.train_layout(bundle, mesh, B)
-    full = bundle.init(torch.Generator().manual_seed(0))
-    local = shard_tree(full, layout.specs, mesh)
-    with use_sharding(mesh, TRAIN_RULES, {"batch": B}, params=layout.specs,
-                      batch_axes=layout.batch_axes):
-        got = T.gather_layer(T.layer_at(local["layers"], 0), bundle.cfg,
-                             "layers")
-        top = T.gather_top(local)
-    want = T.layer_at(full["layers"], 0)
-    return {"layer": {"/".join(p): (tuple(t.shape), bool(torch.equal(
-                t, dict(leaves(want))[p])) if t.shape == dict(
-                leaves(want))[p].shape else False)
-                      for p, t in leaves(got)},
-            "embed": bool(torch.equal(top["embed"], full["embed"]))}
+    local = shard_tree(params, layout.specs, mesh)
+    with FlopCounterMode(display=False) as rank:
+        ST.sharded_loss_and_grads(bundle, local, layout.local_batch(batch),
+                                  layout)
+    with FlopCounterMode(display=False) as one:
+        ST.loss_and_grads(bundle, params, batch)
+    return {"rank": rank.get_total_flops(), "one": one.get_total_flops()}
 
 
 def _family_inputs(arch: str):
@@ -338,18 +371,25 @@ def _family_inputs(arch: str):
     return bundle, params, batch
 
 
-def _family_grads(mesh, arch: str, rank: int) -> dict:
+def _family_grads(mesh, arch: str, rank: int,
+                  rules: dict = TRAIN_RULES) -> dict:
     """One sharded loss-and-gradient of `arch`'s smoke config on this
-    mesh, the gradient gathered whole (rank 0's returned)."""
+    mesh under `rules`, the gradient gathered whole (rank 0's returned),
+    and the tensor-parallel axes of its train context."""
+    from repro_torch.distributed.sharding import train_model_axes
     bundle, params, batch = _family_inputs(arch)
-    layout = ST.train_layout(bundle, mesh, B)
+    layout = ST.train_layout(bundle, mesh, B, rules)
     local = shard_tree(params, layout.specs, mesh)
     loss, grads = ST.sharded_loss_and_grads(
         bundle, local, layout.local_batch(batch), layout)
+    with use_sharding(mesh, rules, {"batch": B}, params=layout.specs,
+                      batch_axes=layout.batch_axes):
+        tp_axes = train_model_axes()
     spec_of = dict(leaves(layout.specs))
     whole = {"/".join(p): gather(g, spec_of[p], mesh).numpy()
              for p, g in leaves(grads)}
-    return {"loss": float(loss), "grads": whole if rank == 0 else None}
+    return {"loss": float(loss), "grads": whole if rank == 0 else None,
+            "tp_axes": tp_axes}
 
 
 def _noisy_engine(backend: str):
@@ -363,33 +403,263 @@ def _noisy_engine(backend: str):
                    backend=backend), key=torch.Generator().manual_seed(3))
 
 
-def _noisy_inputs():
+def _noisy_inputs(float64: bool = False):
     cfg = dataclasses.replace(get_smoke("qwen3-32b"), rosa_mlp=True)
     bundle = build_model(cfg)
-    return (bundle, bundle.init(torch.Generator().manual_seed(0)),
-            TokenPipeline(cfg.vocab, S, B, seed=1).batch(0))
+    params = bundle.init(torch.Generator().manual_seed(0))
+    batch = TokenPipeline(cfg.vocab, S, B, seed=1).batch(0)
+    if float64:
+        params = map_tree(lambda t: t.double(), params)
+        batch = {k: v.double() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+    return bundle, params, batch
+
+
+@contextlib.contextmanager
+def _float64():
+    """Every op of the model in float64: its statistics' `Tensor.float()`
+    casts made `double()` while the context is live (as
+    `tools/split_float_order.py --float64` runs it)."""
+    real = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real
+
+
+# the noisy step's layouts: under `TRAIN_RULES` (the rows over "data",
+# heads and MLP split over "model") in float64; under `ZERO3_TRAIN_RULES`
+# (the rows over every rank, each layer gathered whole) in float32
+NOISY_LAYOUTS = {"train": (TRAIN_RULES, True),
+                 "zero3": (ZERO3_TRAIN_RULES, False)}
 
 
 def _noisy(mesh, rank: int) -> dict:
     """A noisy IS step's loss and gradient (rank 0's gathered whole) on
-    this mesh, through the composed "ref" chain and the plain
-    `rosa_fused` version."""
+    this mesh in each of `NOISY_LAYOUTS`, through the composed "ref"
+    chain and the plain `rosa_fused` version."""
     from repro_torch import rosa
+    from repro_torch.distributed.sharding import train_model_axes
+    out = {}
+    for name, (rules, wide) in NOISY_LAYOUTS.items():
+        with _float64() if wide else contextlib.nullcontext():
+            bundle, params, batch = _noisy_inputs(wide)
+            layout = ST.train_layout(bundle, mesh, B, rules)
+            local = shard_tree(params, layout.specs, mesh)
+            spec_of = dict(leaves(layout.specs))
+            with use_sharding(mesh, rules, {"batch": B}, params=layout.specs,
+                              batch_axes=layout.batch_axes):
+                tp_axes = train_model_axes()
+            for backend in ("ref", "fused"):
+                with rosa.engine_context(_noisy_engine(backend)):
+                    loss, grads = ST.sharded_loss_and_grads(
+                        bundle, local, layout.local_batch(batch), layout)
+                # every rank joins the gathers; rank 0's are returned
+                whole = {"/".join(p): gather(g, spec_of[p], mesh).numpy()
+                         for p, g in leaves(grads)}
+                out[name, backend] = {"loss": float(loss), "tp_axes": tp_axes,
+                                      "grads": whole if rank == 0 else None}
+    return out
+
+
+def _chip_engine(backend: str, mapping: str):
+    """A noisy engine with a pinned chip (its lanes over each MLP
+    projection's K) and a ledger, `mapping` "WS" or "IS"."""
+    from repro_torch import rosa
+    from repro_torch.core import mrr
+    from repro_torch.core.constants import Mapping
+    from repro_torch.robust.variation import sample_chip
+    from repro_torch.rosa.backends import RosaConfig
+    from repro_torch.rosa.ledger import EnergyLedger
+    cfg = get_smoke("qwen3-32b")
+    chip = sample_chip(torch.Generator().manual_seed(7),
+                       {"mlp/wi": cfg.d_model, "mlp/wo": cfg.d_ff})
+    return rosa.Engine.from_config(
+        RosaConfig(noise=mrr.PAPER_NOISE, mapping=Mapping[mapping],
+                   backend=backend), key=torch.Generator().manual_seed(3),
+        ledger=EnergyLedger()).with_variation(chip)
+
+
+OPTICAL_CASES = [(m, b) for m in ("WS", "IS") for b in ("ref", "fused")]
+
+
+def _optical(mesh, rank: int) -> dict:
+    """(b): the noisy optical step with a pinned chip on this mesh, WS
+    and IS, through the composed "ref" chain and the plain `rosa_fused`
+    version: loss, gradient (rank 0's, gathered whole) and the ledger's
+    events; and the WS "ref" step with the weights' draws made at the
+    local shape (the fault a split must not make)."""
+    from repro_torch import rosa
+    from repro_torch.core import mrr
     bundle, params, batch = _noisy_inputs()
     layout = ST.train_layout(bundle, mesh, B)
     local = shard_tree(params, layout.specs, mesh)
     spec_of = dict(leaves(layout.specs))
-    out = {}
-    for backend in ("ref", "fused"):
-        with rosa.engine_context(_noisy_engine(backend)):
+
+    def step(mapping, backend):
+        eng = _chip_engine(backend, mapping)
+        with rosa.engine_context(eng):
             loss, grads = ST.sharded_loss_and_grads(
                 bundle, local, layout.local_batch(batch), layout)
-        # every rank joins the gathers; rank 0's are returned
         whole = {"/".join(p): gather(g, spec_of[p], mesh).numpy()
                  for p, g in leaves(grads)}
-        out[backend] = {"loss": float(loss),
-                        "grads": whole if rank == 0 else None}
+        return {"loss": float(loss), "grads": whole if rank == 0 else None,
+                "ledger": [dataclasses.astuple(e) for e in eng.ledger.events]}
+    out = {c: step(*c) for c in OPTICAL_CASES}
+    real = mrr.draw_eps
+    mrr.draw_eps = mrr._eps_pair
+    try:
+        out["local_draws"] = step("WS", "ref")
+    finally:
+        mrr.draw_eps = real
     return out
+
+
+def _vocab(mesh) -> dict:
+    """(a): a tied table's lookup and logits split by vocab rows over
+    "model" (`embed_apply`, `softmax_xent(vocab_axes=)`, masked), against
+    the whole table's: the loss, each position's -log softmax and the
+    logits' max, and the table's gradient (this rank's rows; the one
+    table collects both uses)."""
+    from repro_torch.distributed import runtime as rt
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(5)
+    v, d, n = 256, 64, runtime.axis_index("model", mesh)
+    table = torch.randn(v, d, generator=g)
+    x = torch.randn(B, S, d, generator=g)
+    tokens = torch.randint(0, v, (B, S), generator=g)
+    labels = torch.randint(0, v, (B, S), generator=g)
+    mask = (torch.rand(B, S, generator=g) > 0.3).float()
+
+    def run(t, axes):
+        h = torch.tanh(L.embed_apply(t, tokens, axes) + x)
+        logits = torch.einsum("bsd,vd->bsv", h, t)
+        return logits, L.softmax_xent(logits, labels, mask, axes)
+    whole = table.clone().requires_grad_()
+    logits, loss = run(whole, ())
+    loss.backward()
+    rows = v // mesh.size(1)
+    mine = table[n * rows:(n + 1) * rows].clone().requires_grad_()
+    with use_sharding(mesh, TRAIN_RULES):
+        part, split = run(mine, ("model",))
+        nll = L._split_nll(part.float(), labels, ("model",))
+        top = rt.pmax(part.detach().amax(-1), "model")
+    (split / mesh.size(1)).backward()       # the model ranks' copies
+    want_nll = (torch.logsumexp(logits, -1)
+                - torch.gather(logits, -1, labels[..., None])[..., 0])
+    return {"loss": (float(split), float(loss)),
+            "nll": (nll.detach().numpy(), want_nll.detach().numpy()),
+            "max": (top.numpy(), logits.detach().amax(-1).numpy()),
+            "grad": (mine.grad.numpy(),
+                     whole.grad[n * rows:(n + 1) * rows].numpy())}
+
+
+def _ssm_split(mesh, groups: int = 1) -> dict:
+    """(c): mamba2-smoke's block (with `groups` B / C groups) on this
+    rank's heads (the scan over them and the groups they read, the gated
+    norm's statistics and `w_out`'s partial output summed over "model")
+    against the whole block: output, the input's gradient and every
+    leaf's (this rank's block; the group leaves' summed over the
+    copies), and the split `rmsnorm` alone."""
+    from repro_torch.distributed import runtime as rt
+    from repro_torch.distributed.sharding import (local_specs,
+                                                  param_shardings,
+                                                  shard_local)
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.module import init_params
+    cfg = dataclasses.replace(get_smoke("mamba2-1.3b").ssm,
+                              n_groups=groups)
+    skel = SSM.ssm_def(cfg)
+    p = init_params(skel, torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(6)
+    u = torch.randn(B, S, cfg.d_model, generator=g)
+    gy = torch.randn(B, S, cfg.d_model, generator=g)
+    specs = map_tree(lambda sh: sh.spec,
+                     param_shardings(skel, mesh, TRAIN_RULES))
+    tp = local_specs(specs, lambda path: ("model",))
+    whole = {k: t.clone().requires_grad_() for k, t in p.items()}
+    uw = u.clone().requires_grad_()
+    y = SSM.ssm_apply(whole, cfg, uw)
+    (y * gy).sum().backward()
+    mine = {k: shard_local(t, tp[k], mesh).clone().requires_grad_()
+            for k, t in p.items()}
+    ul = u.clone().requires_grad_()
+    copies = mesh.size(1)
+    with use_sharding(mesh, TRAIN_RULES):
+        yl = SSM.ssm_apply(mine, cfg, ul, tp)
+        ((yl * gy).sum() / copies).backward()
+        # a leaf held whole on every model rank: its copies' gradients
+        grads = {k: (rt.psum(t.grad, "model") if not tp[k] else t.grad)
+                 for k, t in mine.items()}
+        du = rt.psum(ul.grad, "model")
+        # the gated norm alone, over 2 x 3 rows of a (2, 3, 128) input
+        xn = torch.randn(2, 3, cfg.d_inner, generator=g)
+        sc = torch.rand(cfg.d_inner, generator=g) + 0.5
+        gn = torch.randn(2, 3, cfg.d_inner, generator=g)
+        k = cfg.d_inner // copies
+        lo = runtime.axis_index("model", mesh) * k
+        xs = xn[..., lo:lo + k].clone().requires_grad_()
+        ss = sc[lo:lo + k].clone().requires_grad_()
+        yn = L.rmsnorm(ss, xs, axes=("model",), n=cfg.d_inner)
+        (yn * gn[..., lo:lo + k]).sum().backward()
+    xw, sw = xn.clone().requires_grad_(), sc.clone().requires_grad_()
+    yw = L.rmsnorm(sw, xw)
+    (yw * gn).sum().backward()
+    return {"y": (yl.detach().numpy(), y.detach().numpy()),
+            "du": (du.numpy(), uw.grad.numpy()),
+            "grads": {k: (grads[k].numpy(), shard_local(
+                whole[k].grad, tp[k], mesh).numpy()) for k in p},
+            "norm": {"y": (yn.detach().numpy(), yw[..., lo:lo + k]
+                           .detach().numpy()),
+                     "dx": (xs.grad.numpy(), xw.grad[..., lo:lo + k]
+                            .numpy()),
+                     "dscale": (ss.grad.numpy(), sw.grad[lo:lo + k]
+                                .numpy())}}
+
+
+def _gqa_split(mesh) -> dict:
+    """Grouped-query attention whose one KV head does not split over the
+    2 model ranks while its 4 query heads do: each rank takes its 2 query
+    heads and the KV head they read, `wo`'s rows summed over "model";
+    output, the input's gradient and every leaf's (this rank's block, the
+    whole KV projections' summed over the copies) against the whole
+    layer's."""
+    from repro_torch.distributed import runtime as rt
+    from repro_torch.distributed.sharding import (local_specs,
+                                                  param_shardings,
+                                                  shard_local)
+    from repro_torch.models import layers as L
+    from repro_torch.models.module import init_params
+    cfg = L.AttnConfig(d_model=32, n_heads=4, n_kv_heads=1, head_dim=8,
+                       qk_norm=True)
+    skel = L.attn_def(cfg)
+    p = init_params(skel, torch.Generator().manual_seed(8))
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    gy = torch.randn(B, S, cfg.d_model, generator=g)
+    pos = torch.arange(S)[None].expand(B, S)
+    tp = local_specs(map_tree(lambda sh: sh.spec, param_shardings(
+        skel, mesh, TRAIN_RULES)), lambda path: ("model",))
+    whole = {k: t.clone().requires_grad_() for k, t in p.items()}
+    xw = x.clone().requires_grad_()
+    (L.attn_apply(whole, cfg, xw, pos) * gy).sum().backward()
+    mine = {k: shard_local(t, tp[k], mesh).clone().requires_grad_()
+            for k, t in p.items()}
+    xl = x.clone().requires_grad_()
+    with use_sharding(mesh, TRAIN_RULES):
+        y = L.attn_apply(mine, cfg, xl, pos, tp=tp)
+        ((y * gy).sum() / mesh.size(1)).backward()
+        grads = {k: (rt.psum(t.grad, "model") if not tuple(tp[k])
+                     else t.grad) for k, t in mine.items()}
+        dx = rt.psum(xl.grad, "model")
+    return {"specs": {k: tuple(v) for k, v in tp.items()},
+            "y": (y.detach().numpy(), (L.attn_apply(p, cfg, x, pos))
+                  .detach().numpy()),
+            "dx": (dx.numpy(), xw.grad.numpy()),
+            "grads": {k: (grads[k].numpy(), shard_local(
+                whole[k].grad, tp[k], mesh).numpy()) for k in p}}
 
 
 def _known_state(np_p: dict) -> dict:
@@ -418,10 +688,18 @@ def train_group(rank: int, world: int, device, shape, cases, np_params,
     if "families" in extras:
         out["families"] = {a: _family_grads(mesh, a, rank)
                            for a in FAMILY_ARCHS}
+        out["zero3"] = {a: _family_grads(mesh, a, rank, ZERO3_TRAIN_RULES)
+                        for a in FAMILY_ARCHS}
     if "noisy" in extras:
         out["noisy"] = _noisy(mesh, rank)
-    if "whole" in extras:
-        out["whole"] = _whole_layer(mesh)
+    if "tp" in extras:
+        out["model_shard"] = _model_shard(mesh)
+        out["flops"] = _flops(mesh)
+    if "split" in extras:
+        out["optical"] = _optical(mesh, rank)
+        out["vocab"] = _vocab(mesh)
+        out["ssm"] = {g: _ssm_split(mesh, g) for g in (1, 2)}
+        out["gqa"] = _gqa_split(mesh)
     if "ckpt" in extras:
         out["ckpt"] = _ckpt(mesh, np_params["mistral-large-123b"], root,
                             rank)
@@ -441,14 +719,17 @@ def port(ref_run, np_params, tmp_path_factory):
     # (key, mesh, cases, extras): the groups of CASES, and the other
     # families' steps, gradients and the noisy step on (2, 2)
     groups = [(m, m, [(a, c) for a, mm, c in CASES if mm == m],
-               ("toy", "scales", "ckpt", "whole") if m == (2, 2) else ())
+               ("toy", "scales", "ckpt", "tp") if m == (2, 2) else ())
               for m in MESHES]
     groups.append(("families", (2, 2), [(a, False) for a in FAMILY_ARCHS],
                    ("families", "noisy")))
+    # the tensor-parallel checks on (data 1, model 2)
+    groups.append(("split", (1, 2), [], ("split",)))
 
     def group(g):
         _, shape, cases, extras = g
-        return runtime.spawn(train_group, 4, device_type="cpu",
+        return runtime.spawn(train_group, shape[0] * shape[1],
+                             device_type="cpu",
                              backend="gloo",
                              args=(shape, cases, np_params, root, extras),
                              timeout=TIMEOUT)
@@ -580,8 +861,9 @@ def test_rank_bytes_equal_train_rules_shard_bytes(port, shape):
 def test_collective_transposes_on_a_toy_step(port):
     """The toy step's gradient shards equal the one-process gradient's
     blocks on every rank: a leaf replicated on every rank, one sharded
-    over "data" and gathered (replicated over "model"), a tensor-parallel
-    leaf under a `psum`, and a global `amax` scale.  The two faults are
+    over "data" and gathered (replicated over "model"), a column-split /
+    row-split pair under a `psum`, a vocab-parallel cross entropy, and a
+    global `amax` scale.  The two faults are
     caught: counting every model rank's copy whole, and a `psum` whose
     transpose drops the other ranks' cotangents."""
     for r in port[(2, 2)]:
@@ -593,7 +875,8 @@ def test_collective_transposes_on_a_toy_step(port):
         assert not np.allclose(*copies["w1"], rtol=1e-3)
         assert not np.allclose(*copies["b"], rtol=1e-3)
         dropped = toy["dropped"]
-        assert not np.allclose(*dropped["w3"], rtol=1e-3)
+        for n in ("w2", "w3", "w4"):
+            assert not np.allclose(*dropped[n], rtol=1e-3), n
 
 
 def test_activation_full_scale_spans_the_global_batch(port):
@@ -641,19 +924,56 @@ def test_rank_save_equals_one_process_save_byte_for_byte(port):
     assert all(r["ckpt"]["big_equal"] for r in port[(2, 2)])
 
 
-def test_ranks_compute_with_whole_layers(port):
-    """No tensor-parallel compute: under a live train context a rank's
-    layer slice and top-level leaves are gathered whole (heads, MLP and
-    vocab whole on every rank) but for the MoE experts, which
-    `moe_ep_local` takes split over "model" (4 of 8 a rank on (2, 2))."""
+# the leaves a rank keeps split over "model" (the tensor-parallel dims:
+# heads, KV heads, MLP, vocab, SSM heads) on (2, 2)
+MODEL_SHARD = {
+    "mistral-large-123b": ("layers/attn/wq", "layers/attn/wk",
+                           "layers/attn/wv", "layers/attn/wo",
+                           "layers/ffn/wi", "layers/ffn/wo", "embed",
+                           "unembed"),
+    "mamba2-1.3b": tuple(f"layers/ssm/{k}" for k in (
+        "w_x", "w_z", "w_dt", "dt_bias", "a_log", "d_skip", "conv_x",
+        "gate_norm", "w_out")) + ("embed",),
+    "qwen3-moe-235b-a22b": ("layers/attn/wq", "layers/attn/wk",
+                            "layers/attn/wv", "layers/attn/wo", "embed",
+                            "unembed"),
+}
+
+
+def test_ranks_compute_their_model_shard(port):
+    """Tensor-parallel compute: under a live train context a rank's layer
+    slice and top-level leaves come gathered over "data" but keep their
+    "model" dim local (heads, KV heads, MLP, vocab, SSM heads): each is
+    this rank's block of the whole leaf by its local spec, which splits
+    exactly the tensor-parallel leaves over "model" (half of the dim on
+    (2, 2)); every other leaf whole; the MoE experts, which
+    `moe_ep_local` takes split over "model", 4 of 8 a rank and not
+    gathered."""
     for r in port[(2, 2)]:
-        w = r["whole"]
-        assert w["embed"]
-        for k, (shape, equal) in w["layer"].items():
-            if k.split("/")[-1] in ("wi", "wo") and k.startswith("ffn/"):
-                assert shape[0] == 4 and not equal, k
-            else:
-                assert equal, k
+        for arch, res in r["model_shard"].items():
+            for k, (shape, whole, spec, equal) in res.items():
+                if arch.startswith("qwen3-moe") and k in (
+                        "layers/ffn/wi", "layers/ffn/wo"):
+                    assert shape[0] == 4 and not equal, (arch, k)
+                    continue
+                assert equal, (arch, k)
+                if k in MODEL_SHARD[arch]:
+                    assert tuple(spec) and all(
+                        p in (None, "model") for p in spec), (arch, k, spec)
+                    dim = list(spec).index("model")
+                    assert shape[dim] * 2 == whole[dim], (arch, k)
+                else:
+                    assert not any(spec) and shape == whole, (arch, k)
+
+
+def test_rank_flops_are_a_share_of_the_step(port):
+    """(d) A rank's matmul FLOPs of a sharded loss-and-gradient
+    (`FlopCounterMode`, mistral-smoke on (2, 2)) are 1 / (data x model)
+    of the one-process step's, within 3 %: no rank computes another's
+    heads, MLP units or vocab rows."""
+    for r in port[(2, 2)]:
+        f = r["flops"]
+        assert abs(f["rank"] / f["one"] - 0.25) <= 0.03 * 0.25, f
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
@@ -667,18 +987,73 @@ def test_family_sharded_steps_match_reference_sharded_steps(ref, port,
                        False, FAMILY_LAYOUTS)
 
 
+def _permuted_floor(bundle, params, batch, grads, seeds=(1, 2)) -> dict:
+    """The one-process step's float-order floor a leaf: the largest
+    distance of its gradient (over its max) from the same step with the
+    params' d_model axis permuted (the same function, every contraction
+    over d_model summed in another order), over `seeds`."""
+    axes = dict(leaves(map_tree(lambda d: d.axes, bundle.skeleton)))
+    d = bundle.cfg.d_model
+    floor = {"/".join(p): 0.0 for p, _ in leaves(grads)}
+    for seed in seeds:
+        perm = torch.randperm(d, generator=torch.Generator().manual_seed(seed))
+
+        def pm(path, t):
+            for ax, name in enumerate(axes[path]):
+                if name == "embed":
+                    t = t.index_select(ax, perm)
+            return t
+        _, g2 = ST.loss_and_grads(bundle, unflatten(
+            (p, pm(p, t)) for p, t in leaves(params)), batch)
+        got = dict(leaves(g2))
+        for p, g in leaves(grads):
+            k = "/".join(p)
+            floor[k] = max(floor[k], float((pm(p, g) - got[p]).abs().max())
+                           / float(g.abs().max() + 1e-30))
+    return floor
+
+
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_every_family_gradient_across_ranks_equals_one_process(port, arch):
     """zamba2's groups, tail and shared block, deepseek-v2's MLA and
     `layer0`, seamless's encoder and cross attention, phi-3-vision's patch
-    rows: the (2, 2) ranks' loss and gathered gradient equal the port's
-    one-process ones (1e-5; float order only: the rows' sums split)."""
+    rows under `TRAIN_RULES` on (2, 2): each rank computes
+    its heads, MLP units, SSM heads and vocab rows (`("model",)` its
+    tensor-parallel axes), and the loss and gathered gradient equal the
+    one-process ones within 1e-5 (the loss) and, per leaf, 1e-5 of its
+    max or 4x the one-process step's float-order floor where that is
+    wider (`_permuted_floor`: the split sums over heads and MLP units in
+    another order, and zamba2-smoke's gradient moves up to 8.7e-4 under
+    a permuted d_model: `tools/split_float_order.py`)."""
     bundle, params, batch = _family_inputs(arch)
     loss, grads = ST.loss_and_grads(bundle, params, batch)
+    floor = _permuted_floor(bundle, params, batch, grads)
     for r in port["families"]:
+        assert r["families"][arch]["tp_axes"] == ("model",)
         np.testing.assert_allclose(r["families"][arch]["loss"], float(loss),
                                    rtol=1e-5)
     got = port["families"][0]["families"][arch]["grads"]
+    for p, g in leaves(grads):
+        k = "/".join(p)
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(
+            got[k], g.numpy(), rtol=0,
+            atol=max(1e-5, 4 * floor[k]) * scale + 1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_family_gradient_under_zero3_equals_one_process(port, arch):
+    """(e) The same families with every layer gathered whole: under `ZERO3_TRAIN_RULES` (the
+    batch over the whole (2, 2) mesh, so no tensor-parallel axis: (e))
+    the ranks' loss and gathered gradient equal the port's one-process
+    ones (1e-5; float order only: the rows' sums split)."""
+    bundle, params, batch = _family_inputs(arch)
+    loss, grads = ST.loss_and_grads(bundle, params, batch)
+    for r in port["families"]:
+        assert r["zero3"][arch]["tp_axes"] == ()
+        np.testing.assert_allclose(r["zero3"][arch]["loss"], float(loss),
+                                   rtol=1e-5)
+    got = port["families"][0]["zero3"][arch]["grads"]
     for p, g in leaves(grads):
         k = "/".join(p)
         scale = float(g.abs().max())
@@ -688,25 +1063,157 @@ def test_every_family_gradient_across_ranks_equals_one_process(port, arch):
 
 @pytest.mark.parametrize("backend", ["ref", "fused"])
 def test_noisy_step_across_ranks_equals_one_process(port, backend):
-    """A noisy IS step (per-shot noise on the activations): the (2, 2)
-    ranks draw their rows' offsets of the global batch's draws, so the
+    """A noisy IS step (per-shot noise on the activations) on (2, 2) under
+    `TRAIN_RULES`, the layout `launch.train --devices 4 --data-axis 2`
+    trains with: each rank draws its rows and MLP columns of the global
+    activations' offsets (`draw_act_eps` cuts a row offset and columns),
+    and its full-scales span "data" and "model" together
+    (`act_absmax_scale`), so the loss and the gathered gradient equal the
+    one-process step's, through the composed "ref" chain and the plain
+    `rosa_fused` version.  Both sides run every op in float64 and are
+    held within 1e-10 of each leaf's max: in float32 the split's partial
+    sums reorder this config's activations enough to flip one 8-bit code
+    (2.37e-5 off on the loss; 2.5e-15 in float64,
+    `tools/split_float_order.py --noisy ref [--float64]`), and a permuted
+    d_model is no floor here, since the draws do not move with it (the
+    tool's 5.4e-1).  Drawn at the local shape, ranks would repeat each
+    other's offsets."""
+    from repro_torch import rosa
+    with _float64():
+        bundle, params, batch = _noisy_inputs(True)
+        with rosa.engine_context(_noisy_engine(backend)):
+            loss, grads = ST.loss_and_grads(bundle, params, batch)
+    for r in port["families"]:
+        got = r["noisy"]["train", backend]
+        assert got["tp_axes"] == ("model",)
+        np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-10)
+    got = port["families"][0]["noisy"]["train", backend]["grads"]
+    for p, g in leaves(grads):
+        k = "/".join(p)
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(got[k], g.numpy(), rtol=0,
+                                   atol=1e-10 * scale + 1e-30, err_msg=k)
+
+
+@pytest.mark.parametrize("backend", ["ref", "fused"])
+def test_noisy_step_under_zero3_equals_one_process(port, backend):
+    """(e) The same noisy step in float32 under `ZERO3_TRAIN_RULES`: the
+    (2, 2) ranks, each with one row of the batch and every layer gathered
+    whole, draw their rows' offsets of the global batch's draws, so the
     loss and the gathered gradient equal the one-process step's (1e-5 of
-    each leaf's max; float order only), through the composed "ref" chain
-    and the plain `rosa_fused` version.  Drawn at the local shape, each
-    data rank would repeat the same offsets."""
+    each leaf's max; float order only)."""
     from repro_torch import rosa
     bundle, params, batch = _noisy_inputs()
     with rosa.engine_context(_noisy_engine(backend)):
         loss, grads = ST.loss_and_grads(bundle, params, batch)
     for r in port["families"]:
-        np.testing.assert_allclose(r["noisy"][backend]["loss"], float(loss),
-                                   rtol=1e-5)
-    got = port["families"][0]["noisy"][backend]["grads"]
+        got = r["noisy"]["zero3", backend]
+        assert got["tp_axes"] == ()
+        np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-5)
+    got = port["families"][0]["noisy"]["zero3", backend]["grads"]
     for p, g in leaves(grads):
         k = "/".join(p)
         scale = float(g.abs().max())
         np.testing.assert_allclose(got[k], g.numpy(), rtol=0,
                                    atol=1e-5 * scale + 1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("mapping,backend", OPTICAL_CASES,
+                         ids=[f"{m}-{b}" for m, b in OPTICAL_CASES])
+def test_optical_split_step_equals_one_process(port, mapping, backend):
+    """(b) A noisy optical step with a pinned chip on (data 1, model 2):
+    `wi`'s columns and `wo`'s rows split, its full-scales the global
+    operands' and its draws made at the whole operand's shape (each rank
+    keeping its block), through the composed "ref" chain and the plain
+    `rosa_fused` version, WS and IS.  The loss and the gathered gradient
+    equal the one-process step's (1e-5 of each leaf's max), and so does
+    the ledger: each product recorded once at its global shape."""
+    from repro_torch import rosa
+    bundle, params, batch = _noisy_inputs()
+    eng = _chip_engine(backend, mapping)
+    with rosa.engine_context(eng):
+        loss, grads = ST.loss_and_grads(bundle, params, batch)
+    want_ledger = [dataclasses.astuple(e) for e in eng.ledger.events]
+    for r in port["split"]:
+        got = r["optical"][(mapping, backend)]
+        np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-5)
+        assert got["ledger"] == want_ledger
+    got = port["split"][0]["optical"][(mapping, backend)]["grads"]
+    for p, g in leaves(grads):
+        k = "/".join(p)
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(got[k], g.numpy(), rtol=0,
+                                   atol=1e-5 * scale + 1e-12, err_msg=k)
+
+
+def test_optical_split_draws_span_the_whole_weight(port):
+    """Drawn at the local shape (the fault), both model ranks realize the
+    same offsets on their different columns: the WS step's MLP gradients
+    move off the one-process step's, where the global draws hold them
+    (`test_optical_split_step_equals_one_process`)."""
+    from repro_torch import rosa
+    bundle, params, batch = _noisy_inputs()
+    with rosa.engine_context(_chip_engine("ref", "WS")):
+        _, grads = ST.loss_and_grads(bundle, params, batch)
+    got = port["split"][0]["optical"]["local_draws"]["grads"]
+    g = dict(leaves(grads))[("layers", "ffn", "wi")].numpy()
+    assert not np.allclose(got["layers/ffn/wi"], g, rtol=0,
+                           atol=1e-3 * np.abs(g).max())
+
+
+def test_vocab_split_loss_and_table_gradient(port):
+    """(a) A tied table split by vocab rows over "model" on (1, 2): the
+    masked loss, each position's -log softmax (the logsumexp from the
+    `pmax` of the blocks' maxima and the `psum` of their shifted sums,
+    the gold logit from its owner), the logits' max, and the table's
+    gradient rows (its lookup and its logits) equal the whole table's."""
+    for r in port["split"]:
+        v = r["vocab"]
+        np.testing.assert_allclose(*v["loss"], rtol=1e-6)
+        np.testing.assert_allclose(*v["nll"], rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(*v["max"])
+        got, want = v["grad"]
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssm_split_heads_equal_whole(port, groups):
+    """(c) mamba2-smoke's block on a rank's 4 of 8 heads on (1, 2), with
+    one B / C group and with two (a rank's heads reading one): the scan
+    over them, the gated norm's statistics and its hand-written backward
+    `psum`-med over "model" (`rmsnorm(axes=)`), `w_out`'s partial output
+    summed: the output, the input's gradient and every leaf's equal the
+    whole block's (1e-5 of each one's max), and so does the split
+    `rmsnorm` against the whole one (1e-6)."""
+    for r in port["split"]:
+        s = r["ssm"][groups]
+        for name, (got, want) in [("y", s["y"]), ("du", s["du"])] + list(
+                s["grads"].items()):
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max(),
+                                       err_msg=name)
+        for name, (got, want) in s["norm"].items():
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-6 * np.abs(want).max(),
+                                       err_msg=name)
+
+
+def test_gqa_split_over_whole_kv_heads(port):
+    """Grouped-query attention on (1, 2) whose KV head does not divide
+    over the model ranks (4 query heads, 1 KV head): the query heads and
+    `wo` split, `wk` / `wv` whole, each rank's heads reading their KV
+    head; the output, the input's gradient and every leaf's equal the
+    whole layer's (1e-5 of each one's max)."""
+    for r in port["split"]:
+        q = r["gqa"]
+        assert "model" in q["specs"]["wq"] and "model" in q["specs"]["wo"]
+        assert not any(q["specs"]["wk"]) and not any(q["specs"]["wv"])
+        for name, (got, want) in [("y", q["y"]), ("dx", q["dx"])] + list(
+                q["grads"].items()):
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max(),
+                                       err_msg=name)
 
 
 def test_refusals():
