@@ -7,6 +7,7 @@
     python3 chip_smoke.py --kernels 19a 21   # build, then those phases
                                      # alone (21 runs phases 3-5 first)
     python3 chip_smoke.py --kernels 22   # build, phase 17(b), phase 22
+    python3 chip_smoke.py --kernels 16   # build, phase 16 alone
     python3 chip_smoke.py --cards    # phases 21-22 over nccl, one rank a card
 
 Phases (any failure raises, so the exit code is non-zero):
@@ -39,7 +40,15 @@ Phases (any failure raises, so the exit code is non-zero):
      for
      osa_matmul fused, the one PyTorch call computing the same function
      (`torch.matmul(q, w)` under ideal gains); rosa_fused also at phase
-     17's 2048-row tall rows;
+     17's 2048-row tall rows, at 22(e)'s rank shares (IDEAL and with
+     PAPER_NOISE and chip 7), ANALOG at a rank's mlp/wo and a non-ideal
+     OSA at gemma3's chunk, each tall row with its route (codes, tf32x2,
+     tf32x3) and the route's bound beside the float32 one; every tall
+     row of a TF32 route also within twice the plain version's distance
+     from the float64 product, plus 2^-20 of its terms' root-sum-square
+     (`split_tf32_parity`); the
+     requantized codes through an identity weight at 8, 64 and 2048 rows
+     must equal the plain version's;
   3. serve: qwen3-32b at full width, depth cut to 4 of 64 layers, random
      weights from seed 0, through the optical engine with the `rosa_fused`
      kernel and chip 7 pinned: 6 seeded Poisson requests, continuous
@@ -407,6 +416,7 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
+INT8_OPS = 1979e12            # H100 SXM dense int8 on the tensor cores
 M_ROWS = (4, 8)               # decode batch (4 slots) and a prefill chunk
 PROJ = {"mlp/wi": (5120, 51200), "mlp/wo": (25600, 5120)}
 # a rank's share of them over 2 model ranks (phase 22(e): wi's columns,
@@ -531,6 +541,36 @@ def quantized_parity(y, y_ref, what: str, qmax: int = 127,
     return float((y - r).abs().max())
 
 
+def split_tf32_parity(y, y_plain, args, static, what: str) -> dict:
+    """Float32 accuracy of rosa_fused's TF32 routes.  The reference is the
+    product of the conditioned operands (`ops.conditioned`) in float64,
+    flushed by the plain version's float32 scale.  The kernel's largest
+    distance from it must stay within twice the float32 plain version's
+    plus 2^-20 of the terms' root-sum-square (sqrt(sum_k (a w)^2) times
+    the scale): room for the split's residue (2^-22 a term) and the
+    tensor cores' truncation inside an mma, which at short K (a CNN
+    sheet's 27 lanes) outweigh the plain version's few roundings.  A
+    one-pass TF32 product errs ~2^-12 a term, and summing all of K inside
+    the mma errs as K grows: each fails it.  Returns the three numbers."""
+    import torch
+    from repro_torch.kernels.rosa_fused import ops
+    a, w_eff = (t.double() for t in ops.conditioned(*args, **static))
+    s2, sw = args[3][:, 2:3], args[4][2]
+    qf = torch.tensor(float(static["qmax"]), device=s2.device)
+    scale = (s2 * sw if static["analog"] else s2 * (sw / qf)).double()
+    ref = (a @ w_eff) * scale
+    rss = float(((a * a) @ (w_eff * w_eff)).sqrt().mul_(scale.abs()).max())
+    del a, w_eff
+    e = float((y.double() - ref).abs().max())
+    e_plain = float((y_plain.double() - ref).abs().max())
+    limit = 2 * e_plain + 2.0**-20 * rss
+    if not e <= limit:
+        raise AssertionError(
+            f"{what}: {e:.3e} from the float64 product, past 2 x the plain "
+            f"version's {e_plain:.3e} + 2^-20 x {rss:.3e} = {limit:.3e}")
+    return {"f64_err": e, "plain_f64_err": e_plain, "f64_limit": limit}
+
+
 def _launch_counters():
     from repro_torch.kernels.mrr_transfer import ops as mrr_ops
     from repro_torch.kernels.osa_matmul import ops as osa_ops
@@ -570,12 +610,14 @@ CNN_SHEETS = {"conv_stem": CONV_STEM,
               "resnet18 l1": (524288, 216, 24)}
 GATED_SHEET = (32768, 216, 48)         # alexnet conv2, 128 images
 PROBE_ROWS = 64                        # drift probes: 16 prompts x 4 tokens
+CODE_ROWS = (8, 64, 2048)              # the identity-weight code check
 PROBE_SHIFT_K = 0.3                    # a thermal residual on the chip
 
 
 def fused_cases():
     """(m, k, n, what, keywords, timed)."""
     from repro_torch.core.constants import ComputeMode, Mapping
+    from repro_torch.core.osa import OSAConfig
     is_apv = dict(mapping=Mapping.IS, act_per_vector=True)
     cases = [(m, k, n, f"IS realize_x {name}", is_apv, True)
              for name, (k, n) in PROJ.items() for m in M_ROWS]
@@ -627,10 +669,24 @@ def fused_cases():
     cases += [(TRAIN_ROWS, k, n, f"WS ideal train {name}",
                dict(mapping=Mapping.WS, chip=False), "tall")
               for name, (k, n) in PROJ.items()]
-    # and a model rank's share of them in the split train step (22(e))
+    # and a model rank's share of them in the split train step (22(e)),
+    # IDEAL and, as 22(e)'s optical run takes them, with the paper's
+    # per-shot noise and chip 7 (WS realized: the tf32x2 route)
     cases += [(TRAIN_ROWS, k, n, f"WS ideal train split {name}",
                dict(mapping=Mapping.WS, chip=False), "tall")
               for name, (k, n) in PROJ_SPLIT.items()]
+    cases += [(TRAIN_ROWS, k, n, f"WS noisy chip 7 train split {name}",
+               dict(mapping=Mapping.WS, noisy=True,
+                    chip=(PROJ_SPLIT, name)), "tall")
+              for name, (k, n) in PROJ_SPLIT.items()]
+    # both tf32x3 causes on the tall path: ANALOG at a rank's mlp/wo, a
+    # non-ideal OSA (splitter imbalance) at gemma3's chunk
+    cases += [(TRAIN_ROWS, *PROJ_SPLIT["mlp/wo"], "ANALOG train split "
+               "mlp/wo", dict(mode=ComputeMode.ANALOG, chip=False), "tall"),
+              (GEMMA_CHUNK, *DENSE_PROJ["gemma3-12b"]["mlp/wo"],
+               "IS osa imbalance gemma3-12b mlp/wo",
+               dict(is_apv, chip=False, osa_cfg=OSAConfig(
+                   splitter_imbalance=0.01)), True)]
     m, k, n = RAGGED
     cases += [(m, k, n, "IS ragged", is_apv, False),
               (m, k, n, "WS gate 0.3 ragged",
@@ -648,6 +704,19 @@ def fused_flops(m, k, n, static) -> int:
     weight (~6, ~46 with the chain)."""
     return (2 * m * k * n + (40 if static["realize_x"] else 12) * m * k
             + (46 if static["realize_w"] else 6) * k * n)
+
+
+def fused_route_bound(m, k, n, static, route, nbytes) -> tuple[float, str]:
+    """Least time of one call on the tall path's route: the larger of the
+    products as int8 operations at 1,979 TOP/s (codes) or as 2 or 3 TF32
+    passes at 495 TFLOP/s, the conditioning at the float32 rate (other
+    units: they may overlap) and the bytes."""
+    prods = 2 * m * k * n
+    cond = fused_flops(m, k, n, static) - prods
+    tp = (prods / INT8_OPS if route == "codes"
+          else {"tf32x2": 2, "tf32x3": 3}[route] * prods / TF32_FLOPS)
+    tb, tf = nbytes / HBM_BYTES_PER_S, max(tp, cond / F32_FLOPS)
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
 def time_row(row, fn, plain_fn, nbytes, flops, reps: int = 10) -> None:
@@ -670,6 +739,10 @@ def timing_text(row) -> str:
                if row.get("library_ms") is not None else "")
             + f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
             f"{100 * row['bound_share']:.1f} %)"
+            + (f"; {row['route']} route {row['route_bound_ms']:.4f} ms "
+               f"({row['route_bound_by']}, "
+               f"{100 * row['route_bound_share']:.1f} %)"
+               if "route_bound_ms" in row else "")
             + (f"; at the measured copy rate {row['copy_bound_ms']:.4f} ms"
                if "copy_bound_ms" in row else ""))
 
@@ -736,7 +809,14 @@ def fused_phase(report: dict) -> dict:
         torch.cuda.synchronize()
         e = quantized_parity(y, y_plain, f"rosa_fused {what} {m}x{k}x{n}")
         err = max(err, e)
-        row = {"case": what, "m": m, "k": k, "n": n, "max_abs_err": e}
+        # the route of the tall path (a parent tree's ops have none)
+        route = ("decode" if m <= 16 else ops.route_of(k, **static)
+                 if hasattr(ops, "route_of") else "-")
+        row = {"case": what, "m": m, "k": k, "n": n, "max_abs_err": e,
+               "route": route}
+        if route in ("tf32x2", "tf32x3"):
+            row.update(split_tf32_parity(y, y_plain, args, static,
+                                         f"rosa_fused {what} {m}x{k}x{n}"))
         if timed:
             if not torch.equal(y, ops.launch(*args, **static)):
                 raise AssertionError(f"rosa_fused {what}: two launches on "
@@ -748,29 +828,45 @@ def fused_phase(report: dict) -> dict:
                      reps=3 if timed == "tall" else 10)
             # the same bytes at the copy rate this card measured
             row["copy_bound_ms"] = nbytes / rate * 1e3
+            if route in ("codes", "tf32x2", "tf32x3"):
+                row["route_bound_ms"], row["route_bound_by"] = \
+                    fused_route_bound(m, k, n, static, route, nbytes)
+                row["route_bound_share"] = (row["route_bound_ms"]
+                                            / row["kernel_ms"])
             if what == "IS realize_x mlp/wi" and m == 4:
                 served = row             # the decode tick's larger launch
         rows.append(row)
-        print(f"  rosa_fused {what:24s} {m}x{k}x{n}: max_abs_err {e:.3e}"
+        print(f"  rosa_fused {what:24s} {m}x{k}x{n} [{route}]: max_abs_err "
+              f"{e:.3e}" + (f"  float64: {row['f64_err']:.3e} (plain "
+                            f"{row['plain_f64_err']:.3e}, limit "
+                            f"{row['f64_limit']:.3e})"
+                            if "f64_err" in row else "")
               + timing_text(row), flush=True)
         del x, w, args, y, y_plain
         torch.cuda.empty_cache()
     # the requantized 8-bit codes, read back through an identity weight:
-    # the kernel's realization must equal the plain version's bit for bit
+    # the kernel's realization must equal the plain version's bit for bit,
+    # on the decode path (8 rows) and the tall path's codes route (64 rows
+    # in one short tile, 2048 in 128-row tiles)
     k = PROJ["mlp/wi"][0]
-    x = 3 * torch.randn(8, k, device=DEVICE, generator=g)
     var = mrr.StaticVariation(
         *(s * torch.randn(k, device=DEVICE, generator=g)
           for s in (0.01, 0.04, 0.01)))
-    args, static = ops.operands(x, torch.eye(k, device=DEVICE), None, var,
-                                mapping=Mapping.IS, act_per_vector=True)
-    s2 = args[3][:, 2:3]
-    codes = [torch.round(y * 127 / s2) for y in
-             (ops.launch(*args, **static), ops.plain(*args, **static))]
-    flips = int((codes[0] != codes[1]).sum())
-    print(f"  rosa_fused IS codes through an identity weight 8x{k}: "
-          f"{flips} of {codes[0].numel()} differ")
-    if flips:
+    eye = torch.eye(k, device=DEVICE)
+    flips = {}
+    for rows_x in CODE_ROWS:
+        x = 3 * torch.randn(rows_x, k, device=DEVICE, generator=g)
+        args, static = ops.operands(x, eye, None, var, mapping=Mapping.IS,
+                                    act_per_vector=True)
+        s2 = args[3][:, 2:3]
+        codes = [torch.round(y * 127 / s2) for y in
+                 (ops.launch(*args, **static), ops.plain(*args, **static))]
+        flips[rows_x] = int((codes[0] != codes[1]).sum())
+        print(f"  rosa_fused IS codes through an identity weight "
+              f"{rows_x}x{k} [{'decode' if rows_x <= 16 else 'tall'}]: "
+              f"{flips[rows_x]} of {codes[0].numel()} differ")
+        del x, args, codes
+    if any(flips.values()):
         raise AssertionError("rosa_fused: the kernel's requantized codes "
                              "differ from the plain version's")
     report["rosa_fused_cases"] = rows
@@ -6162,6 +6258,8 @@ PHASES = {
             [("12a", mrr_bwd_phase)]),
     "19a": ("19(a): the ssd_scan backward against its plain version",
             [("19a", ssd_bwd_phase)]),
+    "16": ("16: the four dense configs at full width",
+           [("16", dense_phase)]),
     "21": ("21: serving across ranks", [("21", ranks_phase)]),
     "22": ("22: training across ranks (17(b) first: 22(a) reads it)",
            [("17b", optical_train_phase), ("22", train_ranks_phase)]),
@@ -6190,7 +6288,7 @@ def main(argv=None) -> int:
                     choices=PHASES,
                     help="build and run the kernel phases 2, 6, 8, "
                     "12a and 19a only (parity and times of all six "
-                    "kernels), or those named (21 too, which runs "
+                    "kernels), or those named (16, 21 too, which runs "
                     "phases 3-5 first for their tokens; 22, which runs "
                     "17(b) first); prints no summary and no result line")
     opts = ap.parse_args(argv)

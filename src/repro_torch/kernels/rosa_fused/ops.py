@@ -38,11 +38,23 @@ from repro_torch.core.constants import ComputeMode, Mapping
 from repro_torch.kernels.rosa_fused import ref
 from repro_torch.obs import trace as obs
 
-# The tall path of the CUDA kernel (csrc/rosa_fused.cu, M > 16): TALL_BM
-# rows and an N tile from N_TILES per block, TALL_BK lanes a step; M <= 16
-# takes the decode path (kernels.skinny).
-TALL_BM, TALL_BK = 128, 32
-N_TILES = (16, 32, 64, 128)
+# The tall path of the CUDA kernel (csrc/rosa_fused.cu, M > 16; M <= 16
+# takes the decode path, kernels.skinny).  Its routes, in the order of the
+# kernel's enum Route: "codes" (8-bit integer codes on both sides, int32
+# sums), "tf32x2" (integer activation codes against TF32 hi / lo weight
+# splits), "tf32x3" (both sides split); per route the lanes a stage and
+# the bytes of a staged element.  Blocks own TALL_BM rows (TALL_BM_SHORT
+# when M fits it) by TALL_BN columns, or, on a sheet with one column tile
+# (N <= TALL_BN), an N tile from SHEET_N_TILES that follows N with the
+# activations conditioned in the tile.
+ROUTES = ("codes", "tf32x2", "tf32x3")
+ROUTE_BK = {"codes": 64, "tf32x2": 32, "tf32x3": 32}
+ROUTE_BYTES = {"codes": 1, "tf32x2": 4, "tf32x3": 4}
+TALL_BM, TALL_BM_SHORT, TALL_BN = 128, 64, 128
+SHEET_N_TILES = (32, 64, 128)
+TALL_PAD = 16             # bytes after each staged row
+TALL_STAGES, SHEET_STAGES = 4, 2
+INT32_MAX = 2**31 - 1
 LAUNCHES = kernels.LaunchCounter("rosa_fused")
 
 
@@ -161,7 +173,7 @@ def operands(x: torch.Tensor, w: torch.Tensor, key=None,
                                 pam_bits=pam_bits), None, torch.float32,
             x.device)
 
-    m = x.shape[0]
+    m, k = x.shape
     sx = torch.cat([s.reshape(-1, 1).expand(m, 1).float()
                     for s in (sxd, sxa, s2)], dim=1).contiguous()
     zero = torch.zeros((), device=x.device)
@@ -174,7 +186,25 @@ def operands(x: torch.Tensor, w: torch.Tensor, key=None,
     return ((x, w, gains, sx, gg, x_off, w_off),
             dict(analog=analog, n_planes=n_planes, radix_bits=pam_bits,
                  qmax=qcfg.qmax, realize_x=realize_x, realize_w=realize_w,
-                 use_gate=use_gate, use_mgate=use_mgate, p=p))
+                 use_gate=use_gate, use_mgate=use_mgate, p=p,
+                 ideal_gains=osa_cfg.is_ideal))
+
+
+def route_of(k: int, *, analog: bool, qmax: int, realize_w: bool,
+             use_mgate: bool, ideal_gains: bool, **_) -> str:
+    """The tall path's route for a K-deep call with static flags
+    `operands()`'s (`route_of(k, **static)`; the other flags do not
+    matter), from what the host knows: no device value is read.  MIXED
+    mode under ideal slot gains makes the activation an integer code
+    |x_rec| <= qmax; an unrealized, unblended weight is its code over
+    qmax.  Both codes in 8 bits, with K qmax^2 inside int32: "codes".  An
+    integer activation below 2048 is exact in TF32: "tf32x2".  Else
+    "tf32x3"."""
+    x_int = not analog and ideal_gains and qmax < 2048
+    if (x_int and qmax <= 127 and not (realize_w or use_mgate)
+            and k * qmax * qmax <= INT32_MAX):
+        return "codes"
+    return "tf32x2" if x_int else "tf32x3"
 
 
 def rosa_fused(x, w, gains, sx, gg, x_off=None, w_off=None, *,
@@ -182,16 +212,21 @@ def rosa_fused(x, w, gains, sx, gg, x_off=None, w_off=None, *,
                qmax: int = 127, realize_x: bool = False,
                realize_w: bool = True, use_gate: bool = False,
                use_mgate: bool = False,
-               p: mrr.MRRParams = mrr.DEFAULT_PARAMS) -> torch.Tensor:
+               p: mrr.MRRParams = mrr.DEFAULT_PARAMS,
+               ideal_gains: bool = False) -> torch.Tensor:
     """The kernel's contract on prepared operands (see csrc/rosa_fused.cu):
     the plain version for CPU and meta tensors, the CUDA kernel for CUDA
-    tensors."""
+    tensors.  `ideal_gains` says that `gains` are the ideal OSA slot
+    gains (the caller's `osa_cfg.is_ideal`), which with the other flags
+    fixes the tall path's route (`route_of`); the plain version ignores
+    it."""
     if (x_off is not None) != realize_x or (w_off is not None) != realize_w:
         raise ValueError("offset operands must be present exactly for the "
                          "realized sides")
     kw = dict(analog=analog, n_planes=n_planes, radix_bits=radix_bits,
               qmax=qmax, realize_x=realize_x, realize_w=realize_w,
-              use_gate=use_gate, use_mgate=use_mgate, p=p)
+              use_gate=use_gate, use_mgate=use_mgate, p=p,
+              ideal_gains=ideal_gains)
     if kernels.runs_plain(x):
         return plain(x, w, gains, sx, gg, x_off, w_off, **kw)
     return launch(x, w, gains, sx, gg, x_off, w_off, **kw)
@@ -203,8 +238,30 @@ def rosa_fused(x, w, gains, sx, gg, x_off=None, w_off=None, *,
 def plain(x, w, gains, sx, gg, x_off=None, w_off=None, *, analog: bool,
           n_planes: int, radix_bits: int, qmax: int, realize_x: bool,
           realize_w: bool, use_gate: bool, use_mgate: bool,
-          p: mrr.MRRParams) -> torch.Tensor:
-    """What the kernel computes, tile-free (no padding, so no lane masks).
+          p: mrr.MRRParams, ideal_gains: bool = False) -> torch.Tensor:
+    """What the kernel computes, tile-free (no padding, so no lane masks):
+    `conditioned`'s operands in one float32 product, then the flush."""
+    a, w_eff = conditioned(x, w, gains, sx, gg, x_off, w_off, analog=analog,
+                           n_planes=n_planes, radix_bits=radix_bits,
+                           qmax=qmax, realize_x=realize_x,
+                           realize_w=realize_w, use_gate=use_gate,
+                           use_mgate=use_mgate, p=p)
+    s2, sw = sx[:, 2:3], gg[2]
+    if analog:
+        return a @ w_eff * (s2 * sw)
+    qf = torch.tensor(float(qmax), device=x.device)
+    return (a @ w_eff) * (s2 * (sw / qf))
+
+
+def conditioned(x, w, gains, sx, gg, x_off=None, w_off=None, *,
+                analog: bool, n_planes: int, radix_bits: int, qmax: int,
+                realize_x: bool, realize_w: bool, use_gate: bool,
+                use_mgate: bool, p: mrr.MRRParams, ideal_gains: bool = False):
+    """(a, w_eff): the contraction's operands as the kernel conditions
+    them.  a is x_rec, the requantized code's digits recombined with the
+    slot gains (MIXED; the code itself under ideal gains), or x_eff / s2
+    (ANALOG); w_eff the weight in normalized units (its code over qmax
+    unless realized or blended).
 
     Operand conditioning repeats the composed chain op for op: the
     straight-through residue `t + (t_q - t)` of `fake_quant` feeds the
@@ -236,7 +293,7 @@ def plain(x, w, gains, sx, gg, x_off=None, w_off=None, *, analog: bool,
     x_eff = (1.0 - mgate) * x_dig + mgate * x_is if use_mgate else x_is
 
     if analog:
-        return (x_eff * (1.0 / s2)) @ w_eff * (s2 * sw)
+        return x_eff * (1.0 / s2), w_eff
     q2 = torch.clamp(torch.round(x_eff / s2 * qf), -qf, qf)
     sign = torch.sign(q2)
     mag = q2.abs().to(torch.int32)
@@ -245,7 +302,7 @@ def plain(x, w, gains, sx, gg, x_off=None, w_off=None, *, analog: bool,
     for t in range(n_planes):
         d = (mag >> (radix_bits * t)) & mask
         x_rec = x_rec + gains[t] * (sign * d.to(q2.dtype))
-    return (x_rec @ w_eff) * (s2 * (sw / qf))
+    return x_rec, w_eff
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +318,8 @@ def _lib():
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     pp, p64 = ctypes.POINTER(vp), ctypes.POINTER(i64)
     lib.rosa_fused_launch.argtypes = (
-        [vp] * 5 + [pp, p64, pp, p64] + [vp] * 3 + [i32] * 9
-        + [ctypes.c_float, i32, ctypes.POINTER(ctypes.c_float)] + [i32] * 3
+        [vp] * 5 + [pp, p64, pp, p64] + [vp] * 4 + [i32] * 9
+        + [ctypes.c_float, i32, ctypes.POINTER(ctypes.c_float)] + [i32] * 6
         + [vp])
     lib.rosa_fused_launch.restype = i32
     return lib
@@ -280,26 +337,49 @@ def _chain(p: mrr.MRRParams):
     return (ctypes.c_float * len(values))(*values)
 
 
-def n_tile(n: int) -> int:
-    """The tall path's N tile: the smallest of 16, 32, 64, 128 that holds
-    N, else 128 (wider N takes several tiles)."""
-    return next((t for t in N_TILES if n <= t), N_TILES[-1])
-
-
 @functools.lru_cache(maxsize=256)
-def plan(m: int, k: int, n: int, *, n_sm: int = 132) -> dict:
+def plan(m: int, k: int, n: int, *, n_sm: int = 132,
+         route: str = "codes") -> dict:
     """The launch `launch` makes for an (m, k, n) product: the decode path
-    for m <= 16 (`skinny.decode_plan`), else the tall path: grid (row
-    tiles of TALL_BM, N tiles), no K split, the weight conditioned once
-    into a k x n workspace.  Cached per shape: do not modify the dict."""
+    for m <= 16 (`skinny.decode_plan`), else the tall path on `route`.
+
+    Tall: blocks of m_tile rows (TALL_BM_SHORT when M fits one such
+    tile and N takes several, else TALL_BM) by n_tile columns (TALL_BN;
+    a sheet with one column tile takes the least of SHEET_N_TILES that
+    holds N and conditions its activations in the tile), on grid (row
+    tiles, column tiles, K splits).  K is padded to the route's stage
+    (kp) and split across blocks when the tiles leave SMs idle, into
+    about two blocks an SM, each split at least one stage.
+    Workspaces: the weight's (np, kp) operand, the activations' (mp, kp)
+    (none on a sheet), the splits' partial tiles (4 bytes an element).
+    Cached per shape: do not modify the dict."""
     if m <= skinny.MAX_M:
         return skinny.decode_plan(m, k, n, n_sm=n_sm, planes=1)
-    t = n_tile(n)
-    return {"path": "tall",
-            "grid": (skinny.cdiv(m, TALL_BM), skinny.cdiv(n, t), 1),
-            "splits": 1, "k_per_split": k, "n_tile": t,
-            "smem_bytes": 4 * (TALL_BM * (TALL_BK + 1) + TALL_BK * t),
-            "operand_floats": k * n, "part_floats": 0}
+    if route not in ROUTES:
+        raise ValueError(f"rosa_fused: unknown route {route!r}")
+    bk, es = ROUTE_BK[route], ROUTE_BYTES[route]
+    x_tile = n <= TALL_BN
+    bn = (next(t for t in SHEET_N_TILES if n <= t) if x_tile else TALL_BN)
+    bm = TALL_BM_SHORT if m <= TALL_BM_SHORT and not x_tile else TALL_BM
+    kp = skinny.cdiv(k, bk) * bk
+    tiles = skinny.cdiv(m, bm) * skinny.cdiv(n, bn)
+    splits = 1
+    if tiles < n_sm:
+        splits = max(1, min(skinny.cdiv(2 * n_sm, tiles),
+                            kp // bk,
+                            skinny.MAX_GRID_Y))
+    k_per_split = skinny.cdiv(skinny.cdiv(kp, splits), bk) * bk
+    splits = skinny.cdiv(kp, k_per_split)
+    stages = min(SHEET_STAGES if x_tile else TALL_STAGES, k_per_split // bk)
+    mp, np_ = skinny.cdiv(m, bm) * bm, skinny.cdiv(n, bn) * bn
+    return {"path": "tall", "route": route,
+            "grid": (skinny.cdiv(m, bm), skinny.cdiv(n, bn), splits),
+            "splits": splits, "k_per_split": k_per_split, "kp": kp,
+            "m_tile": bm, "n_tile": bn, "x_in_tile": x_tile,
+            "smem_bytes": stages * (bm + bn) * (bk * es + TALL_PAD),
+            "w_operand_bytes": np_ * kp * es,
+            "x_operand_bytes": 0 if x_tile else mp * kp * es,
+            "part_bytes": 4 * splits * m * n if splits > 1 else 0}
 
 
 def _side(offs, shape, name):
@@ -320,9 +400,10 @@ def _side(offs, shape, name):
 def launch(x, w, gains, sx, gg, x_off=None, w_off=None, *, analog: bool,
            n_planes: int, radix_bits: int, qmax: int, realize_x: bool,
            realize_w: bool, use_gate: bool, use_mgate: bool,
-           p: mrr.MRRParams) -> torch.Tensor:
-    """Launch csrc/rosa_fused.cu on the current stream; raises on anything
-    the kernel does not take or on a refused launch."""
+           p: mrr.MRRParams, ideal_gains: bool = False) -> torch.Tensor:
+    """Launch csrc/rosa_fused.cu on the current stream, on the tall path's
+    route `route_of` names; raises on anything the kernel does not take or
+    on a refused launch."""
     name = "rosa_fused"
     offs = [o for side in (x_off, w_off) if side is not None for o in side]
     kernels.require_cuda(x, w, gains, sx, gg, *offs, name=name)
@@ -345,43 +426,56 @@ def launch(x, w, gains, sx, gg, x_off=None, w_off=None, *, analog: bool,
         raise ValueError(f"{name}: n_planes={n_planes} outside 1..8")
     xp, xs = _side(x_off, (m, k), "x")
     wp, wst = _side(w_off, (k, n), "w")
+    route = route_of(k, analog=analog, qmax=qmax, realize_w=realize_w,
+                     use_mgate=use_mgate, ideal_gains=ideal_gains)
     lib = _lib()
     dev = x.device
-    pl = plan(m, k, n, n_sm=_n_sm(dev.index))
+    pl = plan(m, k, n, n_sm=_n_sm(dev.index), route=route)
+
+    def buf(nbytes):
+        return (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                if nbytes else None)
+
+    if pl["path"] == "decode":
+        operand = torch.empty(pl["operand_floats"], dtype=torch.float32,
+                              device=dev)
+        x_work, part = None, buf(4 * pl["part_floats"])
+    else:
+        operand, x_work = buf(pl["w_operand_bytes"]), buf(
+            pl["x_operand_bytes"])
+        part = buf(pl["part_bytes"])
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    operand = torch.empty(pl["operand_floats"], dtype=torch.float32,
-                          device=dev)
-    part = (torch.empty(pl["part_floats"], dtype=torch.float32, device=dev)
-            if pl["part_floats"] else None)
     on = dict(analog=analog, realize_x=realize_x, realize_w=realize_w,
               use_gate=use_gate, use_mgate=use_mgate)
     flags = sum(bit for key, bit in _FLAGS.items() if on[key])
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rosa_fused_launch(
             x.data_ptr(), w.data_ptr(), gains.data_ptr(), sx.data_ptr(),
             gg.data_ptr(), xp, xs, wp, wst, out.data_ptr(),
-            operand.data_ptr(),
-            part.data_ptr() if part is not None else None, m, k, n,
+            operand.data_ptr(), ptr(x_work), ptr(part), m, k, n,
             x.stride(0), w.stride(0), n, sx.stride(0), n_planes, radix_bits,
             float(qmax), flags, _chain(p), pl["splits"], pl["k_per_split"],
-            pl["n_tile"], stream)
+            pl["n_tile"], ROUTES.index(route), pl.get("m_tile", 0),
+            int(pl.get("x_in_tile", False)), kernels.stream_of(x))
     kernels.check_launch(rc, name)
     LAUNCHES.add()
     return out
 
 
 def preflight(m: int, k: int, n: int, *, n_sm: int = 132,
-              quant_bits: int = 8, pam_bits: int = 1) -> dict:
+              quant_bits: int = 8, pam_bits: int = 1,
+              route: str = "codes") -> dict:
     """What `launch` would run for an (m, k, n) GEMM on an H100, without
-    launching: the path (decode for m <= 16, else tall), grid (N tiles, K
-    splits, 1) on the decode path or (row tiles, N tiles, 1) on the tall
+    launching: the path (decode for m <= 16, else tall on `route`, by
+    default the one of `operands()`'s defaults), grid (N tiles, K splits,
+    1) on the decode path or (row tiles, N tiles, K splits) on the tall
     path, whose row tiles sit on grid x and so never meet the 65535 limit
-    of grid y; the K split, the N tile (decode: 128; tall: 16, 32, 64 or
-    128 following N), shared memory per block against the 227 KB limit
-    (decode: the 6-stage ring, two blocks per SM), the workspaces and the
-    fraction of multiply-adds the ragged tile edges waste (rows are never
-    padded on the decode path: its kernel is templated on m)."""
+    of grid y; the K split, the tiles, shared memory per block against the
+    227 KB limit (decode: the 6-stage ring, two blocks per SM; tall: the
+    ring of the route's stages), the workspaces and the fraction of
+    multiply-adds the ragged row and column tile edges waste (rows are
+    never padded on the decode path: its kernel is templated on m)."""
     n_planes = -(-Q.QuantConfig(bits=quant_bits).n_planes // pam_bits)
     issues: list[str] = []
     if min(m, k, n) <= 0:
@@ -390,12 +484,13 @@ def preflight(m: int, k: int, n: int, *, n_sm: int = 132,
                 "issues": [f"non-positive dimension in m,k,n={m},{k},{n}"]}
     if n_planes > 8:
         issues.append(f"{n_planes} slots exceed the kernel's 8")
-    pl = plan(m, k, n, n_sm=n_sm)
+    pl = plan(m, k, n, n_sm=n_sm, route=route)
     if pl["smem_bytes"] > skinny.SMEM_LIMIT:
         issues.append(f"{pl['smem_bytes']} bytes of shared memory exceed "
                       "227 KB")
-    if pl["grid"][1] > skinny.MAX_GRID_Y:
-        issues.append(f"grid y {pl['grid'][1]} exceeds 65535")
-    rows = m if pl["path"] == "decode" else -(-m // TALL_BM) * TALL_BM
+    if max(pl["grid"][1:]) > skinny.MAX_GRID_Y:
+        issues.append(f"grid {pl['grid']} exceeds 65535 in y or z")
+    rows = m if pl["path"] == "decode" else -(-m // pl["m_tile"]) * pl[
+        "m_tile"]
     pad_waste = rows * -(-n // pl["n_tile"]) * pl["n_tile"] / (m * n) - 1.0
     return dict(pl, kernel="rosa_fused", pad_waste=pad_waste, issues=issues)

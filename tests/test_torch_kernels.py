@@ -19,6 +19,7 @@ draws the same numbers from the same key.
 Tests marked `cuda` launch the CUDA kernels and skip without a card.
 """
 
+import contextlib
 import types
 
 import numpy as np
@@ -286,13 +287,141 @@ def test_dynamic_shared_memory_within_limit(m, mode):
         assert 2 * pl["smem_bytes"] + 2048 <= 228 * 1024
 
 
-@pytest.mark.parametrize("m,n,tile", [(524288, 10, 16), (524288, 16, 16),
+@pytest.mark.parametrize("m,n,tile", [(524288, 10, 32), (524288, 16, 32),
                                       (524288, 96, 128), (524288, 300, 128),
                                       (4, 51200, 128), (524288, 51200, 128)])
 def test_n_tile_follows_n(m, n, tile):
+    """A sheet with one column tile takes the least of 32, 64, 128 that
+    holds N (a warp's tile is 32 columns wide) and conditions its
+    activations in the tile; wider N takes 128-column tiles and both
+    operands through workspaces."""
     pl = fused_ops.preflight(m, 27, n)
     assert pl["n_tile"] == tile and pl["issues"] == []
     assert pl["grid"][1 if pl["path"] == "tall" else 0] == -(-n // tile)
+    if pl["path"] == "tall":
+        assert pl["x_in_tile"] == (n <= 128)
+        assert (pl["x_operand_bytes"] == 0) == pl["x_in_tile"]
+
+
+@pytest.mark.parametrize("kw,route", [
+    ({"mapping": Mapping.WS}, "codes"),
+    ({"mapping": Mapping.IS, "act_per_vector": True}, "codes"),
+    ({"mapping": Mapping.IS, "noise": TM.PAPER_NOISE,
+      "key": torch.Generator().manual_seed(0)}, "codes"),
+    ({"mapping": Mapping.IS, "gate": 0.5}, "codes"),
+    ({"mapping": Mapping.WS, "gate": 0.5}, "tf32x2"),
+    ({"mapping": Mapping.WS, "noise": TM.PAPER_NOISE,
+      "key": torch.Generator().manual_seed(0)}, "tf32x2"),
+    ({"mapping": Mapping.WS, "mgate": 0.5}, "tf32x2"),
+    ({"mapping": Mapping.WS, "quant_bits": 10}, "tf32x2"),
+    ({"mapping": Mapping.IS, "quant_bits": 12}, "tf32x2"),
+    ({"mapping": Mapping.IS, "quant_bits": 13}, "tf32x3"),
+    ({"mode": ComputeMode.ANALOG}, "tf32x3"),
+    ({"mapping": Mapping.IS,
+      "osa_cfg": TO.OSAConfig(splitter_imbalance=0.01)}, "tf32x3"),
+    ({"mapping": Mapping.IS,
+      "osa_cfg": TO.OSAConfig(odl_loss_db_per_stage=0.1)}, "tf32x3"),
+])
+def test_route_follows_operands(kw, route):
+    """The tall path's route from what the host knows: codes on both sides
+    (MIXED, ideal gains, qmax <= 127, an unrealized unblended weight) take
+    int8 codes; an integer activation below 2048 against a float weight
+    (realized or gated WS, a mapping gate, qmax 511 or 2047) two TF32
+    passes; a non-ideal OSA, ANALOG mode or qmax 4095 three."""
+    kw = dict(kw)
+    key = kw.pop("key", None)
+    x, w = torch.zeros(3, 40), torch.ones(40, 5)
+    var = (TM.StaticVariation(torch.zeros(40), torch.tensor(0.0),
+                              torch.tensor(0.0)) if "noise" in kw else None)
+    args, static = fused_ops.operands(x, w, key, var, **kw)
+    assert fused_ops.route_of(40, **static) == route
+    # the plain version ignores the gains' flag
+    assert torch.equal(
+        fused_ops.plain(*args, **static),
+        fused_ops.plain(*args, **dict(
+            static, ideal_gains=not static["ideal_gains"])))
+
+
+def test_codes_route_keeps_int32_sums():
+    """K qmax^2 past int32 takes the TF32 route."""
+    k_max = (2**31 - 1) // 127**2
+    assert fused_ops.route_of(analog=False, qmax=127, realize_w=False,
+                              use_mgate=False, ideal_gains=True,
+                              k=k_max) == "codes"
+    assert fused_ops.route_of(analog=False, qmax=127, realize_w=False,
+                              use_mgate=False, ideal_gains=True,
+                              k=k_max + 1) == "tf32x2"
+
+
+@pytest.mark.parametrize("kw,ideal,route", [
+    ({"mapping": Mapping.WS}, None, "codes"),
+    ({"mapping": Mapping.WS, "gate": 0.5}, None, "tf32x2"),
+    ({"mode": ComputeMode.ANALOG}, None, "tf32x3"),
+    ({"mapping": Mapping.IS,
+      "osa_cfg": TO.OSAConfig(splitter_imbalance=0.01)}, None, "tf32x3"),
+    # the flag, not the gains tensor, decides: ideal gains flagged as not
+    # ideal take the route that holds any gains
+    ({"mapping": Mapping.IS}, False, "tf32x3"),
+])
+def test_launch_takes_the_route_of_its_flags(monkeypatch, kw, ideal, route):
+    """`launch` derives the tall path's route from the static flags and
+    hands the kernel that route's index and plan."""
+    calls = []
+
+    class Lib:
+        def rosa_fused_launch(self, *a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: None)
+    monkeypatch.setattr(fused_ops, "_lib", lambda: Lib())
+    monkeypatch.setattr(fused_ops, "_n_sm", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    x, w = torch.zeros(20, 40), torch.ones(40, 5)
+    args, static = fused_ops.operands(x, w, **kw)
+    if ideal is not None:
+        static = dict(static, ideal_gains=ideal)
+    fused_ops.launch(*args, **static)
+    pl = fused_ops.plan(20, 40, 5, route=route)
+    # ..., splits, k_per_split, n_tile, route, m_tile, x_in_tile, stream
+    assert calls[0][-7:-1] == (pl["splits"], pl["k_per_split"],
+                               pl["n_tile"], fused_ops.ROUTES.index(route),
+                               pl["m_tile"], int(pl["x_in_tile"]))
+
+
+# splits: (codes route's, 64 lanes a stage; TF32 routes', 32)
+@pytest.mark.parametrize("m,k,n,tile_m,splits", [
+    (64, 3840, 30720, 64, (1, 1)), (64, 15360, 3840, 64, (9, 9)),
+    (2048, 5120, 51200, 128, (1, 1)), (2048, 25600, 5120, 128, (1, 1)),
+    (2048, 12800, 5120, 128, (1, 1)), (17, 100, 200, 64, (2, 4)),
+    (512, 5120, 160, 128, (27, 32))])
+@pytest.mark.parametrize("route", ["codes", "tf32x2", "tf32x3"])
+def test_tall_plan_follows_the_shape(m, k, n, tile_m, splits, route):
+    """The row tile follows M (64 rows at the 64-row chunk, not a half-empty
+    128); K is split when the tiles leave SMs idle, into about two blocks
+    an SM, each split whole stages of the route (at (17, 100, 200) a
+    stage a block: 2 of 64 lanes, 4 of 32); the ring stays within the
+    227 KB a block may use."""
+    pl = fused_ops.preflight(m, k, n, route=route)
+    bk = fused_ops.ROUTE_BK[route]
+    assert pl["issues"] == [] and pl["route"] == route
+    assert pl["m_tile"] == tile_m
+    splits = splits[route != "codes"]
+    assert pl["splits"] == splits
+    blocks = pl["grid"][0] * pl["grid"][1] * pl["grid"][2]
+    # short K caps the split at a stage a block
+    assert splits == 1 or (132 <= blocks or pl["k_per_split"] == bk) \
+        and blocks <= 4 * 132
+    assert pl["k_per_split"] % bk == 0
+    assert (pl["splits"] - 1) * pl["k_per_split"] < pl["kp"] \
+        <= pl["splits"] * pl["k_per_split"]
+    assert pl["kp"] == -(-k // bk) * bk
+    assert pl["smem_bytes"] <= 232448
+    es = fused_ops.ROUTE_BYTES[route]
+    assert pl["w_operand_bytes"] == -(-n // 128) * 128 * pl["kp"] * es
+    assert pl["part_bytes"] == (4 * splits * m * n if splits > 1 else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -305,21 +434,34 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(13, 200), (130, 200), (70, 40)])
 @pytest.mark.parametrize("kw", [
     {"mapping": Mapping.IS, "act_per_vector": True},
-    {"mapping": Mapping.WS}, {"mode": ComputeMode.ANALOG}])
-def test_fused_kernel_matches_plain_on_cuda(kw):
+    {"mapping": Mapping.WS}, {"mode": ComputeMode.ANALOG},
+    {"mapping": Mapping.IS,
+     "osa_cfg": TO.OSAConfig(splitter_imbalance=0.02)}])
+def test_fused_kernel_matches_plain_on_cuda(kw, m, n):
+    """Decode rows (13) and the tall path's routes: IS codes, realized WS
+    tf32x2, ANALOG and a non-ideal OSA tf32x3, through workspaces (N 200)
+    and conditioned in the tile (N 40); two launches equal bit for bit;
+    the TF32 routes within `split_tf32_parity` of the float64 product."""
     _need_cuda()
-    x, w, dv = _operands(13, 300, 200, 5)
+    x, w, dv = _operands(m, 300, n, 5)
     var = TM.StaticVariation(torch.from_numpy(dv), torch.tensor(0.05),
                              torch.tensor(1e-4))
     y_cpu = fused_ops.rosa_fused_matmul(torch.from_numpy(x),
                                         torch.from_numpy(w), None, var, **kw)
-    y_gpu = fused_ops.rosa_fused_matmul(
-        torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda(), None,
-        var.to("cuda"), **kw)
+    xg, wg = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    y_gpu = fused_ops.rosa_fused_matmul(xg, wg, None, var.to("cuda"), **kw)
     torch.cuda.synchronize()
     assert_quantized_parity(y_gpu, y_cpu)
+    args, static = fused_ops.operands(xg, wg, None, var.to("cuda"), **kw)
+    y = fused_ops.launch(*args, **static)
+    assert torch.equal(y, fused_ops.launch(*args, **static))
+    if m > 16 and fused_ops.route_of(300, **static) != "codes":
+        from test_torch_rosa_fused_emu import chip_smoke
+        chip_smoke().split_tf32_parity(
+            y, fused_ops.plain(*args, **static), args, static, str(kw))
 
 
 @pytest.mark.cuda
