@@ -112,7 +112,8 @@ Phases (any failure raises, so the exit code is non-zero):
      four depthwise weights with a chip (per row), with and without
      draws, a chip per column, a full-shape chip field, no chip, and the
      (5120, 51200) sheet with a chip, with and without draws; times and
-     bound as in phase 8 (bytes: w, g and dq, and the draws);
+     bound as in phase 8 (bytes: w, g and dq, and the draws), and each
+     case's SASS instruction floor and registers a thread;
      (b) variation-aware QAT: `train_cnn` of mobilenet_v3, 200 steps at
      batch 64 over an 8-chip antithetic wafer, every parameter finite and
      the launches exactly 200 x 11 rosa_fused and 200 x 4 mrr_transfer
@@ -1414,13 +1415,31 @@ MRR_SASS = {
     "qwen3-32b mlp/wi, chip only": "transfer_kernel_tilesILb0ELi1ELb0ELi4E"}
 
 
+RESOURCE = re.compile(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) "
+                      r"SHARED:(\d+) LOCAL:(\d+)")
+
+
+def kernel_resources(lib) -> dict:
+    """{mangled kernel name: (registers a thread, local bytes a thread)}
+    of a built library, from `cuobjdump --dump-resource-usage` (local
+    bytes are spills and stack arrays)."""
+    import os
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    out = subprocess.run([tool, "--dump-resource-usage", str(lib)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    return {m[0]: (int(m[1]), int(m[4])) for m in RESOURCE.findall(out)}
+
+
 def mrr_instruction_floor(rows: list, kernels_by_case: dict = MRR_SASS,
                           label: str = "mrr_transfer") -> None:
-    """The chain's instruction floor on the wide sheets: SASS instructions
-    a thread issues per element on the fast path (`sass_fast_path` over
-    the built library), times n, over 132 SMs x 128 lanes x the SM's
-    maximum clock (4 warp schedulers issue one warp instruction a cycle
-    each).  `kernels_by_case` names each wide case's kernel."""
+    """The chain's instruction floor: SASS instructions a thread issues
+    per element on the fast path (`sass_fast_path` over the built
+    library), times n, over 132 SMs x 128 lanes x the SM's maximum clock
+    (4 warp schedulers issue one warp instruction a cycle each); and the
+    kernel's registers and local bytes a thread.  `kernels_by_case` names
+    each case's kernel."""
     import os
     from repro_torch import kernels
     lib = kernels.build_all(["mrr_transfer"])["mrr_transfer"]
@@ -1428,6 +1447,7 @@ def mrr_instruction_floor(rows: list, kernels_by_case: dict = MRR_SASS,
                         "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
+    resources = kernel_resources(lib)
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -1436,17 +1456,22 @@ def mrr_instruction_floor(rows: list, kernels_by_case: dict = MRR_SASS,
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for row in rows:
         func = kernels_by_case.get(row["case"])
-        if func is None or func not in sass:    # not a wide sheet's kernel
+        if func is None or func not in sass:    # no kernel named for it
             continue
         count, stored = sass_fast_path(sass, func)
         n = math.prod(row["shape"])
+        row["kernel"] = func
         row["instr_per_element"] = count / stored
         row["instr_floor_ms"] = n * count / stored / (
             n_sm * 128 * mhz * 1e6) * 1e3
+        row["registers"], row["local_bytes"] = next(
+            v for k, v in resources.items() if func in k)
         print(f"  {label} {row['case']}: {count} SASS instructions per "
               f"{stored} elements on the fast path, floor "
               f"{row['instr_floor_ms']:.4f} ms at {mhz:.0f} MHz x {n_sm} "
-              f"SMs (kernel only {row['kernel_ms']:.4f} ms)")
+              f"SMs (kernel only {row['kernel_ms']:.4f} ms); "
+              f"{row['registers']} registers, {row['local_bytes']} local "
+              "bytes a thread")
 
 
 def mrr_phase(report: dict) -> dict:
@@ -1961,13 +1986,29 @@ MRR_BWD_CASES = [
     ("(5120, 51200), chip", (5120, 51200), False, 0),
     ("(5120, 51200), chip, draws", (5120, 51200), True, 0)]
 MRR_BWD_SERVED = "mobilenet_v3 dw 60x25, chip"   # QAT's largest dw weight
-MRR_BWD_SASS = {                         # the wide sheets' kernels
-    "(5120, 51200), chip": "transfer_kernel_tilesILb0ELi1ELb1ELi4E",
-    "(5120, 51200), chip, draws": "transfer_kernel_tilesILb1ELi1ELb1ELi4E"}
-# float operations per element: the recomputed chain and its derivative
-# (a division or square root counted as one), plus 4 for the draws and 3
-# for a chip's fields
-MRR_BWD_OPS = (73, 4, 3)
+
+
+def mrr_kernel(shape, noisy: bool, axis, bwd: bool) -> str:
+    """The mangled name (its template arguments NOISE, [VAR,] BWD, V) of
+    the csrc/mrr_transfer.cu kernel that a case launches, its streams
+    16-byte aligned: one stream without a chip, tiles with one (VAR 1 per
+    row, 2 per column, 3 any), V 4 when the rows allow 16-byte accesses."""
+    var = {None: 0, 0: 1, 1: 2, "any": 3}[axis]
+    v = 4 if var == 0 or shape[-1] % 4 == 0 or len(shape) == 1 else 1
+    if var == 0:
+        return f"transfer_kernel_flatILb{int(noisy)}ELb{int(bwd)}ELi{v}E"
+    return (f"transfer_kernel_tilesILb{int(noisy)}ELi{var}ELb{int(bwd)}"
+            f"ELi{v}E")
+
+
+# every case's backward kernel
+MRR_BWD_SASS = {what: mrr_kernel(shape, noisy, axis, True)
+                for what, shape, noisy, axis in MRR_BWD_CASES}
+# float operations per element of the recomputed chain and its derivative
+# in the reciprocal form, each arithmetic operation, min / max, comparison
+# and select one (a division or square root one too): 82, plus 4 for the
+# draws and 3 for a chip's fields
+MRR_BWD_OPS = (82, 4, 3)
 ROBUST_QAT = dict(steps=200, batch=64, n_chips=8)   # cut from 400 steps
 ROBUST_EVAL_CHIPS = 16
 ROBUST_MODEL = "alexnet"
@@ -1991,7 +2032,8 @@ def mrr_bwd_bound(n: int, noisy: bool, lanes: int) -> tuple[float, str]:
 
 def mrr_bwd_phase(report: dict) -> dict:
     """12(a): the backward kernel against its plain derivative, bit for
-    bit, with per-call and kernel-only times, the bound and its share."""
+    bit, with per-call and kernel-only times, the bound and its share,
+    each case's instruction floor and registers."""
     import torch
     from repro_torch.core import mrr
     from repro_torch.kernels.mrr_transfer import ops

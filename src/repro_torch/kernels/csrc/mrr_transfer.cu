@@ -62,10 +62,13 @@
 // the output back, op for op as its plain version
 // repro_torch.kernels.mrr_transfer.ref.mrr_transfer_grad_ref.  A clip
 // passes the whole gradient at a tie, as torch.clamp does.  Bytes: 12 per
-// element (w, g, dq), 20 with draws; the derivative adds ~35 float
-// operations, six of them IEEE divisions, to the recomputed chain's, so
-// its instructions, not its bytes, set its floor (PERF.md states it from
-// the SASS, as for the forward).
+// element (w, g, dq), 20 with draws.  Each IEEE division is a
+// multi-instruction sequence with a branch to its slow path, so the
+// chain and its derivative take one division per distinct denominator
+// (five, where a division per quotient took ten) and reuse the
+// reciprocal; with the two square roots they still set the kernel's
+// instruction floor near its bytes (PERF.md states it from the SASS, as
+// for the forward).
 
 #include <cuda_runtime.h>
 
@@ -81,6 +84,16 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+// Blocks an SM each kernel is built for (__launch_bounds__ then caps its
+// registers at 65536 / (THREADS x this); 0 sets no minimum).  Chosen on
+// the H100 with tools/mrr_bwd_blocks.py (PERF.md): the backward's kernels
+// of single-element lanes (V 1) at 8, so 32 registers and 64 warps an SM
+// (the conv_stem sheet's per-column backward 15 % faster than without a
+// minimum); the backward's 16-byte ones (V 4) at none (38-80 registers: a
+// minimum of 6 or 8 slowed the noisy sheet by 2-16 % and the full-shape
+// field by 70-140 %), and the forward's at none, as they were built.
+template <bool BWD, int V>
+constexpr int BLOCKS_PER_SM = BWD && V == 1 ? 8 : 0;
 enum { VAR_NONE = 0, VAR_ROW = 1, VAR_COL = 2, VAR_ANY = 3 };
 
 // Float32 constants of the realization chain in its folded form, in the
@@ -117,10 +130,13 @@ __device__ __forceinline__ float realize(float w, float ed, float et, float dv,
   return (2.0f * t + c.i_td) * c.j_w + c.q_min;
 }
 
-// g * d realize / d w: the forward chain recomputed as `realize` computes
-// it, then its derivative from the output back (ref.mrr_transfer_grad_ref
-// op for op).  w stays inside [q_min, q_max] after the clip, so v is in
-// [v_min, v_max], dt > 0 and s > 0: no division by zero is reached.
+// g * d realize / d w: the forward chain recomputed, then its derivative
+// from the output back (ref.mrr_transfer_grad_ref op for op).  Each
+// distinct denominator is divided into 1 once and the reciprocal serves
+// every quotient by it: five IEEE divisions where a quotient apiece took
+// ten (1 / (s sq) gives 1 / s as sq times it and 1 / sq as s times it).
+// w stays inside [q_min, q_max] after the clip, so tdrop, r, sq and s are
+// positive: no division by zero is reached.
 template <bool NOISE, bool VAR>
 __device__ __forceinline__ float realize_grad(float w, float g, float ed,
                                               float et, float dv, float ddt,
@@ -128,11 +144,12 @@ __device__ __forceinline__ float realize_grad(float w, float g, float ed,
                                               const Chain& c) {
   float wq = clampf(w, c.q_min, c.q_max);
   float tdrop = ((wq - c.q_min) * c.a_td + c.b_td) * 0.5f;
-  float r = 1.0f / tdrop - 1.0f;
+  float it = 1.0f / tdrop;
+  float r = it - 1.0f;
   float sq = sqrtf(fmaxf(r, 0.0f));
   float dl = sq * c.gamma + c.c_dl;
-  float den = (1.0f - dl * c.d_u) * c.beta;
-  float dt = (dl * c.d_neff) / den;
+  float iden = 1.0f / ((1.0f - dl * c.d_u) * c.beta);
+  float dt = (dl * c.d_neff) * iden;
   float v2 = fmaxf(dt, 0.0f) * c.e_v2;
   float s = sqrtf(fmaxf(v2, 0.0f));
   float v = clampf(s, c.v_min, c.v_max);
@@ -141,23 +158,24 @@ __device__ __forceinline__ float realize_grad(float w, float g, float ed,
   float heat = (v * v) * c.f_dt;
   if (NOISE) heat = heat + st * et;
   if (VAR) heat = heat + ddt;
-  float hd = heat * c.beta + c.n_eff;
-  float shift = (heat * c.g_lam) / hd;
+  float ihd = 1.0f / (heat * c.beta + c.n_eff);
+  float shift = (heat * c.g_lam) * ihd;
   if (VAR) shift = shift + dlam;
   float d2 = shift + c.h_det;
-  float den2 = d2 * d2 + c.g2;
-  float t = c.g2 / den2;
+  float iden2 = 1.0f / (d2 * d2 + c.g2);
+  float t = iden2 * c.g2;
+  float iss = 1.0f / (s * sq);
   // derivative, from the output back
   float gt = (g * c.j_w) * 2.0f;                        // d/dt (2t + i) j
-  float gd2 = -((gt * t) * ((d2 + d2) / den2));         // t = g2 / den2
-  float gheat = ((gd2 * c.g_lam) * c.n_eff) / (hd * hd);  // shift(heat)
+  float gd2 = -((gt * t) * ((d2 + d2) * iden2));        // t = g2 / den2
+  float gheat = ((gd2 * c.g_lam) * c.n_eff) * (ihd * ihd);  // shift(heat)
   float gv = (gheat * (v + v)) * c.f_dt;                // heat = v^2 f
   float gs = (s >= c.v_min && s <= c.v_max) ? gv : 0.0f;
-  float gv2 = v2 >= 0.0f ? (gs * 0.5f) / s : 0.0f;      // s = sqrt(v2)
+  float gv2 = v2 >= 0.0f ? (gs * 0.5f) * (sq * iss) : 0.0f;  // s = sqrt(v2)
   float gdt = dt >= 0.0f ? gv2 * c.e_v2 : 0.0f;
-  float gdl = (gdt * ((dt * c.d_u) * c.beta + c.d_neff)) / den;  // dt(dl)
-  float gr = r >= 0.0f ? ((gdl * c.gamma) * 0.5f) / sq : 0.0f;
-  float gwq = ((-gr / (tdrop * tdrop)) * 0.5f) * c.a_td;  // 1/tdrop(wq)
+  float gdl = (gdt * ((dt * c.d_u) * c.beta + c.d_neff)) * iden;  // dt(dl)
+  float gr = r >= 0.0f ? ((gdl * c.gamma) * 0.5f) * (s * iss) : 0.0f;
+  float gwq = ((-gr * (it * it)) * 0.5f) * c.a_td;      // 1/tdrop(wq)
   return (w >= c.q_min && w <= c.q_max) ? gwq : 0.0f;
 }
 
@@ -217,7 +235,7 @@ __device__ __forceinline__ void segment(
 // Without a chip: the n elements as one stream, each block taking
 // `groups` x THREADS segments of V (32-bit offsets from its 64-bit base).
 template <bool NOISE, bool BWD, int V>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM<BWD, V>)
 transfer_kernel_flat(const float* __restrict__ w,
                      const float* __restrict__ gr,
                      const float* __restrict__ ed,
@@ -238,7 +256,7 @@ transfer_kernel_flat(const float* __restrict__ w,
 // Column tiles sit on grid x, row tiles on grid y (taken in turn past its
 // limit).
 template <bool NOISE, int VAR, bool BWD, int V>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM<BWD, V>)
 transfer_kernel_tiles(const float* __restrict__ w,
                       const float* __restrict__ gr,
                       const float* __restrict__ ed,

@@ -16,18 +16,25 @@ made with numpy.  Tolerances:
     q_max, where the jitted-chain tests cover the port.
 
 The backward (`ops.plain_grad`, `ref.mrr_transfer_grad_ref`; the CUDA
-backward kernel) is held against `jax.grad` of the reference's
+backward kernel), in its reciprocal form (one division per distinct
+denominator), is held against `jax.grad` of the reference's
 `core.mrr.realize_weights`, fed the reference's own draws: 2e-6 of the
-gradient's full scale on interior targets (5.2e-7 measured).  At the end
-points the clip conventions differ (stated in
-`test_end_points_follow_torch_clamp`); through `condition_weight`, where
-the absmax element sits at an end point, the gradient holds to 3e-6 of its
-full scale (1.5e-6 measured: the element's two routes, through q and
-through the per-tensor scale, carry the chain's derivative with opposite
-signs, so the convention cancels).
+gradient's full scale on interior targets (4.5e-7 measured; 5.2e-7 with
+a division per quotient).  At the end points the clip conventions differ
+(stated in `test_end_points_follow_torch_clamp`); through
+`condition_weight`, where the absmax element sits at an end point, the
+gradient holds to 3e-6 of its full scale (1.1e-6 measured, 1.5e-6 with a
+division per quotient: the element's two routes, through q and through
+the per-tensor scale, carry the chain's derivative with opposite signs,
+so the convention cancels).  The reformulation itself is bounded against
+the same derivative in float64 (1e-6 of its full scale over the whole
+clip range, draws and a full-shape chip field), and both clips' ties
+pass the whole gradient.
 
 Tests marked `cuda` launch the CUDA kernel and skip without a card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -262,6 +269,81 @@ def test_condition_weight_gradient_matches_reference(R, sign):
     (got,) = torch.autograd.grad((y * torch.from_numpy(g)).sum(), wt)
     np.testing.assert_allclose(to_np(got), want, rtol=0,
                                atol=3e-6 * np.abs(want).max())
+
+
+def _grad64(g, w, eps, sigmas, var):
+    """g * d realize / d w of the plain chain evaluated in float64 (the
+    same float32 constants, operands widened exactly), by autograd."""
+    w64 = w.double().requires_grad_(True)
+    var64 = None if var is None else TM.StaticVariation(
+        *(f.double() for f in (var.dv, var.ddt, var.dlam)))
+    eps64 = tuple(None if e is None else e.double() for e in eps)
+    y = ref.mrr_transfer_ref(w64, *eps64, *sigmas, var=var64)
+    (d,) = torch.autograd.grad((y * g.double()).sum(), w64)
+    return d
+
+
+def test_plain_grad_within_its_bound_of_the_float64_derivative():
+    """The reciprocal form (one division per denominator) against the
+    same derivative in float64, over a 512 x 512 sheet spanning the whole
+    clip range [-1.1, 1.1] with PAPER_NOISE draws and a full-shape chip
+    field: within 1e-6 of the gradient's full scale (6.4e-7 measured; the
+    form with a division per quotient was 4.7e-7 here, the float32
+    chain's own conditioning sets both)."""
+    shape = (512, 512)
+    r = np.random.default_rng(0)
+    w = torch.from_numpy(r.uniform(-1.1, 1.1, shape).astype(np.float32))
+    g = torch.from_numpy(r.normal(size=shape).astype(np.float32))
+    eps = tuple(torch.from_numpy(r.normal(size=shape).astype(np.float32))
+                for _ in range(2))
+    var = TM.StaticVariation(*(torch.from_numpy(
+        (s * r.normal(size=shape)).astype(np.float32))
+        for s in (0.01, 0.04, 0.01)))
+    got = ops.plain_grad(g, w, *eps, *SIGMAS, var=var)
+    want = _grad64(g, w, eps, SIGMAS, var)
+    scale = float(want.abs().max())
+    assert scale > 0 and bool(torch.isfinite(got).all())
+    assert float((got.double() - want).abs().max()) <= 1e-6 * scale
+    outside = (w < -1) | (w > 1)
+    assert bool(outside.any()) and bool((got[outside] == 0).all())
+
+
+def test_plain_grad_clip_ties_pass_the_whole_gradient(monkeypatch):
+    """Both clips pass the whole gradient at a tie, as `torch.clamp`
+    does.  The target clip: at w = -1 and, with v_min moved below s(+1)
+    (0.99989 in float32, under the default v_min 1), at w = +1, the
+    derivative equals the float64 one.  The voltage clip: with v_min set
+    to s(0.999) and v_max to s(-0.999), exactly, those targets' gradient
+    is the one the unbinding clip gives, bit for bit, and 0 once the
+    bound moves one ulp past s."""
+    c0 = TM.chain_constants()
+    w = torch.tensor([-1.0, 1.0, -0.999, 0.999])
+    g = torch.tensor([1.0, -1.0, 0.5, 2.0])
+    none = (None, None)
+
+    def grad_with(**bounds):
+        c = dataclasses.replace(c0, **bounds)
+        monkeypatch.setattr(TM, "chain_constants", lambda p=None: c)
+        return ops.plain_grad(g, w, *none, 0.0, 0.0)
+
+    free = ops.plain_grad(g, w, *none, 0.0, 0.0)
+    assert free[1] == 0.0                  # s(+1) < v_min: clipped
+    grad_with(v_min=0.999)                 # the target clip's ties
+    moved = ops.plain_grad(g, w, *none, 0.0, 0.0)
+    want = _grad64(g, w, none, (0.0, 0.0), None)
+    monkeypatch.undo()
+    assert float(moved[0]) != 0.0 and float(moved[1]) != 0.0
+    np.testing.assert_allclose(to_np(moved[:2]), to_np(want[:2]),
+                               rtol=1e-6)
+    assert torch.equal(free[0], moved[0])
+    s = TM.voltage_of_chain(w, c0)         # v_min < s < v_max: inside
+    lo, hi = float(s[3]), float(s[2])
+    assert c0.v_min < lo and hi < c0.v_max
+    tied = grad_with(v_min=lo, v_max=hi)
+    assert torch.equal(tied[2:], free[2:]) and bool((tied[2:] != 0).all())
+    past = grad_with(v_min=float(np.nextafter(np.float32(lo), 2)),
+                     v_max=float(np.nextafter(np.float32(hi), 0)))
+    assert bool((past[2:] == 0).all())
 
 
 def test_launch_backward_refuses_what_the_kernel_does_not_take():
