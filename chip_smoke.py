@@ -8,6 +8,7 @@
                                      # alone (21 runs phases 3-5 first)
     python3 chip_smoke.py --kernels 22   # build, phase 17(b), phase 22
     python3 chip_smoke.py --kernels 16   # build, phase 16 alone
+    python3 chip_smoke.py --kernels 23   # build, phase 23 alone
     python3 chip_smoke.py --cards    # phases 21-22 over nccl, one rank a card
 
 Phases (any failure raises, so the exit code is non-zero):
@@ -390,6 +391,28 @@ Phases (any failure raises, so the exit code is non-zero):
      floor of the one-process steps plus 1e-6, dropped assignments
      printed.  s a step, the card's kernel and copy shares of the last
      step, walls and peaks printed per sub-phase.
+ 23. serving under SERVE_RULES across 4 ranks on card 0
+     (`launch.steps.serve_layout` / `make_serve_step`: each rank its 2-D
+     weight shards, the embed dims gathered over "data" layer by layer,
+     heads, KV heads, MLP and vocab computed over "model", its rows and
+     part of the cache), all cells in one group: (a) qwen3-32b at 2
+     layers, optical MLPs ("fused", chip 7, each row at its own
+     full-scale), on (2, 2): decode_32k at 32 x 32768 (3 steps) and
+     prefill_32k at 2 x 4096; (b) gemma3-12b long_500k at 6 layers on
+     (4, 1), the 524288 positions over the four ranks (`flash_decode`);
+     (c) mamba2-1.3b at full width and depth on (2, 2): decode_32k at 128
+     rows, prefill_32k at 4 x 4096 (`ssd_scan` at 32 of 64 heads).  The
+     caches are drawn from seeds block by block (a rank draws its
+     blocks).  Each cell against the same run in one process after the
+     ranks exit: every step's logits and the cache parts within 4x the
+     float-order floor (the params' hidden, MLP and query-head, or
+     hidden and head, axes permuted, 2 seeds) plus 1e-6, the argmax
+     equal past that bound,
+     `rosa_fused` exactly 2 x layers x steps a rank at (K, N) (5120,
+     25600) and (12800, 5120), `ssd_scan` 48 a prefill, a rank's bytes
+     `dryrun.cell_bytes` of the cell on its mesh and cut shape exactly,
+     the ranks' peaks < 70 GiB over the card; ms a step, tok/s, peaks
+     and walls printed.
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -4808,8 +4831,7 @@ def seq_refs(cfg, bundle, params) -> dict:
                         k_len_valid=(pos + 1)[:, None])
 
     def attend(perm):
-        return L.attention_core(q, L._repeat_kv(kc[:, perm], cfg.n_heads),
-                                L._repeat_kv(vc[:, perm], cfg.n_heads),
+        return L.attention_core(q, kc[:, perm], vc[:, perm],
                                 bias[..., perm]).cpu()
 
     ident = torch.arange(SEQ_LEN, device=DEVICE)
@@ -5498,15 +5520,14 @@ def rt_gathered_want(bundle, layout, mesh) -> int:
     leaf and twice for a stacked one under remat (the forward and the
     recompute).  Dense and ssm configs (no experts, no zamba2 tail)."""
     from repro_torch.distributed.sharding import (local_shape, local_specs,
-                                                  spec_axes,
-                                                  train_model_axes,
+                                                  spec_axes, tp_axes,
                                                   use_sharding)
     from repro_torch.models.module import leaves
     cfg = bundle.cfg
     assert cfg.family in ("dense", "ssm") and cfg.moe is None
     with use_sharding(mesh, layout.rules, params=layout.specs,
                       batch_axes=layout.batch_axes):
-        keep = train_model_axes()
+        keep = tp_axes()
     spec_of = dict(leaves(layout.specs))
     local = dict(leaves(local_specs(layout.specs, lambda path: keep)))
     total = 0
@@ -6288,6 +6309,569 @@ def train_ranks_phase(report: dict) -> dict:
     return n
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: serving under SERVE_RULES across ranks
+# ---------------------------------------------------------------------------
+SR_STEPS = 3                   # each decode cell's steps, teacher-forced
+SR_SEED = 23                   # the prompts', tokens' and caches' seed
+SR_ROWS = 8                    # an ssm decode cache's rows compared: every 8th
+SR_CHIP = 7                    # (a)'s served chip
+# (tag, arch, layers (0: all), ModelConfig overrides, (data, model),
+# ShapeSpec fields): (a) qwen3-32b's optical MLPs (chip 7, "fused") at
+# decode_32k (128 rows cut to 32: the one-process side holds 8.6 GB of
+# cache and its float32 copy) and prefill_32k (32 x 32768 cut to 2 x
+# 4096: the scores are (B, H, S, S) float32); (b) gemma3-12b's
+# long_500k at 6 of 48 layers (one global) on (4, 1): on (2, 2)
+# SERVE_RULES gives the KV heads "model" and the sequence no axis (every
+# suffix of its rule holds "model"), so a rank holds half of the 25.8 GB
+# cache and four of them do not fit one card; (c) mamba2-1.3b at full
+# width and depth
+SR_CELLS = (
+    ("a decode", "qwen3-32b", 2, {"rosa_mlp": True}, (2, 2),
+     ("decode_32k", "decode", 32768, 32)),
+    ("a prefill", "qwen3-32b", 2, {"rosa_mlp": True}, (2, 2),
+     ("prefill_32k", "prefill", 4096, 2)),
+    ("b long", "gemma3-12b", 6, {}, (4, 1),
+     ("long_500k", "decode", 524288, 1)),
+    ("c decode", "mamba2-1.3b", 0, {}, (2, 2),
+     ("decode_32k", "decode", 32768, 128)),
+    ("c prefill", "mamba2-1.3b", 0, {}, (2, 2),
+     ("prefill_32k", "prefill", 4096, 4)),
+)
+
+
+def sr_cfg(cell):
+    return rt_cfg(cell[1], cell[2], **cell[3])
+
+
+def sr_shape(cell):
+    from repro_torch.models.model import ShapeSpec
+    return ShapeSpec(*cell[5])
+
+
+def sr_perms(cfg, seed: int) -> dict:
+    """The permutations of a cell's float-order floor, by logical axis:
+    the sums a split reorders.  A dense model's hidden and MLP axes and
+    its query heads within each KV head's group (the KV heads, and so the
+    cache, stay); an ssm model's hidden and head axes (one B / C group:
+    its cache's heads move with them)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "ssm":
+        sizes = {"embed": cfg.d_model, "heads": cfg.ssm.n_heads}
+        return {k: torch.randperm(n, generator=g).to(DEVICE)
+                for k, n in sizes.items()}
+    per = cfg.n_heads // cfg.n_kv_heads
+    heads = torch.cat([j * per + torch.randperm(per, generator=g)
+                       for j in range(cfg.n_kv_heads)])
+    return {"embed": torch.randperm(cfg.d_model, generator=g).to(DEVICE),
+            "mlp": torch.randperm(cfg.d_ff, generator=g).to(DEVICE),
+            "heads": heads.to(DEVICE)}
+
+
+def sr_tokens(cfg, shape):
+    """A prefill cell's prompt (B, S), a decode cell's teacher-forced
+    tokens (B, SR_STEPS): int32 from SR_SEED, on the host."""
+    import numpy as np
+    import torch
+    n = shape.seq_len if shape.kind == "prefill" else SR_STEPS
+    rng = np.random.default_rng(SR_SEED)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (
+        shape.global_batch, n)).astype(np.int32))
+
+
+def sr_cache(cfg, shape, device, mesh=None):
+    """A decode cell's cache filled from seeds block by block (K / V and
+    the ssm leaves N(0, 1), the ssm state N(0, 0.01)), its cursor at
+    seq_len - SR_STEPS.  A block is a (layer, half of the rows, 1/64 of a
+    long dim 2) piece drawn from a seed of its own, so on a live `mesh`
+    (the cell's SERVE_RULES layout) a rank draws only the blocks it
+    holds, and every layout holds the same numbers."""
+    import torch
+    from repro_torch.distributed.runtime import axis_index
+    from repro_torch.distributed.sharding import (P, SERVE_RULES,
+                                                  local_shape, resolve_spec,
+                                                  spec_axes, zip_tree)
+    from repro_torch.models.model import cache_axes, make_inputs
+    meta = make_inputs(cfg, shape)[0]["cache"]
+    count = [0]
+
+    def fill(t, axes):
+        leaf, count[0] = count[0], count[0] + 1
+        spec = (resolve_spec(tuple(t.shape), axes, SERVE_RULES, mesh)
+                if mesh is not None else P())
+        loc = local_shape(tuple(t.shape), spec, mesh) if mesh is not None \
+            else tuple(t.shape)
+        off = [axis_index(spec_axes(P(spec[i])), mesh) * loc[i]
+               if i < len(spec) and spec[i] else 0 for i in range(len(loc))]
+        out = torch.empty(loc, dtype=t.dtype, device=device)
+        if axes == ("cache_batch",):
+            return out.fill_(shape.seq_len - SR_STEPS)
+        n_l, n_b, rest = t.shape[0], t.shape[1], tuple(t.shape[2:])
+        rb = n_b // 2 if n_b % 2 == 0 else n_b
+        n_c = 64 if rest[0] >= 4096 else (2 if rest[0] % 2 == 0 else 1)
+        ch = rest[0] // n_c
+        if off[1] % rb or loc[1] % rb or off[2] % ch or loc[2] % ch:
+            raise AssertionError(f"23: a rank's part {loc} at {off} cuts a "
+                                 f"seeded block ({rb}, {ch})")
+        scale = 0.1 if "state" in axes else 1.0
+        for li in range(n_l):
+            for b in range(off[1] // rb, (off[1] + loc[1]) // rb):
+                for c in range(off[2] // ch, (off[2] + loc[2]) // ch):
+                    g = torch.Generator(device).manual_seed(
+                        SR_SEED + ((leaf * n_l + li) * (n_b // rb) + b)
+                        * n_c + c)
+                    blk = torch.randn((rb, ch) + rest[1:], generator=g,
+                                      device=device)
+                    for j, n in enumerate(loc[3:]):
+                        blk = blk.narrow(j + 2, off[3 + j], n)
+                    out[li, b * rb - off[1]:(b + 1) * rb - off[1],
+                        c * ch - off[2]:(c + 1) * ch - off[2]].copy_(
+                            blk * scale)
+        return out
+    return zip_tree(meta, cache_axes(cfg), fill)
+
+
+def sr_chip(cfg, perm=None):
+    """Chip 7 over `cfg`'s MLP projections, as a served model pins it;
+    with `perm` its lanes permuted as the params' hidden and MLP axes."""
+    import torch
+    from repro_torch.core import mrr
+    from repro_torch.robust.variation import sample_chip
+    chip = sample_chip(torch.Generator().manual_seed(SR_CHIP),
+                       {"mlp/wi": cfg.d_model, "mlp/wo": cfg.d_ff},
+                       device=DEVICE)
+    if perm is None:
+        return chip
+    lanes = {"mlp/wi": perm["embed"], "mlp/wo": perm["mlp"]}
+    return {n: mrr.StaticVariation(v.dv[lanes[n]], v.ddt[lanes[n]],
+                                   v.dlam[lanes[n]])
+            for n, v in chip.items()}
+
+
+def sr_engine(cfg, perm=None):
+    """(a)'s serving engine: "fused", each activation row at its own
+    full-scale (the Scheduler's), chip 7 pinned; none for a plain MLP."""
+    from repro_torch import rosa
+    from repro_torch.rosa.backends import RosaConfig
+    if not cfg.rosa_mlp:
+        return contextlib.nullcontext()
+    return rosa.engine_context(rosa.Engine.from_config(RosaConfig(
+        backend="fused", act_per_vector=True)).with_variation(
+            sr_chip(cfg, perm)))
+
+
+def sr_nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(sr_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(sr_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def sr_parts(cfg, shape, cache) -> dict:
+    """The leaves of a whole cache a cell compares: a dense decode's
+    positions the steps wrote, a dense prefill's whole cache, an ssm
+    cache's first and last layers (a decode's every SR_ROWS-th row), as
+    float32 on the host."""
+    out = {}
+    if cfg.family == "dense":
+        p0 = shape.seq_len - SR_STEPS
+        for i, t in enumerate(cache["layers"]):
+            out[f"layers/{i}"] = (t[:, :, p0:] if shape.kind == "decode"
+                                  else t)
+    else:
+        ends = [0, cfg.n_layers - 1]
+        rows = slice(None, None, SR_ROWS if shape.kind == "decode" else 1)
+        for k, t in cache["layers"].items():
+            out[f"layers/{k}"] = t[ends][:, rows]
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def sr_rank_parts(cfg, shape, cache, layout, mesh) -> dict:
+    """`sr_parts` of the whole cache from a rank's part (every rank joins
+    the collectives; the values are rank 0's to hand back): the written
+    positions of a sequence-sharded cache `psum`-med over its ranks (the
+    others hold zeros there), every other split dim gathered."""
+    import torch
+    from repro_torch.distributed import runtime as rt
+    from repro_torch.distributed.sharding import (P, gather, resolve_spec,
+                                                  spec_axes)
+    from repro_torch.launch.steps import serve_layout
+    from repro_torch.models.model import ShapeSpec, build_model, cache_axes
+    from repro_torch.models import layers as L
+    if shape.kind == "prefill":
+        # the prefill's part: the decode layout's of these rows with
+        # every position (its sequence whole)
+        lay = serve_layout(build_model(cfg), mesh, ShapeSpec(
+            "x", "decode", shape.seq_len, shape.global_batch))
+        specs, axes = lay.inputs["cache"], cache_axes(cfg)
+    else:
+        specs, axes = layout.inputs["cache"], cache_axes(cfg)
+    out = {}
+    if cfg.family == "dense":
+        for i, t in enumerate(cache["layers"]):
+            spec = list(specs["layers"][i]) + [None] * 5
+            if shape.kind == "decode":
+                p0, n = shape.seq_len - SR_STEPS, SR_STEPS
+                seq = spec_axes(P(spec[2]))
+                lo = rt.axis_index(seq, mesh) * t.shape[2] if seq else 0
+                part = torch.zeros(tuple(t.shape[:2]) + (n,)
+                                   + tuple(t.shape[3:]),
+                                   dtype=t.dtype, device=t.device)
+                a, b = max(p0, lo), min(p0 + n, lo + t.shape[2])
+                if a < b:
+                    part[:, :, a - p0:b - p0] = t[:, :, a - lo:b - lo]
+                t = rt.psum(part.float(), seq, mesh) if seq else part
+            spec[2] = None
+            out[f"layers/{i}"] = gather(t, P(*spec[:5]), mesh)
+    else:
+        ends = [0, cfg.n_layers - 1]
+        rows = slice(None, None, SR_ROWS if shape.kind == "decode" else 1)
+        for k, t in cache["layers"].items():
+            out[f"layers/{k}"] = gather(t[ends], specs["layers"][k],
+                                        mesh)[:, rows]
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def sr_rank(rank: int, world: int, device, job: dict) -> dict:
+    """One rank of phase 23: every cell on this rank's SERVE_RULES shards
+    (params from seed 0, drawn leaf by leaf and cut), rows and part of
+    the cache; the main path's launches counted from 0, the kernels'
+    operand shapes recorded, its walls and peak.  Hands back host values
+    only (the gathered logits and cache parts: rank 0's)."""
+    import gc
+    import torch
+    rank_setup(device)
+    from repro_torch.distributed.sharding import P, gather, shard_local
+    from repro_torch.kernels.rosa_fused import ops as fused_ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (init_sharded, make_serve_step,
+                                          serve_layout)
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.model import build_model
+    shapes: dict = {}
+    real_ssd, real_fused = SSM.ssd_scan, fused_ops.rosa_fused
+
+    def ssd_scan(x, *a, **k):
+        shapes.setdefault("ssd_scan_heads", set()).add(int(x.shape[2]))
+        return real_ssd(x, *a, **k)
+
+    def rosa_fused(x, w, *a, **k):
+        shapes.setdefault("rosa_fused_kn", set()).add(
+            (int(x.shape[1]), int(w.shape[1])))
+        return real_fused(x, w, *a, **k)
+    SSM.ssd_scan, fused_ops.rosa_fused = ssd_scan, rosa_fused
+    meshes: dict = {}
+    out = {}
+    for cell in job["cells"]:
+        tag, cfg, shape = cell[0], sr_cfg(cell), sr_shape(cell)
+        if cell[4] not in meshes:
+            meshes[cell[4]] = make_test_mesh(*cell[4], device.type)
+        mesh = meshes[cell[4]]
+        bundle = build_model(cfg)
+        layout = serve_layout(bundle, mesh, shape)
+        torch.cuda.synchronize(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        params = init_sharded(bundle, torch.Generator(device).manual_seed(0),
+                              layout, device=device)
+        toks = sr_tokens(cfg, shape)
+        row_spec = P(layout.batch_axes or None)
+
+        def rows(t):
+            return shard_local(t, row_spec, mesh).contiguous().to(device)
+        if shape.kind == "prefill":
+            batch = layout.local_inputs({"tokens": toks}, device)
+        else:
+            cache = sr_cache(cfg, shape, device, mesh)
+            batch = {"token": rows(toks[:, 0]), "pos": cache["pos"].clone(),
+                     "cache": cache}
+        held = sr_nbytes(params) + sr_nbytes(batch)
+        step = make_serve_step(bundle, layout)
+        torch.cuda.synchronize(device)
+        set_up = time.perf_counter() - t0
+        logits, walls = [], []
+        # ---- the main path: counts from 0, read right after --------------
+        with sr_engine(cfg), torch.inference_mode():
+            reset_launches()
+            shapes.clear()
+            for i in range(1 if shape.kind == "prefill" else SR_STEPS):
+                ts = time.perf_counter()
+                lg, cache = step(params, batch)
+                torch.cuda.synchronize(device)
+                walls.append(time.perf_counter() - ts)
+                logits.append(lg)
+                if shape.kind == "decode" and i + 1 < SR_STEPS:
+                    batch = {"token": rows(toks[:, i + 1]),
+                             "pos": cache["pos"], "cache": cache}
+            n = launch_counts()
+            lg = [gather(t, row_spec, mesh).float().cpu() for t in logits]
+            parts = sr_rank_parts(cfg, shape, cache, layout, mesh)
+        out[tag] = {
+            "launches": n, "walls": walls, "set_up_s": set_up,
+            "held": held, "rows": layout.batch_axes,
+            "kv": (tuple(layout.inputs["cache"]["layers"][0])
+                   if shape.kind == "decode" and cfg.family == "dense"
+                   else None),
+            "shapes": {k: sorted(v) for k, v in shapes.items()},
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "logits": [t.numpy() for t in lg] if rank == 0 else None,
+            "parts": ({k: v.numpy() for k, v in parts.items()}
+                      if rank == 0 else None)}
+        del params, batch, cache, logits, lg, parts, step
+    SSM.ssd_scan, fused_ops.rosa_fused = real_ssd, real_fused
+    return out
+
+
+def sr_permute_(tree, axes_of, perm: dict, inverse: bool = False) -> None:
+    """Permute in place every axis of `tree`'s leaves that `axes_of(path)`
+    names in `perm` ({logical axis: permutation}), or undo it; one
+    leading index at a time where the leaf has a layers dim."""
+    import torch
+    from repro_torch.models.module import leaves
+    for path, t in leaves(tree):
+        for ax, name in enumerate(axes_of(path)):
+            if name not in perm:
+                continue
+            p = perm[name]
+            if inverse:
+                p = torch.argsort(p)
+            if ax > 0 and t.shape[0] > 1 and axes_of(path)[0] == "layers":
+                for i in range(t.shape[0]):
+                    t[i].copy_(t[i].index_select(ax - 1, p))
+            else:
+                t.copy_(t.index_select(ax, p))
+
+
+def sr_one(cell) -> dict:
+    """A cell in one process on the card, from the same params, prompt,
+    tokens and cache: its logits and cache parts, and its float-order
+    floor (the largest distance from them of the same run with the
+    params' axes `sr_perms` names permuted, two seeds; the chip's lanes
+    and an ssm cache's heads permuted with them), each relative to max
+    |.|."""
+    import gc
+    import torch
+    from repro_torch.models.model import build_model, cache_axes
+    from repro_torch.models.module import leaves, map_tree
+    cfg, shape = sr_cfg(cell), sr_shape(cell)
+    bundle = build_model(cfg)
+    toks = sr_tokens(cfg, shape).to(DEVICE)
+    p_axes = dict(leaves(map_tree(lambda d: d.axes, bundle.skeleton)))
+    c_axes = dict(leaves(cache_axes(cfg)["layers"]
+                         if cfg.family == "ssm" else {}))
+    cache = None
+    runs, t0 = [], time.perf_counter()
+    for seed in (None, 1, 2):
+        perm = sr_perms(cfg, seed) if seed is not None else None
+        params = bundle.init(torch.Generator(DEVICE).manual_seed(0),
+                             device=DEVICE)
+        if perm:
+            sr_permute_(params, lambda p: p_axes[p], perm)
+        if shape.kind == "decode" and (cache is None
+                                       or cfg.family == "ssm"):
+            # an attention cache's positions the steps read they write
+            # first, so it serves every run; an ssm state is advanced
+            del cache
+            gc.collect()
+            cache = sr_cache(cfg, shape, DEVICE)
+        if shape.kind == "decode" and perm and c_axes:
+            sr_permute_(cache["layers"], lambda p: c_axes[p], perm)
+        if shape.kind == "decode":
+            cache["pos"].fill_(shape.seq_len - SR_STEPS)
+        logits = []
+        with sr_engine(cfg, perm), torch.inference_mode():
+            reset_launches()
+            if shape.kind == "prefill":
+                lg, out_cache = bundle.prefill(params, {"tokens": toks})
+                logits.append(lg.float().cpu())
+            else:
+                batch = {"token": toks[:, 0], "pos": cache["pos"].clone(),
+                         "cache": cache}
+                for i in range(SR_STEPS):
+                    lg, out_cache = bundle.decode_step(params, batch)
+                    logits.append(lg.float().cpu())
+                    if i + 1 < SR_STEPS:
+                        batch = {"token": toks[:, i + 1],
+                                 "pos": out_cache["pos"], "cache": cache}
+            torch.cuda.synchronize()
+            n = launch_counts()
+            if perm and c_axes:
+                sr_permute_(out_cache["layers"], lambda p: c_axes[p], perm,
+                            inverse=True)
+        runs.append((torch.stack(logits), sr_parts(cfg, shape, out_cache),
+                     n))
+        del params, out_cache, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    base, parts, n = runs[0]
+    scale = base.abs().amax(dim=(1, 2))
+    floor = torch.zeros(len(base))
+    pfloor = {k: 0.0 for k in parts}
+    for lg, pp, _ in runs[1:]:
+        floor = torch.maximum(floor, (lg - base).abs().amax(dim=(1, 2))
+                              / scale)
+        for k, v in pp.items():
+            pfloor[k] = max(pfloor[k], max_rel(v, parts[k]))
+    return {"logits": base, "parts": parts, "floor": floor,
+            "part_floor": pfloor, "launches": n,
+            "wall_s": time.perf_counter() - t0}
+
+
+def sr_want(cfg, shape) -> dict:
+    """A rank's main-path launches: (a)'s two optical products a layer a
+    step (or prefill), (c)'s scan a layer in a prefill."""
+    steps = 1 if shape.kind == "prefill" else SR_STEPS
+    if cfg.rosa_mlp:
+        return {"rosa_fused": 2 * cfg.n_layers * steps}
+    if cfg.family == "ssm" and shape.kind == "prefill":
+        return {"ssd_scan": cfg.n_layers}
+    return {}
+
+
+def sr_check(cell, one: dict, outs: list, parent: int) -> dict:
+    """A cell's gates on every rank: the logits of every step within 4x
+    the one-process floor plus 1e-6 of max |.|, the argmax equal wherever
+    the top-two gap exceeds that bound, every cache part within 4x its
+    floor plus 1e-6, its launches exactly `sr_want`, its bytes
+    `dryrun.cell_bytes` of the cell on its mesh and cut shape (float32
+    params), the ranks' peaks < PEAK_GIB over the card; printed with
+    ms a step, tok/s and the peaks."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    tag, cfg, shape = cell[0], sr_cfg(cell), sr_shape(cell)
+    res = [o[tag] for o in outs]
+    fails = []
+    want_n = sr_want(cfg, shape)
+    ov = dict(cell[3], **({"n_layers": cell[2]} if cell[2] else {}))
+    want_bytes = dryrun.cell_bytes(
+        cell[1], shape.name, None, ov, param_dtype=torch.float32,
+        mesh=MeshShape(("data", "model"), cell[4]),
+        shape=shape)["argument_bytes"]
+    for r, o in enumerate(res):
+        others = {k: v for k, v in o["launches"].items()
+                  if v and k not in want_n}
+        if any(o["launches"][k] != v for k, v in want_n.items()) or others:
+            fails.append(f"23({tag}) rank {r} launched {o['launches']}, "
+                         f"want {want_n}")
+        if o["held"] != want_bytes:
+            fails.append(f"23({tag}) rank {r} holds {o['held']} B, "
+                         f"cell_bytes {want_bytes}")
+    lg = torch.from_numpy(np.stack(res[0]["logits"]))
+    base, floor = one["logits"], one["floor"]
+    bound = 4 * floor + 1e-6
+    scale = base.abs().amax(dim=(1, 2))
+    rel = (lg - base).abs().amax(dim=(1, 2)) / scale
+    top2 = base.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) / scale[:, None] > bound[:, None]
+    same = lg.argmax(-1) == base.argmax(-1)
+    if lg.shape != base.shape or not bool(torch.isfinite(lg).all()):
+        fails.append(f"23({tag}) logits {tuple(lg.shape)} not finite or "
+                     f"not {tuple(base.shape)}")
+    elif bool((rel > bound).any()) or bool((clear & ~same).any()):
+        fails.append(f"23({tag}) logits {rel.tolist()} from one process's, "
+                     f"bound {bound.tolist()}; argmax differs past it")
+    worst = ("", 0.0, 0.0)
+    for k, v in res[0]["parts"].items():
+        d = max_rel(torch.from_numpy(v), one["parts"][k])
+        b = 4 * one["part_floor"][k] + 1e-6
+        if d / b > worst[1] / max(worst[2], 1e-30) or not worst[0]:
+            worst = (k, d, b)
+        if d > b:
+            fails.append(f"23({tag}) cache {k} {d:.3e} from one process's, "
+                         f"bound {b:.3e}")
+    peak = (max if RANK_CARDS else sum)(o["peak_bytes"] for o in res) \
+        + parent
+    if peak >= PEAK_GIB * 2**30:
+        fails.append(f"23({tag}) peak {peak / 2**30:.1f} GiB")
+    # the last step: a decode's first pays the cell's warm-up
+    step_s = max(o["walls"][-1] for o in res)
+    rows = shape.global_batch * (shape.seq_len if shape.kind == "prefill"
+                                 else 1)
+    kn = sorted({tuple(x) for o in res for x in
+                 o["shapes"].get("rosa_fused_kn", [])})
+    heads = sorted({x for o in res for x in
+                    o["shapes"].get("ssd_scan_heads", [])})
+    print(f"  23({tag}) {cell[1]} {shape.name} {shape.global_batch} x "
+          f"{shape.seq_len} on (data, model) {cell[4]}, rows over "
+          f"{res[0]['rows'] or 'no axis'}"
+          + (f", KV cache {res[0]['kv']}" if res[0]["kv"] else "")
+          + f": {1e3 * step_s:.1f} ms the last step (every step on "
+          "rank 0: " + ", ".join(f"{1e3 * w:.1f}" for w in res[0]["walls"])
+          + f"), {rows / step_s:.0f} tok/s; logits max rel dev "
+          + ", ".join(f"{x:.2e}" for x in rel.tolist()) + " (floor "
+          + ", ".join(f"{x:.2e}" for x in floor.tolist()) + "); argmax "
+          f"equal {int(same.sum())} of {same.numel()} "
+          f"({int(clear.sum())} past the bound); cache part nearest its "
+          f"bound {worst[0]} {worst[1]:.2e} (bound {worst[2]:.2e}); "
+          f"launches a rank {want_n or 'none'}"
+          + (f" at (K, N) {kn}" if kn else "")
+          + (f", ssd_scan at {heads} heads" if heads else "")
+          + f"; {res[0]['held'] / 2**30:.3f} GiB a rank = cell_bytes; "
+          f"peaks " + ", ".join(f"{o['peak_bytes'] / 2**30:.2f}"
+                                for o in res)
+          + f" GiB (card {peak / 2**30:.2f}); set-up "
+          f"{max(o['set_up_s'] for o in res):.1f} s")
+    if cfg.rosa_mlp and kn != sorted({(cfg.d_model, cfg.d_ff),
+                                      (cfg.d_ff // cell[4][1],
+                                       cfg.d_model)}):
+        fails.append(f"23({tag}) rosa_fused at (K, N) {kn}")
+    if want_n.get("ssd_scan") and heads != [cfg.ssm.n_heads // cell[4][1]]:
+        fails.append(f"23({tag}) ssd_scan at {heads} heads")
+    return {"fails": fails, "launches": {
+        k: sum(o["launches"].get(k, 0) for o in res) for k in want_n},
+        "step_ms": 1e3 * step_s, "tok_s": rows / step_s,
+        "walls_ms": [[1e3 * w for w in o["walls"]] for o in res],
+        "rel": rel.tolist(), "floor": floor.tolist(),
+        "peak_gib": [o["peak_bytes"] / 2**30 for o in res],
+        "card_peak_gib": peak / 2**30, "bytes": res[0]["held"],
+        "one_process_s": one["wall_s"]}
+
+
+def serve_ranks_phase(report: dict) -> dict:
+    """23: serving under SERVE_RULES across 4 ranks, the cells of
+    SR_CELLS in one group; then each cell in one process with its floor
+    (`sr_one`) and the gates (`sr_check`).  Returns the main path's
+    rosa_fused and ssd_scan launches (every rank's)."""
+    import gc
+    import torch
+    from repro_torch.distributed import runtime
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = torch.cuda.memory_allocated()
+    print(f"  23: {rank_layout(4)}; cells "
+          + "; ".join(f"({c[0]}) {c[1]} {c[5][0]} on {c[4]}"
+                      for c in SR_CELLS))
+    outs = runtime.spawn(sr_rank, 4, device_type=DEVICE,
+                         backend=rank_backend(),
+                         args=({"cells": SR_CELLS},), timeout=RANK_TIMEOUT)
+    group_s = time.perf_counter() - t0
+    print(f"  23: the group {group_s:.1f} s")
+    res, fails = {"group_s": group_s}, []
+    n = {"rosa_fused": 0, "ssd_scan": 0}
+    for cell in SR_CELLS:
+        one = sr_one(cell)
+        got = sr_check(cell, one, outs, parent)
+        fails += got.pop("fails")
+        for k, v in got["launches"].items():
+            n[k] += v
+        res[cell[0]] = got
+    res["phase_s"] = time.perf_counter() - t0
+    report["serve_ranks"] = res
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return n
+
+
 # `--kernels`: the phases it runs alone, by name: (title, [(tag, phase)])
 PHASES = {
     "2": ("2: kernel parity against the plain versions",
@@ -6305,6 +6889,8 @@ PHASES = {
     "21": ("21: serving across ranks", [("21", ranks_phase)]),
     "22": ("22: training across ranks (17(b) first: 22(a) reads it)",
            [("17b", optical_train_phase), ("22", train_ranks_phase)]),
+    "23": ("23: serving under SERVE_RULES across ranks",
+           [("23", serve_ranks_phase)]),
 }
 KERNEL_PHASES = ("2", "6", "8", "12a", "19a")   # `--kernels` alone
 
@@ -6472,6 +7058,12 @@ def run_phases(opts) -> int:
     launches["rosa_fused"] += rt_n["rosa_fused"]
     launches["ssd_scan"] += rt_n["ssd_scan"]
     ssm_n["ssd_scan_bwd"] += rt_n["ssd_scan_bwd"]
+    print("phase 23: serving under SERVE_RULES across ranks (heads, KV "
+          "heads, MLP and vocab over \"model\", the weights' embed dims "
+          "over \"data\")")
+    sr_n = phase("23", serve_ranks_phase)
+    launches["rosa_fused"] += sr_n["rosa_fused"]
+    launches["ssd_scan"] += sr_n["ssd_scan"]
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

@@ -44,9 +44,9 @@ def absmax_scale(x: torch.Tensor, per_vector: bool = False) -> torch.Tensor:
 def act_absmax_scale(x: torch.Tensor,
                      per_vector: bool = False) -> torch.Tensor:
     """`absmax_scale` of an activation.  A per-tensor full-scale spans the
-    global batch: under a live train context whose rows are split over
-    ranks (`distributed.sharding.train_batch_axes`) the max is taken over
-    every rank's rows, as `jnp.max` over a sharded batch is, its gradient
+    global batch: under a live train or serve context whose rows are
+    split over ranks (`distributed.sharding.row_axes`) the max is taken
+    over every rank's rows, as `jnp.max` over a sharded batch is, its gradient
     (if any) shared as `jnp.max`'s (`distributed.runtime.amax`).  Under a
     tensor-parallel K split (`distributed.sharding.scale_axes`) the rank
     holds some of every row's columns, so both the per-tensor and the

@@ -39,30 +39,33 @@ rank's shard of a global tensor by a spec.  The expert-parallel MoE
 (`models.moe.moe_ep_local` from `transformer._ffn_apply`) and
 `models.layers.flash_decode` read it.
 
-Training across ranks (`launch.steps.make_train_step(mesh=)`) stores the
-reference's layout: every param leaf and AdamW moment as this rank's
-shard of its `param_shardings(skel, mesh, TRAIN_RULES)` spec
-(`shard_tree` cuts them, one leaf at a time, from whole tensors or numpy
-arrays), so a rank holds exactly the `local_shape` bytes of its shards.
-A live train context also names the spec tree of the params the model is
-handed (`ShardingCtx.params`) and the mesh axes its batch rows are split
-over (`ShardingCtx.batch_axes`).  The model then gathers a layer's leaves
-(`gather_tree`, a differentiable tiled all_gather per sharded dim) where
-it uses them, inside the recomputed block for a stacked layer (the spec
-of a layer slice is the stacked spec without its leading dims,
-`drop_dims`), so autograd never keeps a layer's gathered weights; the
-gathers' backward, `psum_scatter`, hands each rank the summed gradient of
-its own shard.  The gathers leave local the dims split over the
-context's tensor-parallel axes (`train_model_axes`: the axes the rules
-give heads, KV heads, MLP and vocab, unless the batch's rows take them,
-as under `ZERO3_TRAIN_RULES`), and hand the layer the spec tree of what
-stays split (`local_specs`): each rank computes its heads, MLP columns
-and vocab rows, with the reference's GSPMD collectives written out (a
-`psum` a projection pair, the vocab's softmax statistics).  An optical
-product on such shards (`ProductSplit`, installed by `use_product_split`
-around the engine's matmul) takes its full-scales over the ranks and its
-per-shot draws at the global operand's shape, the rank keeping its
-block, so the ranks compute the one-process product's numbers.
+Training and serving across ranks (`launch.steps.make_train_step(
+layout=)`, `launch.steps.make_serve_step`) store the reference's layout:
+every param leaf (and AdamW moment) as this rank's shard of its
+`param_shardings(skel, mesh, rules)` spec under `TRAIN_RULES` or
+`SERVE_RULES` (`shard_tree` cuts them, one leaf at a time, from whole
+tensors or numpy arrays), so a rank holds exactly the `local_shape` bytes
+of its shards.  Such a step's live context also names the spec tree of the
+params the model is handed (`ShardingCtx.params`; `sharded_ctx`) and the
+mesh axes its batch rows are split over (`ShardingCtx.batch_axes`;
+`row_axes`).  The model then gathers a layer's leaves (`gather_tree`, a
+differentiable tiled all_gather per sharded dim) where it uses them,
+inside the recomputed block for a stacked layer (the spec of a layer
+slice is the stacked spec without its leading dims, `drop_dims`), so
+autograd never keeps a layer's gathered weights; the gathers' backward,
+`psum_scatter`, hands each rank the summed gradient of its own shard.
+The gathers leave local the dims split over the context's
+tensor-parallel axes (`tp_axes`: the axes the rules give heads, KV heads,
+MLP and vocab, unless the batch's rows take them, as under
+`ZERO3_TRAIN_RULES`), and hand the layer the spec tree of what stays
+split (`local_specs`): each rank computes its heads, MLP columns and
+vocab rows, with the reference's GSPMD collectives written out (a `psum`
+a projection pair, the vocab's softmax statistics or, serving, the
+logits' blocks gathered).  An optical product on such shards
+(`ProductSplit`, installed by `use_product_split` around the engine's
+matmul) takes its full-scales over the ranks and its per-shot draws at
+the global operand's shape, the rank keeping its block, so the ranks
+compute the one-process product's numbers.
 
 The reference's `shard_map_compat` (a shim over the renames of jax's
 `shard_map`) has no counterpart.
@@ -148,8 +151,9 @@ class ShardingCtx:
     rules: dict[str, tuple[str, ...]]
     # global sizes of the logical dims laid out sharded on a live mesh
     sizes: dict[str, int] = dataclasses.field(default_factory=dict)
-    # a train step's: the spec tree of the (local) params the model is
-    # handed, and the mesh axes its batch rows are split over
+    # a sharded train or serve step's: the spec tree of the (local)
+    # params the model is handed, and the mesh axes its batch rows are
+    # split over
     params: Any = None
     batch_axes: tuple[str, ...] = ()
 
@@ -360,27 +364,34 @@ def gather_tree(tree, specs, mesh, skip=None, keep=None):
 
 
 def shard_tree(tree, specs, mesh, device=None):
-    """The tree of this rank's shards of whole tensors (or numpy arrays),
-    one leaf at a time: each cut by its spec (`shard_local`) into a fresh
-    tensor on `device` (default: the leaf's own), so the rank holds only
-    its shards' bytes."""
+    """The tree (dicts, tuples and lists: a cache's (k, v) pairs too) of
+    this rank's shards of whole tensors (or numpy arrays), one leaf at a
+    time: each cut by its spec (`shard_local`) into a fresh tensor on
+    `device` (default: the leaf's own), so the rank holds only its
+    shards' bytes."""
     import numpy as np
-    from repro_torch.models.module import leaves, unflatten
-    spec_of = dict(leaves(specs))
-    out = []
-    for path, t in leaves(tree):
+
+    def cut(t, spec):
         if isinstance(t, np.ndarray):
             t = torch.from_numpy(t)
-        local = shard_local(t, spec_of[path], mesh)
+        local = shard_local(t, spec, mesh)
         # a fresh tensor: a view would keep the whole leaf's storage alive
-        out.append((path, torch.empty(
-            local.shape, dtype=local.dtype,
-            device=device or local.device).copy_(local)))
-    return unflatten(out)
+        return torch.empty(local.shape, dtype=local.dtype,
+                           device=device or local.device).copy_(local)
+    return zip_tree(tree, specs, cut)
 
 
-def train_batch_axes() -> tuple[str, ...]:
-    """The mesh axes a live train context splits its batch rows over (an
+def sharded_ctx() -> ShardingCtx | None:
+    """The live context of a sharded train or serve step (its params a
+    spec tree of this rank's shards), or None."""
+    ctx = current_ctx()
+    if ctx is None or ctx.params is None or live_mesh(ctx) is None:
+        return None
+    return ctx
+
+
+def row_axes() -> tuple[str, ...]:
+    """The mesh axes a live context splits its batch rows over (an
     activation's per-tensor full-scale and a masked loss reduce over
     them); () outside one."""
     ctx = current_ctx()
@@ -389,18 +400,19 @@ def train_batch_axes() -> tuple[str, ...]:
     return ctx.batch_axes
 
 
-# the logical dims a train step splits over "model" as tensor parallelism
-# (the experts' split is the expert-parallel MoE's own)
+# the logical dims a sharded step splits over "model" as tensor
+# parallelism (the experts' split is the expert-parallel MoE's own)
 TP_NAMES = ("heads", "kv_heads", "mlp", "vocab")
 
 
-def train_model_axes() -> tuple[str, ...]:
-    """The mesh axes a live train context splits its tensor-parallel dims
-    over (`TP_NAMES`' rules, axes of size > 1); () outside one, and for
-    axes the layout splits the batch's rows over (`ZERO3_TRAIN_RULES`:
-    there the ranks compute different rows and gather whole)."""
-    ctx = current_ctx()
-    if ctx is None or ctx.params is None or live_mesh(ctx) is None:
+def tp_axes() -> tuple[str, ...]:
+    """The mesh axes a sharded step's context splits its tensor-parallel
+    dims over (`TP_NAMES`' rules, the same under `TRAIN_RULES` and
+    `SERVE_RULES`, axes of size > 1); () outside one, and for axes the
+    layout splits the batch's rows over (`ZERO3_TRAIN_RULES`: there the
+    ranks compute different rows and gather whole)."""
+    ctx = sharded_ctx()
+    if ctx is None:
         return ()
     sizes = mesh_axes(ctx.mesh)
     axes: list[str] = []
@@ -543,11 +555,11 @@ def scale_axes(operand: str, per_row: bool = False) -> tuple[str, ...]:
     spans, beyond this rank's block: for a weight ("w", per tensor) the
     ranks of the product's split; for an activation ("x") those that
     split its columns (a K split) and, for a per-tensor full-scale, a
-    train step's row shards (`train_batch_axes`)."""
+    sharded step's row shards (`row_axes`)."""
     cut = _operand_cut(operand)
     axes = cut.axes if cut is not None else ()
     if operand == "x" and not per_row:
-        axes = train_batch_axes() + axes
+        axes = row_axes() + axes
     return axes
 
 
@@ -561,7 +573,7 @@ def operand_draws(draw, shape, operand: str) -> tuple[torch.Tensor, ...]:
     local shape, ranks would repeat each other's)."""
     cut = _operand_cut(operand)
     whole = cut.whole(shape) if cut is not None else tuple(shape)
-    rows = train_batch_axes() if operand == "x" else ()
+    rows = row_axes() if operand == "x" else ()
     if rows:
         from repro_torch.distributed.runtime import axis_index
         sizes = mesh_axes(live_mesh(current_ctx()))
@@ -579,8 +591,9 @@ def operand_draws(draw, shape, operand: str) -> tuple[torch.Tensor, ...]:
 def global_gemm(m: int, k: int, n: int,
                 split: ProductSplit | None = None) -> tuple[int, int, int]:
     """The GEMM shape of the global product a rank computes a block of:
-    its rows over a train step's row shards, and the dim `split` cuts."""
-    axes = train_batch_axes()
+    its rows over a sharded step's row shards, and the dim `split`
+    cuts."""
+    axes = row_axes()
     if axes:
         sizes = mesh_axes(current_ctx().mesh)
         m *= math.prod(sizes[a] for a in axes)
@@ -627,13 +640,14 @@ def param_shardings(skel, mesh, rules: dict[str, tuple[str, ...]]):
                                             mesh))
 
 
-def _zip(tree, axes_tree, fn):
+def zip_tree(tree, axes_tree, fn):
     """`fn(leaf, axes)` at every tensor leaf of `tree` (dicts, tuples and
-    lists), its logical axes from the same place in `axes_tree`."""
+    lists), its logical axes (or spec) from the same place in
+    `axes_tree`."""
     if isinstance(tree, dict):
-        return {k: _zip(v, axes_tree[k], fn) for k, v in tree.items()}
+        return {k: zip_tree(v, axes_tree[k], fn) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_zip(t, a, fn)
+        return type(tree)(zip_tree(t, a, fn)
                           for t, a in zip(tree, axes_tree, strict=True))
     return fn(tree, axes_tree)
 
@@ -641,7 +655,7 @@ def _zip(tree, axes_tree, fn):
 def tree_shardings(shapes_tree, axes_tree, mesh,
                    rules: dict[str, tuple[str, ...]]):
     """Zip a tree of tensors with its logical-axes tree -> shardings."""
-    return _zip(shapes_tree, axes_tree, lambda t, a: NamedSharding(
+    return zip_tree(shapes_tree, axes_tree, lambda t, a: NamedSharding(
         mesh, resolve_spec(tuple(t.shape), a, rules, mesh)))
 
 
@@ -668,7 +682,7 @@ def slot_dim_specs(axes_tree, template, mesh_axes: tuple[str, ...],
     """Spec tree sharding every leaf's `name` logical dim over
     `mesh_axes`.  `template` fixes leaf ranks; `axes_tree` is the logical
     axes tree (`models.model.cache_axes` for a decode cache)."""
-    return _zip(template, axes_tree, lambda t, a: spec_on_dim(
+    return zip_tree(template, axes_tree, lambda t, a: spec_on_dim(
         t.ndim, a.index(name), mesh_axes))
 
 

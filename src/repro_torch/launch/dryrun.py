@@ -15,9 +15,12 @@ For each cell the dry run:
      `decode_step`) on global `meta` tensors under
      `torch.utils.flop_counter.FlopCounterMode`.
 
-A record holds the per-device bytes read from the DTensors' local shards
-(params, opt_state, batch with the cache, and their sum `argument_bytes`,
-the reference's `argument_size_in_bytes`), the largest leaf per device,
+A record holds the per-device bytes of the step's arguments (params,
+opt_state, batch with the cache, and their sum `argument_bytes`, the
+reference's `argument_size_in_bytes`: each leaf's shard under its spec,
+the bytes a DTensor's local shard holds; `cell_bytes` also reckons them on
+any other mesh, a cut shape and another param dtype, the bytes a rank of
+a sharded step holds), the largest leaf per device,
 and the matmul-class FLOPs of one step over the whole mesh
 (`matmul_flops_global`) beside `matmul_flops_even_split`, that count over
 the device count: an even split, not the count of a partitioned program.
@@ -42,6 +45,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
@@ -143,26 +147,34 @@ def _distribute(tree, shardings):
                               stride=tree.stride())
 
 
+def _cell_trees(arch: str, shape, mesh, overrides: dict | None = None,
+                param_dtype=torch.bfloat16) -> tuple[dict, dict]:
+    """({"params", "opt_state" (train cells), "batch"} of meta tensors,
+    their NamedSharding trees on `mesh` under the cell's rules): the step's
+    arguments, params in `param_dtype`."""
+    cfg, compress, parallelism = cell_config(arch, overrides)
+    rules = cell_rules(shape.kind, parallelism)
+    bundle = build_model(cfg)
+    params = bundle.abstract(param_dtype)
+    p_sh = param_shardings(bundle.skeleton, mesh, rules)
+    trees, shardings = {"params": params}, {"params": p_sh}
+    if shape.kind == "train":
+        trees["opt_state"] = init_opt_state(params, compress)
+        shardings["opt_state"] = opt_state_shardings(p_sh, compress)
+    batch, axes = bundle.input_specs(shape)
+    trees["batch"] = batch
+    shardings["batch"] = tree_shardings(batch, axes, mesh, rules)
+    return trees, shardings
+
+
 def cell_arguments(arch: str, shape_name: str, mesh_kind: str,
                    overrides: dict | None = None) -> dict:
     """{"params", "opt_state" (train cells), "batch"}: the step's
     arguments as meta DTensors on the production mesh, laid out by the
     cell's rules."""
-    cfg, compress, parallelism = cell_config(arch, overrides)
-    shape = ASSIGNED_SHAPES[shape_name]
-    mesh = production_mesh(mesh_kind)
-    rules = cell_rules(shape.kind, parallelism)
-    bundle = build_model(cfg)
-    params = bundle.abstract()
-    p_sh = param_shardings(bundle.skeleton, mesh, rules)
-    out = {"params": _distribute(params, p_sh)}
-    if shape.kind == "train":
-        out["opt_state"] = _distribute(init_opt_state(params, compress),
-                                       opt_state_shardings(p_sh, compress))
-    batch, axes = bundle.input_specs(shape)
-    out["batch"] = _distribute(batch, tree_shardings(batch, axes, mesh,
-                                                     rules))
-    return out
+    trees, shardings = _cell_trees(arch, ASSIGNED_SHAPES[shape_name],
+                                   production_mesh(mesh_kind), overrides)
+    return {k: _distribute(trees[k], shardings[k]) for k in trees}
 
 
 def shards(trees) -> list[tuple[str, torch.Tensor]]:
@@ -172,23 +184,33 @@ def shards(trees) -> list[tuple[str, torch.Tensor]]:
 
 
 def cell_bytes(arch: str, shape_name: str, mesh_kind: str,
-               overrides: dict | None = None) -> dict:
-    """The per-device bytes of a cell's step arguments, read from the
-    local shards of `cell_arguments`: params_bytes, opt_state_bytes,
-    batch_bytes (the cache included), argument_bytes (their sum), the
-    largest leaf per device, n_devices and n_params."""
+               overrides: dict | None = None, *, mesh=None, shape=None,
+               param_dtype=torch.bfloat16) -> dict:
+    """The per-device bytes of a cell's step arguments, each leaf's shard
+    under its spec (`cell_arguments`' local shards): params_bytes,
+    opt_state_bytes, batch_bytes (the cache included), argument_bytes
+    (their sum), the largest leaf per device, n_devices and n_params.  On
+    the production mesh of `mesh_kind`, or on `mesh` (a `MeshShape` or a
+    `DeviceMesh`: a (data, model) mesh of ranks), at the cell's shape or
+    at `shape` (a cut `ShapeSpec`), params in `param_dtype` (the dry run's
+    bfloat16; a sharded step holds float32 ones)."""
+    from repro_torch.distributed.sharding import mesh_axes
     cfg, _, _ = cell_config(arch, overrides)
-    trees = cell_arguments(arch, shape_name, mesh_kind, overrides)
+    mesh = mesh if mesh is not None else production_mesh_shape(
+        multi_pod=mesh_kind == "multi")
+    trees, shardings = _cell_trees(arch, shape or ASSIGNED_SHAPES[shape_name],
+                                   mesh, overrides, param_dtype)
     rec = {f"{part}_bytes": 0 for part in ("params", "opt_state", "batch")}
     largest = ("", -1)
-    for path, t in shards(trees):
-        n = t.numel() * t.element_size()
+    for (path, t), (_, sh) in zip(_flat(trees), _flat(shardings),
+                                  strict=True):
+        n = math.prod(sh.shard_shape(tuple(t.shape))) * t.element_size()
+        path = path.lstrip("/")
         rec[f"{path.split('/')[0]}_bytes"] += n
         largest = max(largest, (path, n), key=lambda pn: pn[1])
     rec["argument_bytes"] = sum(rec.values())
     rec["largest_leaf"], rec["largest_leaf_bytes"] = largest
-    rec["n_devices"] = production_mesh_shape(
-        multi_pod=mesh_kind == "multi").size
+    rec["n_devices"] = math.prod(mesh_axes(mesh).values())
     rec["n_params"] = build_model(cfg).n_params
     return rec
 

@@ -18,6 +18,18 @@ the mesh axes the batch does not use), so the global loss is the `psum`
 of the contributions; a leaf replicated over an axis has its gradient
 `psum`-med over it, and a tensor-parallel leaf, "model" in its spec,
 none over "model" (each rank's block is its own).
+
+Serving runs the same way across the ranks of a live mesh
+(`make_serve_step(bundle, serve_layout(bundle, mesh, shape))`), where
+the reference jits `bundle.prefill` / `bundle.decode_step` under
+`SERVE_RULES` shardings (its dry run).  Each rank holds its shards of
+the params (2-D: the embed dims over "data", heads, KV heads, MLP and
+vocab over "model"), its rows of the batch and its part of the cache
+(`ServeLayout.local_inputs`: rows over "data", KV or SSM heads over
+"model", the cache's sequence over what is left); the model gathers
+each layer's "data" dims where it uses them and computes its share of
+the heads, MLP units and vocab, and every rank returns whole logits of
+its rows.
 """
 
 from __future__ import annotations
@@ -29,10 +41,11 @@ from typing import Any
 import torch
 
 from repro_torch.distributed import compress as C
-from repro_torch.distributed.sharding import (TRAIN_RULES, mesh_axes,
-                                              param_shardings, replicated,
-                                              resolve_spec, spec_axes,
-                                              use_sharding)
+from repro_torch.distributed.sharding import (SERVE_RULES, TRAIN_RULES, P,
+                                              mesh_axes, param_shardings,
+                                              replicated, resolve_spec,
+                                              spec_axes, use_sharding,
+                                              zip_tree)
 from repro_torch.models.model import ModelBundle
 from repro_torch.models.module import init_leaves, leaves, map_tree, unflatten
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -178,7 +191,7 @@ def _check_ep_specs(cfg, ffn_specs: dict, mesh, rules) -> None:
 
 
 def init_sharded(bundle: ModelBundle, generator: torch.Generator,
-                 layout: TrainLayout, dtype=torch.float32,
+                 layout: "TrainLayout | ServeLayout", dtype=torch.float32,
                  device=None) -> dict:
     """This rank's shards of `bundle.init(generator)`: the same draws, one
     whole leaf at a time, each cut to its shard."""
@@ -246,6 +259,119 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig,
         return params, dict(opt_state, adam=inner), metrics
 
     return train_step
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """A serving step's layout on a live mesh under `rules`: the params'
+    spec tree, the cell's `shape`, the spec tree of its inputs (the batch
+    and, for a decode cell, the cache: `models.model.input_shardings`),
+    the mesh axes the batch's rows split over, and the global sizes of
+    the logical dims laid out sharded (the context's `sizes`)."""
+    mesh: Any
+    rules: dict
+    specs: dict
+    shape: Any
+    inputs: dict
+    batch_axes: tuple[str, ...]
+    sizes: dict
+
+    def local_inputs(self, batch: dict, device=None) -> dict:
+        """This rank's shards of a global batch (and cache), each leaf
+        cut by its spec into a fresh tensor."""
+        from repro_torch.distributed.sharding import shard_tree
+        return shard_tree(batch, self.inputs, self.mesh, device)
+
+    def whole_sequence(self, batch: dict) -> dict:
+        """A prefill batch with every dim but the rows gathered whole (a
+        prompt of one row lays its sequence over "data", `act_seq`; the
+        reference's model gathers it on entry)."""
+        from repro_torch.distributed.sharding import gather
+
+        def whole(t, spec):
+            return gather(t, P(None, *spec[1:]), self.mesh) \
+                if spec_axes(P(*spec[1:])) else t
+        return zip_tree(batch, self.inputs, whole)
+
+    def cache_from_prefill(self, cfg, cache: dict) -> dict:
+        """This decode layout's part of the cache a prefill on the same
+        rows left on this rank (its KV or SSM heads, every position):
+        grown to the layout's length (`models.model.pad_cache`) and cut
+        to the rank's slice of a sequence-sharded cache."""
+        from repro_torch.distributed.sharding import shard_tree
+        from repro_torch.models.model import (cache_axes, cache_len,
+                                              make_inputs, pad_cache)
+        n = cache_len(cfg, cache)
+        if n is not None:
+            cache = pad_cache(cfg, cache, self.shape.seq_len - n)
+        seq_only = zip_tree(
+            make_inputs(cfg, self.shape)[0]["cache"], cache_axes(cfg),
+            lambda t, a: P(*(p if a[i] == "cache_seq" else None
+                             for i, p in enumerate(resolve_spec(
+                                 tuple(t.shape), a, self.rules,
+                                 self.mesh)))))
+        return shard_tree(cache, seq_only, self.mesh)
+
+
+def serve_layout(bundle: ModelBundle, mesh, shape,
+                 rules: dict = SERVE_RULES) -> ServeLayout:
+    """The reference's layout of a serving cell (`models.model.ShapeSpec`,
+    prefill or decode) on `mesh`: `param_shardings` of the skeleton and
+    `input_shardings` of the cell's inputs under `rules`.  Refused, naming
+    the dim: a family other than dense and ssm (moe, mla_moe, hybrid and
+    encdec are not served across ranks yet); a global batch of more than
+    one row that does not divide over the batch rule's mesh axes (one row
+    is whole on every rank, as the reference lays out long_500k); SSM
+    heads whose share on a rank straddles their B / C groups."""
+    from repro_torch.models.model import input_shardings
+    from repro_torch.models.transformer import check_served
+    cfg = bundle.cfg
+    check_served(cfg)
+    sizes = mesh_axes(mesh)
+    b = shape.global_batch
+    rows = "batch" if shape.kind == "prefill" else "cache_batch"
+    want = tuple(a for a in rules.get(rows, ()) if a in sizes
+                 and sizes[a] > 1)
+    got = spec_axes(resolve_spec((b,), (rows,), rules, mesh))
+    if b > 1 and got != want:
+        n = math.prod(sizes[a] for a in want)
+        raise ValueError(f"{rows}: global batch {b} does not divide over "
+                         f"the {n} ranks of {want}")
+    if cfg.ssm is not None:
+        h, g = cfg.ssm.n_heads, cfg.ssm.n_groups
+        m = math.prod(sizes[a] for a in spec_axes(
+            resolve_spec((h,), ("heads",), rules, mesh)))
+        per, local = h // g, h // m
+        if local % per and per % local:
+            raise ValueError(f"heads: {local} SSM heads a rank straddle the "
+                             f"groups of {per} heads")
+    specs = map_tree(lambda sh: sh.spec,
+                     param_shardings(bundle.skeleton, mesh, rules))
+    ctx_sizes = {"batch": b, "cache_batch": b}
+    if shape.kind != "prefill" and cfg.family == "dense":
+        ctx_sizes.update(cache_seq=shape.seq_len, kv_heads=cfg.n_kv_heads)
+    return ServeLayout(mesh, rules, specs, shape,
+                       input_shardings(cfg, shape, mesh, rules), got,
+                       ctx_sizes)
+
+
+def make_serve_step(bundle: ModelBundle, layout: ServeLayout):
+    """-> step(params, batch) -> (logits (rows, V), cache): the cell's
+    `bundle.prefill` or `bundle.decode_step` on this rank's param shards
+    and inputs (`layout.local_inputs`) under the layout's live context:
+    whole logits of the rank's rows, its part of the cache (a prefill's:
+    its rows and KV or SSM heads, every position; a decode step's written
+    in place)."""
+    prefill = layout.shape.kind == "prefill"
+    fn = bundle.prefill if prefill else bundle.decode_step
+
+    def step(params, batch):
+        with use_sharding(layout.mesh, layout.rules, layout.sizes,
+                          params=layout.specs, batch_axes=layout.batch_axes):
+            if prefill:
+                batch = layout.whole_sequence(batch)
+            return fn(params, batch)
+    return step
 
 
 def init_opt_state(params, grad_compress: bool = False) -> dict:

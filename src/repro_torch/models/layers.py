@@ -179,17 +179,15 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int,
-               heads: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, S, KV, D) -> (B, S, H, D) by repeating each kv head; with
-    `heads`, the global indices of the query heads a rank holds (its KV
+               heads: torch.Tensor | None) -> torch.Tensor:
+    """The KV heads (B, S, KV, D) as a rank's query heads read them:
+    with `heads`, the global indices of the query heads it holds (its KV
     heads whole: they do not split over its ranks), (B, S, len(heads), D),
-    each head's KV head of the global `n_heads` grouping."""
-    n_kv = k.shape[-2]
-    if heads is not None:
-        return k.index_select(-2, heads // (n_heads // n_kv))
-    if n_kv == n_heads:
+    each head's KV head of the global `n_heads` grouping; without, k as it
+    is (`attention_core` pairs each KV head with its query heads)."""
+    if heads is None:
         return k
-    return torch.repeat_interleave(k, n_heads // n_kv, dim=-2)
+    return k.index_select(-2, heads // (n_heads // k.shape[-2]))
 
 
 def _head_split(p: dict, tp, x: torch.Tensor):
@@ -225,15 +223,39 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return torch.where(ok, 0.0, NEG_INF).float()
 
 
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q (B, Sq, H, D) against k (B, Sk, KV, D), each KV head serving its
+    group of H / KV query heads in place (the products of repeated KV
+    heads without their (B, Sk, H, D) copies: a decode's whole cache in
+    the query dtype at 32768 positions and 64 heads is 34 GB a leaf at 32
+    rows): the scaled float32 scores (B, H, Sq, Sk)."""
+    b, c, h, d = q.shape
+    kv = k.shape[2]
+    if h % kv:
+        raise ValueError(f"{h} query heads cannot pair with {kv} KV heads")
+    s = torch.einsum("bckgd,bskd->bkgcs", q.reshape(b, c, kv, h // kv, d),
+                     k.to(q.dtype))
+    return s.reshape(b, h, c, -1).float() * d ** -0.5
+
+
+def _grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Weights (B, H, Sq, Sk) against v (B, Sk, KV, D), grouped as
+    `_grouped_scores`: (B, Sq, H, D) in the weights' dtype."""
+    b, h, c, s = probs.shape
+    kv, d = v.shape[2:]
+    o = torch.einsum("bkgcs,bskd->bckgd",
+                     probs.reshape(b, kv, h // kv, c, s), v.to(probs.dtype))
+    return o.reshape(b, c, h, d)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, H, D); bias: (B or 1, Sq, Sk).
-    A bfloat16 cache promotes to the query dtype, as in the reference."""
-    scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k.to(q.dtype))
-    scores = scores.float() * scale + bias[:, None, :, :]
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D), KV dividing H, each KV
+    head serving its group of query heads; bias: (B or 1, Sq, Sk).  A
+    bfloat16 cache promotes to the query dtype, as in the reference."""
+    scores = _grouped_scores(q, k) + bias[:, None, :, :]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+    return _grouped_values(probs, v)
 
 
 def attn_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -263,16 +285,20 @@ def attn_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
         k = rope(k, positions, theta)
         k_pos = positions
     bias = _mask_bias(positions, k_pos, cfg.causal and not cfg.cross, window)
-    n = cfg.n_heads if heads is not None else q.shape[-2]
-    o = attention_core(q, _repeat_kv(k, n, heads),
-                       _repeat_kv(v, n, heads), bias)
+    o = attention_core(q, _repeat_kv(k, cfg.n_heads, heads),
+                       _repeat_kv(v, cfg.n_heads, heads), bias)
     return _psum(torch.einsum("bshk,hkd->bsd", o, p["wo"]), axes)
 
 
 def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
-                 positions: torch.Tensor, *, window=0, theta=None):
-    """Full-prompt attention; also returns the (k, v) cache."""
+                 positions: torch.Tensor, *, window=0, theta=None,
+                 tp: dict | None = None):
+    """Full-prompt attention; also returns the (k, v) cache.  `tp`, the
+    local specs of `p` on a tensor-parallel rank (as `attn_apply`): the
+    cache is that of its KV heads (every KV head where they do not
+    split)."""
     theta = cfg.rope_theta if theta is None else theta
+    axes, heads = _head_split(p, tp, x)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -282,9 +308,9 @@ def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
     bias = _mask_bias(positions, positions, cfg.causal, window)
-    o = attention_core(q, _repeat_kv(k, cfg.n_heads),
-                       _repeat_kv(v, cfg.n_heads), bias)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+    o = attention_core(q, _repeat_kv(k, cfg.n_heads, heads),
+                       _repeat_kv(v, cfg.n_heads, heads), bias)
+    return _psum(torch.einsum("bshk,hkd->bsd", o, p["wo"]), axes), (k, v)
 
 
 KV_AXES = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
@@ -318,10 +344,13 @@ def flash_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     Each rank takes its slice's partial max, sum of exponentials and
     value sum, at the slice's global key positions; `pmax` / `psum` over
     the sequence axes combine them, moving only (B, H) statistics and the
-    (B, 1, H, D) partial output.  q: (B, 1, H, D), whole on every rank;
-    kc / vc: (B, S_local, KV, D), this rank's slice; pos: (B,).  Returns
-    None without a live context or when the cache's sequence is not
-    sharded (the caller then attends over its whole cache)."""
+    (B, 1, H, D) partial output.  q: (B, 1, H, D), every head on every
+    rank (`n_heads` = H: the ranks of a sequence-sharded cache hold every
+    KV head of their slice, and a rank that computes only some heads
+    gathers the others' queries first, `attn_decode`); kc / vc: (B,
+    S_local, KV, D), this rank's slice; pos: (B,).  Returns None without a
+    live context or when the cache's sequence is not sharded (the caller
+    then attends over its whole cache)."""
     from repro_torch.distributed import runtime
     shard = seq_shard(kc)
     if shard is None:
@@ -333,32 +362,33 @@ def flash_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         .expand(b, s_loc)
     bias = _mask_bias(pos[:, None], k_pos, True, window,
                       k_len_valid=(pos + 1)[:, None])
-    # each KV head serves its group of query heads in place: the grouped
-    # products are _repeat_kv's, without an (S, H, D) copy of the slice
-    kv, d = kc.shape[2:]
-    qg = q.reshape(b, 1, kv, n_heads // kv, d)
-    scale = d ** -0.5
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.to(q.dtype)).reshape(
-        b, n_heads, 1, s_loc).float() * scale + bias[:, None]
+    if q.shape[2] != n_heads:
+        raise ValueError(f"flash_decode: {q.shape[2]} query heads, "
+                         f"n_heads {n_heads}")
+    s = _grouped_scores(q, kc) + bias[:, None]
     m = runtime.pmax(torch.amax(s, dim=-1), axes)            # (B, H, 1)
     p_ = torch.exp(s - m[..., None])
     denom = runtime.psum(torch.sum(p_, -1), axes)
-    o = torch.einsum("bkgqs,bskd->bqkgd",
-                     p_.to(q.dtype).reshape(b, kv, n_heads // kv, 1, s_loc),
-                     vc.to(q.dtype)).reshape(b, 1, n_heads, d)
-    o = runtime.psum(o, axes)
+    o = runtime.psum(_grouped_values(p_.to(q.dtype), vc), axes)
     return o / denom.transpose(1, 2)[..., None].to(o.dtype)
 
 
 def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,
                 pos: torch.Tensor, *, window=0, theta=None,
-                memory_pos: torch.Tensor | None = None):
+                memory_pos: torch.Tensor | None = None,
+                tp: dict | None = None):
     """Cached decode. x: (B, C, D); cache: (k, v) each (B, S, KV, D);
     pos: (B,) first position of the chunk (C == 1: one token; C > 1: a
     prefill chunk).  Returns (out, cache), the cache written in place.
     A cross attention reads its static (k, v) memory cache against
-    `memory_pos` (B, Sm) and returns the cache unchanged."""
+    `memory_pos` (B, Sm) and returns the cache unchanged.  `tp`, the
+    local specs of `p` on a tensor-parallel rank (as `attn_apply`): the
+    cache holds its KV heads or, where they do not split, every KV head
+    (of its slice, on a sequence-sharded cache: there `flash_decode`
+    attends with every rank's query heads, gathered, and the rank keeps
+    its heads' output)."""
     theta = cfg.rope_theta if theta is None else theta
+    axes, heads = _head_split(p, tp, x)
     b, c = x.shape[:2]
     q_pos = pos[:, None] + torch.arange(c, device=x.device)[None, :]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -367,9 +397,9 @@ def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,
     if cfg.cross:
         k_full, v_full = cache
         bias = _mask_bias(q_pos, memory_pos, False, 0)
-        o = attention_core(q, _repeat_kv(k_full, cfg.n_heads),
-                           _repeat_kv(v_full, cfg.n_heads), bias)
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+        o = attention_core(q, _repeat_kv(k_full, cfg.n_heads, heads),
+                           _repeat_kv(v_full, cfg.n_heads, heads), bias)
+        return _psum(torch.einsum("bshk,hkd->bsd", o, p["wo"]), axes), cache
     q = rope(q, q_pos, theta)
     k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -385,19 +415,29 @@ def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,
             raise NotImplementedError(
                 "a prefill chunk on a sequence-sharded KV cache: "
                 "flash_decode covers the one-token decode step")
+        if axes and heads is None:
+            raise ValueError("a sequence-sharded KV cache whose KV heads "
+                             f"split over {axes}")
         cache_write(kc, k_new, pos, cfg.uniform_decode, offset=shard[1])
         cache_write(vc, v_new, pos, cfg.uniform_decode, offset=shard[1])
-        o = flash_decode(q, kc, vc, pos, window, cfg.n_heads)
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (kc, vc)
+        if not axes:
+            o = flash_decode(q, kc, vc, pos, window, q.shape[2])
+        else:
+            from repro_torch.distributed import runtime as rt
+            qa = rt.all_gather(q, axes, axis=2, tiled=True)
+            o = flash_decode(qa, kc, vc, pos, window, qa.shape[2]).narrow(
+                2, rt.axis_index(axes) * q.shape[2], q.shape[2])
+        return _psum(torch.einsum("bshk,hkd->bsd", o, p["wo"]), axes), \
+            (kc, vc)
     kc = cache_write(kc, k_new, pos, cfg.uniform_decode)
     vc = cache_write(vc, v_new, pos, cfg.uniform_decode)
     s = kc.shape[1]
     k_pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
     bias = _mask_bias(q_pos, k_pos, True, window,
                       k_len_valid=(pos + c)[:, None])
-    o = attention_core(q, _repeat_kv(kc, cfg.n_heads),
-                       _repeat_kv(vc, cfg.n_heads), bias)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (kc, vc)
+    o = attention_core(q, _repeat_kv(kc, cfg.n_heads, heads),
+                       _repeat_kv(vc, cfg.n_heads, heads), bias)
+    return _psum(torch.einsum("bshk,hkd->bsd", o, p["wo"]), axes), (kc, vc)
 
 
 # ---------------------------------------------------------------------------
@@ -497,7 +537,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """Mean next-token cross entropy in float32; logits (B, S, V), labels
     (B, S).  With a mask, the masked mean over max(sum(mask), 1); under
-    a live train context whose rows are split over ranks both sums are
+    a live sharded context whose rows are split over ranks both sums are
     `psum`-med over them (every rank's value is the global batch's).
     With `vocab_axes` the logits are a tensor-parallel rank's block of
     the vocab (`_split_nll`)."""
@@ -512,8 +552,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         return torch.mean(nll)
     mask = mask.float()
     num, den = torch.sum(nll * mask), torch.sum(mask)
-    from repro_torch.distributed.sharding import train_batch_axes
-    axes = train_batch_axes()
+    from repro_torch.distributed.sharding import row_axes
+    axes = row_axes()
     if axes:
         # rows split over ranks: the masked mean of the global batch
         from repro_torch.distributed import runtime as rt

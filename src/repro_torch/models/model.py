@@ -11,7 +11,10 @@ A `ModelBundle` exposes functions over plain dicts of tensors:
 
 plus `cache_axes` and the slot API of continuous-batching serving
 (`write_slot`, `evict_slot`, `read_slot`, `pad_cache`, each driven by the
-cache's logical axes), and `params_from_reference` /
+cache's logical axes), `input_shardings`, the specs that lay a concrete
+batch and cache out on a rank under the rules (cut by
+`distributed.sharding.shard_tree`, as the weights are), and
+`params_from_reference` /
 `opt_state_from_reference`, which carry the reference's numbers across
 (with `robust.variation.from_reference` for a chip), so the two packages
 can compute on identical weights, optimizer state and chip.
@@ -145,6 +148,17 @@ def make_inputs(cfg: ModelConfig, shape: ShapeSpec, concrete: bool = False,
     axes = {"token": ("cache_batch",), "pos": ("cache_batch",),
             "cache": cache_axes(cfg)}
     return batch, axes
+
+
+def input_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh, rules: dict):
+    """The spec tree of `make_inputs(cfg, shape)` (the batch and, for a
+    decode cell, its cache) under `rules` on `mesh` (a `MeshShape` or a
+    `DeviceMesh`), in the batch's structure: each leaf's logical axes
+    resolved on its global shape, as the reference's `tree_shardings`."""
+    from repro_torch.distributed.sharding import resolve_spec, zip_tree
+    batch, axes = make_inputs(cfg, shape)
+    return zip_tree(batch, axes, lambda t, a: resolve_spec(
+        tuple(t.shape), a, rules, mesh))
 
 
 @dataclasses.dataclass
@@ -295,6 +309,15 @@ def read_slot(cfg: ModelConfig, cache, slot: int) -> dict:
     return _unflatten(cache, iter(
         [c.narrow(a.index("cache_batch"), slot, 1).clone()
          for c, a in _leaves(cfg, cache)]))
+
+
+def cache_len(cfg: ModelConfig, cache) -> int | None:
+    """The positions the cache's "cache_seq" axes hold (None for a cache
+    without one: an ssm state)."""
+    for c, a in _leaves(cfg, cache):
+        if "cache_seq" in a:
+            return c.shape[a.index("cache_seq")]
+    return None
 
 
 def pad_cache(cfg: ModelConfig, cache, extra: int) -> dict:

@@ -214,9 +214,15 @@ def _conv_step(cache: torch.Tensor, xt: torch.Tensor, w: torch.Tensor):
     return F.silu(y), hist[:, 1:]
 
 
-def ssm_decode(p: dict, cfg: SSMConfig, u: torch.Tensor, cache: dict):
+def ssm_decode(p: dict, cfg: SSMConfig, u: torch.Tensor, cache: dict,
+               tp: dict | None = None):
     """u: (B, 1, D); cache from ssm_cache_def.  Returns (y (B, 1, D), new
-    cache); the given cache is not modified."""
+    cache); the given cache is not modified.  `tp`, the local specs of
+    `p` on a tensor-parallel rank (as `ssm_forward`): the cache's
+    `conv_x` and `state` hold its heads, each reading its group of B / C,
+    and the gate norm's statistics and `w_out`'s partial output are
+    summed over the ranks."""
+    axes = _head_axes(tp)
     rep = cfg.n_heads // cfg.n_groups
     ut = u[:, 0]
     x_in = torch.einsum("bd,dhp->bhp", ut, p["w_x"])
@@ -229,12 +235,18 @@ def ssm_decode(p: dict, cfg: SSMConfig, u: torch.Tensor, cache: dict):
     b, cb = _conv_step(cache["conv_b"], b_in, p["conv_b"])
     c, cc = _conv_step(cache["conv_c"], c_in, p["conv_c"])
 
-    b = torch.repeat_interleave(b, rep, dim=1).float()         # (B, H, S)
-    c = torch.repeat_interleave(c, rep, dim=1).float()
+    # this rank's heads (global first .. first + H_local; all of them
+    # unsplit) and the group each reads: b, c (B, H_local, S)
+    h_local, first = x.shape[1], 0
+    if axes:
+        from repro_torch.distributed import runtime as rt
+        first = rt.axis_index(axes) * h_local
+    grp = torch.arange(first, first + h_local, device=b.device) // rep
+    b, c = b.index_select(1, grp).float(), c.index_select(1, grp).float()
     a = torch.exp(loga)                                        # (B, H)
     x32 = x.float() * dt[..., None]
     s = (a[:, :, None, None] * cache["state"]
          + torch.einsum("bhs,bhp->bhsp", b, x32))
     y = torch.einsum("bhs,bhsp->bhp", c, s)
-    out = _gate_out(p, y, x, z, u.dtype)[:, None]
+    out = _gate_out(p, y, x, z, u.dtype, axes, cfg.d_inner)[:, None]
     return out, {"conv_x": cx, "conv_b": cb, "conv_c": cc, "state": s}

@@ -22,15 +22,26 @@ to `forward` / `train_loss`, and a stacked layer's (or zamba2 group's)
 leaves inside its recomputed body, on the local slice `layer_at` hands
 in, so the recomputation gathers again and autograd never keeps a
 layer's gathered weights.  The gathers leave the tensor-parallel dims
-local (`distributed.sharding.train_model_axes`: "model", unless the
-batch's rows take it) and hand each block the local specs of what stays
-split, so a rank computes its attention heads (and KV heads, or the KV
-heads its heads read), its MLP units (plain or optical), its SSM heads
-and its vocab rows, with a `psum` a projection pair and the vocab's
-softmax statistics summed, as the reference's GSPMD partitions its step.
+local (`distributed.sharding.tp_axes`: "model", unless the batch's rows
+take it) and hand each block the local specs of what stays split, so a
+rank computes its attention heads (and KV heads, or the KV heads its
+heads read), its MLP units (plain or optical), its SSM heads and its
+vocab rows, with a `psum` a projection pair and the vocab's softmax
+statistics summed, as the reference's GSPMD partitions its step.
 An expert-parallel MoE FFN's expert weights stay split over "model"
 (`moe_ep_local` gathers their FSDP dims itself); without `moe_ep` the
 routed experts are gathered whole and the shared experts split.
+
+Under a live serve context (`launch.steps.make_serve_step`, the
+`SERVE_RULES` layout) `prefill`, `decode_step` and `chunk_step` of the
+dense and ssm families take the same route without recomputation: the
+top-level leaves gathered on entry, each layer's leaves before its
+block, each rank computing its heads, MLP units, SSM heads and vocab
+rows on its rows of the batch and its part of the cache (its KV heads,
+or every KV head of its slice of a sequence-sharded cache, which
+`flash_decode` attends over with the query heads gathered); the logits'
+vocab blocks are gathered, so every rank returns whole (B, V) logits of
+its rows.  Under sharded params the other families raise.
 
 zamba2 (`hybrid`) stacks its Mamba-2 layers as `groups` (n_groups,
 shared_every, ...) plus an unstacked remainder `tail`, and applies ONE
@@ -151,26 +162,17 @@ def _is_stacked(path: tuple) -> bool:
     return path[0] in _STACKED or path[:2] == ("encoder", "layers")
 
 
-def _train_ctx():
-    """The live train context whose params are sharded, or None."""
-    from repro_torch.distributed.sharding import current_ctx, live_mesh
-    ctx = current_ctx()
-    if ctx is None or ctx.params is None or live_mesh(ctx) is None:
-        return None
-    return ctx
-
-
 def gather_top(params):
-    """Under a live train context: the top-level leaves gathered but for
-    their tensor-parallel dims (the stacked subtrees left local), and the
-    local specs of what stays split (`sharding.local_specs`); otherwise
-    (params, None)."""
-    ctx = _train_ctx()
+    """Under a live sharded context (`sharding.sharded_ctx`): the
+    top-level leaves gathered but for their tensor-parallel dims (the
+    stacked subtrees left local), and the local specs of what stays split
+    (`sharding.local_specs`); otherwise (params, None)."""
+    from repro_torch.distributed.sharding import (gather_tree, local_specs,
+                                                  sharded_ctx, tp_axes)
+    ctx = sharded_ctx()
     if ctx is None:
         return params, None
-    from repro_torch.distributed.sharding import (gather_tree, local_specs,
-                                                  train_model_axes)
-    axes = train_model_axes()
+    axes = tp_axes()
 
     def keep(path) -> tuple[str, ...]:
         return axes
@@ -179,26 +181,26 @@ def gather_top(params):
 
 
 def gather_layer(p, cfg: ModelConfig, *keys: str):
-    """Under a live train context: the slice `p` of the stacked subtree
+    """Under a live sharded context: the slice `p` of the stacked subtree
     `keys` (one layer, or one zamba2 group) gathered but for its
     tensor-parallel dims and an expert-parallel MoE FFN's expert weights
     (which `moe_ep_local` takes as they are), with the local specs of
     what stays split; otherwise (p, None).  A MoE FFN's routed experts
     split over "model" by their experts dim, not a tensor-parallel one:
     without `moe_ep` they are gathered whole."""
-    ctx = _train_ctx()
+    from repro_torch.distributed.sharding import (drop_dims, gather_tree,
+                                                  local_specs, sharded_ctx,
+                                                  tp_axes)
+    ctx = sharded_ctx()
     if ctx is None:
         return p, None
-    from repro_torch.distributed.sharding import (drop_dims, gather_tree,
-                                                  local_specs,
-                                                  train_model_axes)
     specs = ctx.params
     for k in keys:
         specs = specs[k]
     specs = drop_dims(specs, 1)
     moe = cfg.moe is not None
     ep = moe and cfg.moe_ep
-    axes = train_model_axes()
+    axes = tp_axes()
 
     def ffn(path, names) -> bool:
         return path[-2:-1] == ("ffn",) and path[-1] in names
@@ -211,10 +213,26 @@ def gather_layer(p, cfg: ModelConfig, *keys: str):
 
 
 def _sub(tp, *keys):
-    """The local specs of a subtree (None without a train context)."""
+    """The local specs of a subtree (None without a sharded context)."""
     for k in keys:
         tp = None if tp is None else tp[k]
     return tp
+
+
+SERVED_FAMILIES = ("dense", "ssm")
+
+
+def check_served(cfg: ModelConfig, tp: Any = True) -> None:
+    """Serving across ranks (a rank's local specs `tp`; None: one process,
+    nothing to check) covers the dense and ssm families with no MoE, no
+    MLA and no leading dense layers; the others raise rather than run
+    whole."""
+    if tp is not None and (cfg.family not in SERVED_FAMILIES
+                           or cfg.moe is not None or cfg.mla is not None
+                           or cfg.first_dense_ff):
+        raise NotImplementedError(
+            f"{cfg.name}: serving across ranks covers the "
+            f"{' and '.join(SERVED_FAMILIES)} families, not {cfg.family!r}")
 
 
 def _vocab_axes(tp, cfg: ModelConfig) -> tuple[str, ...]:
@@ -316,33 +334,38 @@ def _block_def(cfg: ModelConfig, cross: bool = False) -> dict:
     return p
 
 
-def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step):
+def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step,
+                   tp=None):
+    """A whole-prompt block and its cache; `tp`, the local specs of `p`
+    on a tensor-parallel rank (its cache that of its KV or SSM heads)."""
     if "ssm" in p:
-        return _ssm_layer_prefill(p, cfg, x)
+        return _ssm_layer_prefill(p, cfg, x, tp)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.family == "mla_moe":
         a, cache = MLA.mla_prefill(p["attn"], cfg.mla, h, positions)
     else:
         a, cache = L.attn_prefill(p["attn"], cfg.attn, h, positions,
-                                  window=meta["window"], theta=meta["theta"])
+                                  window=meta["window"], theta=meta["theta"],
+                                  tp=_sub(tp, "attn"))
         cache = tuple(c.to(cfg.cache_dtype) for c in cache)
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + _ffn_apply(p["ffn"], cfg, h, step), cache
+    return x + _ffn_apply(p["ffn"], cfg, h, step, _sub(tp, "ffn")), cache
 
 
 def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step,
-                  memory_pos=None) -> torch.Tensor:
+                  memory_pos=None, tp=None) -> torch.Tensor:
     """One attention block on a chunk of C >= 1 tokens; its cache (with
     a cross attention {"self": (k, v), "cross": (k, v)}) is written in
-    place."""
+    place.  `tp`, the local specs of `p` on a tensor-parallel rank."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.family == "mla_moe":
         a, _ = MLA.mla_decode(p["attn"], cfg.mla, h, cache, pos)
     else:
         a, _ = L.attn_decode(p["attn"], cfg.attn, h,
                              cache["self"] if "cross" in p else cache, pos,
-                             window=meta["window"], theta=meta["theta"])
+                             window=meta["window"], theta=meta["theta"],
+                             tp=_sub(tp, "attn"))
     x = x + a
     if "cross" in p:
         h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
@@ -350,28 +373,30 @@ def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step,
                              pos, memory_pos=memory_pos)
         x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + _ffn_apply(p["ffn"], cfg, h, step)
+    return x + _ffn_apply(p["ffn"], cfg, h, step, _sub(tp, "ffn"))
 
 
-def _ssm_step(p: dict, cfg: ModelConfig, x, cache: dict) -> torch.Tensor:
+def _ssm_step(p: dict, cfg: ModelConfig, x, cache: dict,
+              tp=None) -> torch.Tensor:
     """One ssm block's decode token; `cache` (views into the stacked
-    cache) is advanced in place."""
+    cache, a tensor-parallel rank's heads) is advanced in place."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, new = SSM.ssm_decode(p["ssm"], cfg.ssm, h, cache)
+    y, new = SSM.ssm_decode(p["ssm"], cfg.ssm, h, cache, _sub(tp, "ssm"))
     for k, t in new.items():
         cache[k].copy_(t)
     return x + y
 
 
-def _ssm_layer_prefill(p: dict, cfg: ModelConfig, x):
+def _ssm_layer_prefill(p: dict, cfg: ModelConfig, x, tp=None):
     """A whole-sequence ssm block: full-sequence scan plus the final state
-    for the decode cache."""
+    for the decode cache (of a tensor-parallel rank's heads)."""
     y, cache = _ssm_prefill(p["ssm"], cfg.ssm,
-                            L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+                            L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            _sub(tp, "ssm"))
     return x + y, cache
 
 
-def _ssm_prefill(p: dict, scfg: SSM.SSMConfig, u: torch.Tensor):
+def _ssm_prefill(p: dict, scfg: SSM.SSMConfig, u: torch.Tensor, tp=None):
     """Like ssm_apply, but also returns the decode cache: the last d_conv-1
     pre-conv inputs and the final scan state.
 
@@ -379,7 +404,7 @@ def _ssm_prefill(p: dict, scfg: SSM.SSMConfig, u: torch.Tensor):
     left-padded with zeros, the history `_causal_conv`'s own zero padding
     assumes, so the cache always has the shape of `ssm_cache_def`.  (The
     reference keeps the short rows, which no slot cache can take.)"""
-    out, state, pre = SSM.ssm_forward(p, scfg, u)
+    out, state, pre = SSM.ssm_forward(p, scfg, u, tp)
     k = scfg.d_conv - 1
     conv = [torch.nn.functional.pad(
         t[:, -k:], (0, 0) * (t.ndim - 2) + (max(k - t.shape[1], 0), 0))
@@ -489,10 +514,21 @@ def model_def(cfg: ModelConfig) -> dict:
     return skel
 
 
-def logits_of(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def logits_of(params, cfg: ModelConfig, x: torch.Tensor,
+              vocab_axes: tuple[str, ...] = ()) -> torch.Tensor:
+    """The logits of the table (the embedding when tied).  On a
+    tensor-parallel rank the table is its block of the vocab, and so are
+    the logits; with `vocab_axes`, the mesh axes those blocks split over,
+    they are gathered whole (the reference lays them out split over
+    "vocab": the same numbers)."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return L.unembed_apply(params["unembed"], x)
+        out = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    else:
+        out = L.unembed_apply(params["unembed"], x)
+    if not vocab_axes:
+        return out
+    from repro_torch.distributed import runtime as rt
+    return rt.all_gather(out, vocab_axes, axis=-1, tiled=True)
 
 
 def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -611,19 +647,29 @@ def _embed_in(params, cfg: ModelConfig, batch: dict, tp=None):
     the embedding dtype ahead of it) and positions (B, S) over the whole
     sequence; `tp`, the top-level local specs on a tensor-parallel rank
     (its vocab rows)."""
-    from repro_torch.distributed.sharding import split_axes
-    x = L.embed_apply(params["embed"], batch["tokens"],
-                      split_axes(_sub(tp, "embed")))
+    x = _embed_tokens(params, tp, batch["tokens"])
     if cfg.frontend == "vision":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     return x, _positions(*x.shape[:2], x.device)
 
 
+def _embed_tokens(params, tp, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings; `tp`, the top-level local specs on a
+    tensor-parallel rank (its vocab rows of the table)."""
+    from repro_torch.distributed.sharding import split_axes
+    return L.embed_apply(params["embed"], tokens,
+                         split_axes(_sub(tp, "embed")))
+
+
 def prefill(params, cfg: ModelConfig, batch: dict):
     """Run the prompt, return (last-token logits (B, V), cache).  encdec
-    takes the encoder's input as `batch["src_embeds"]` (B, Sm, D)."""
+    takes the encoder's input as `batch["src_embeds"]` (B, Sm, D).  Under
+    a live serve context: this rank's rows, its cache of its KV (or SSM)
+    heads, the logits whole over the vocab."""
     check_family(cfg)
-    x, positions = _embed_in(params, cfg, batch)
+    params, tp = gather_top(params)
+    check_served(cfg, tp)
+    x, positions = _embed_in(params, cfg, batch, tp)
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, cfg, x, positions)
     elif cfg.family == "encdec":
@@ -631,7 +677,7 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     else:
         x, cache = _stack_prefill(params, cfg, x, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_of(params, cfg, x[:, -1:])[:, 0]
+    logits = logits_of(params, cfg, x[:, -1:], _vocab_axes(tp, cfg))[:, 0]
     b, s = x.shape[:2]
     cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return logits, cache
@@ -646,8 +692,9 @@ def _stack_prefill(params, cfg: ModelConfig, x, positions):
         off = 1
     caches = []
     for i in range(n_stacked(cfg)):
-        x, c = _block_prefill(layer_at(params["layers"], i), cfg, x,
-                              positions, layer_meta(cfg, i + off), i + off)
+        p, tp = gather_layer(layer_at(params["layers"], i), cfg, "layers")
+        x, c = _block_prefill(p, cfg, x, positions, layer_meta(cfg, i + off),
+                              i + off, tp)
         caches.append(c)
     cache["layers"] = (_stack(caches) if cfg.family == "ssm"
                        else _stack_pairs(caches))
@@ -740,8 +787,9 @@ def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
     1 but for the attention families' prefill chunks), caches in place."""
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            x = _ssm_step(layer_at(params["layers"], i), cfg, x,
-                          layer_at(cache["layers"], i))
+            p, tp = gather_layer(layer_at(params["layers"], i), cfg,
+                                 "layers")
+            x = _ssm_step(p, cfg, x, layer_at(cache["layers"], i), tp)
         return x
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, x, pos, cache)
@@ -764,8 +812,9 @@ def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
         off = 1
     kc, vc = cache["layers"]          # (k, v), or MLA's (c_kv, k_rope)
     for i in range(n_stacked(cfg)):
-        x = _block_decode(layer_at(params["layers"], i), cfg, x, pos,
-                          layer_meta(cfg, i + off), (kc[i], vc[i]), i + off)
+        p, tp = gather_layer(layer_at(params["layers"], i), cfg, "layers")
+        x = _block_decode(p, cfg, x, pos, layer_meta(cfg, i + off),
+                          (kc[i], vc[i]), i + off, tp=tp)
     return x
 
 
@@ -792,13 +841,17 @@ def _hybrid_decode(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
 
 def decode_step(params, cfg: ModelConfig, batch: dict):
     """One token per row: batch = {token (B,), pos (B,), cache}.
-    Returns (logits (B, V), cache) with the cache advanced in place."""
+    Returns (logits (B, V), cache) with the cache advanced in place.
+    Under a live serve context: this rank's rows and part of the cache,
+    the logits whole over the vocab."""
     check_family(cfg)
+    params, tp = gather_top(params)
+    check_served(cfg, tp)
     token, pos, cache = batch["token"], batch["pos"], batch["cache"]
-    x = L.embed_apply(params["embed"], token[:, None])
+    x = _embed_tokens(params, tp, token[:, None])
     x = _decode_layers(params, cfg, x, pos, cache)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_of(params, cfg, x)[:, 0]
+    logits = logits_of(params, cfg, x, _vocab_axes(tp, cfg))[:, 0]
     return logits, dict(cache, pos=pos + 1)
 
 
@@ -813,15 +866,17 @@ def chunk_step(params, cfg: ModelConfig, batch: dict):
     if cfg.family in ("ssm", "hybrid"):
         raise ValueError(f"chunked prefill unsupported for {cfg.family}: "
                          "state-space caches admit no positional chunking")
+    params, tp = gather_top(params)
+    check_served(cfg, tp)
     tokens, n_valid = batch["tokens"], batch["n_valid"]
     cache = batch["cache"]
     pos = batch.get("pos", cache["pos"])
-    x = L.embed_apply(params["embed"], tokens)
+    x = _embed_tokens(params, tp, tokens)
     x = _decode_layers(params, cfg, x, pos, cache)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     idx = torch.clamp(n_valid - 1, min=0).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-    logits = logits_of(params, cfg, x_last)[:, 0]
+    logits = logits_of(params, cfg, x_last, _vocab_axes(tp, cfg))[:, 0]
     return logits, dict(cache, pos=pos + n_valid)
 
 

@@ -1,8 +1,8 @@
 """The dry run of the port (`repro_torch.launch.dryrun`) on the CPU:
 
   * `cell_bytes` of all 66 applicable (arch, shape, mesh) cells — the
-    per-device bytes read from meta DTensors over a "fake" process group
-    of 256 / 512 ranks — equal, part by part, the bytes reckoned from the
+    per-device bytes of each leaf's shard on the production mesh of 256 /
+    512 devices — equal, part by part, the bytes reckoned from the
     reference's specs and dtypes: `abstract()` params in bfloat16,
     `init_opt_state` (float32 moments, int32 step; float32 `err` under
     gradient compression) over the params' specs, and `input_specs`'

@@ -376,7 +376,7 @@ def _family_grads(mesh, arch: str, rank: int,
     """One sharded loss-and-gradient of `arch`'s smoke config on this
     mesh under `rules`, the gradient gathered whole (rank 0's returned),
     and the tensor-parallel axes of its train context."""
-    from repro_torch.distributed.sharding import train_model_axes
+    from repro_torch.distributed.sharding import tp_axes as model_axes
     bundle, params, batch = _family_inputs(arch)
     layout = ST.train_layout(bundle, mesh, B, rules)
     local = shard_tree(params, layout.specs, mesh)
@@ -384,7 +384,7 @@ def _family_grads(mesh, arch: str, rank: int,
         bundle, local, layout.local_batch(batch), layout)
     with use_sharding(mesh, rules, {"batch": B}, params=layout.specs,
                       batch_axes=layout.batch_axes):
-        tp_axes = train_model_axes()
+        tp_axes = model_axes()
     spec_of = dict(leaves(layout.specs))
     whole = {"/".join(p): gather(g, spec_of[p], mesh).numpy()
              for p, g in leaves(grads)}
@@ -440,7 +440,7 @@ def _noisy(mesh, rank: int) -> dict:
     this mesh in each of `NOISY_LAYOUTS`, through the composed "ref"
     chain and the plain `rosa_fused` version."""
     from repro_torch import rosa
-    from repro_torch.distributed.sharding import train_model_axes
+    from repro_torch.distributed.sharding import tp_axes as model_axes
     out = {}
     for name, (rules, wide) in NOISY_LAYOUTS.items():
         with _float64() if wide else contextlib.nullcontext():
@@ -450,7 +450,7 @@ def _noisy(mesh, rank: int) -> dict:
             spec_of = dict(leaves(layout.specs))
             with use_sharding(mesh, rules, {"batch": B}, params=layout.specs,
                               batch_axes=layout.batch_axes):
-                tp_axes = train_model_axes()
+                tp_axes = model_axes()
             for backend in ("ref", "fused"):
                 with rosa.engine_context(_noisy_engine(backend)):
                     loss, grads = ST.sharded_loss_and_grads(

@@ -5,7 +5,7 @@ gradient on a (data, model) mesh of gloo ranks (`launch.steps.
 sharded_loss_and_grads`) against `loss_and_grads` in one process, in
 float32, with every op in float64 (`--float64`: params, inputs and each
 `Tensor.float()` of the model in float64, in every process), and with
-the split off (`--whole`: `train_model_axes` () so every layer is
+the split off (`--whole`: `tp_axes` () so every layer is
 gathered whole); the one-process step's float-order floor, its gradient
 moved by permuting the d_model axis of the params (the same function,
 every contraction over d_model summed in another order); and the
@@ -46,7 +46,7 @@ def setup(opts) -> None:
         torch.Tensor.float = lambda self: self.double()
     if opts.whole:
         import repro_torch.distributed.sharding as SH
-        SH.train_model_axes = lambda: ()
+        SH.tp_axes = lambda: ()
 
 
 def inputs(opts, layers: int = 0):
