@@ -9,6 +9,7 @@
     python3 chip_smoke.py --kernels 22   # build, phase 17(b), phase 22
     python3 chip_smoke.py --kernels 16   # build, phase 16 alone
     python3 chip_smoke.py --kernels 23   # build, phase 23 alone
+    python3 chip_smoke.py --kernels 24   # build, phase 24 alone
     python3 chip_smoke.py --cards    # phases 21-22 over nccl, one rank a card
 
 Phases (any failure raises, so the exit code is non-zero):
@@ -402,9 +403,11 @@ Phases (any failure raises, so the exit code is non-zero):
      (4, 1), the 524288 positions over the four ranks (`flash_decode`);
      (c) mamba2-1.3b at full width and depth on (2, 2): decode_32k at 128
      rows, prefill_32k at 4 x 4096 (`ssd_scan` at 32 of 64 heads).  The
-     caches are drawn from seeds block by block (a rank draws its
-     blocks).  Each cell against the same run in one process after the
-     ranks exit: every step's logits and the cache parts within 4x the
+     params and caches are drawn from seeds block by block on the cell's
+     mesh (`sr_params`, `sr_cache`: a rank draws only its blocks, one
+     process all of them).  Each cell against the same run in one
+     process after the ranks exit (a decode step on a data rank's rows
+     at a time): every step's logits and the cache parts within 4x the
      float-order floor (the params' hidden, MLP and query-head, or
      hidden and head, axes permuted, 2 seeds) plus 1e-6, the argmax
      equal past that bound,
@@ -413,6 +416,29 @@ Phases (any failure raises, so the exit code is non-zero):
      `dryrun.cell_bytes` of the cell on its mesh and cut shape exactly,
      the ranks' peaks < 70 GiB over the card; ms a step, tok/s, peaks
      and walls printed.
+ 24. the MoE families served under SERVE_RULES across 4 ranks on card
+     0, phase 23's machinery and gates, all cells in one group, on (2,
+     2): (a) qwen3-moe-235b-a22b at 2 layers, its experts over "model"
+     through `moe_ep_local` (their d_model gathered over "data" inside)
+     beside split heads; (b) deepseek-v2-236b at 2 layers (`layer0`,
+     optical: "fused", chip 7; one MoE layer), its MLA heads over
+     "model" and its latent cache's sequence over "model" (MLA's decode
+     with the query heads gathered, `layers.seq_combine`); (b') (b) with
+     a plain `layer0`, whose floor binds the MoE layer's MLA and experts
+     at full width ((b)'s flipped optical codes move a row's logits by
+     up to a third of their max).  A plain MoE cell's rows jump one at
+     a time under any reordering, so its logits gate holds each step's
+     median row within 4x the floor runs' median plus 1e-6 and its
+     worst row within 4x their worst of any step.  decode_32k at 32 x
+     32768 (3 steps), prefill_32k at 2 x 1024 (a) and 2 x 384 (b, b'):
+     the longest whose card sum of rank peaks stays under 70 GiB
+     (`tools/serve_moe_peaks.py`).  The capacity factor E / k drops
+     nothing, so one process's `moe_ref` computes the same function (no
+     drop gated), and one more decode step at the arch's 1.25 prints
+     each rank's drops.  The floor permutes the hidden axis, the experts
+     (the router's columns with them), the query heads and the MLP axes;
+     `rosa_fused` exactly 2 x 3 a rank a decode at M 16 and 2 a prefill,
+     at (K, N) (5120, 12288) and (6144, 5120).
 
 Every compile of the run goes through a fresh plan cache (a temporary
 `ROSA_PLAN_CACHE` under build/, removed at the end), so each starts
@@ -5539,6 +5565,31 @@ def rt_gathered_want(bundle, layout, mesh) -> int:
     return total
 
 
+@contextlib.contextmanager
+def counting_drops():
+    """Within it `moe._pack_local` adds each call's dropped assignments
+    (the rank's routed to its experts past their capacity) to a tensor
+    on the call's device, so a timed step syncs nothing for them.  Yields
+    `take()`, which reads the sum once and starts it again from 0."""
+    from repro_torch.models import moe as MOE
+    real, total = MOE._pack_local, [0]
+
+    def counting(x2, w, ids, first, count, cap):
+        res = real(x2, w, ids, first, count, cap)
+        total[0] = total[0] + (((ids >= first) & (ids < first + count))
+                               .sum() - res[2].sum())
+        return res
+
+    def take() -> int:
+        n, total[0] = total[0], 0
+        return int(n)
+    MOE._pack_local = counting
+    try:
+        yield take
+    finally:
+        MOE._pack_local = real
+
+
 def rt_rank(rank: int, world: int, device, job: dict) -> dict:
     """One rank of a 22 group: each of `job["runs"]` (its config, schedule
     and whether optical, on its `mesh` or the job's) on this rank's
@@ -5557,7 +5608,6 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import (init_opt_state, init_sharded,
                                           make_train_step, train_layout)
-    from repro_torch.models import moe as MOE
     from repro_torch.models import ssm as SSM
     from repro_torch.models.model import build_model
     from repro_torch.models.module import leaves
@@ -5614,15 +5664,6 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
         step = make_train_step(bundle, rt_opt(run["opt"]), layout=layout)
         batches = [layout.local_batch(b) for b in
                    rt_batches(cfg, device)]
-        drops = [0]
-        real_pack = MOE._pack_local
-
-        def counting_pack(x2, w, ids, first, count, cap):
-            res = real_pack(x2, w, ids, first, count, cap)
-            local = ((ids >= first) & (ids < first + count)).sum()
-            drops[0] += int(local) - int(res[2].sum())
-            return res
-        MOE._pack_local = counting_pack
         set_up = time.perf_counter() - t0
         hist, walls, busy, flops = [], [], None, None
         # ---- the main path: counts from 0, read right after --------------
@@ -5630,29 +5671,27 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
         SH.GATHERED["bytes"] = 0
         shapes.clear()
         draws.clear()
-        try:
-            with rt_engine(run["optical"], cfg):
-                for i, batch in enumerate(batches):
-                    ts = time.perf_counter()
-                    if i == len(batches) - 1 and device.type == "cuda":
-                        from torch.profiler import (ProfilerActivity,
-                                                    profile)
-                        with profile(activities=[ProfilerActivity.CUDA]) \
-                                as prof:
-                            params, state, m = step(params, state, batch)
-                            loss = float(m["loss"])
-                        busy = rt_busy(prof)
-                    elif i == 0:
-                        (params, state, m), flops = step_flops(
-                            step, params, state, batch)
-                        loss = float(m["loss"])
-                    else:
+        with counting_drops() as take_drops, rt_engine(run["optical"], cfg):
+            for i, batch in enumerate(batches):
+                ts = time.perf_counter()
+                if i == len(batches) - 1 and device.type == "cuda":
+                    from torch.profiler import (ProfilerActivity,
+                                                profile)
+                    with profile(activities=[ProfilerActivity.CUDA]) \
+                            as prof:
                         params, state, m = step(params, state, batch)
                         loss = float(m["loss"])
-                    hist.append((loss, float(m["grad_norm"])))
-                    walls.append(time.perf_counter() - ts)
-        finally:
-            MOE._pack_local = real_pack
+                    busy = rt_busy(prof)
+                elif i == 0:
+                    (params, state, m), flops = step_flops(
+                        step, params, state, batch)
+                    loss = float(m["loss"])
+                else:
+                    params, state, m = step(params, state, batch)
+                    loss = float(m["loss"])
+                hist.append((loss, float(m["grad_norm"])))
+                walls.append(time.perf_counter() - ts)
+            drops = take_drops()
         n = launch_counts()
         gathered = SH.GATHERED["bytes"]
         gathered_want = (rt_gathered_want(bundle, layout, mesh) * len(batches)
@@ -5677,7 +5716,7 @@ def rt_rank(rank: int, world: int, device, job: dict) -> dict:
         out[run["name"]] = {
             "hist": hist, "walls": walls, "busy_ms": busy, "set_up_s": set_up,
             "launches": n, "held": held, "want_bytes": want_bytes,
-            "dev": dev, "peak_bytes": peak, "drops": drops[0],
+            "dev": dev, "peak_bytes": peak, "drops": drops,
             "rows": layout.rows(), "ckpt": ckpt, "flops": flops,
             "gathered": gathered, "gathered_want": gathered_want,
             "shapes": {k: sorted(v) for k, v in shapes.items()},
@@ -6314,6 +6353,7 @@ def train_ranks_phase(report: dict) -> dict:
 # ---------------------------------------------------------------------------
 SR_STEPS = 3                   # each decode cell's steps, teacher-forced
 SR_SEED = 23                   # the prompts', tokens' and caches' seed
+SR_PARAM_SEED = 24             # the params' blocks' seeds
 SR_ROWS = 8                    # an ssm decode cache's rows compared: every 8th
 SR_CHIP = 7                    # (a)'s served chip
 # (tag, arch, layers (0: all), ModelConfig overrides, (data, model),
@@ -6341,7 +6381,16 @@ SR_CELLS = (
 
 
 def sr_cfg(cell):
-    return rt_cfg(cell[1], cell[2], **cell[3])
+    """A cell's config: its arch at its layers and ModelConfig overrides,
+    a `capacity_factor` one the MoE config's (`dryrun.cell_config`'s
+    rule, so `cell_bytes` reads the same cell)."""
+    kw = dict(cell[3])
+    cap = kw.pop("capacity_factor", None)
+    cfg = rt_cfg(cell[1], cell[2], **kw)
+    if cap is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cap))
+    return cfg
 
 
 def sr_shape(cell):
@@ -6351,22 +6400,37 @@ def sr_shape(cell):
 
 def sr_perms(cfg, seed: int) -> dict:
     """The permutations of a cell's float-order floor, by logical axis:
-    the sums a split reorders.  A dense model's hidden and MLP axes and
-    its query heads within each KV head's group (the KV heads, and so the
-    cache, stay); an ssm model's hidden and head axes (one B / C group:
-    its cache's heads move with them)."""
+    the sums a split reorders.  An attention model's hidden axis and its
+    query heads (within each KV head's group, so the KV heads and the
+    cache stay; MLA's all, its latent cache has no heads); a dense MLP's
+    axis, or a MoE model's routed experts (the router's columns with
+    them) and its MLP axes by length (`layer0`'s and the shared
+    experts').  An ssm model's hidden and head axes (one B / C group: its
+    cache's heads move with them)."""
     import torch
     g = torch.Generator().manual_seed(seed)
+
+    def perm(n):
+        return torch.randperm(n, generator=g).to(DEVICE)
     if cfg.family == "ssm":
-        sizes = {"embed": cfg.d_model, "heads": cfg.ssm.n_heads}
-        return {k: torch.randperm(n, generator=g).to(DEVICE)
-                for k, n in sizes.items()}
-    per = cfg.n_heads // cfg.n_kv_heads
-    heads = torch.cat([j * per + torch.randperm(per, generator=g)
-                       for j in range(cfg.n_kv_heads)])
-    return {"embed": torch.randperm(cfg.d_model, generator=g).to(DEVICE),
-            "mlp": torch.randperm(cfg.d_ff, generator=g).to(DEVICE),
-            "heads": heads.to(DEVICE)}
+        return {"embed": perm(cfg.d_model), "heads": perm(cfg.ssm.n_heads)}
+    out = {"embed": perm(cfg.d_model)}
+    if cfg.mla is not None:
+        out["heads"] = perm(cfg.mla.n_heads)
+    else:
+        per = cfg.n_heads // cfg.n_kv_heads
+        out["heads"] = torch.cat([
+            j * per + torch.randperm(per, generator=g)
+            for j in range(cfg.n_kv_heads)]).to(DEVICE)
+    if cfg.moe is None:
+        out["mlp"] = perm(cfg.d_ff)
+        return out
+    out["experts"] = perm(cfg.moe.n_experts)
+    mlp = {n: perm(n) for n in (cfg.first_dense_ff,
+                                cfg.moe.n_shared * cfg.moe.d_ff) if n}
+    if mlp:
+        out["mlp"] = mlp
+    return out
 
 
 def sr_tokens(cfg, shape):
@@ -6397,9 +6461,15 @@ def sr_cache(cfg, shape, device, mesh=None):
     count = [0]
 
     def fill(t, axes):
-        leaf, count[0] = count[0], count[0] + 1
         spec = (resolve_spec(tuple(t.shape), axes, SERVE_RULES, mesh)
                 if mesh is not None else P())
+        if axes[0] == "layers" or axes == ("cache_batch",):
+            return drawn(t, axes, spec)
+        # an unstacked leaf (deepseek-v2's `layer0`): one layer of blocks
+        return drawn(t[None], ("layers",) + axes, P(None, *spec))[0]
+
+    def drawn(t, axes, spec):
+        leaf, count[0] = count[0], count[0] + 1
         loc = local_shape(tuple(t.shape), spec, mesh) if mesh is not None \
             else tuple(t.shape)
         off = [axis_index(spec_axes(P(spec[i])), mesh) * loc[i]
@@ -6432,18 +6502,76 @@ def sr_cache(cfg, shape, device, mesh=None):
     return zip_tree(meta, cache_axes(cfg), fill)
 
 
+def sr_params(bundle, device, grid: tuple, mesh=None) -> dict:
+    """A cell's params drawn block by block: every leaf cut into the
+    blocks of its SERVE_RULES spec on the cell's (data, model) `grid`,
+    each block N(0, std^2) (the whole leaf's `ParamDef.std`) from a seed
+    of its own.  On a live `mesh` (of that grid) a rank draws only its
+    shard, its one block, so none draws a whole stacked expert leaf; one
+    process draws every block into the whole leaf; both hold the same
+    numbers."""
+    import itertools
+    import torch
+    from repro_torch.distributed.runtime import axis_index
+    from repro_torch.distributed.sharding import (P, SERVE_RULES, mesh_axes,
+                                                  param_shardings, spec_axes)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.module import leaves, map_tree, unflatten
+    shape = MeshShape(("data", "model"), grid)
+    sizes = mesh_axes(shape)
+    spec_of = dict(leaves(map_tree(lambda sh: sh.spec, param_shardings(
+        bundle.skeleton, shape, SERVE_RULES))))
+    out = []
+    for leaf, (path, d) in enumerate(leaves(bundle.skeleton)):
+        spec = tuple(spec_of[path]) + (None,) * (len(d.shape)
+                                                 - len(spec_of[path]))
+        groups = [spec_axes(P(p)) for p in spec]
+        n = [math.prod(sizes[a] for a in g) for g in groups]
+        blk = tuple(s // k for s, k in zip(d.shape, n))
+        if d.init != "normal":
+            fill = 0.0 if d.init == "zeros" else 1.0
+            out.append((path, torch.full(blk if mesh is not None
+                                         else d.shape, fill,
+                                         device=device)))
+            continue
+        if mesh is not None:
+            idx = [tuple(axis_index(g, mesh) if g else 0 for g in groups)]
+            t = torch.empty(blk, device=device)
+        else:
+            idx = itertools.product(*(range(k) for k in n))
+            t = torch.empty(d.shape, device=device)
+        for ix in idx:
+            flat = 0
+            for i, k in zip(ix, n):
+                flat = flat * k + i
+            g = torch.Generator(device).manual_seed(
+                SR_PARAM_SEED + 4096 * leaf + flat)
+            v = torch.randn(blk, generator=g, device=device).mul_(d.std)
+            if mesh is not None:
+                t.copy_(v)
+            else:
+                t[tuple(slice(i * b, (i + 1) * b)
+                        for i, b in zip(ix, blk))].copy_(v)
+            del v
+        out.append((path, t))
+    return unflatten(out)
+
+
 def sr_chip(cfg, perm=None):
     """Chip 7 over `cfg`'s MLP projections, as a served model pins it;
     with `perm` its lanes permuted as the params' hidden and MLP axes."""
     import torch
     from repro_torch.core import mrr
     from repro_torch.robust.variation import sample_chip
+    ff = cfg.first_dense_ff or cfg.d_ff      # deepseek-v2: its layer 0's
     chip = sample_chip(torch.Generator().manual_seed(SR_CHIP),
-                       {"mlp/wi": cfg.d_model, "mlp/wo": cfg.d_ff},
+                       {"mlp/wi": cfg.d_model, "mlp/wo": ff},
                        device=DEVICE)
     if perm is None:
         return chip
-    lanes = {"mlp/wi": perm["embed"], "mlp/wo": perm["mlp"]}
+    mlp = perm["mlp"]
+    lanes = {"mlp/wi": perm["embed"],
+             "mlp/wo": mlp[ff] if isinstance(mlp, dict) else mlp}
     return {n: mrr.StaticVariation(v.dv[lanes[n]], v.ddt[lanes[n]],
                                    v.dlam[lanes[n]])
             for n, v in chip.items()}
@@ -6469,17 +6597,26 @@ def sr_nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def sr_attn_leaves(cache, specs=None) -> list:
+    """(name, leaf, spec, sequence dim) of every leaf of an attention
+    cache (K / V or MLA's latent pair): the stacked layers' and
+    deepseek-v2's `layer0`'s; `specs`, the cache's spec tree."""
+    return [(f"{key}/{i}", t, specs[key][i] if specs else None, seq)
+            for key, seq in (("layers", 2), ("layer0", 1))
+            for i, t in enumerate(cache.get(key, ()))]
+
+
 def sr_parts(cfg, shape, cache) -> dict:
-    """The leaves of a whole cache a cell compares: a dense decode's
-    positions the steps wrote, a dense prefill's whole cache, an ssm
+    """The leaves of a whole cache a cell compares: an attention decode's
+    positions the steps wrote, an attention prefill's whole cache, an ssm
     cache's first and last layers (a decode's every SR_ROWS-th row), as
     float32 on the host."""
     out = {}
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         p0 = shape.seq_len - SR_STEPS
-        for i, t in enumerate(cache["layers"]):
-            out[f"layers/{i}"] = (t[:, :, p0:] if shape.kind == "decode"
-                                  else t)
+        for k, t, _, seq in sr_attn_leaves(cache):
+            out[k] = (t.narrow(seq, p0, SR_STEPS) if shape.kind == "decode"
+                      else t)
     else:
         ends = [0, cfg.n_layers - 1]
         rows = slice(None, None, SR_ROWS if shape.kind == "decode" else 1)
@@ -6509,22 +6646,22 @@ def sr_rank_parts(cfg, shape, cache, layout, mesh) -> dict:
     else:
         specs, axes = layout.inputs["cache"], cache_axes(cfg)
     out = {}
-    if cfg.family == "dense":
-        for i, t in enumerate(cache["layers"]):
-            spec = list(specs["layers"][i]) + [None] * 5
+    if cfg.family != "ssm":
+        for k, t, sp, dim in sr_attn_leaves(cache, specs):
+            spec = list(sp) + [None] * t.ndim
             if shape.kind == "decode":
                 p0, n = shape.seq_len - SR_STEPS, SR_STEPS
-                seq = spec_axes(P(spec[2]))
-                lo = rt.axis_index(seq, mesh) * t.shape[2] if seq else 0
-                part = torch.zeros(tuple(t.shape[:2]) + (n,)
-                                   + tuple(t.shape[3:]),
+                seq = spec_axes(P(spec[dim]))
+                lo = rt.axis_index(seq, mesh) * t.shape[dim] if seq else 0
+                part = torch.zeros(t.shape[:dim] + (n,) + t.shape[dim + 1:],
                                    dtype=t.dtype, device=t.device)
-                a, b = max(p0, lo), min(p0 + n, lo + t.shape[2])
+                a, b = max(p0, lo), min(p0 + n, lo + t.shape[dim])
                 if a < b:
-                    part[:, :, a - p0:b - p0] = t[:, :, a - lo:b - lo]
+                    part.narrow(dim, a - p0, b - a).copy_(
+                        t.narrow(dim, a - lo, b - a))
                 t = rt.psum(part.float(), seq, mesh) if seq else part
-            spec[2] = None
-            out[f"layers/{i}"] = gather(t, P(*spec[:5]), mesh)
+            spec[dim] = None
+            out[k] = gather(t, P(*spec[:t.ndim]), mesh)
     else:
         ends = [0, cfg.n_layers - 1]
         rows = slice(None, None, SR_ROWS if shape.kind == "decode" else 1)
@@ -6535,19 +6672,21 @@ def sr_rank_parts(cfg, shape, cache, layout, mesh) -> dict:
 
 
 def sr_rank(rank: int, world: int, device, job: dict) -> dict:
-    """One rank of phase 23: every cell on this rank's SERVE_RULES shards
-    (params from seed 0, drawn leaf by leaf and cut), rows and part of
-    the cache; the main path's launches counted from 0, the kernels'
-    operand shapes recorded, its walls and peak.  Hands back host values
-    only (the gathered logits and cache parts: rank 0's)."""
+    """One rank of phase 23 or 24: every cell on this rank's SERVE_RULES
+    shards (`sr_params`), rows and part of the cache; the main path's
+    launches counted from 0, the kernels' operand shapes recorded, its
+    walls and peak; a MoE cell's dropped assignments, and for a decode
+    cell one more step at the arch's own capacity factor (ungated).
+    Hands back host values only (the gathered logits and cache parts:
+    rank 0's)."""
     import gc
     import torch
     rank_setup(device)
+    from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import P, gather, shard_local
     from repro_torch.kernels.rosa_fused import ops as fused_ops
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.steps import (init_sharded, make_serve_step,
-                                          serve_layout)
+    from repro_torch.launch.steps import make_serve_step, serve_layout
     from repro_torch.models import ssm as SSM
     from repro_torch.models.model import build_model
     shapes: dict = {}
@@ -6576,8 +6715,7 @@ def sr_rank(rank: int, world: int, device, job: dict) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        params = init_sharded(bundle, torch.Generator(device).manual_seed(0),
-                              layout, device=device)
+        params = sr_params(bundle, device, cell[4], mesh)
         toks = sr_tokens(cfg, shape)
         row_spec = P(layout.batch_axes or None)
 
@@ -6590,12 +6728,14 @@ def sr_rank(rank: int, world: int, device, job: dict) -> dict:
             batch = {"token": rows(toks[:, 0]), "pos": cache["pos"].clone(),
                      "cache": cache}
         held = sr_nbytes(params) + sr_nbytes(batch)
+        pos0 = batch["pos"].clone() if shape.kind == "decode" else None
         step = make_serve_step(bundle, layout)
         torch.cuda.synchronize(device)
         set_up = time.perf_counter() - t0
         logits, walls = [], []
         # ---- the main path: counts from 0, read right after --------------
-        with sr_engine(cfg), torch.inference_mode():
+        with counting_drops() as take_drops, sr_engine(cfg), \
+                torch.inference_mode():
             reset_launches()
             shapes.clear()
             for i in range(1 if shape.kind == "prefill" else SR_STEPS):
@@ -6608,14 +6748,30 @@ def sr_rank(rank: int, world: int, device, job: dict) -> dict:
                     batch = {"token": rows(toks[:, i + 1]),
                              "pos": cache["pos"], "cache": cache}
             n = launch_counts()
+            gated_drops = take_drops()
             lg = [gather(t, row_spec, mesh).float().cpu() for t in logits]
             parts = sr_rank_parts(cfg, shape, cache, layout, mesh)
+            ungated = None
+            if cfg.moe is not None and shape.kind == "decode":
+                # the first step again at the arch's own capacity factor:
+                # its drops (not gated)
+                own = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe,
+                    capacity_factor=get_config(cell[1]).moe.capacity_factor))
+                ts = time.perf_counter()
+                make_serve_step(build_model(own), layout)(params, {
+                    "token": rows(toks[:, 0]), "pos": pos0, "cache": cache})
+                torch.cuda.synchronize(device)
+                wall = time.perf_counter() - ts
+                ungated = {"capacity_factor": own.moe.capacity_factor,
+                           "drops": take_drops(), "wall": wall}
         out[tag] = {
             "launches": n, "walls": walls, "set_up_s": set_up,
             "held": held, "rows": layout.batch_axes,
             "kv": (tuple(layout.inputs["cache"]["layers"][0])
-                   if shape.kind == "decode" and cfg.family == "dense"
+                   if shape.kind == "decode" and cfg.family != "ssm"
                    else None),
+            "drops": gated_drops, "ungated": ungated,
             "shapes": {k: sorted(v) for k, v in shapes.items()},
             "peak_bytes": torch.cuda.max_memory_allocated(device),
             "logits": [t.numpy() for t in lg] if rank == 0 else None,
@@ -6628,8 +6784,9 @@ def sr_rank(rank: int, world: int, device, job: dict) -> dict:
 
 def sr_permute_(tree, axes_of, perm: dict, inverse: bool = False) -> None:
     """Permute in place every axis of `tree`'s leaves that `axes_of(path)`
-    names in `perm` ({logical axis: permutation}), or undo it; one
-    leading index at a time where the leaf has a layers dim."""
+    names in `perm` ({logical axis: permutation, or {length: permutation}
+    where one name has several lengths}), or undo it; one leading index
+    at a time where the leaf has a layers dim."""
     import torch
     from repro_torch.models.module import leaves
     for path, t in leaves(tree):
@@ -6637,6 +6794,8 @@ def sr_permute_(tree, axes_of, perm: dict, inverse: bool = False) -> None:
             if name not in perm:
                 continue
             p = perm[name]
+            if isinstance(p, dict):         # by the axis's length
+                p = p[t.shape[ax]]
             if inverse:
                 p = torch.argsort(p)
             if ax > 0 and t.shape[0] > 1 and axes_of(path)[0] == "layers":
@@ -6648,27 +6807,44 @@ def sr_permute_(tree, axes_of, perm: dict, inverse: bool = False) -> None:
 
 def sr_one(cell) -> dict:
     """A cell in one process on the card, from the same params, prompt,
-    tokens and cache: its logits and cache parts, and its float-order
+    tokens and cache (a decode step on a data rank's rows at a time, the
+    ranks' width): its logits and cache parts, and its float-order
     floor (the largest distance from them of the same run with the
     params' axes `sr_perms` names permuted, two seeds; the chip's lanes
     and an ssm cache's heads permuted with them), each relative to max
-    |.|."""
+    |.|; a MoE cell's routed experts drop nothing (its capacity factor
+    E / k), so one process's `moe_ref` computes the ranks' function; and
+    each step's median over the rows of that distance, the larger run's
+    (`sr_rows`)."""
     import gc
     import torch
+    from repro_torch.distributed.sharding import mesh_axes
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import serve_layout
     from repro_torch.models.model import build_model, cache_axes
     from repro_torch.models.module import leaves, map_tree
     cfg, shape = sr_cfg(cell), sr_shape(cell)
     bundle = build_model(cfg)
     toks = sr_tokens(cfg, shape).to(DEVICE)
     p_axes = dict(leaves(map_tree(lambda d: d.axes, bundle.skeleton)))
+    if cfg.moe is not None:
+        # the router's columns are the experts
+        p_axes[("layers", "ffn", "router")] = ("layers", "embed", "experts")
     c_axes = dict(leaves(cache_axes(cfg)["layers"]
                          if cfg.family == "ssm" else {}))
+    c_all = cache_axes(cfg)
+    # a decode step runs on a data rank's rows at a time: float32
+    # products are not batch-width invariant on the card (`rosa_fused`
+    # takes its decode path at 16 rows or fewer, its tall one above)
+    grid = MeshShape(("data", "model"), cell[4])
+    width = len(toks) // math.prod(
+        mesh_axes(grid)[a]
+        for a in serve_layout(bundle, grid, shape).batch_axes)
     cache = None
     runs, t0 = [], time.perf_counter()
     for seed in (None, 1, 2):
         perm = sr_perms(cfg, seed) if seed is not None else None
-        params = bundle.init(torch.Generator(DEVICE).manual_seed(0),
-                             device=DEVICE)
+        params = sr_params(bundle, DEVICE, cell[4])
         if perm:
             sr_permute_(params, lambda p: p_axes[p], perm)
         if shape.kind == "decode" and (cache is None
@@ -6689,14 +6865,16 @@ def sr_one(cell) -> dict:
                 lg, out_cache = bundle.prefill(params, {"tokens": toks})
                 logits.append(lg.float().cpu())
             else:
-                batch = {"token": toks[:, 0], "pos": cache["pos"].clone(),
-                         "cache": cache}
+                pos = cache["pos"].clone()
                 for i in range(SR_STEPS):
-                    lg, out_cache = bundle.decode_step(params, batch)
-                    logits.append(lg.float().cpu())
-                    if i + 1 < SR_STEPS:
-                        batch = {"token": toks[:, i + 1],
-                                 "pos": out_cache["pos"], "cache": cache}
+                    lg = [bundle.decode_step(params, {
+                        "token": toks[lo:lo + width, i],
+                        "pos": pos[lo:lo + width],
+                        "cache": sr_rows_of(cache, c_all, lo, width)})[0]
+                          for lo in range(0, len(toks), width)]
+                    logits.append(torch.cat(lg).float().cpu())
+                    pos = pos + 1
+                out_cache = cache
             torch.cuda.synchronize()
             n = launch_counts()
             if perm and c_axes:
@@ -6711,38 +6889,63 @@ def sr_one(cell) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     base, parts, n = runs[0]
-    scale = base.abs().amax(dim=(1, 2))
     floor = torch.zeros(len(base))
+    median = torch.zeros(len(base))
     pfloor = {k: 0.0 for k in parts}
     for lg, pp, _ in runs[1:]:
-        floor = torch.maximum(floor, (lg - base).abs().amax(dim=(1, 2))
-                              / scale)
+        rows = sr_rows(lg, base)
+        floor = torch.maximum(floor, rows.amax(-1))
+        median = torch.maximum(median, rows.median(-1).values)
         for k, v in pp.items():
             pfloor[k] = max(pfloor[k], max_rel(v, parts[k]))
     return {"logits": base, "parts": parts, "floor": floor,
-            "part_floor": pfloor, "launches": n,
+            "median": median, "part_floor": pfloor, "launches": n,
             "wall_s": time.perf_counter() - t0}
 
 
+def sr_rows_of(cache, axes, lo: int, n: int):
+    """Rows lo..lo + n of a cache (`axes`, its `cache_axes`): views, so a
+    decode step that advances them in place advances the whole cache."""
+    from repro_torch.distributed.sharding import zip_tree
+    return zip_tree(cache, axes, lambda t, ax: t.narrow(
+        ax.index("cache_batch"), lo, n))
+
+
+def sr_rows(lg, base):
+    """(steps, rows): each row's largest distance of `lg` from `base`,
+    relative to the step's max |base|."""
+    return ((lg - base).abs().amax(-1)
+            / base.abs().amax(dim=(1, 2))[:, None])
+
+
 def sr_want(cfg, shape) -> dict:
-    """A rank's main-path launches: (a)'s two optical products a layer a
-    step (or prefill), (c)'s scan a layer in a prefill."""
+    """A rank's main-path launches: two optical products an optical MLP a
+    step (or prefill): every layer's, or a MoE model's dense `layer0`'s
+    (its MoE FFNs ignore `rosa_mlp`); an ssm model's scan a layer in a
+    prefill."""
     steps = 1 if shape.kind == "prefill" else SR_STEPS
-    if cfg.rosa_mlp:
-        return {"rosa_fused": 2 * cfg.n_layers * steps}
+    optical = (cfg.n_layers if cfg.moe is None
+               else 1 if cfg.first_dense_ff else 0)
+    if cfg.rosa_mlp and optical:
+        return {"rosa_fused": 2 * optical * steps}
     if cfg.family == "ssm" and shape.kind == "prefill":
         return {"ssd_scan": cfg.n_layers}
     return {}
 
 
-def sr_check(cell, one: dict, outs: list, parent: int) -> dict:
+def sr_check(cell, one: dict, outs: list, parent: int,
+             ph: str = "23") -> dict:
     """A cell's gates on every rank: the logits of every step within 4x
     the one-process floor plus 1e-6 of max |.|, the argmax equal wherever
-    the top-two gap exceeds that bound, every cache part within 4x its
+    the top-two gap exceeds that bound (a plain MoE cell's: its floor
+    the largest of any step, and every step's median row within 4x the
+    floor runs' median plus 1e-6), every cache part within 4x its
     floor plus 1e-6, its launches exactly `sr_want`, its bytes
     `dryrun.cell_bytes` of the cell on its mesh and cut shape (float32
-    params), the ranks' peaks < PEAK_GIB over the card; printed with
-    ms a step, tok/s and the peaks."""
+    params), the ranks' peaks < PEAK_GIB over the card, a MoE cell's
+    routed experts dropping nothing; printed with ms a step, tok/s, the
+    peaks and each rank's drops at the arch's own capacity factor.  `ph`,
+    the phase its messages name."""
     import numpy as np
     import torch
     from repro_torch.launch import dryrun
@@ -6760,25 +6963,41 @@ def sr_check(cell, one: dict, outs: list, parent: int) -> dict:
         others = {k: v for k, v in o["launches"].items()
                   if v and k not in want_n}
         if any(o["launches"][k] != v for k, v in want_n.items()) or others:
-            fails.append(f"23({tag}) rank {r} launched {o['launches']}, "
+            fails.append(f"{ph}({tag}) rank {r} launched {o['launches']}, "
                          f"want {want_n}")
         if o["held"] != want_bytes:
-            fails.append(f"23({tag}) rank {r} holds {o['held']} B, "
+            fails.append(f"{ph}({tag}) rank {r} holds {o['held']} B, "
                          f"cell_bytes {want_bytes}")
+        if o["drops"]:
+            fails.append(f"{ph}({tag}) rank {r} dropped {o['drops']} "
+                         "assignments at a capacity that drops none")
     lg = torch.from_numpy(np.stack(res[0]["logits"]))
     base, floor = one["logits"], one["floor"]
+    # a plain MoE stack's rows jump one at a time under any reordering:
+    # each step's median row is held to the floor runs' median, the worst
+    # row to their worst of any step (an optical one's rows move by the
+    # codes they flip, most rows at once: its worst row each step)
+    by_median = cfg.moe is not None and not cfg.rosa_mlp
+    if by_median:
+        floor = torch.full_like(floor, float(floor.max()))
     bound = 4 * floor + 1e-6
     scale = base.abs().amax(dim=(1, 2))
-    rel = (lg - base).abs().amax(dim=(1, 2)) / scale
+    dev = sr_rows(lg, base)
+    rel = dev.amax(-1)
+    med = dev.median(-1).values
+    med_bound = 4 * one["median"] + 1e-6
     top2 = base.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) / scale[:, None] > bound[:, None]
     same = lg.argmax(-1) == base.argmax(-1)
     if lg.shape != base.shape or not bool(torch.isfinite(lg).all()):
-        fails.append(f"23({tag}) logits {tuple(lg.shape)} not finite or "
+        fails.append(f"{ph}({tag}) logits {tuple(lg.shape)} not finite or "
                      f"not {tuple(base.shape)}")
     elif bool((rel > bound).any()) or bool((clear & ~same).any()):
-        fails.append(f"23({tag}) logits {rel.tolist()} from one process's, "
+        fails.append(f"{ph}({tag}) logits {rel.tolist()} from one process's, "
                      f"bound {bound.tolist()}; argmax differs past it")
+    elif by_median and bool((med > med_bound).any()):
+        fails.append(f"{ph}({tag}) logits' median row {med.tolist()} from "
+                     f"one process's, bound {med_bound.tolist()}")
     worst = ("", 0.0, 0.0)
     for k, v in res[0]["parts"].items():
         d = max_rel(torch.from_numpy(v), one["parts"][k])
@@ -6786,12 +7005,12 @@ def sr_check(cell, one: dict, outs: list, parent: int) -> dict:
         if d / b > worst[1] / max(worst[2], 1e-30) or not worst[0]:
             worst = (k, d, b)
         if d > b:
-            fails.append(f"23({tag}) cache {k} {d:.3e} from one process's, "
+            fails.append(f"{ph}({tag}) cache {k} {d:.3e} from one process's, "
                          f"bound {b:.3e}")
     peak = (max if RANK_CARDS else sum)(o["peak_bytes"] for o in res) \
         + parent
     if peak >= PEAK_GIB * 2**30:
-        fails.append(f"23({tag}) peak {peak / 2**30:.1f} GiB")
+        fails.append(f"{ph}({tag}) peak {peak / 2**30:.1f} GiB")
     # the last step: a decode's first pays the cell's warm-up
     step_s = max(o["walls"][-1] for o in res)
     rows = shape.global_batch * (shape.seq_len if shape.kind == "prefill"
@@ -6800,7 +7019,7 @@ def sr_check(cell, one: dict, outs: list, parent: int) -> dict:
                  o["shapes"].get("rosa_fused_kn", [])})
     heads = sorted({x for o in res for x in
                     o["shapes"].get("ssd_scan_heads", [])})
-    print(f"  23({tag}) {cell[1]} {shape.name} {shape.global_batch} x "
+    print(f"  {ph}({tag}) {cell[1]} {shape.name} {shape.global_batch} x "
           f"{shape.seq_len} on (data, model) {cell[4]}, rows over "
           f"{res[0]['rows'] or 'no axis'}"
           + (f", KV cache {res[0]['kv']}" if res[0]["kv"] else "")
@@ -6810,66 +7029,128 @@ def sr_check(cell, one: dict, outs: list, parent: int) -> dict:
           + ", ".join(f"{x:.2e}" for x in rel.tolist()) + " (floor "
           + ", ".join(f"{x:.2e}" for x in floor.tolist()) + "); argmax "
           f"equal {int(same.sum())} of {same.numel()} "
-          f"({int(clear.sum())} past the bound); cache part nearest its "
+          f"({int(clear.sum())} past the bound)"
+          + ("; median row " + ", ".join(f"{x:.2e}" for x in med.tolist())
+             + " (floor " + ", ".join(f"{x:.2e}" for x in
+                                      one["median"].tolist()) + ")"
+             if by_median else "")
+          + "; cache part nearest its "
           f"bound {worst[0]} {worst[1]:.2e} (bound {worst[2]:.2e}); "
           f"launches a rank {want_n or 'none'}"
           + (f" at (K, N) {kn}" if kn else "")
           + (f", ssd_scan at {heads} heads" if heads else "")
+          + (f"; at capacity factor {res[0]['ungated']['capacity_factor']}"
+             " one step drops " + ", ".join(str(o["ungated"]["drops"])
+                                            for o in res)
+             + " assignments a rank ("
+             + f"{1e3 * max(o['ungated']['wall'] for o in res):.1f} ms)"
+             if res[0]["ungated"] else "")
           + f"; {res[0]['held'] / 2**30:.3f} GiB a rank = cell_bytes; "
           f"peaks " + ", ".join(f"{o['peak_bytes'] / 2**30:.2f}"
                                 for o in res)
           + f" GiB (card {peak / 2**30:.2f}); set-up "
           f"{max(o['set_up_s'] for o in res):.1f} s")
-    if cfg.rosa_mlp and kn != sorted({(cfg.d_model, cfg.d_ff),
-                                      (cfg.d_ff // cell[4][1],
-                                       cfg.d_model)}):
-        fails.append(f"23({tag}) rosa_fused at (K, N) {kn}")
+    ff = cfg.first_dense_ff or cfg.d_ff
+    if want_n.get("rosa_fused") and kn != sorted({
+            (cfg.d_model, ff), (ff // cell[4][1], cfg.d_model)}):
+        fails.append(f"{ph}({tag}) rosa_fused at (K, N) {kn}")
     if want_n.get("ssd_scan") and heads != [cfg.ssm.n_heads // cell[4][1]]:
-        fails.append(f"23({tag}) ssd_scan at {heads} heads")
+        fails.append(f"{ph}({tag}) ssd_scan at {heads} heads")
     return {"fails": fails, "launches": {
         k: sum(o["launches"].get(k, 0) for o in res) for k in want_n},
         "step_ms": 1e3 * step_s, "tok_s": rows / step_s,
         "walls_ms": [[1e3 * w for w in o["walls"]] for o in res],
-        "rel": rel.tolist(), "floor": floor.tolist(),
+        "rel": rel.tolist(), "floor": one["floor"].tolist(),
+        "median": med.tolist(), "median_floor": one["median"].tolist(),
         "peak_gib": [o["peak_bytes"] / 2**30 for o in res],
         "card_peak_gib": peak / 2**30, "bytes": res[0]["held"],
-        "one_process_s": one["wall_s"]}
+        "one_process_s": one["wall_s"],
+        "ungated": [o["ungated"] for o in res]}
 
 
-def serve_ranks_phase(report: dict) -> dict:
-    """23: serving under SERVE_RULES across 4 ranks, the cells of
-    SR_CELLS in one group; then each cell in one process with its floor
-    (`sr_one`) and the gates (`sr_check`).  Returns the main path's
-    rosa_fused and ssd_scan launches (every rank's)."""
+def serve_ranks_phase(report: dict, ph: str = "23", cells=None,
+                      key: str = "serve_ranks") -> dict:
+    """23 (or `ph`): serving under SERVE_RULES across 4 ranks, the
+    `cells` (default SR_CELLS) in one group; then each cell in one
+    process with its floor (`sr_one`) and the gates (`sr_check`), the
+    results under `report[key]`.  Returns the main path's rosa_fused and
+    ssd_scan launches (every rank's)."""
     import gc
     import torch
     from repro_torch.distributed import runtime
+    cells = SR_CELLS if cells is None else cells
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     parent = torch.cuda.memory_allocated()
-    print(f"  23: {rank_layout(4)}; cells "
+    print(f"  {ph}: {rank_layout(4)}; cells "
           + "; ".join(f"({c[0]}) {c[1]} {c[5][0]} on {c[4]}"
-                      for c in SR_CELLS))
+                      for c in cells))
     outs = runtime.spawn(sr_rank, 4, device_type=DEVICE,
                          backend=rank_backend(),
-                         args=({"cells": SR_CELLS},), timeout=RANK_TIMEOUT)
+                         args=({"cells": cells},), timeout=RANK_TIMEOUT)
     group_s = time.perf_counter() - t0
-    print(f"  23: the group {group_s:.1f} s")
+    print(f"  {ph}: the group {group_s:.1f} s")
     res, fails = {"group_s": group_s}, []
     n = {"rosa_fused": 0, "ssd_scan": 0}
-    for cell in SR_CELLS:
+    for cell in cells:
         one = sr_one(cell)
-        got = sr_check(cell, one, outs, parent)
+        got = sr_check(cell, one, outs, parent, ph)
         fails += got.pop("fails")
         for k, v in got["launches"].items():
             n[k] += v
         res[cell[0]] = got
     res["phase_s"] = time.perf_counter() - t0
-    report["serve_ranks"] = res
+    report[key] = res
     if fails:
         raise AssertionError("; ".join(fails))
     return n
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the MoE families served under SERVE_RULES across ranks
+# ---------------------------------------------------------------------------
+SP_PREFILL = {"qwen3-moe-235b-a22b": (2, 1024), "deepseek-v2-236b": (2, 384)}
+SP_CAPACITY = {"qwen3-moe-235b-a22b": 128 / 8, "deepseek-v2-236b": 160 / 6}
+
+
+def sp_cell(tag: str, arch: str, kind: str, **ov):
+    """A phase 24 cell (SR_CELLS' fields): `arch` at 2 layers on (2, 2)
+    at decode_32k (32 of 128 rows, all 32768 positions) or prefill_32k
+    (SP_PREFILL's rows x positions), its capacity factor n_experts /
+    top_k so every rank's capacity is its tokens and nothing drops."""
+    b, n = (32, 32768) if kind == "decode" else SP_PREFILL[arch]
+    return (tag, arch, 2, dict(ov, capacity_factor=SP_CAPACITY[arch]),
+            (2, 2), (f"{kind}_32k", kind, n, b))
+
+
+# (a) qwen3-moe-235b-a22b at 2 of 94 layers, moe_ep, experts over
+# "model" through moe_ep_local beside split heads; (b) deepseek-v2-236b
+# at 2 of 60 layers (`layer0` and one MoE layer), its MLA heads and its
+# latent cache's sequence over "model", optical `layer0` ("fused", chip
+# 7): a flipped code moves a row's logits by up to a third of their
+# max, so its logits gate binds little (its launches, bytes, peaks and
+# caches bind); (b') the same with a plain `layer0`, whose median-row
+# gate binds the MoE layer's MLA decode over the sharded latent cache
+# and its split experts at ≈ 1e-4 of the logits' max.  The prefills
+# are the longest the card's sum of rank peaks keeps under PEAK_GIB
+# (`tools/serve_moe_peaks.py`): a rank's no-drop expert buffers are
+# (its experts, its tokens, d_model) float32, beside its experts
+# gathered over "data" (4.8 / 7.5 GB).
+SP_CELLS = (
+    sp_cell("a decode", "qwen3-moe-235b-a22b", "decode"),
+    sp_cell("a prefill", "qwen3-moe-235b-a22b", "prefill"),
+    sp_cell("b decode", "deepseek-v2-236b", "decode", rosa_mlp=True),
+    sp_cell("b prefill", "deepseek-v2-236b", "prefill", rosa_mlp=True),
+    sp_cell("b' decode", "deepseek-v2-236b", "decode"),
+    sp_cell("b' prefill", "deepseek-v2-236b", "prefill"),
+)
+
+
+def moe_serve_ranks_phase(report: dict) -> dict:
+    """24: the MoE families served under SERVE_RULES across 4 ranks, the
+    cells of SP_CELLS in one group (phase 23's machinery and gates)."""
+    return serve_ranks_phase(report, "24", SP_CELLS, "serve_ranks_moe")
 
 
 # `--kernels`: the phases it runs alone, by name: (title, [(tag, phase)])
@@ -6891,6 +7172,8 @@ PHASES = {
            [("17b", optical_train_phase), ("22", train_ranks_phase)]),
     "23": ("23: serving under SERVE_RULES across ranks",
            [("23", serve_ranks_phase)]),
+    "24": ("24: the MoE families served under SERVE_RULES across ranks",
+           [("24", moe_serve_ranks_phase)]),
 }
 KERNEL_PHASES = ("2", "6", "8", "12a", "19a")   # `--kernels` alone
 
@@ -7064,6 +7347,11 @@ def run_phases(opts) -> int:
     sr_n = phase("23", serve_ranks_phase)
     launches["rosa_fused"] += sr_n["rosa_fused"]
     launches["ssd_scan"] += sr_n["ssd_scan"]
+    print("phase 24: the MoE families served under SERVE_RULES across "
+          "ranks (experts over \"model\" through moe_ep_local, MLA heads "
+          "over \"model\" beside a latent cache whose sequence takes it)")
+    launches["rosa_fused"] += phase("24", moe_serve_ranks_phase)[
+        "rosa_fused"]
 
     summary = {"kernels": [
         {"name": "rosa_fused", "route": "cuda",

@@ -337,18 +337,27 @@ def _card_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
 
 
 def _card_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
-    """Every member's `x` concatenated along `axis` in rank order, chunk
-    by chunk of the flattened parts."""
-    flat = x.contiguous().reshape(-1)
+    """Every member's `x` concatenated along `axis` in rank order,
+    written straight into the result (no copy of the parts besides it):
+    `x` viewed as rows (the dims before `axis`) of the rest, a block of
+    whole rows (or a piece of one row) at a time."""
     ranks, _ = _group_ranks(group)
-    whole = [torch.empty_like(flat) for _ in ranks]
-    for c0, c1 in _chunks(flat.numel(), _chunk_elems(x)):
-        piece = flat[c0:c1]
-        parts, me = _exchange(piece, group)
-        for w, p in zip(whole, parts):
-            w[c0:c1].copy_(p)
-        _done(piece, group)
-    return torch.cat([w.view(x.shape) for w in whole], dim=axis)
+    x = x.contiguous()
+    pre, row = math.prod(x.shape[:axis]), math.prod(x.shape[axis:])
+    src = x.reshape(pre, row)
+    out = torch.empty((pre, len(ranks), row), dtype=x.dtype,
+                      device=x.device)
+    per = _chunk_elems(x)
+    for r0, r1 in _chunks(pre, max(1, per // max(row, 1))):
+        for c0, c1 in _chunks(row, min(row, per)):
+            piece = src[r0:r1, c0:c1].contiguous()
+            parts, me = _exchange(piece, group)
+            for i, p in enumerate(parts):
+                out[r0:r1, i, c0:c1].copy_(p)
+            _done(piece, group)
+    shape = list(x.shape)
+    shape[axis] *= len(ranks)
+    return out.view(shape)
 
 
 def _card_by_block(x: torch.Tensor, group, reduce: bool) -> torch.Tensor:

@@ -23,13 +23,15 @@ Serving runs the same way across the ranks of a live mesh
 (`make_serve_step(bundle, serve_layout(bundle, mesh, shape))`), where
 the reference jits `bundle.prefill` / `bundle.decode_step` under
 `SERVE_RULES` shardings (its dry run).  Each rank holds its shards of
-the params (2-D: the embed dims over "data", heads, KV heads, MLP and
-vocab over "model"), its rows of the batch and its part of the cache
-(`ServeLayout.local_inputs`: rows over "data", KV or SSM heads over
-"model", the cache's sequence over what is left); the model gathers
-each layer's "data" dims where it uses them and computes its share of
-the heads, MLP units and vocab, and every rank returns whole logits of
-its rows.
+the params (2-D: the embed dims over "data", heads, KV heads, MLP,
+experts and vocab over "model"), its rows of the batch and its part of
+the cache (`ServeLayout.local_inputs`: rows over "data", KV or SSM heads
+over "model", the cache's sequence over what is left: all of "model" for
+MLA's latent cache, which has no heads); the model gathers each layer's
+"data" dims where it uses them (an expert-parallel MoE's experts are
+`moe_ep_local`'s own to gather) and computes its share of the heads, MLP
+units, experts and vocab, and every rank returns whole logits of its
+rows.
 """
 
 from __future__ import annotations
@@ -295,9 +297,10 @@ class ServeLayout:
 
     def cache_from_prefill(self, cfg, cache: dict) -> dict:
         """This decode layout's part of the cache a prefill on the same
-        rows left on this rank (its KV or SSM heads, every position):
-        grown to the layout's length (`models.model.pad_cache`) and cut
-        to the rank's slice of a sequence-sharded cache."""
+        rows left on this rank (its KV or SSM heads, or MLA's latent cache
+        and `layer0`'s, which have no heads; every position): grown to the
+        layout's length (`models.model.pad_cache`) and cut to the rank's
+        slice of a sequence-sharded cache."""
         from repro_torch.distributed.sharding import shard_tree
         from repro_torch.models.model import (cache_axes, cache_len,
                                               make_inputs, pad_cache)
@@ -318,11 +321,13 @@ def serve_layout(bundle: ModelBundle, mesh, shape,
     """The reference's layout of a serving cell (`models.model.ShapeSpec`,
     prefill or decode) on `mesh`: `param_shardings` of the skeleton and
     `input_shardings` of the cell's inputs under `rules`.  Refused, naming
-    the dim: a family other than dense and ssm (moe, mla_moe, hybrid and
-    encdec are not served across ranks yet); a global batch of more than
-    one row that does not divide over the batch rule's mesh axes (one row
-    is whole on every rank, as the reference lays out long_500k); SSM
-    heads whose share on a rank straddles their B / C groups."""
+    the dim or leaf: a family `models.transformer.check_served` does not
+    admit (hybrid and encdec are not served across ranks yet); a global
+    batch of more than one row that does not divide over the batch rule's
+    mesh axes (one row is whole on every rank, as the reference lays out
+    long_500k); SSM heads whose share on a rank straddles their B / C
+    groups; an expert-parallel MoE whose experts or shared d_ff do not
+    split over "model" as `moe_ep_local` takes them."""
     from repro_torch.models.model import input_shardings
     from repro_torch.models.transformer import check_served
     cfg = bundle.cfg
@@ -347,9 +352,14 @@ def serve_layout(bundle: ModelBundle, mesh, shape,
                              f"groups of {per} heads")
     specs = map_tree(lambda sh: sh.spec,
                      param_shardings(bundle.skeleton, mesh, rules))
+    if cfg.moe is not None and cfg.moe_ep:
+        _check_ep_specs(cfg, specs["layers"]["ffn"], mesh, rules)
     ctx_sizes = {"batch": b, "cache_batch": b}
-    if shape.kind != "prefill" and cfg.family == "dense":
-        ctx_sizes.update(cache_seq=shape.seq_len, kv_heads=cfg.n_kv_heads)
+    if shape.kind != "prefill" and cfg.family != "ssm":
+        # the attention caches' sequence (MLA's latent one has no heads)
+        ctx_sizes["cache_seq"] = shape.seq_len
+        if cfg.mla is None:
+            ctx_sizes["kv_heads"] = cfg.n_kv_heads
     return ServeLayout(mesh, rules, specs, shape,
                        input_shardings(cfg, shape, mesh, rules), got,
                        ctx_sizes)

@@ -314,12 +314,14 @@ def attn_prefill(p: dict, cfg: AttnConfig, x: torch.Tensor,
 
 
 KV_AXES = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+LATENT_AXES = ("cache_batch", "cache_seq", None)   # MLA's (c_kv, k_rope)
 FLASH_DECODES = {"calls": 0}     # flash_decode's sharded decodes, counted
 
 
-def seq_shard(kc: torch.Tensor):
+def seq_shard(kc: torch.Tensor, axes: tuple = KV_AXES):
     """(sequence mesh axes, first global position of this rank's slice) of
-    a local KV cache (B, S_local, KV, D) under a live context whose
+    a local cache leaf (B, S_local, ...), its logical `axes` (a KV cache's
+    by default, MLA's latent `LATENT_AXES`), under a live context whose
     `cache_seq` is sharded; None for a whole cache (no live context, or
     the sequence resolves to no mesh axis)."""
     from repro_torch.distributed import runtime
@@ -328,7 +330,7 @@ def seq_shard(kc: torch.Tensor):
     ctx = current_ctx()
     if live_mesh(ctx) is None:
         return None
-    spec = local_spec(ctx, tuple(kc.shape), KV_AXES)
+    spec = local_spec(ctx, tuple(kc.shape), axes)
     part = spec[1] if len(spec) > 1 else None
     if part is None:
         return None
@@ -336,22 +338,37 @@ def seq_shard(kc: torch.Tensor):
     return axes, runtime.axis_index(axes, ctx.mesh) * kc.shape[1]
 
 
+def seq_combine(s: torch.Tensor, values, axes) -> torch.Tensor:
+    """Attention over a sequence-sharded cache, combined across the
+    sequence's mesh `axes` (the statistics of the reference's
+    `flash_decode`): `s`, this rank's masked float32 scores (B, H, C,
+    S_local) at its slice's global key positions; `values(p)`, its
+    partial output (B, C, H, D) of unnormalized weights p (B, H, C,
+    S_local).  The slices' maxima `pmax`, their sums of exponentials and
+    partial outputs `psum`: only (B, H, C) statistics and the partial
+    output move."""
+    from repro_torch.distributed import runtime
+    m = runtime.pmax(torch.amax(s, dim=-1), axes)            # (B, H, C)
+    p_ = torch.exp(s - m[..., None])
+    denom = runtime.psum(torch.sum(p_, -1), axes)
+    o = runtime.psum(values(p_), axes)
+    return o / denom.transpose(1, 2)[..., None].to(o.dtype)
+
+
 def flash_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                  pos: torch.Tensor, window, n_heads: int):
     """Decode attention over a sequence-sharded KV cache (the reference's
     `flash_decode`, its `shard_map` body on this rank's tensors).
 
-    Each rank takes its slice's partial max, sum of exponentials and
-    value sum, at the slice's global key positions; `pmax` / `psum` over
-    the sequence axes combine them, moving only (B, H) statistics and the
-    (B, 1, H, D) partial output.  q: (B, 1, H, D), every head on every
-    rank (`n_heads` = H: the ranks of a sequence-sharded cache hold every
-    KV head of their slice, and a rank that computes only some heads
-    gathers the others' queries first, `attn_decode`); kc / vc: (B,
-    S_local, KV, D), this rank's slice; pos: (B,).  Returns None without a
-    live context or when the cache's sequence is not sharded (the caller
-    then attends over its whole cache)."""
-    from repro_torch.distributed import runtime
+    Each rank takes its slice's scores at the slice's global key
+    positions and `seq_combine` joins the ranks' partial softmaxes.  q:
+    (B, 1, H, D), every head on every rank (`n_heads` = H: the ranks of a
+    sequence-sharded cache hold every KV head of their slice, and a rank
+    that computes only some heads gathers the others' queries first,
+    `attn_decode`); kc / vc: (B, S_local, KV, D), this rank's slice; pos:
+    (B,).  Returns None without a live context or when the cache's
+    sequence is not sharded (the caller then attends over its whole
+    cache)."""
     shard = seq_shard(kc)
     if shard is None:
         return None
@@ -365,12 +382,8 @@ def flash_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     if q.shape[2] != n_heads:
         raise ValueError(f"flash_decode: {q.shape[2]} query heads, "
                          f"n_heads {n_heads}")
-    s = _grouped_scores(q, kc) + bias[:, None]
-    m = runtime.pmax(torch.amax(s, dim=-1), axes)            # (B, H, 1)
-    p_ = torch.exp(s - m[..., None])
-    denom = runtime.psum(torch.sum(p_, -1), axes)
-    o = runtime.psum(_grouped_values(p_.to(q.dtype), vc), axes)
-    return o / denom.transpose(1, 2)[..., None].to(o.dtype)
+    return seq_combine(_grouped_scores(q, kc) + bias[:, None],
+                       lambda p: _grouped_values(p.to(q.dtype), vc), axes)
 
 
 def attn_decode(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: tuple,

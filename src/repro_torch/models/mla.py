@@ -18,6 +18,13 @@ compressed cache:
 
 A bfloat16 cache is cast up to the query's dtype before it enters a
 product, the promotion the reference's einsums make implicitly.
+
+On a tensor-parallel rank (`tp`, the local specs of the params) the
+heads split: the up-projections and `wo`'s rows are the rank's, the
+compressions whole, the output `psum`-med.  Decode on a rank's slice of
+a sequence-sharded latent cache gathers the query heads, attends over
+the slice and joins the slices with `flash_decode`'s statistics
+(`layers.seq_combine`), the rank keeping its heads' compressed context.
 """
 
 from __future__ import annotations
@@ -27,8 +34,9 @@ import dataclasses
 import torch
 
 from repro_torch.distributed.sharding import split_axes
-from repro_torch.models.layers import (_mask_bias, cache_write, rmsnorm,
-                                       rmsnorm_def, rope)
+from repro_torch.models.layers import (LATENT_AXES, _mask_bias, _psum,
+                                       cache_write, rmsnorm, rmsnorm_def,
+                                       rope, seq_combine, seq_shard)
 from repro_torch.models.module import ParamDef
 
 
@@ -85,31 +93,37 @@ def _compress_kv(p, cfg: MLAConfig, x, positions):
 _HEAD_LEAVES = ("w_uq", "w_uk", "w_uv", "wo")
 
 
+def _head_axes(tp: dict | None) -> tuple[str, ...]:
+    """The mesh axes this rank's heads split over, from the local specs
+    `tp` of the MLA params (None: one process): its heads' up-projections
+    and `wo`'s rows; the compressions and their norms whole."""
+    if not tp:
+        return ()
+    got = {k: split_axes(tp.get(k)) for k in tp}
+    axes = got["wo"]
+    if any(got[k] != axes for k in _HEAD_LEAVES) or any(
+            got[k] for k in got if k not in _HEAD_LEAVES):
+        raise ValueError(f"MLA leaves split unevenly: {tp}")
+    return axes
+
+
 def mla_apply(p: dict, cfg: MLAConfig, x: torch.Tensor,
               positions: torch.Tensor, tp: dict | None = None
               ) -> torch.Tensor:
     """Full-sequence MLA. x: (B, S, D).  `tp`, the local specs of `p` on
-    a tensor-parallel rank: its heads' up-projections and `wo`'s rows
-    (the compressions and their norms whole), the partial output
-    `psum`-med."""
-    axes = ()
-    if tp:
-        got = {k: split_axes(tp.get(k)) for k in tp}
-        axes = got["wo"]
-        if any(got[k] != axes for k in _HEAD_LEAVES) or any(
-                got[k] for k in got if k not in _HEAD_LEAVES):
-            raise ValueError(f"MLA leaves split unevenly: {tp}")
-    y, _ = mla_prefill(p, cfg, x, positions)
-    if not axes:
-        return y
-    from repro_torch.distributed import runtime as rt
-    return rt.psum(y, axes)
+    a tensor-parallel rank (`mla_prefill`)."""
+    y, _ = mla_prefill(p, cfg, x, positions, tp)
+    return y
 
 
 def mla_prefill(p: dict, cfg: MLAConfig, x: torch.Tensor,
-                positions: torch.Tensor):
+                positions: torch.Tensor, tp: dict | None = None):
     """Returns (out, cache=(c_kv, k_rope)), the compressed cache in x's
-    dtype (the reference's prefill does not cast it)."""
+    dtype (the reference's prefill does not cast it).  `tp`, the local
+    specs of `p` on a tensor-parallel rank: its heads' up-projections and
+    `wo`'s rows, the partial output `psum`-med; the cache, which has no
+    heads, whole."""
+    axes = _head_axes(tp)
     q_nope, q_rope = _project_q(p, cfg, x, positions)
     c_kv, k_rope = _compress_kv(p, cfg, x, positions)
     k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
@@ -121,36 +135,64 @@ def mla_prefill(p: dict, cfg: MLAConfig, x: torch.Tensor,
     bias = _mask_bias(positions, positions, True, 0)
     probs = torch.softmax(scores + bias[:, None], dim=-1).to(x.dtype)
     o = torch.einsum("bhqk,bkhv->bqhv", probs, v)
-    return torch.einsum("bqhv,hvd->bqd", o, p["wo"]), (c_kv, k_rope)
+    return (_psum(torch.einsum("bqhv,hvd->bqd", o, p["wo"]), axes),
+            (c_kv, k_rope))
 
 
 def mla_decode(p: dict, cfg: MLAConfig, x: torch.Tensor, cache: tuple,
-               pos: torch.Tensor):
+               pos: torch.Tensor, tp: dict | None = None):
     """Absorbed decode against the compressed cache.
 
     x: (B, C, D); cache: (c_kv (B, S, kv_lora), k_rope (B, S, qk_rope));
     pos: (B,) first position of the chunk (C == 1: one token; C > 1: a
     serving prefill chunk).  Returns (out (B, C, D), cache), the cache
-    written in place."""
+    written in place.  `tp`, the local specs of `p` on a tensor-parallel
+    rank (`mla_prefill`).  On a rank's slice of a sequence-sharded latent
+    cache (`layers.seq_shard`) the rank writes only the positions it
+    holds, attends with every head's query (gathered over the head axes)
+    over its slice, `seq_combine` joins the slices, and the rank keeps its
+    heads' compressed context."""
+    from repro_torch.distributed import runtime as rt
+    axes = _head_axes(tp)
     b, c = x.shape[:2]
     q_pos = pos[:, None] + torch.arange(c, device=x.device)[None, :]
     q_nope, q_rope = _project_q(p, cfg, x, q_pos)
     c_new, r_new = _compress_kv(p, cfg, x, q_pos)
     c_kv, k_rope = cache
-    c_kv = cache_write(c_kv, c_new, pos, cfg.uniform_decode)
-    k_rope = cache_write(k_rope, r_new, pos, cfg.uniform_decode)
+    shard = seq_shard(c_kv, LATENT_AXES)
+    if shard is not None and c != 1:
+        raise NotImplementedError(
+            "a prefill chunk on a sequence-sharded latent cache: the "
+            "sharded decode covers the one-token step")
+    start = shard[1] if shard is not None else 0
+    cache_write(c_kv, c_new, pos, cfg.uniform_decode, offset=start)
+    cache_write(k_rope, r_new, pos, cfg.uniform_decode, offset=start)
     ckv, kr = c_kv.to(q_nope.dtype), k_rope.to(q_rope.dtype)
 
     # absorb W_uk into q: q_c (B, C, H, kv_lora)
     q_c = torch.einsum("bqhn,lhn->bqhl", q_nope, p["w_uk"])
+    if shard is not None and axes:
+        q_c = rt.all_gather(q_c, axes, axis=2, tiled=True)
+        q_rope = rt.all_gather(q_rope, axes, axis=2, tiled=True)
     scale = (cfg.qk_nope + cfg.qk_rope) ** -0.5
     scores = (torch.einsum("bqhl,bkl->bhqk", q_c, ckv)
               + torch.einsum("bqhr,bkr->bhqk", q_rope, kr))
     scores = scores.float() * scale
     s = c_kv.shape[1]
-    k_pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    k_pos = (start + torch.arange(s, device=x.device))[None, :].expand(b, s)
     bias = _mask_bias(q_pos, k_pos, True, 0, k_len_valid=(pos + c)[:, None])
-    probs = torch.softmax(scores + bias[:, None], dim=-1).to(x.dtype)
-    o_c = torch.einsum("bhqk,bkl->bqhl", probs, ckv.to(x.dtype))
+    scores = scores + bias[:, None]
+
+    def context(probs):
+        return torch.einsum("bhqk,bkl->bqhl", probs.to(x.dtype),
+                            ckv.to(x.dtype))
+    if shard is None:
+        o_c = context(torch.softmax(scores, dim=-1))
+    else:
+        o_c = seq_combine(scores, context, shard[0])
+        if axes:
+            n = p["w_uk"].shape[1]
+            o_c = o_c.narrow(2, rt.axis_index(axes) * n, n)
     o = torch.einsum("bqhl,lhv->bqhv", o_c, p["w_uv"])      # absorb W_uv
-    return torch.einsum("bqhv,hvd->bqd", o, p["wo"]), (c_kv, k_rope)
+    return (_psum(torch.einsum("bqhv,hvd->bqd", o, p["wo"]), axes),
+            (c_kv, k_rope))

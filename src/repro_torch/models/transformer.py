@@ -34,14 +34,16 @@ routed experts are gathered whole and the shared experts split.
 
 Under a live serve context (`launch.steps.make_serve_step`, the
 `SERVE_RULES` layout) `prefill`, `decode_step` and `chunk_step` of the
-dense and ssm families take the same route without recomputation: the
-top-level leaves gathered on entry, each layer's leaves before its
-block, each rank computing its heads, MLP units, SSM heads and vocab
-rows on its rows of the batch and its part of the cache (its KV heads,
-or every KV head of its slice of a sequence-sharded cache, which
-`flash_decode` attends over with the query heads gathered); the logits'
-vocab blocks are gathered, so every rank returns whole (B, V) logits of
-its rows.  Under sharded params the other families raise.
+families of `SERVED_FAMILIES` (dense, moe, mla_moe, ssm) take the same
+route without recomputation: the top-level leaves (deepseek-v2's
+`layer0` among them) gathered on entry, each layer's leaves before its
+block, each rank computing its heads, MLP units, experts, SSM heads and
+vocab rows on its rows of the batch and its part of the cache (its KV
+heads, or every KV head of its slice of a sequence-sharded cache, which
+`flash_decode` attends over with the query heads gathered; MLA's latent
+cache, which has no heads, whole or its slice of the sequence); the
+logits' vocab blocks are gathered, so every rank returns whole (B, V)
+logits of its rows.  Under sharded params the other families raise.
 
 zamba2 (`hybrid`) stacks its Mamba-2 layers as `groups` (n_groups,
 shared_every, ...) plus an unstacked remainder `tail`, and applies ONE
@@ -219,17 +221,14 @@ def _sub(tp, *keys):
     return tp
 
 
-SERVED_FAMILIES = ("dense", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "mla_moe", "ssm")
 
 
 def check_served(cfg: ModelConfig, tp: Any = True) -> None:
     """Serving across ranks (a rank's local specs `tp`; None: one process,
-    nothing to check) covers the dense and ssm families with no MoE, no
-    MLA and no leading dense layers; the others raise rather than run
-    whole."""
-    if tp is not None and (cfg.family not in SERVED_FAMILIES
-                           or cfg.moe is not None or cfg.mla is not None
-                           or cfg.first_dense_ff):
+    nothing to check) covers the families of `SERVED_FAMILIES`; the
+    others raise rather than run whole."""
+    if tp is not None and cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: serving across ranks covers the "
             f"{' and '.join(SERVED_FAMILIES)} families, not {cfg.family!r}")
@@ -342,7 +341,8 @@ def _block_prefill(p: dict, cfg: ModelConfig, x, positions, meta, step,
         return _ssm_layer_prefill(p, cfg, x, tp)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.family == "mla_moe":
-        a, cache = MLA.mla_prefill(p["attn"], cfg.mla, h, positions)
+        a, cache = MLA.mla_prefill(p["attn"], cfg.mla, h, positions,
+                                   _sub(tp, "attn"))
     else:
         a, cache = L.attn_prefill(p["attn"], cfg.attn, h, positions,
                                   window=meta["window"], theta=meta["theta"],
@@ -360,7 +360,8 @@ def _block_decode(p: dict, cfg: ModelConfig, x, pos, meta, cache, step,
     place.  `tp`, the local specs of `p` on a tensor-parallel rank."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.family == "mla_moe":
-        a, _ = MLA.mla_decode(p["attn"], cfg.mla, h, cache, pos)
+        a, _ = MLA.mla_decode(p["attn"], cfg.mla, h, cache, pos,
+                              _sub(tp, "attn"))
     else:
         a, _ = L.attn_decode(p["attn"], cfg.attn, h,
                              cache["self"] if "cross" in p else cache, pos,
@@ -675,7 +676,7 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     elif cfg.family == "encdec":
         x, cache = _encdec_prefill(params, cfg, batch, x, positions)
     else:
-        x, cache = _stack_prefill(params, cfg, x, positions)
+        x, cache = _stack_prefill(params, tp, cfg, x, positions)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_of(params, cfg, x[:, -1:], _vocab_axes(tp, cfg))[:, 0]
     b, s = x.shape[:2]
@@ -683,12 +684,15 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     return logits, cache
 
 
-def _stack_prefill(params, cfg: ModelConfig, x, positions):
+def _stack_prefill(params, tp, cfg: ModelConfig, x, positions):
+    """The layers' prefill (`tp`, the top-level local specs on a
+    tensor-parallel rank: `layer0`'s)."""
     cache: dict = {}
     off = 0
     if cfg.first_dense_ff:
         x, cache["layer0"] = _block_prefill(params["layer0"], dense0(cfg), x,
-                                            positions, layer_meta(cfg, 0), 0)
+                                            positions, layer_meta(cfg, 0), 0,
+                                            _sub(tp, "layer0"))
         off = 1
     caches = []
     for i in range(n_stacked(cfg)):
@@ -782,9 +786,12 @@ def _encdec_prefill(params, cfg: ModelConfig, batch: dict, x, positions):
                "memory_pos": mem_pos.contiguous()}
 
 
-def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
+def _decode_layers(params, cfg: ModelConfig, x, pos, cache,
+                   tp=None) -> torch.Tensor:
     """Every layer on a chunk x (B, C, D) at positions pos..pos+C-1 (C is
-    1 but for the attention families' prefill chunks), caches in place."""
+    1 but for the attention families' prefill chunks), caches in place;
+    `tp`, the top-level local specs on a tensor-parallel rank
+    (`layer0`'s)."""
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             p, tp = gather_layer(layer_at(params["layers"], i), cfg,
@@ -808,7 +815,8 @@ def _decode_layers(params, cfg: ModelConfig, x, pos, cache) -> torch.Tensor:
     off = 0
     if cfg.first_dense_ff:
         x = _block_decode(params["layer0"], dense0(cfg), x, pos,
-                          layer_meta(cfg, 0), cache["layer0"], 0)
+                          layer_meta(cfg, 0), cache["layer0"], 0,
+                          tp=_sub(tp, "layer0"))
         off = 1
     kc, vc = cache["layers"]          # (k, v), or MLA's (c_kv, k_rope)
     for i in range(n_stacked(cfg)):
@@ -849,7 +857,7 @@ def decode_step(params, cfg: ModelConfig, batch: dict):
     check_served(cfg, tp)
     token, pos, cache = batch["token"], batch["pos"], batch["cache"]
     x = _embed_tokens(params, tp, token[:, None])
-    x = _decode_layers(params, cfg, x, pos, cache)
+    x = _decode_layers(params, cfg, x, pos, cache, tp)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_of(params, cfg, x, _vocab_axes(tp, cfg))[:, 0]
     return logits, dict(cache, pos=pos + 1)
@@ -872,7 +880,7 @@ def chunk_step(params, cfg: ModelConfig, batch: dict):
     cache = batch["cache"]
     pos = batch.get("pos", cache["pos"])
     x = _embed_tokens(params, tp, tokens)
-    x = _decode_layers(params, cfg, x, pos, cache)
+    x = _decode_layers(params, cfg, x, pos, cache, tp)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     idx = torch.clamp(n_valid - 1, min=0).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]

@@ -1,8 +1,9 @@
 """Serving across ranks under `SERVE_RULES` (`launch.steps.serve_layout` /
-`make_serve_step`): `prefill` and `decode_step` of the dense and ssm
-families on the ranks of a (data, model) mesh, each rank holding its 2-D
-shards of the weights (embed dims over "data", heads, KV heads, MLP and
-vocab over "model"), its rows of the batch and its part of the cache.
+`make_serve_step`): `prefill` and `decode_step` of the dense, ssm, moe
+and mla_moe families on the ranks of a (data, model) mesh, each rank
+holding its 2-D shards of the weights (embed dims over "data", heads, KV
+heads, MLP, experts and vocab over "model"), its rows of the batch and
+its part of the cache.
 
 The reference's partitioned steps come from ONE subprocess on four forced
 host devices with the `enable_x64` alias of `test_torch_ref.reference`:
@@ -26,6 +27,18 @@ the cache's sequence stays whole (every suffix of its rule holds
 sequence takes ("data", "model") while the query heads split over
 "model" (`flash_decode` with every rank's queries gathered); on (4, 1)
 the sequence takes the four data ranks.
+
+qwen3-moe-smoke and deepseek-v2-smoke run with `moe_ep` off (their smoke
+value: `moe_ref` on gathered routed experts, the shared experts split)
+and on (`moe_ep_local` on the rank's experts, both packages alike), at
+their smoke capacity factor: each rank drops the assignments its experts
+cannot take, the reference's ranks the same ones (counted on both sides
+around `_pack_local`).  Its drops depend on the rows a rank routes, so
+an expert-parallel case's float-order floor is the spread of the same
+model's `moe_ref` layouts.  deepseek-v2's latent cache, which has no
+heads, lays its sequence over "model" on (2, 2) while its heads split
+over "model": MLA's decode then gathers the query heads and combines
+the slices with `flash_decode`'s statistics (`layers.seq_combine`).
 """
 
 import contextlib
@@ -55,7 +68,7 @@ from repro_torch.models.model import (ShapeSpec, build_model,
 from repro_torch.models.module import leaves, map_tree
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
-TIMEOUT = 240.0                  # seconds a group of ranks may take
+TIMEOUT = 480.0                  # seconds a group of ranks may take
 S, MAX_LEN, STEPS = 12, 24, 4    # prompt, cache length, decode steps
 MESHES = ((2, 2), (4, 1))
 REF_LAYOUTS = ((1, 1), (2, 2), (4, 1))
@@ -66,6 +79,12 @@ KEYS = [("qwen3-32b", (), 4), ("gemma3-12b", (), 4), ("mamba2-1.3b", (), 4),
         ("gemma3-12b", (), 1), ("gemma3-12b", (("n_kv_heads", 1),), 1)]
 CASES = [(k, m) for k in KEYS[:3] for m in MESHES] + [
     (KEYS[3], (2, 2)), (KEYS[4], (2, 2)), (KEYS[3], (4, 1))]
+# the MoE families, with moe_ep off (the smoke configs') and on
+MOE_KEYS = [(a, ov, 4) for a in ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+            for ov in ((), (("moe_ep", True),))]
+MOE_CASES = [(k, m) for k in MOE_KEYS for m in MESHES]
+KEYS += MOE_KEYS
+CASES += MOE_CASES
 
 
 def _id(key, mesh) -> str:
@@ -108,8 +127,32 @@ from repro.configs import get_smoke
 from repro.distributed.sharding import (SERVE_RULES, param_shardings,
                                         tree_shardings, use_sharding)
 from repro.models.model import ShapeSpec, build_model, make_inputs, pad_cache
+import repro.models.moe as MOE
 
 inp = pickle.load(open(sys.argv[1], "rb"))
+# each shard's dropped assignments of its expert-parallel MoE: local ones
+# past capacity (its callback runs once a device inside the shard_map)
+DROPS = []
+_pack = MOE._pack_local
+
+
+def _counting_pack(x2, w, ids, e_first, e_local, capacity):
+    out = _pack(x2, w, ids, e_first, e_local, capacity)
+    e = ids.reshape(-1) - e_first
+    local = jnp.sum((e >= 0) & (e < e_local))
+    jax.debug.callback(lambda n: DROPS.append(int(n)),
+                       local - jnp.sum(out[2]))
+    return out
+
+
+MOE._pack_local = _counting_pack
+
+
+def drops():
+    jax.effects_barrier()
+    n = sum(DROPS)
+    DROPS.clear()
+    return n
 s, max_len, steps = inp["seq"], inp["max_len"], inp["steps"]
 
 
@@ -131,10 +174,12 @@ for (arch, ov, b), shape, tokens in inp["cases"]:
         _, pax = make_inputs(cfg, ShapeSpec("p", "prefill", s, b))
         batch = {"tokens": jnp.asarray(tokens)}
         b_sh = tree_shardings(batch, pax, mesh, SERVE_RULES)
+        drops()
         logits, cache = jax.jit(bundle.prefill,
                                 in_shardings=(p_sh, b_sh))(params, batch)
         cache = pad_cache(cfg, cache, max_len - s)
-        rec = {"prefill": np.asarray(logits), "cache0": host(cache)}
+        rec = {"prefill": np.asarray(logits), "cache0": host(cache),
+               "drops": [drops()]}
         dbatch, dax = make_inputs(cfg, ShapeSpec("d", "decode", max_len, b))
         d_sh = tree_shardings(dbatch, dax, mesh, SERVE_RULES)
         step = jax.jit(bundle.decode_step, in_shardings=(p_sh, d_sh))
@@ -148,6 +193,7 @@ for (arch, ov, b), shape, tokens in inp["cases"]:
             tok = jnp.argmax(logits, -1).astype(jnp.int32)
             lgs.append(np.asarray(logits))
             toks.append(np.asarray(tok))
+        rec["drops"].append(drops())
         rec.update(decode=lgs, tokens=toks, cache=host(cache))
     out[((arch, ov, b), shape)] = rec
 pickle.dump(out, open(sys.argv[2], "wb"))
@@ -215,10 +261,40 @@ def _rows(t, layout, mesh) -> np.ndarray:
     return gather(t, P(layout.batch_axes or None), mesh).numpy()
 
 
+COUNTS = {"drops": 0, "mla_combines": 0}   # a rank's, counted
+
+
+def _count_drops_and_combines() -> None:
+    """Count this rank's dropped MoE assignments (the local ones
+    `_pack_local` finds past capacity) and MLA's sequence-sharded
+    combines (its `seq_combine` calls)."""
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import moe as MOE
+    pack, combine = MOE._pack_local, MLA.seq_combine
+
+    def counting_pack(x2, w, ids, e_first, e_local, capacity):
+        out = pack(x2, w, ids, e_first, e_local, capacity)
+        e = ids.reshape(-1) - e_first
+        COUNTS["drops"] += int(((e >= 0) & (e < e_local)).sum()
+                               - out[2].sum())
+        return out
+
+    def counting_combine(*a, **k):
+        COUNTS["mla_combines"] += 1
+        return combine(*a, **k)
+    MOE._pack_local, MLA.seq_combine = counting_pack, counting_combine
+
+
+def _taken(name: str) -> int:
+    n, COUNTS[name] = COUNTS[name], 0
+    return n
+
+
 def _serve(mesh, key, np_p: dict, rank: int) -> dict:
     """A case on this rank: the prefill, the cache laid out for decode,
     STEPS greedy decode steps; logits, tokens and caches gathered (rank
-    0's returned), the rank's bytes and flash_decode's calls."""
+    0's returned), the rank's bytes, flash_decode's calls, its dropped
+    MoE assignments (the prefill's, the steps') and MLA's combines."""
     cfg = _cfg(key)
     bundle = build_model(cfg)
     b = key[2]
@@ -227,8 +303,11 @@ def _serve(mesh, key, np_p: dict, rank: int) -> dict:
     params = shard_tree(params_from_reference(np_p), pl.specs, mesh)
     batch = pl.local_inputs({"tokens": torch.from_numpy(_tokens(key))})
     held = {"prefill": _nbytes(params) + _nbytes(batch)}
+    _taken("drops")
+    _taken("mla_combines")
     with torch.no_grad():
         logits, cache = ST.make_serve_step(bundle, pl)(params, batch)
+        drops = [_taken("drops")]
         cache = dl.cache_from_prefill(cfg, cache)
         out = {"prefill": _rows(logits, pl, mesh),
                "cache0": _whole(cache, dl.inputs["cache"], mesh)}
@@ -249,23 +328,29 @@ def _serve(mesh, key, np_p: dict, rank: int) -> dict:
     out = out if rank == 0 else {}
     out.update(held=held, flash=L.FLASH_DECODES["calls"] - calls,
                kv_spec=tuple(dl.inputs["cache"]["layers"][0])
-               if cfg.family == "dense" else None,
-               rows=pl.batch_axes)
+               if cfg.family != "ssm" else None,
+               rows=pl.batch_axes, drops=drops + [_taken("drops")],
+               mla_combines=_taken("mla_combines"))
     return out
 
 
-def _noisy_engine(backend: str):
+NOISY_ARCHS = ("qwen3-32b", "deepseek-v2-236b")
+
+
+def _noisy_engine(backend: str, arch: str):
     """An IS engine with per-shot noise on the activations and a pinned
     chip (chip 7: its lanes over each MLP projection's K, so a rank's
-    `wo` rows read their own lanes)."""
+    `wo` rows read their own lanes; deepseek-v2's optical MLP is its
+    `layer0`, of width `first_dense_ff`)."""
     from repro_torch import rosa
     from repro_torch.core import mrr
     from repro_torch.core.constants import Mapping
     from repro_torch.robust.variation import sample_chip
     from repro_torch.rosa.backends import RosaConfig
-    cfg = get_smoke("qwen3-32b")
+    cfg = get_smoke(arch)
     chip = sample_chip(torch.Generator().manual_seed(7),
-                       {"mlp/wi": cfg.d_model, "mlp/wo": cfg.d_ff})
+                       {"mlp/wi": cfg.d_model,
+                        "mlp/wo": cfg.first_dense_ff or cfg.d_ff})
     return rosa.Engine.from_config(
         RosaConfig(noise=mrr.PAPER_NOISE, mapping=Mapping.IS,
                    backend=backend),
@@ -288,7 +373,7 @@ NOISY_B = 4
 
 
 def _noisy_run(bundle, params, tokens, mesh=None):
-    """The optical qwen3-32b-smoke's prefill and STEPS decode steps
+    """An optical smoke model's prefill and STEPS decode steps
     teacher-forced with `tokens`' last column, one process (`mesh` None)
     or on this rank's shards: the logits (the rank's rows gathered)."""
     from repro_torch.models.model import pad_cache
@@ -323,8 +408,8 @@ def _noisy_run(bundle, params, tokens, mesh=None):
     return np.stack(out)
 
 
-def _noisy_inputs():
-    cfg = dataclasses.replace(get_smoke("qwen3-32b"), rosa_mlp=True)
+def _noisy_inputs(arch: str):
+    cfg = dataclasses.replace(get_smoke(arch), rosa_mlp=True)
     bundle = build_model(cfg)
     params = map_tree(lambda t: t.double(), bundle.init(
         torch.Generator().manual_seed(0)))
@@ -335,21 +420,25 @@ def _noisy_inputs():
 
 
 def _noisy(mesh) -> dict:
-    """The noisy IS arm on this mesh in float64, through the composed
-    "ref" chain and the plain `rosa_fused` version."""
+    """The noisy IS arm of each of NOISY_ARCHS on this mesh in float64,
+    through the composed "ref" chain and the plain `rosa_fused` version:
+    {arch: {backend: logits}}."""
     from repro_torch import rosa
     out = {}
     with _float64():
-        bundle, params, tokens = _noisy_inputs()
-        for backend in ("ref", "fused"):
-            with rosa.engine_context(_noisy_engine(backend)):
-                out[backend] = _noisy_run(bundle, params, tokens, mesh)
+        for arch in NOISY_ARCHS:
+            bundle, params, tokens = _noisy_inputs(arch)
+            for backend in ("ref", "fused"):
+                with rosa.engine_context(_noisy_engine(backend, arch)):
+                    out.setdefault(arch, {})[backend] = _noisy_run(
+                        bundle, params, tokens, mesh)
     return out
 
 
 def serve_group(rank: int, world: int, device, shape, keys, np_params,
                 extras: tuple) -> dict:
     torch.set_num_threads(1)
+    _count_drops_and_combines()
     mesh = make_test_mesh(*shape)
     out = {"cases": {key: _serve(mesh, key, np_params[(*key[:2], 1)], rank)
                      for key in keys}}
@@ -408,6 +497,14 @@ def _cache_pairs(a, b, runs, prefix=""):
         yield prefix, a, b, runs
 
 
+def _floor_key(key):
+    """The case whose reference layouts' spread is `key`'s float-order
+    floor: an expert-parallel case's `moe_ref` twin (the experts' drops
+    depend on the rows a layout gives a rank), else the case itself."""
+    arch, ov, b = key
+    return arch, tuple(kv for kv in ov if kv[0] != "moe_ep"), b
+
+
 @pytest.mark.parametrize("key,mesh", CASES,
                          ids=[_id(k, m) for k, m in CASES])
 def test_sharded_serving_matches_reference_sharded(ref, port, key, mesh):
@@ -418,7 +515,7 @@ def test_sharded_serving_matches_reference_sharded(ref, port, key, mesh):
     layouts' spread (one device, (2, 2), (4, 1)); the greedy tokens
     equal."""
     want = ref[(key, mesh)]
-    runs = [ref[(key, m)] for m in REF_LAYOUTS]
+    runs = [ref[(_floor_key(key), m)] for m in REF_LAYOUTS]
     got = port[mesh][0]["cases"][key]
     _close(got["prefill"], want["prefill"], [r["prefill"] for r in runs],
            "prefill logits")
@@ -495,14 +592,131 @@ def test_noisy_optical_serving_equals_one_process(port, backend):
     1e-10 of max|.|: in float32 the split's partial sums may flip one
     8-bit code, as in the train step."""
     from repro_torch import rosa
+    arch = NOISY_ARCHS[0]
     with _float64():
-        bundle, params, tokens = _noisy_inputs()
-        with rosa.engine_context(_noisy_engine(backend)):
+        bundle, params, tokens = _noisy_inputs(arch)
+        with rosa.engine_context(_noisy_engine(backend, arch)):
             want = _noisy_run(bundle, params, tokens)
     for r in port[(2, 2)]:
-        got = r["noisy"][backend]
+        got = r["noisy"][arch][backend]
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=1e-10 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("key,mesh", MOE_CASES,
+                         ids=[_id(k, m) for k, m in MOE_CASES])
+def test_moe_drops_equal_reference(ref, port, key, mesh):
+    """The assignments the ranks' experts drop (the prefill's, then the
+    decode steps'), summed over the ranks, equal those the reference's
+    shards drop on the same mesh at the smoke capacity factor (each
+    rank's capacity from its own rows' tokens); `moe_ref` drops none."""
+    got = np.sum([r["cases"][key]["drops"] for r in port[mesh]],
+                 axis=0).tolist()
+    assert got == ref[(key, mesh)]["drops"]
+    if not dict(key[1]).get("moe_ep"):
+        assert got == [0, 0]
+
+
+def test_expert_parallel_serving_drops_assignments(port):
+    """The smoke capacity factor makes the expert-parallel cases drop
+    assignments, so the drops above are held where they happen."""
+    assert sum(sum(r["cases"][k]["drops"]) for k, m in MOE_CASES
+               for r in port[m] if dict(k[1]).get("moe_ep")) > 0
+
+
+def test_latent_cache_sequence_over_model_with_split_heads(port):
+    """deepseek-v2-smoke on (2, 2): the latent cache's rows over "data"
+    and its sequence over "model" while the MLA heads split over "model",
+    so every layer's decode (`layer0`'s too) combines its slices at every
+    step; on (4, 1) the rows take the four data ranks and the sequence
+    stays whole."""
+    n = get_smoke("deepseek-v2-236b").n_layers * STEPS
+    for key in MOE_KEYS[2:]:
+        for r in port[(2, 2)]:
+            c = r["cases"][key]
+            assert c["kv_spec"] == (None, "data", "model")
+            assert c["mla_combines"] == n and c["flash"] == 0
+        for r in port[(4, 1)]:
+            c = r["cases"][key]
+            assert c["kv_spec"] == (None, "data") and c["mla_combines"] == 0
+    for r in port[(2, 2)]:
+        assert r["cases"][MOE_KEYS[0]]["kv_spec"] == (None, "data", None,
+                                                      "model")
+
+
+@pytest.mark.parametrize("backend", ["ref", "fused"])
+def test_noisy_optical_layer0_serving_equals_one_process(port, backend):
+    """deepseek-v2-smoke's optical `layer0` FFN (its d_ff split over
+    "model", `ProductSplit`) beside its MLA and MoE layers, under the
+    noisy IS engine with chip 7 pinned over layer 0's projections, served
+    on (2, 2): the prefill's and the decode steps' logits equal one
+    process's in float64 within 1e-10 of max|.|."""
+    from repro_torch import rosa
+    arch = NOISY_ARCHS[1]
+    with _float64():
+        bundle, params, tokens = _noisy_inputs(arch)
+        with rosa.engine_context(_noisy_engine(backend, arch)):
+            want = _noisy_run(bundle, params, tokens)
+    for r in port[(2, 2)]:
+        got = r["noisy"][arch][backend]
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-10 * np.abs(want).max())
+
+
+def test_moe_serve_layouts_ep_choice_and_latent_spec():
+    """Under `SERVE_RULES` on (2, 2) and (4, 1) the expert-parallel
+    choice is the reference's `_ffn_apply`'s: FSDP over "data", no
+    all-to-all (the rows are over "data" only); the experts lie over
+    "model" and their d_model over "data", the router over "data"; a
+    rank's latent cache slice resolves to (cache_batch, cache_seq)
+    with the sequence live in the context."""
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_smoke("deepseek-v2-236b"), moe_ep=True)
+    bundle = build_model(cfg)
+    for shape, x_rows, latent, kv in (((2, 2), 2, (2, MAX_LEN // 2, 16),
+                                       P("data", "model")),
+                                      ((4, 1), 1, (1, MAX_LEN, 16),
+                                       P("data"))):
+        mesh = MeshShape(("data", "model"), shape)
+        lay = ST.serve_layout(bundle, mesh,
+                              ShapeSpec("d", "decode", MAX_LEN, 4))
+        ffn = lay.specs["layers"]["ffn"]
+        m = "model" if shape[1] > 1 else None
+        assert ffn["wi"] == P(None, m, "data")
+        assert ffn["wo"] == P(None, m, None, "data")
+        assert ffn["router"] == P(None, "data")
+        assert lay.sizes == {"batch": 4, "cache_batch": 4,
+                             "cache_seq": MAX_LEN}
+        with use_sharding(mesh, SERVE_RULES, lay.sizes) as ctx:
+            assert T.ep_choice(cfg, ctx, (x_rows, 1, cfg.d_model)) \
+                == (("data",), False)
+            assert local_spec(ctx, latent, L.LATENT_AXES) == kv
+
+
+def test_serve_layout_refuses_an_expert_layout_moe_ep_local_cannot_take():
+    """With `moe_ep`, experts that do not divide over "model" and shared
+    experts whose d_ff does not are refused, naming the leaf.  A d_model
+    that does not divide over "data" is no refusal: the layout leaves the
+    experts' d_model whole as `ep_choice` (the reference's `_ffn_apply`)
+    drops their FSDP, and the two agree."""
+    from repro_torch.models import transformer as T
+    base = dataclasses.replace(get_smoke("deepseek-v2-236b"), moe_ep=True)
+
+    def experts(n):
+        return dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, n_experts=n))
+    dec = ShapeSpec("d", "decode", MAX_LEN, 3)
+    with pytest.raises(ValueError, match="moe_ep: wi is laid out"):
+        ST.serve_layout(build_model(experts(6)),
+                        MeshShape(("data", "model"), (1, 4)), dec)
+    with pytest.raises(ValueError, match="moe_ep: shared_wi is laid out"):
+        ST.serve_layout(build_model(experts(6)),
+                        MeshShape(("data", "model"), (1, 3)), dec)
+    mesh = MeshShape(("data", "model"), (3, 2))
+    lay = ST.serve_layout(build_model(base), mesh, dec)
+    assert lay.specs["layers"]["ffn"]["wi"] == P(None, "model")
+    with use_sharding(mesh, SERVE_RULES, lay.sizes) as ctx:
+        assert T.ep_choice(base, ctx, (1, 1, base.d_model)) == ((), False)
 
 
 def test_serve_layout_specs_and_context_sizes():
@@ -609,3 +823,45 @@ def test_grouped_attention_equals_repeated_kv(b, c, h, kv):
     got = L.attention_core(q, k, v, bias)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("shape,axis,chunk", [
+    ((4, 6, 5), 1, 7), ((4, 6, 5), 0, 7), ((4, 6, 5), 2, 7),
+    ((3, 2, 50), 1, 64), ((5, 8), 1, 1 << 20), ((2, 0, 3), 1, 7)])
+def test_card_gather_writes_each_rank_block_in_place(monkeypatch, shape,
+                                                     axis, chunk):
+    """The card buffers' gather (gloo ranks sharing one card) writes each
+    member's part straight into its place of the result, in blocks of
+    whole rows or pieces of one row (chunks of a few elements here): the
+    result equals the parts concatenated in rank order.  Three members
+    run as threads, the buffers' exchange a shared list and a barrier."""
+    import threading
+    n = 3
+    barrier = threading.Barrier(n, timeout=30)
+    slots: list = [None] * n
+    me = threading.local()
+    monkeypatch.setattr(runtime, "_CHUNK_BYTES", chunk * 4)
+    monkeypatch.setattr(runtime, "_group_ranks",
+                        lambda group: (list(range(n)), me.rank))
+
+    def exchange(piece, group):
+        slots[me.rank] = piece.clone()
+        barrier.wait()
+        return list(slots), me.rank
+    monkeypatch.setattr(runtime, "_exchange", exchange)
+    monkeypatch.setattr(runtime, "_done", lambda piece, group: barrier.wait())
+    xs = [torch.randn(shape, generator=torch.Generator().manual_seed(r))
+          for r in range(n)]
+    got: list = [None] * n
+
+    def run(r):
+        me.rank = r
+        got[r] = runtime._card_gather(xs[r], None, axis)
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    for g in got:
+        assert torch.equal(g, torch.cat(xs, dim=axis))
